@@ -107,12 +107,14 @@ __global__ void gemv_reduce(const float* __restrict__ ws,
   out[i] = __float2bfloat16(acc);
 }
 
-// Launch the split-K GEMV on `stream`. ws must hold splits * M * N floats
-// when splits > 1.
-inline cudaError_t launch_gemv(const void* x, const void* qw, const void* sc,
-                               const void* qz, void* out, void* ws, int M,
-                               int K, int N, int group_size, int splits,
-                               cudaStream_t stream) {
+// Launch the split-K partials on `stream`: with ws == nullptr (one split
+// only) bf16 goes to out, otherwise f32 partials ws[split][m][n] for the
+// caller to sum.
+inline cudaError_t launch_gemv_partial(const void* x, const void* qw,
+                                       const void* sc, const void* qz,
+                                       void* out, float* ws, int M, int K,
+                                       int N, int group_size, int splits,
+                                       cudaStream_t stream) {
   const int K8 = K / 8;
   const int rows_per_split = (K8 + splits - 1) / splits;
   const int threads = 128;
@@ -123,7 +125,7 @@ inline cudaError_t launch_gemv(const void* x, const void* qw, const void* sc,
   auto* scb = static_cast<const float*>(sc);
   auto* qzb = static_cast<const int32_t*>(qz);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  float* wsb = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  float* wsb = ws;
   switch (mt) {
     case 8:
       gemv_partial<8><<<grid, threads, 0, stream>>>(
@@ -141,11 +143,22 @@ inline cudaError_t launch_gemv(const void* x, const void* qw, const void* sc,
       gemv_partial<1><<<grid, threads, 0, stream>>>(
           xb, qwb, scb, qzb, ob, wsb, M, K, N, group_size, rows_per_split);
   }
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// Launch the split-K GEMV on `stream`. ws must hold splits * M * N floats
+// when splits > 1.
+inline cudaError_t launch_gemv(const void* x, const void* qw, const void* sc,
+                               const void* qz, void* out, void* ws, int M,
+                               int K, int N, int group_size, int splits,
+                               cudaStream_t stream) {
+  float* wsb = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  cudaError_t err = launch_gemv_partial(x, qw, sc, qz, out, wsb, M, K, N,
+                                        group_size, splits, stream);
   if (err != cudaSuccess || splits == 1) return err;
   const size_t total = (size_t)M * N;
   gemv_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      wsb, ob, M, N, splits);
+      wsb, static_cast<__nv_bfloat16*>(out), M, N, splits);
   return cudaGetLastError();
 }
 

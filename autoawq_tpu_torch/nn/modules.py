@@ -33,6 +33,7 @@ import torch
 
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.ops import attention as attn_ops
+from autoawq_tpu_torch.ops import fused_attn_step as fas
 from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
 from autoawq_tpu_torch.ops.gemm import awq_matmul
 
@@ -46,7 +47,6 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.is_mla, "MLA attention (ROADMAP queue 1 item 12)"),
         (cfg.is_moe, "MoE blocks (ROADMAP queue 1 item 12)"),
         (cfg.pos_embed != "rope", f"{cfg.pos_embed} positions ({_ROADMAP_ZOO})"),
-        (bool(cfg.sliding_window), f"sliding-window attention ({_ROADMAP_ZOO})"),
         (cfg.rope_type not in ("default", "llama3"),
          f"rope type {cfg.rope_type!r} ({_ROADMAP_ZOO})"),
         (cfg.rope_style != "neox" or cfg.rotary_dim != cfg.head_dim_,
@@ -148,6 +148,17 @@ def apply_rope(q: torch.Tensor, cos: torch.Tensor,
     return torch.cat([q1 * c - q2 * s, q2 * c + q1 * s], dim=-1).to(q.dtype)
 
 
+def _kv_quantize(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 absmax quantization along head_dim (JAX ``_kv_quantize``):
+    u [..., hd] -> (int8 [..., hd], f32 scales [...]), one scale per
+    (batch, head, token), the granularity that folds into decode's score
+    and probability matrices."""
+    uf = u.float()
+    s = torch.clamp(uf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(uf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
 def _gqa_grouped_wins(b: int, hd: int, t: int) -> bool:
     """The JAX package's decode formulation rule (``_gqa_grouped_wins``):
     grouped for single-row wide heads or a large cache, else repeat."""
@@ -178,15 +189,22 @@ def _attend(q, k, v, mask, scale, dtype):
     return out.to(dtype).reshape(b, s, nh * hd)
 
 
-def _attend_grouped(q, kc, vc, mask, scale, dtype):
-    """Grouped GQA decode over the cache layout [B, nkv, T, hd]."""
+def _attend_grouped(q, kc, vc, mask, scale, dtype, ks=None, vs=None):
+    """Grouped GQA decode over the cache layout [B, nkv, T, hd]; an int8
+    cache's scales ``ks``/``vs`` [B, nkv, T] fold into the scores and the
+    probabilities (the dequantized cache never exists)."""
     b, _, nh, hd = q.shape
     nkv = kc.shape[1]
     qg = q[:, 0].reshape(b, nkv, nh // nkv, hd)
     scores = torch.einsum("bgrd,bgtd->bgrt", qg.float(), kc.float()) * scale
+    if ks is not None:
+        scores = scores * ks[:, :, None, :]
     if mask is not None:
         scores = scores + mask[:, :, 0][:, :, None, :]
-    probs = torch.softmax(scores, dim=-1).to(dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, :, None, :]
+    probs = probs.to(dtype)
     out = torch.einsum("bgrt,bgtd->bgrd", probs.float(), vc.float())
     return out.to(dtype).reshape(b, 1, nh * hd)
 
@@ -196,12 +214,16 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               mask: Optional[torch.Tensor],
               kv_cache: Optional[Dict[str, Any]] = None,
               method: str = "auto", causal_prefill: bool = False):
-    """Self-attention over a contiguous KV cache [B, nkv, T, hd] (or none).
+    """Self-attention over a contiguous KV cache [B, nkv, T, hd] (or none),
+    bf16 or int8 (``k_s``/``v_s`` [B, nkv, T] f32 scales beside it).
     Returns (y [B, S, H], kv_cache with ``pos`` advanced). The cache is
     written in place (JAX writes a new buffer with dynamic_update_slice)."""
     b, s, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim_)
+    if (s == 1 and kv_cache is not None and isinstance(kv_cache["pos"], int)
+            and _fused_attn_ok(cfg, p, x, method, kv_cache)):
+        return _fused_attention(cfg, p, x, cos, sin, kv_cache)
     if "qkv_proj" in p:
         y = linear(p["qkv_proj"], x, (nh + 2 * nkv) * hd, method)
         q = y[..., : nh * hd].reshape(b, s, nh, hd)
@@ -218,22 +240,77 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     if kv_cache is not None:
         pos = kv_cache["pos"]
         kc, vc = kv_cache["k"], kv_cache["v"]
-        kc[:, :, pos: pos + s] = k.transpose(1, 2)
-        vc[:, :, pos: pos + s] = v.transpose(1, 2)
-        kv_cache = {"k": kc, "v": vc, "pos": pos + s}
+        ks, vs = kv_cache.get("k_s"), kv_cache.get("v_s")  # int8 cache
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        if ks is not None:
+            kt, ks[:, :, pos: pos + s] = _kv_quantize(kt)
+            vt, vs[:, :, pos: pos + s] = _kv_quantize(vt)
+        kc[:, :, pos: pos + s] = kt
+        vc[:, :, pos: pos + s] = vt
+        kv_cache = {**kv_cache, "pos": pos + s}
         if not causal_prefill:
-            if s == 1 and method != "plain" and nkv != nh \
-                    and _gqa_grouped_wins(b, hd, kc.shape[2]):
-                out = _attend_grouped(q, kc, vc, mask, scale, x.dtype)
+            if s == 1 and method != "plain" and (
+                    ks is not None or (nkv != nh and _gqa_grouped_wins(
+                        b, hd, kc.shape[2]))):
+                out = _attend_grouped(q, kc, vc, mask, scale, x.dtype, ks, vs)
                 return (linear(p["o_proj"], out, cfg.hidden_size, method),
                         kv_cache)
-            k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+            if ks is not None:  # plain / s > 1 fallback: dequantize the cache
+                k = (kc.float() * ks[..., None]).transpose(1, 2).to(x.dtype)
+                v = (vc.float() * vs[..., None]).transpose(1, 2).to(x.dtype)
+            else:
+                k, v = kc.transpose(1, 2), vc.transpose(1, 2)
 
     if causal_prefill and _flash_ok(method, q, k):
         out = attn_ops.prefill_attention(q, k, v, scale)
     else:
         out = _attend(q, k, v, mask, scale, x.dtype)
     return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
+
+
+def _fused_attn_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                   method: str, kv_cache: Dict[str, Any]) -> bool:
+    """K5 eligibility (JAX ``_fused_attn_ok`` on "auto"): a bf16 cache with
+    B >= 8 or B * T >= 2048, or an int8 cache of capacity T >= 2048, and the
+    model-level gates of ``fused_attn_step.supported``. The thresholds are
+    the TPU's; the H100's own are a later A/B (ROADMAP queue 1 item 11)."""
+    if method == "plain":
+        return False
+    kc = kv_cache["k"]
+    b, t = kc.shape[0], kc.shape[2]
+    if "k_s" in kv_cache:
+        if t < 2048:
+            return False
+    elif b * t < 2048 and b < 8:
+        return False
+    return fas.supported(cfg, p, x, kc)
+
+
+def _fused_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     kv_cache: Dict[str, Any]):
+    """The decode step through K5 (JAX ``attention``'s fused branch): the
+    kernel returns y and the post-RoPE k/v rows; the cache write (int8
+    rows quantized here from K5's f32 rows) and the o bias are outside."""
+    nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+    pos = kv_cache["pos"]
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    ks, vs = kv_cache.get("k_s"), kv_cache.get("v_s")
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    y, k_new, v_new = fas.fused_attention_step(
+        x[:, 0], p["qkv_proj"], p["o_proj"], kc, vc, cos[:, 0], sin[:, 0],
+        pos, nh=nh, nkv=nkv, hd=hd, scale=scale,
+        window=cfg.sliding_window or None, k_scales=ks, v_scales=vs)
+    if ks is not None:
+        k_new, ks[:, :, pos] = _kv_quantize(k_new)
+        v_new, vs[:, :, pos] = _kv_quantize(v_new)
+    kc[:, :, pos] = k_new
+    vc[:, :, pos] = v_new
+    y = y[:, None, : cfg.hidden_size].to(x.dtype)
+    if p["o_proj"].get("bias") is not None:
+        y = y + p["o_proj"]["bias"].to(y.dtype)
+    return y, {**kv_cache, "pos": pos + 1}
 
 
 def _fused_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
@@ -293,13 +370,17 @@ def embed(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 
 def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
-                device=None) -> torch.Tensor:
+                device=None,
+                sliding_window: Optional[int] = None) -> torch.Tensor:
     """Additive f32 causal mask [1, 1, S, T]; query i sees keys <= i +
-    offset."""
+    offset, and with a sliding window only keys > i + offset - window."""
     t = t if t is not None else s + offset
     qi = torch.arange(s, device=device)[:, None] + offset
     ki = torch.arange(t, device=device)[None, :]
-    return torch.where(ki <= qi, 0.0, -1e30).float()[None, None]
+    ok = ki <= qi
+    if sliding_window:
+        ok = ok & (ki > qi - sliding_window)
+    return torch.where(ok, 0.0, -1e30).float()[None, None]
 
 
 def logits_fn(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
@@ -324,7 +405,9 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     positions = torch.arange(s, device=tokens.device)[None, :]
     x = embed(cfg, params, tokens, dtype)
     cos, sin = rope_tables(cfg, positions)
-    mask = causal_mask(s, device=tokens.device)
+    mask = causal_mask(s, device=tokens.device,
+                       sliding_window=cfg.sliding_window)
+    causal_prefill = cfg.sliding_window is None
     for lp in params["layers"]:
-        x, _ = block(cfg, lp, x, cos, sin, mask, None, method, True)
+        x, _ = block(cfg, lp, x, cos, sin, mask, None, method, causal_prefill)
     return logits_fn(cfg, params, x, method)

@@ -29,7 +29,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "prefill_attention")
+KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "prefill_attention",
+           "fused_attn_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +51,8 @@ ARGTYPES = {
                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _F, _P],
+    # 25 pointers (inputs, outputs, scratch), 16 ints, scale, stream
+    "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
 }
 
 

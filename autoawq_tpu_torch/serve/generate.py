@@ -2,7 +2,8 @@
 
 Counterpart of ``autoawq_tpu/serve/generate.py``. The cache is a list of
 per-layer ``{"k", "v"}`` buffers [B, nkv, T, hd] written in place (the JAX
-package donates and rewrites them). PyTorch runs eagerly, so
+package donates and rewrites them); an int8 cache (``kv_quant=True``) adds
+``{"k_s", "v_s"}`` f32 absmax scales [B, nkv, T]. PyTorch runs eagerly, so
 ``generate_compiled`` is the same Python loop as ``generate``; capturing the
 decode step in a CUDA graph, the analogue of its ``lax.scan``, is the next
 ROADMAP item.
@@ -21,10 +22,15 @@ from autoawq_tpu_torch.nn import modules
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
                   dtype: torch.dtype = torch.bfloat16, device="cpu",
                   kv_quant: bool = False) -> List[Dict[str, torch.Tensor]]:
-    if kv_quant:
-        raise NotImplementedError(
-            "int8 KV cache is not in the port yet (ROADMAP queue 1 item 11)")
     shape = (batch, cfg.num_key_value_heads, max_seq_len, cfg.head_dim_)
+    if kv_quant:
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "k_s": torch.zeros(shape[:3], dtype=torch.float32,
+                                    device=device),
+                 "v_s": torch.zeros(shape[:3], dtype=torch.float32,
+                                    device=device)}
+                for _ in range(cfg.num_hidden_layers)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.num_hidden_layers)]
@@ -34,7 +40,7 @@ def _run_blocks(cfg, params, x, positions, mask, caches, pos, method,
                 causal_prefill=False):
     cos, sin = modules.rope_tables(cfg, positions)
     for lp, cache in zip(params["layers"], caches):
-        kv = {"k": cache["k"], "v": cache["v"], "pos": pos}
+        kv = {**cache, "pos": pos}
         x, _ = modules.block(cfg, lp, x, cos, sin, mask, kv_cache=kv,
                              method=method, causal_prefill=causal_prefill)
     return x
@@ -45,15 +51,19 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
             dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Process the prompt [B, S]; returns (last-position logits [B, V] f32,
-    caches filled at positions 0..S-1)."""
+    caches filled at positions 0..S-1). With a sliding window the prompt
+    attends over the cache under the windowed mask (no K4), as in JAX."""
     modules.check_supported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :]
     x = modules.embed(cfg, params, tokens, dtype)
-    mask = modules.causal_mask(s, device=dev)
+    causal_prefill = cfg.sliding_window is None
+    mask = modules.causal_mask(
+        s, s if causal_prefill else caches[0]["k"].shape[2], device=dev,
+        sliding_window=cfg.sliding_window)
     x = _run_blocks(cfg, params, x, positions, mask, caches, 0, method,
-                    causal_prefill=True)
+                    causal_prefill=causal_prefill)
     logits = modules.logits_fn(cfg, params, x[:, -1:, :], method)
     return logits[:, 0, :], caches
 
@@ -69,7 +79,8 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     dev = token.device
     positions = torch.full((1, 1), pos, device=dev)
     x = modules.embed(cfg, params, token, dtype)
-    mask = modules.causal_mask(1, max_t, offset=pos, device=dev)
+    mask = modules.causal_mask(1, max_t, offset=pos, device=dev,
+                               sliding_window=cfg.sliding_window)
     x = _run_blocks(cfg, params, x, positions, mask, caches, pos, method)
     logits = modules.logits_fn(cfg, params, x, method)
     return logits[:, 0, :], caches

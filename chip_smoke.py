@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 
 1. device   — card name and count, torch / CUDA versions, nvidia-smi's name
               and power limit.
-2. build    — compiles the four kernels from ``autoawq_tpu_torch/csrc`` (one
+2. build    — compiles the five kernels from ``autoawq_tpu_torch/csrc`` (one
               nvcc per source, in parallel) and prints ptxas' register and
               shared-memory summary for each.
 3. kernels  — each kernel at the main path's shapes against its plain twin
@@ -28,6 +28,14 @@ Phases, each printing JSON lines:
               busy share and device time by kernel.
               Then the kernel path against the plain path on the card,
               teacher-forced on the same tokens.
+              Then Mistral-7B at full width (32 layers, seed-0 synthetic
+              weights). Traffic C: bs8, eight 64-token prompts, 64 new
+              tokens, bf16 cache of capacity 128. Traffic D: bs8, eight
+              2048-token prompts, 64 new tokens, int8 cache of capacity
+              2112. Each: decode tok/s (B times the difference quotient of
+              a 64- and a 16-token generation), prefill seconds, launches
+              per decode step, a profile of 8 decode steps, and the
+              teacher-forced check with the traffic's cache type.
 5. load     — writes a 2-layer TinyLlama-width AutoAWQ GEMM checkpoint,
               loads it with ``AutoAWQForCausalLM.from_quantized`` and checks
               its logits against the model built in memory from the same
@@ -42,6 +50,7 @@ repo, the script exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -60,6 +69,12 @@ TINYLLAMA = dict(model_type="llama", vocab_size=32000, hidden_size=2048,
                  intermediate_size=5632, num_hidden_layers=22,
                  num_attention_heads=32, num_key_value_heads=4, head_dim=64,
                  max_position_embeddings=2048)
+# Mistral-7B-Instruct-v0.2's published config.json (sliding_window null)
+MISTRAL = dict(model_type="mistral", vocab_size=32000, hidden_size=4096,
+               intermediate_size=14336, num_hidden_layers=32,
+               num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+               max_position_embeddings=32768, rope_theta=1e6,
+               sliding_window=None)
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
 KERNEL_META = {
@@ -71,6 +86,8 @@ KERNEL_META = {
                   "autoawq_tpu/ops/fused_mlp.py:81"),
     "prefill_attention": ("autoawq_tpu_torch/csrc/prefill_attention.cu",
                           "autoawq_tpu/nn/modules.py:338"),
+    "fused_attn_step": ("autoawq_tpu_torch/csrc/fused_attn_step.cu",
+                        "autoawq_tpu/ops/fused_attn_step.py:54"),
 }
 # tolerances, as max |kernel - twin| / max |twin| on the same inputs:
 # K1 dequantizes in f32 where the twin rounds weights to bf16 first, both
@@ -83,8 +100,19 @@ KERNEL_META = {
 # a dropped key tile. Both sides round the row to bf16, so a sound kernel
 # can differ by one bf16 ulp of the row's largest value (up to 2^-7 of it,
 # which the H100 reads); the limit is two such ulps, 2^-6.
+# K5's y is held per batch row (max |diff_row| / max |twin_row|): both
+# sides round the attention output and y to bf16 after f32 sums taken in
+# other orders, so y can differ by one bf16 ulp of the row maximum (up to
+# 2^-7) plus what a flipped rounding of the attention output carries
+# through the o product; the limit is two ulps, 2^-6, as K4's (the H100
+# read at most 0.0057 over two runs of six shapes, against a first limit
+# of 2e-2). k_new / v_new are held per head row at 2^-7: both sides round
+# f32 rows equal to ~1e-6 to bf16, at most one ulp of the row maximum
+# apart (the H100 read at most 0.0031), and keep them in f32 for an int8
+# cache.
 TOL = {"w4a16_gemv": 1e-2, "w4a16_gemm": 1e-2, "fused_mlp": 2e-2,
-       "prefill_attention": 2 ** -6}
+       "prefill_attention": 2 ** -6, "fused_attn_step": 2 ** -6,
+       "fused_attn_step_kv": 2 ** -7}
 
 failures = []
 
@@ -186,17 +214,22 @@ def lin_bytes(lin) -> int:
 
 # ----------------------------------------------------------------- phases
 
-def phase_device():
-    import torch
-
-    smi = "not available"
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     try:
-        smi = subprocess.run(
+        return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=30).stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
-        pass
+        return "not available"
+
+
+def phase_device():
+    import torch
+
+    smi = card()
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -330,12 +363,107 @@ def _attn_case(b, s, nh, nkv, hd, dev, timing=True):
     return row
 
 
+def _k5_case(rng, case, model, b, t, vl, dev, int8=False, window=None,
+             bias=False, timing=True):
+    """K5 against its twin at one shape (y per batch row, k_new / v_new per
+    head row); with ``timing``, the times of K5 (graph replay and eager),
+    the twin, SDPA over the attention phase alone, and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from autoawq_tpu_torch.nn.modules import _kv_quantize
+    from autoawq_tpu_torch.ops import fused_attn_step as fas
+
+    h, nh, nkv, hd = (model["hidden_size"], model["num_attention_heads"],
+                      model["num_key_value_heads"], model["head_dim"])
+    qkv = make_lin(rng, h, (nh + 2 * nkv) * hd, 128, True, dev)
+    o = make_lin(rng, nh * hd, h, 128, True, dev)
+    qkv["bias"] = ((torch.randn((nh + 2 * nkv) * hd, device=dev) * 0.5).to(
+        torch.bfloat16) if bias else None)
+    x = (torch.randn(b, h, device=dev) * 0.5).to(torch.bfloat16)
+    kc, vc = (torch.randn(b, nkv, t, hd, device=dev) * 0.5 for _ in range(2))
+    ks = vs = None
+    if int8:
+        (kc, ks), (vc, vs) = _kv_quantize(kc), _kv_quantize(vc)
+    else:
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    theta = model.get("rope_theta", 1e4)
+    ang = vl * theta ** (-torch.arange(hd // 2, device=dev) * 2.0 / hd)
+    kw = dict(nh=nh, nkv=nkv, hd=hd, scale=hd ** -0.5, window=window)
+
+    def call(fn):
+        def run(x, qw, sc, qz, bias_, ow, osc, oz, kc, vc, ks, vs, cos, sin):
+            return fn(x, {"qweight": qw, "scales": sc, "qzeros": qz,
+                          "bias": bias_},
+                      {"qweight": ow, "scales": osc, "qzeros": oz}, kc, vc,
+                      cos, sin, vl, k_scales=ks, v_scales=vs, **kw)
+        return run
+
+    run, plain = call(fas.fused_attention_step), call(
+        fas.fused_attention_step_plain)
+    args = [x, qkv["qweight"], qkv["scales"], qkv["qzeros"], qkv["bias"],
+            o["qweight"], o["scales"], o["qzeros"], kc, vc, ks, vs,
+            torch.cos(ang)[None], torch.sin(ang)[None]]
+    got, ref = run(*args), plain(*args)
+    torch.cuda.synchronize()
+    y_rel = row_rel_err(got[0], ref[0], h)
+    kv_rel = max(row_rel_err(got[1], ref[1], hd),
+                 row_rel_err(got[2], ref[2], hd))
+    row = {"phase": "kernel", "kernel": "fused_attn_step", "case": case,
+           "card": card(), "B": b, "H": h, "nh": nh, "nkv": nkv, "hd": hd, "T": t, "vl": vl,
+           "window": window, "cache": "int8" if int8 else "bf16",
+           "qkv_bias": bias, "max_abs_err": rel_err(got[0], ref[0])[0],
+           "max_row_rel_err": y_rel, "kv_max_row_rel_err": kv_rel,
+           "tol": TOL["fused_attn_step"],
+           "kv_tol": TOL["fused_attn_step_kv"]}
+    check(y_rel <= TOL["fused_attn_step"]
+          and kv_rel <= TOL["fused_attn_step_kv"]
+          and bool(torch.isfinite(got[0]).all()),
+          f"fused_attn_step {case}: y per-row rel err {y_rel:.3g}, "
+          f"k/v {kv_rel:.3g}")
+    if timing:
+        lo = 0 if window is None else max(0, vl - window + 1)
+        rows = vl - lo  # the cache rows this call must read
+        elem = 1 if int8 else 2
+        wb = lin_bytes(qkv) + lin_bytes(o)
+        cache_b = 2 * b * nkv * rows * (hd * elem + (4 if int8 else 0))
+        io_b = 2 * b * h * 2 + 2 * b * nkv * hd * (4 if int8 else 2)
+        sets = copies(args, wb + 2 * kc.numel() * elem)
+        row["ms"], row["eager_ms"] = time_ms(run, sets, 100)
+        row["plain_ms"], _ = time_ms(plain, sets[:2], 5)
+        row["library_ms"] = None
+        row["library"] = "none computes the whole step in one call"
+        flops = (2 * b * (h * (nh + 2 * nkv) * hd + nh * hd * h)
+                 + 4 * b * nh * (rows + 1) * hd)
+        row["bound_ms"], row["bound_by"] = bound(wb + cache_b + io_b, flops)
+        if rows:
+            qa = torch.randn(b, nh, 1, hd, device=dev).to(torch.bfloat16)
+            ka, va = ((c[:, :, lo:vl].float() * (s_[:, :, lo:vl, None]
+                                                 if int8 else 1.0)
+                       ).to(torch.bfloat16).contiguous()
+                      for c, s_ in ((kc, ks), (vc, vs)))
+
+            def sdpa(a, b_, c):
+                return F.scaled_dot_product_attention(a, b_, c,
+                                                      enable_gqa=True)
+            row["sdpa_attention_phase_ms"], _ = time_ms(sdpa, [[qa, ka, va]],
+                                                        100)
+            row["sdpa_note"] = ("torch scaled_dot_product_attention with "
+                                "enable_gqa over the attention phase alone, "
+                                "on a bf16 copy of the valid rows: not the "
+                                "whole function")
+    emit(row)
+    return row
+
+
 def phase_kernels(dev):
     """Every kernel against its twin at the main path's shapes. Returns the
     representative row per kernel for the ``kernels`` line."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(1)
+    torch.manual_seed(1)  # the activations and caches drawn on the card
     rep = {}
     for m in (1, 8):
         for case, (k, n) in LINEARS.items():
@@ -362,13 +490,25 @@ def phase_kernels(dev):
     rep["prefill_attention"] = _attn_case(2, 384, 32, 4, 64, dev)
     for hd in (128, 96, 256):  # 96 is zero-padded to K4's 128 instance
         _attn_case(1, 200, 8, 2, hd, dev, timing=False)
+    # K5 at traffic C's and D's last decode step, then the edge shapes
+    rep["fused_attn_step"] = _k5_case(rng, "C: Mistral bf16", MISTRAL, 8,
+                                      128, 127, dev)
+    _k5_case(rng, "D: Mistral int8", MISTRAL, 8, 2112, 2111, dev, int8=True)
+    _k5_case(rng, "TinyLlama bf16, rep 8, hd 64", TINYLLAMA, 8, 128, 127,
+             dev, timing=False)
+    _k5_case(rng, "vl = 0", MISTRAL, 1, 128, 0, dev, timing=False)
+    _k5_case(rng, "window 1024", MISTRAL, 8, 2112, 2000, dev, window=1024,
+             timing=False)
+    _k5_case(rng, "qkv bias", MISTRAL, 8, 128, 100, dev, bias=True,
+             timing=False)
     return rep
 
 
-def _teacher_forced(cfg, params, prompt, steps):
+def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
     """Kernel path (bf16), plain twins (bf16) and plain twins in f32 on the
-    same tokens: prefill logits, then ``steps`` decode steps fed the kernel
-    path's greedy tokens. Returns per-position errors against f32."""
+    same tokens, all three with the same cache type: prefill logits, then
+    ``steps`` decode steps fed the kernel path's greedy tokens. Returns
+    per-position errors against f32."""
     import torch
 
     from autoawq_tpu_torch.serve import generate as gen
@@ -377,7 +517,8 @@ def _teacher_forced(cfg, params, prompt, steps):
     runs = {"kernel": ("auto", torch.bfloat16), "plain": ("plain",
                                                           torch.bfloat16),
             "plain_f32": ("plain", torch.float32)}
-    caches = {k: gen.init_kv_cache(cfg, b, s + steps, dt, prompt.device)
+    caches = {k: gen.init_kv_cache(cfg, b, s + steps, dt, prompt.device,
+                                   kv_quant=kv_quant)
               for k, (_, dt) in runs.items()}
     logits = {k: gen.prefill(cfg, params, prompt, caches[k], m, dt)[0]
               for k, (m, dt) in runs.items()}
@@ -433,7 +574,7 @@ def device_profile(run, calls: int):
                           for us, n, k in rows[:12]]}
 
 
-def profile_decode(cfg, params, prompt, steps):
+def profile_decode(cfg, params, prompt, steps, kv_quant=False):
     """``device_profile`` over ``steps`` greedy decode steps after a
     prefill of ``prompt``."""
     import torch
@@ -442,7 +583,7 @@ def profile_decode(cfg, params, prompt, steps):
 
     b, s = prompt.shape
     caches = gen.init_kv_cache(cfg, b, s + steps + 1, torch.bfloat16,
-                               prompt.device)
+                               prompt.device, kv_quant=kv_quant)
     logits, _ = gen.prefill(cfg, params, prompt, caches)
     token = [logits.argmax(-1)[:, None]]
 
@@ -527,9 +668,6 @@ def phase_e2e(dev):
     emit({"phase": "e2e", "step": "profile", "traffic": "B",
           "what": "prefill", **device_profile(
               lambda i: gen.prefill(cfg, params, prompt_b, caches), 3)})
-    total = {k: counts["A"][k] + counts["B"][k] for k in counts["A"]}
-    for name, n in total.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
     peak = torch.cuda.max_memory_allocated()
 
     # kernel path vs plain twins on the card, teacher-forced. Tolerance:
@@ -538,16 +676,128 @@ def phase_e2e(dev):
     # kernels add no more error than bf16 arithmetic already does.
     for name, prompt in (("A", prompt_a), ("B", prompt_b)):
         rows = _teacher_forced(cfg, params, prompt, 8 if name == "A" else 1)
-        for r in rows:
-            ok = r["kernel_vs_f32"] <= 2 * r["plain_bf16_vs_f32"] + 1e-3
-            check(ok, f"traffic {name} position {r['position']}: kernel "
-                  f"path {r['kernel_vs_f32']:.3g} vs bf16 twin "
-                  f"{r['plain_bf16_vs_f32']:.3g} from f32")
-            check(math.isfinite(r["kernel_vs_f32"]), "non-finite logits")
+        _check_teacher_forced(name, rows)
         emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
               "rows": rows})
-    emit({"phase": "e2e", "peak_memory_bytes": peak})
-    return total, per_token
+    emit({"phase": "e2e", "model": "tinyllama", "peak_memory_bytes": peak})
+    del params
+    counts_cd, per_step_cd = _mistral_traffics(dev)
+    counts.update(counts_cd)
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["A"]}
+    for name, n in total.items():
+        check(n > 0, f"kernel {name} never launched on the main path")
+    return total, {"A": per_token, **per_step_cd}
+
+
+def _check_teacher_forced(name, rows):
+    for r in rows:
+        ok = r["kernel_vs_f32"] <= 2 * r["plain_bf16_vs_f32"] + 1e-3
+        check(ok, f"traffic {name} position {r['position']}: kernel "
+              f"path {r['kernel_vs_f32']:.3g} vs bf16 twin "
+              f"{r['plain_bf16_vs_f32']:.3g} from f32")
+        check(math.isfinite(r["kernel_vs_f32"]), "non-finite logits")
+
+
+def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps):
+    """Traffic C or D: decode tok/s as B times the difference quotient of a
+    64- and a 16-token greedy generation (min of ``reps`` each), prefill
+    seconds, launches per decode step (one token for each sequence), and a
+    profile of 8 decode steps. Returns the launch counts of its run."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s = prompt.shape
+
+    def run_gen(n):
+        t = time.perf_counter()
+        out = gen.generate(cfg, params, prompt, n, max_seq_len=cap,
+                           kv_quant=kv_quant).cpu()
+        return time.perf_counter() - t, out
+
+    _build.reset_launches()
+    run_gen(16)  # warm-up
+    t16, t64 = [], []
+    for _ in range(reps):
+        before = dict(_build.LAUNCHES)
+        t16.append(run_gen(16)[0])
+        mid = dict(_build.LAUNCHES)
+        dt, out = run_gen(64)
+        t64.append(dt)
+        after = dict(_build.LAUNCHES)
+    per_step = {k: ((after[k] - mid[k]) - (mid[k] - before[k])) / 48
+                for k in after}
+    caches = gen.init_kv_cache(cfg, b, cap, torch.bfloat16, prompt.device,
+                               kv_quant=kv_quant)
+    t_pre = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen.prefill(cfg, params, prompt, caches)
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t)
+    counts = dict(_build.LAUNCHES)
+    del caches
+    check(out.shape == (b, s + 64) and bool((out[:, s:] >= 0).all())
+          and bool((out[:, s:] < cfg.vocab_size).all()),
+          f"traffic {name} output")
+    check(counts["fused_attn_step"] > 0,
+          f"traffic {name}: fused_attn_step never launched")
+    check(per_step["fused_attn_step"] == cfg.num_hidden_layers,
+          f"traffic {name}: {per_step['fused_attn_step']} fused_attn_step "
+          f"launches per decode step, expected {cfg.num_hidden_layers}")
+    emit({"phase": "e2e", "traffic": name, "card": card(), "batch": b,
+          "prompt": s, "cache": "int8" if kv_quant else "bf16",
+          "capacity": cap,
+          "decode_tok_s": b * 48 / max(min(t64) - min(t16), 1e-9),
+          "t_16_s": t16, "t_64_s": t64, "prefill_s": min(t_pre),
+          "prefill_runs_s": t_pre, "prefill_tok_s": b * s / min(t_pre),
+          "launches": counts, "launches_per_decode_step": per_step})
+    emit({"phase": "e2e", "step": "profile", "traffic": name, "card": card(),
+          "what": "decode_step", **profile_decode(cfg, params, prompt, 8,
+                                                  kv_quant)})
+    return counts, per_step
+
+
+def _mistral_traffics(dev):
+    """Mistral-7B at full width: traffics C (bf16 cache) and D (int8
+    cache), each followed by its teacher-forced check."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    torch.cuda.synchronize()
+    emit({"phase": "e2e", "model": "mistral-7b", "step": "synth",
+          "layers": cfg.num_hidden_layers,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(3)
+    counts, per_step = {}, {}
+    for name, s, cap, kv_quant, reps, tf_steps in (
+            ("C", 64, 128, False, 3, 4), ("D", 2048, 2112, True, 2, 2)):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (8, s))).to(dev)
+        t0 = time.perf_counter()
+        counts[name], per_step[name] = _batched_traffic(
+            cfg, params, name, prompt, cap, kv_quant, reps)
+        rows = _teacher_forced(cfg, params, prompt, tf_steps, kv_quant)
+        _check_teacher_forced(name, rows)
+        emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
+              "layers": cfg.num_hidden_layers,
+              "cache": "int8" if kv_quant else "bf16", "rows": rows,
+              "seconds": time.perf_counter() - t0})
+    emit({"phase": "e2e", "model": "mistral-7b",
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts, per_step
 
 
 def phase_load(dev):
@@ -663,15 +913,23 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device()
-    if "build" in phases:
-        phase_build()
     rep, total, per_token = {}, None, {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": name, "step": "seconds",
+              "seconds": time.perf_counter() - t})
+        return out
+
+    if "build" in phases:
+        timed("build", phase_build)
     if "kernels" in phases:
-        rep = phase_kernels(dev)
+        rep = timed("kernels", phase_kernels, dev)
     if "e2e" in phases:
-        total, per_token = phase_e2e(dev)
+        total, per_token = timed("e2e", phase_e2e, dev)
     if "load" in phases:
-        phase_load(dev)
+        timed("load", phase_load, dev)
     if rep:
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():
@@ -681,9 +939,11 @@ def main(argv=None) -> int:
                 # counts only from the main path's run; null without it
                 "replaces": replaces,
                 "launches": None if total is None else total.get(name, 0),
-                "launches_per_decode_token": per_token.get(name),
+                "launches_per_decode_step": {
+                    t: per[name] for t, per in per_token.items()},
                 "shape": {k: r[k] for k in ("M", "K", "N", "B", "S", "H",
-                                            "inter") if k in r},
+                                            "inter", "T", "vl", "cache")
+                          if k in r},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "eager_ms": r["eager_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

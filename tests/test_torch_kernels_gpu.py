@@ -12,14 +12,19 @@ K4 2^-6 per query row and head, as max over rows of max |diff_row| /
 max |twin_row| (a causal output's scale falls with the row, so a global
 maximum would hide a wrong late row; both sides round to bf16, so a sound
 kernel can differ by one bf16 ulp of the row maximum, up to 2^-7 of it, and
-the limit is two)."""
+the limit is two). K5 per batch row: y 2^-6 of the row maximum (two bf16
+ulps of it, as K4: one for y's own rounding, one for a flipped rounding
+of the attention output carried through the o product), k_new / v_new
+2^-7 per head row (one bf16 rounding of the same f32 row; f32 for an int8
+cache)."""
 
 import numpy as np
 import pytest
 import torch
 
 from autoawq_tpu_torch.core.packing import pack_port
-from autoawq_tpu_torch.ops import _build, attention, fused_mlp, gemm
+from autoawq_tpu_torch.ops import (_build, attention, fused_attn_step,
+                                   fused_mlp, gemm)
 
 pytestmark = pytest.mark.gpu
 
@@ -116,6 +121,68 @@ def test_prefill_attention(cuda, b, s, nh, nkv, hd):
     ref = attention.prefill_attention_plain(q, k, v, hd ** -0.5)
     assert got.shape == ref.shape
     assert row_rel(got, ref, hd) <= 2 ** -6
+
+
+def k5_inputs(rng, dev, b, nh, nkv, hd, h, t, int8, bias=False):
+    """Random int4 qkv / o (g128, zero points), x, a cache of capacity t and
+    the rope rows of one position, on the card."""
+    qkv = dict(zip(("qweight", "scales", "qzeros"),
+                   lin(rng, h, (nh + 2 * nkv) * hd, 128, True, dev)))
+    o = dict(zip(("qweight", "scales", "qzeros"),
+                 lin(rng, nh * hd, h, 128, True, dev)))
+    if bias:
+        qkv["bias"] = torch.randn((nh + 2 * nkv) * hd, device=dev).to(
+            torch.bfloat16)
+    x = (torch.randn(b, h, device=dev) * 0.5).to(torch.bfloat16)
+    kc, vc = (torch.randn(b, nkv, t, hd, device=dev) * 0.5 for _ in range(2))
+    scales = {}
+    if int8:
+        kc, vc = (c.mul(40).round().clamp(-127, 127).to(torch.int8)
+                  for c in (kc, vc))
+        scales = {"k_scales": torch.rand(b, nkv, t, device=dev) * 0.02,
+                  "v_scales": torch.rand(b, nkv, t, device=dev) * 0.02}
+    else:
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    ang = 7.0 * torch.arange(hd // 2, device=dev) / hd
+    return (x, qkv, o, kc, vc, torch.cos(ang)[None], torch.sin(ang)[None],
+            scales)
+
+
+@pytest.mark.parametrize("b,nh,nkv,hd,h,t,vl,window,int8,bias", [
+    (8, 32, 8, 128, 4096, 128, 127, None, False, False),    # Mistral, C
+    (8, 32, 8, 128, 4096, 2112, 2111, None, True, False),   # Mistral, D
+    (8, 32, 4, 64, 2048, 128, 127, None, False, False),     # TinyLlama, rep 8
+    (1, 32, 8, 128, 4096, 128, 0, None, False, False),      # vl = 0
+    (8, 32, 8, 128, 4096, 2112, 2000, 1024, False, False),  # window
+    (2, 28, 4, 128, 3584, 200, 150, None, False, True),     # qkv bias, rep 7
+    (2, 8, 8, 96, 768, 80, 77, None, True, False),          # MHA, hd 96
+])
+def test_fused_attn_step(cuda, rng, b, nh, nkv, hd, h, t, vl, window, int8,
+                         bias):
+    x, qkv, o, kc, vc, cos, sin, sc = k5_inputs(rng, cuda, b, nh, nkv, hd, h,
+                                                t, int8, bias)
+    kw = dict(nh=nh, nkv=nkv, hd=hd, scale=hd ** -0.5, window=window, **sc)
+    before = _build.LAUNCHES["fused_attn_step"]
+    y, k, v = fused_attn_step.fused_attention_step(x, qkv, o, kc, vc, cos,
+                                                   sin, vl, **kw)
+    assert _build.LAUNCHES["fused_attn_step"] == before + 1
+    ry, rk, rv = fused_attn_step.fused_attention_step_plain(
+        x, qkv, o, kc, vc, cos, sin, vl, **kw)
+    assert k.dtype == rk.dtype == (torch.float32 if int8 else torch.bfloat16)
+    assert row_rel(y, ry, h) <= 2 ** -6
+    assert row_rel(k, rk, hd) <= 2 ** -7 and row_rel(v, rv, hd) <= 2 ** -7
+
+
+def test_fused_attn_step_rejects(cuda, rng):
+    x, qkv, o, kc, vc, cos, sin, _ = k5_inputs(rng, cuda, 2, 4, 2, 64, 256,
+                                               64, False)
+    kw = dict(nh=4, nkv=2, hd=64, scale=0.125)
+    with pytest.raises(ValueError):  # an f32 cache is not a K5 cache
+        fused_attn_step.fused_attention_step(x, qkv, o, kc.float(),
+                                             vc.float(), cos, sin, 3, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_attn_step.fused_attention_step(
+            x, qkv, o, kc, vc, cos, sin, 3, **dict(kw, hd=320))
 
 
 def test_wrappers_reject_what_kernels_do_not_take(cuda, rng):

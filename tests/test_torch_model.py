@@ -170,7 +170,7 @@ def test_sampled_generation_is_seeded(rng):
 
 
 @pytest.mark.parametrize("change", [
-    {"sliding_window": 64}, {"num_experts": 4, "num_experts_per_tok": 2},
+    {"num_experts": 4, "num_experts_per_tok": 2},
     {"pos_embed": "alibi"}, {"rope_scaling": (("factor", 2.0),
                                               ("rope_type", "yarn"))},
     {"kv_lora_rank": 16}, {"norm_kind": "ln"}, {"qk_norm": True},
@@ -181,6 +181,18 @@ def test_features_outside_the_slice_raise(change):
         modules.check_supported(cfg)
 
 
-def test_int8_kv_cache_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gen.init_kv_cache(ModelConfig(**KW), 1, 8, kv_quant=True)
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_window_and_int8_cache_run(rng, window, kv_quant):
+    """A sliding window and an int8 cache, once refused, now run on their
+    own and together (held against JAX in test_torch_kv_quant.py)."""
+    cfg = dataclasses.replace(ModelConfig(**KW), sliding_window=window)
+    modules.check_supported(cfg)
+    caches = gen.init_kv_cache(cfg, 2, 16, kv_quant=kv_quant)
+    assert caches[0]["k"].dtype == (torch.int8 if kv_quant else
+                                    torch.bfloat16)
+    pp = random_quantized_params(cfg, seed=7, group_size=64, fused=True)
+    toks = torch.from_numpy(rng.integers(0, KW["vocab_size"], (2, 9)))
+    out = gen.generate(cfg, pp, toks, 5, dtype=torch.float32,
+                       kv_quant=kv_quant)
+    assert out.shape == (2, 14) and torch.equal(out[:, :9], toks)
