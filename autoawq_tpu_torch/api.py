@@ -66,10 +66,13 @@ class AwqCausalLM:
                        device=None,
                        dtype: Optional[torch.dtype] = torch.bfloat16
                        ) -> "AwqCausalLM":
-        """Load an AutoAWQ GEMM checkpoint. ``fuse_layers=True``
-        concatenates q/k/v and gate/up (one K1 launch for qkv, the fused
-        decode MLP K3). ``dtype`` types the float weights (embedding, norms,
-        lm_head); None keeps the checkpoint's."""
+        """Load an AutoAWQ GEMM checkpoint (llama family or Mixtral).
+        ``fuse_layers=True`` concatenates q/k/v and gate/up (one K1 launch
+        for qkv, the fused decode MLP K3) and stacks MoE experts for the
+        grouped kernel K6; the default keeps the checkpoint's layout, whose
+        decode MLP is K8 (an expert list takes the dense route, K8 per
+        expert). ``dtype`` types the float weights (embedding, norms,
+        router, lm_head); None keeps the checkpoint's."""
         dev = resolve_device(device)
         cfg, qcfg, params = serialize.from_quantized(path, dev)
         if dtype is not None:
@@ -115,7 +118,8 @@ class AwqCausalLM:
 
 
 class AutoAWQForCausalLM:
-    """Name-compatible dispatcher; the port serves the llama route."""
+    """Name-compatible dispatcher; the port serves the llama route and
+    Mixtral."""
 
     @classmethod
     def from_quantized(cls, path: str, **kw) -> AwqCausalLM:

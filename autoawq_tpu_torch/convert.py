@@ -31,15 +31,20 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def role_out_features(cfg: ModelConfig) -> Dict[str, int]:
-    """Logical out_features by linear name (llama subset of
-    ``io/hf.role_out_features``)."""
+    """Logical out_features by linear name (llama and MoE subset of
+    ``io/hf.role_out_features``); an expert's roles are prefixed
+    ``experts.`` and the router is ``gate``."""
     hd, nh, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
+    ie = cfg.moe_intermediate_size or cfg.intermediate_size
     return {
         "qkv_proj": (nh + 2 * nkv) * hd, "q_proj": nh * hd,
         "k_proj": nkv * hd, "v_proj": nkv * hd, "o_proj": cfg.hidden_size,
         "gate_up_proj": 2 * cfg.intermediate_size,
         "gate_proj": cfg.intermediate_size, "up_proj": cfg.intermediate_size,
         "down_proj": cfg.hidden_size, "lm_head": cfg.vocab_size,
+        "gate": cfg.num_experts, "experts.gate_up_proj": 2 * ie,
+        "experts.gate_proj": ie, "experts.up_proj": ie,
+        "experts.down_proj": cfg.hidden_size,
     }
 
 
@@ -62,9 +67,38 @@ def _norm(p: Dict[str, Any], device) -> Dict[str, Any]:
     return {k: to_tensor(v, device) for k, v in p.items()}
 
 
+def stacked_from_planar(p: Dict[str, Any], n: int,
+                        device="cpu") -> Dict[str, Any]:
+    """A stacked expert LIN of the JAX tree (planar ``[E, K/2, N_pad/4]``,
+    scales ``[E, G, N_pad]``, zeros ``[E, ceil(G/2), N_pad/4]``) -> the
+    port's ``[E, K/8, N]`` stack, converted expert by expert."""
+    per = [lin_from_planar({k: v[e] for k, v in p.items()}, n, device)
+           for e in range(np.asarray(p["qweight"]).shape[0])]
+    return {k: torch.stack([q[k] for q in per]) for k in per[0]}
+
+
+def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
+                  device) -> Dict[str, Any]:
+    if "experts" not in mlp and "experts_stacked" not in mlp:
+        return {name: lin_from_planar(lin, outs[name], device)
+                for name, lin in mlp.items()}
+    port: Dict[str, Any] = {"gate": lin_from_planar(mlp["gate"],
+                                                    outs["gate"], device)}
+    if "experts_stacked" in mlp:
+        port["experts_stacked"] = {
+            name: stacked_from_planar(lin, outs["experts." + name], device)
+            for name, lin in mlp["experts_stacked"].items()}
+    else:
+        port["experts"] = [
+            {name: lin_from_planar(lin, outs["experts." + name], device)
+             for name, lin in ep.items()} for ep in mlp["experts"]]
+    return port
+
+
 def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
-    """The JAX package's llama param tree (numpy leaves) -> port params."""
+    """The JAX package's llama or Mixtral param tree (numpy leaves) -> port
+    params."""
     outs = role_out_features(cfg)
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": to_tensor(tree["embed_tokens"]["weight"],
@@ -77,8 +111,8 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
     for lp in tree["layers"]:
         port = {name: _norm(lp[name], device)
                 for name in ("input_layernorm", "post_attention_layernorm")}
-        for group in ("self_attn", "mlp"):
-            port[group] = {name: lin_from_planar(lin, outs[name], device)
-                           for name, lin in lp[group].items()}
+        port["self_attn"] = {name: lin_from_planar(lin, outs[name], device)
+                             for name, lin in lp["self_attn"].items()}
+        port["mlp"] = _mlp_from_jax(lp["mlp"], outs, device)
         params["layers"].append(port)
     return params

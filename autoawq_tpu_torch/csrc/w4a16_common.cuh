@@ -35,13 +35,48 @@ __device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// Split-K GEMV partial: one thread per output column, the grid's y axis
-// walks M tiles of MT rows and its z axis splits K (in packed rows of 8).
-// Each thread reads its column's packed words top to bottom (neighbouring
-// threads read neighbouring words: coalesced), unpacks the 8 nibbles in
-// registers, dequantizes (q - z) * s in f32 and accumulates in f32. With
-// ws == nullptr (one split) it writes bf16 to out directly; otherwise it
-// writes f32 partials ws[split][m][n] for gemv_reduce.
+// One output column n of x @ dequant(W) over packed rows [r0, r1), for the
+// first `rows` (<= MT) rows of x (row stride K): the thread reads its
+// column's packed words top to bottom (neighbouring threads read
+// neighbouring words: coalesced), unpacks the 8 nibbles in registers,
+// dequantizes (q - z) * s in f32 and accumulates in f32 into acc[MT].
+template <int MT>
+__device__ __forceinline__ void gemv_column(
+    const __nv_bfloat16* __restrict__ x, int rows,
+    const int32_t* __restrict__ qw, const float* __restrict__ sc,
+    const int32_t* __restrict__ qz, int K, int N, int n, int group_size,
+    int r0, int r1, float* acc) {
+  int g_cur = -1;
+  float s = 0.0f, z = 0.0f;
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const uint32_t w = static_cast<uint32_t>(__ldg(qw + (size_t)r * N + n));
+    const int g = (8 * r) / group_size;
+    if (g != g_cur) {
+      s = __ldg(sc + (size_t)g * N + n);
+      z = zero_point(qz, g, n, N);
+      g_cur = g;
+    }
+    float wv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wv[i] = (nibble(w, i) - z) * s;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < rows) {
+        float xv[8];
+        load_x8(x + (size_t)m * K + 8 * r, xv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[m] = fmaf(xv[i], wv[i], acc[m]);
+      }
+    }
+  }
+}
+
+// Split-K GEMV partial: one thread per output column (gemv_column), the
+// grid's y axis walks M tiles of MT rows and its z axis splits K (in packed
+// rows of 8). With ws == nullptr (one split) it writes bf16 to out
+// directly; otherwise it writes f32 partials ws[split][m][n] for
+// gemv_reduce.
 template <int MT>
 __global__ void __launch_bounds__(128)
 gemv_partial(const __nv_bfloat16* __restrict__ x,
@@ -59,30 +94,8 @@ gemv_partial(const __nv_bfloat16* __restrict__ x,
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
-  int g_cur = -1;
-  float s = 0.0f, z = 0.0f;
-#pragma unroll 4
-  for (int r = r0; r < r1; ++r) {
-    const uint32_t w = static_cast<uint32_t>(__ldg(qw + (size_t)r * N + n));
-    const int g = (8 * r) / group_size;
-    if (g != g_cur) {
-      s = __ldg(sc + (size_t)g * N + n);
-      z = zero_point(qz, g, n, N);
-      g_cur = g;
-    }
-    float wv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) wv[i] = (nibble(w, i) - z) * s;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m0 + m < M) {
-        float xv[8];
-        load_x8(x + (size_t)(m0 + m) * K + 8 * r, xv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[m] = fmaf(xv[i], wv[i], acc[m]);
-      }
-    }
-  }
+  gemv_column<MT>(x + (size_t)m0 * K, M - m0, qw, sc, qz, K, N, n,
+                  group_size, r0, r1, acc);
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (m0 + m >= M) break;

@@ -1,8 +1,10 @@
 """HF / AutoAWQ state dict -> the port's parameter tree (llama layout).
 
-Counterpart of ``autoawq_tpu/io/hf.py`` (``LLAMA_LAYOUT`` :72,
-``params_from_state_dict`` :500, ``load_state_dict_from_dir`` :728) for the
-llama family. AutoAWQ GEMM tensors (``qweight`` int32 [K, N/8] in AWQ
+Counterpart of ``autoawq_tpu/io/hf.py`` (``LLAMA_LAYOUT`` :72, the MoE
+helpers :470-495, ``params_from_state_dict`` :500,
+``load_state_dict_from_dir`` :728) for the llama family and Mixtral
+(``block_sparse_moe.gate`` and ``experts.{e}.w1/w3/w2``). AutoAWQ GEMM
+tensors (``qweight`` int32 [K, N/8] in AWQ
 order, ``qzeros`` likewise, ``scales`` fp16 [G, N]) unpack to logical
 nibbles and repack into the port's layout (core/packing.py), bit-exact.
 """
@@ -82,6 +84,55 @@ def _lin_from_sd(sd: Dict[str, torch.Tensor], prefix: str,
     return p
 
 
+def _expert_prefix(cfg: ModelConfig, i: int, e: int) -> str:
+    if cfg.model_type == "mixtral":
+        return f"model.layers.{i}.block_sparse_moe.experts.{e}."
+    return f"model.layers.{i}.mlp.experts.{e}."
+
+
+def _gate_key(cfg: ModelConfig, i: int) -> str:
+    if cfg.model_type == "mixtral":
+        return f"model.layers.{i}.block_sparse_moe.gate"
+    return f"model.layers.{i}.mlp.gate"
+
+
+# mixtral expert weights use w1/w3/w2 names for gate/up/down
+_MIXTRAL_EXPERT = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
+_MLP_EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")
+
+
+def _expert_hf_name(cfg: ModelConfig, name: str) -> str:
+    if cfg.model_type == "mixtral":
+        return _MIXTRAL_EXPERT[name]
+    return name
+
+
+def _moe_from_sd(cfg: ModelConfig, sd: Dict[str, torch.Tensor], i: int,
+                 base: str, device) -> Dict[str, Any]:
+    """Layer i's MoE block: the float router (AutoAWQ leaves it unquantized,
+    ``modules_to_not_convert=["gate"]``), the experts as a list of MLP
+    LINs, and shared experts where the checkpoint has them (JAX
+    ``params_from_state_dict`` :539-562)."""
+    mlp: Dict[str, Any] = {"gate": _lin_from_sd(sd, _gate_key(cfg, i),
+                                                device)}
+    experts = []
+    for e in range(cfg.num_experts):
+        ep = {}
+        for name in _MLP_EXPERT_NAMES:
+            lin = _lin_from_sd(sd, _expert_prefix(cfg, i, e)
+                               + _expert_hf_name(cfg, name), device)
+            if lin is not None:
+                ep[name] = lin
+        experts.append(ep)
+    mlp["experts"] = experts
+    shared = {name: lin for name in _MLP_EXPERT_NAMES
+              if (lin := _lin_from_sd(sd, base + "mlp.shared_experts." + name,
+                                      device)) is not None}
+    if shared:
+        mlp["shared_experts"] = shared
+    return mlp
+
+
 def _set_nested(tree: Dict, path: str, value) -> None:
     parts = path.split(".")
     for part in parts[:-1]:
@@ -114,6 +165,8 @@ def params_from_state_dict(cfg: ModelConfig, sd: Dict[str, torch.Tensor],
             lin = _lin_from_sd(sd, base + hf, device)
             if lin is not None:
                 _set_nested(lp, internal, lin)
+        if cfg.is_moe and _gate_key(cfg, i) + ".weight" in sd:
+            lp["mlp"] = _moe_from_sd(cfg, sd, i, base, device)
         params["layers"].append(lp)
     return params
 

@@ -9,12 +9,18 @@ parameter tree keeps the JAX package's names and [in, out] orientation:
                                       "o_proj"},
                         "post_attention_layernorm": {"weight"},
                         "mlp": {"gate_up_proj" | "gate_proj"/"up_proj",
-                                "down_proj"}}],
+                                "down_proj"}
+                                | {"gate": {"kernel": [H, E]},
+                                   "experts": [mlp dicts]
+                                   | "experts_stacked": {"gate_up_proj",
+                                                         "down_proj"}}}],
             "norm": {"weight"}, "lm_head": {"kernel": [H, V]} | None}
 
 A quantized LIN is ``{"qweight": int32 [K/8, N], "scales": f32 [G, N],
 "qzeros"?: int32 [ceil(G/8), N], "bias"?: [N]}`` in the port's layout
-(core/packing.py); a float LIN is ``{"kernel": [K, N], "bias"?}``.
+(core/packing.py); a float LIN is ``{"kernel": [K, N], "bias"?}``. A
+stacked expert LIN holds the same leaves with a leading expert axis
+(ops/moe_gemm.py).
 
 ``method`` is "auto" (the kernels on a CUDA tensor, their plain twins on a
 CPU tensor) or "plain" (the twins everywhere; JAX's ``method="jnp"``).
@@ -35,17 +41,29 @@ from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.ops import attention as attn_ops
 from autoawq_tpu_torch.ops import fused_attn_step as fas
 from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
+from autoawq_tpu_torch.ops import moe_gemm as moe_ops
+from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
 from autoawq_tpu_torch.ops.gemm import awq_matmul
 
 _ROADMAP_ZOO = "the rest of the decoder zoo, ROADMAP queue 1 item 10"
+_ROADMAP_MOE = "MoE beyond Mixtral's routing, ROADMAP queue 1 item 12"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config the port's slice cannot run
     exactly (it never computes something different without saying so)."""
+    moe = cfg.is_moe
     unsupported = [
         (cfg.is_mla, "MLA attention (ROADMAP queue 1 item 12)"),
-        (cfg.is_moe, "MoE blocks (ROADMAP queue 1 item 12)"),
+        (moe and cfg.scoring_func != "softmax",
+         f"sigmoid expert scoring ({_ROADMAP_MOE})"),
+        (moe and cfg.topk_method != "greedy",
+         f"{cfg.topk_method} expert routing ({_ROADMAP_MOE})"),
+        (moe and bool(cfg.n_shared_experts
+                      or cfg.shared_expert_intermediate_size),
+         f"shared experts ({_ROADMAP_MOE})"),
+        (moe and cfg.first_k_dense_replace > 0,
+         f"dense first layers in an MoE model ({_ROADMAP_MOE})"),
         (cfg.pos_embed != "rope", f"{cfg.pos_embed} positions ({_ROADMAP_ZOO})"),
         (cfg.rope_type not in ("default", "llama3"),
          f"rope type {cfg.rope_type!r} ({_ROADMAP_ZOO})"),
@@ -328,9 +346,30 @@ def _fused_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return mlp_ops.supported(m, x.shape[-1], inter, gu, dn, cfg.hidden_act)
 
 
+def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                    method: str, inter: int) -> bool:
+    """K8 eligibility (JAX ``_sharded_mlp_ok`` plus the model half of
+    ``sharded_mlp.supported``): quantized gate, up and down without LoRA,
+    no gate / up bias, no ``act_scale``, M <= 32, a K8 activation. The
+    TPU's tiling gates (``_lanes``/``PAIRS``, ``QW_SLAB_MAX``,
+    ``inter % 128``) are not the H100 kernel's (ROADMAP §3)."""
+    if method == "plain" or "act_scale" in p:
+        return False
+    gate, up, dn = p["gate_proj"], p["up_proj"], p.get("down_proj")
+    if dn is None:
+        return False
+    m = x.numel() // x.shape[-1]
+    return mlp3_ops.supported(m, x.shape[-1], inter, gate, up, dn,
+                              cfg.hidden_act)
+
+
 def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-        method: str = "auto") -> torch.Tensor:
-    inter = cfg.intermediate_size
+        method: str = "auto",
+        intermediate: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP; ``intermediate`` overrides the config's width (an
+    MoE expert's). Decode-size rows of a quantized model go through K3
+    (fused gate_up) or K8 (separate gate and up)."""
+    inter = intermediate or cfg.intermediate_size
     if "gate_up_proj" in p:
         if _fused_mlp_ok(cfg, p, x, method, inter):
             gu, dn = p["gate_up_proj"], p["down_proj"]
@@ -344,22 +383,80 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         gu = linear(p["gate_up_proj"], x, 2 * inter, method)
         g, u = gu[..., :inter], gu[..., inter:]
     else:
+        if _sharded_mlp_ok(cfg, p, x, method, inter):
+            gate, up, dn = p["gate_proj"], p["up_proj"], p["down_proj"]
+            y = mlp3_ops.fused_mlp3(
+                x, gate["qweight"], gate["scales"], up["qweight"],
+                up["scales"], dn["qweight"], dn["scales"], gate.get("qzeros"),
+                up.get("qzeros"), dn.get("qzeros"), inter=inter,
+                act=cfg.hidden_act)
+            if dn.get("bias") is not None:
+                y = y + dn["bias"].to(y.dtype)
+            return y
         g = linear(p["gate_proj"], x, inter, method)
         u = linear(p["up_proj"], x, inter, method)
     h = mlp_ops.act_fn(cfg.hidden_act, g) * u
     return linear(p["down_proj"], h, cfg.hidden_size, method)
 
 
+def moe_route(cfg: ModelConfig, p: Dict[str, Any], xt: torch.Tensor,
+              method: str = "auto", topi: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router of ``moe_block`` (JAX :1226-1259, the softmax / greedy
+    subset): f32 logits through the float ``gate`` kernel, softmax, top-k,
+    renormalised for Mixtral or ``norm_topk_prob``, times
+    ``routed_scaling_factor``. Returns (topw f32 [T, k], topi int64
+    [T, k]). A given ``topi`` replaces the top-k choice, and the weights
+    are read at those experts (replaying a recorded choice)."""
+    logits = linear(p["gate"], xt.float(), cfg.num_experts, method).float()
+    probs = torch.softmax(logits, dim=-1)
+    if topi is None:
+        topw, topi = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    else:
+        topw = torch.gather(probs, -1, topi)
+    if cfg.model_type == "mixtral" or cfg.norm_topk_prob:
+        topw = topw / topw.sum(-1, keepdim=True)
+    return topw * cfg.routed_scaling_factor, topi
+
+
+def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+              method: str = "auto") -> torch.Tensor:
+    """Sparse MoE block (Mixtral). Stacked experts (``fuse_model``) go
+    through the grouped kernel K6 (``moe_mlp``, JAX's single-chip lowering
+    of ``sharded_moe``); an ``experts`` list takes JAX's dense route, every
+    expert's ``mlp`` on every token weighted by the routing, which at
+    decode runs K8 once per expert."""
+    b, s, h = x.shape
+    xt = x.reshape(-1, h)
+    topw, topi = moe_route(cfg, p, xt, method)
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    if "experts_stacked" in p:
+        out = moe_ops.moe_mlp(p["experts_stacked"], xt, topw, topi,
+                              cfg.hidden_act, inter, method).float()
+    else:
+        weights = ((topi[..., None] == torch.arange(
+            cfg.num_experts, device=x.device)).float()
+            * topw[..., None]).sum(1)  # [T, E]
+        out = torch.zeros((xt.shape[0], h), dtype=torch.float32,
+                          device=x.device)
+        for e, ep in enumerate(p["experts"]):
+            ye = mlp(cfg, ep, xt[None], method, intermediate=inter)[0]
+            out = out + weights[:, e: e + 1] * ye.float()
+    return out.to(x.dtype).reshape(b, s, h)
+
+
 def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
           cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
           kv_cache: Optional[Dict[str, Any]] = None, method: str = "auto",
           causal_prefill: bool = False):
-    """One pre-norm decoder layer."""
+    """One pre-norm decoder layer; an MLP with experts is an MoE block."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin, mask,
                                    kv_cache, method, causal_prefill)
     x = x + attn_out
     h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
+    if "experts" in p["mlp"] or "experts_stacked" in p["mlp"]:
+        return x + moe_block(cfg, p["mlp"], h, method), kv_cache
     return x + mlp(cfg, p["mlp"], h, method), kv_cache
 
 

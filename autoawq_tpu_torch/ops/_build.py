@@ -30,7 +30,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "prefill_attention",
-           "fused_attn_step")
+           "fused_attn_step", "moe_gemm", "fused_mlp3")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,6 +53,8 @@ ARGTYPES = {
                           _L, _L, _L, _F, _P],
     # 25 pointers (inputs, outputs, scratch), 16 ints, scale, stream
     "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
+    "moe_gemm": [_P] * 8 + [_I] * 7 + [_P],
+    "fused_mlp3": [_P] * 13 + [_I] * 9 + [_P],
 }
 
 

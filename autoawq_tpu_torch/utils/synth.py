@@ -1,9 +1,12 @@
-"""Synthetic quantized llama models for benchmarks and smoke runs.
+"""Synthetic quantized llama and Mixtral models for benchmarks and smoke
+runs.
 
 Counterpart of ``autoawq_tpu/utils/synth.random_quantized_params``: the
 numpy draws are the JAX synthesiser's, call for call and shape for shape
 (planar-padded), so one seed names one model in both packages; each packed
 linear is then carried into the port's layout (``convert.lin_from_planar``).
+MoE layers get a float router ``gate`` and a list of unfused experts, as in
+JAX (its shared-expert branches belong to configs the port refuses).
 """
 
 from __future__ import annotations
@@ -80,7 +83,17 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
                                "v_proj": qlin(h, "v_proj"),
                                "o_proj": qlin(hq, "o_proj")}
         lp["post_attention_layernorm"] = norm_p()
-        if fused:
+        if cfg.is_moe:  # Mixtral: a float router and unfused experts
+            lp["mlp"] = {
+                "gate": {"kernel": fp(
+                    rng.standard_normal((h, cfg.num_experts)) * 0.02)},
+                "experts": [
+                    {"gate_proj": qlin(h, "experts.gate_proj"),
+                     "up_proj": qlin(h, "experts.up_proj"),
+                     "down_proj": qlin(cfg.moe_intermediate_size or inter,
+                                       "experts.down_proj")}
+                    for _ in range(cfg.num_experts)]}
+        elif fused:
             lp["mlp"] = {"gate_up_proj": qlin(h, "gate_up_proj"),
                          "down_proj": qlin(inter, "down_proj")}
         else:

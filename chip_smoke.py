@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 
 1. device   — card name and count, torch / CUDA versions, nvidia-smi's name
               and power limit.
-2. build    — compiles the five kernels from ``autoawq_tpu_torch/csrc`` (one
+2. build    — compiles the seven kernels from ``autoawq_tpu_torch/csrc`` (one
               nvcc per source, in parallel) and prints ptxas' register and
               shared-memory summary for each.
 3. kernels  — each kernel at the main path's shapes against its plain twin
@@ -27,7 +27,11 @@ Phases, each printing JSON lines:
               3 prefills of traffic B give host ms, device ms, the device's
               busy share and device time by kernel.
               Then the kernel path against the plain path on the card,
-              teacher-forced on the same tokens.
+              teacher-forced on the same tokens. Traffic G: the same
+              TinyLlama unfused (q/k/v and gate/up separate, the layout
+              the facade's default ``from_quantized`` keeps) through
+              ``AwqCausalLM.generate``, decode tok/s by A's method, and
+              its kernel path against the plain path as A's.
               Then Mistral-7B at full width (32 layers, seed-0 synthetic
               weights). Traffic C: bs8, eight 64-token prompts, 64 new
               tokens, bf16 cache of capacity 128. Traffic D: bs8, eight
@@ -36,10 +40,23 @@ Phases, each printing JSON lines:
               a 64- and a 16-token generation), prefill seconds, launches
               per decode step, a profile of 8 decode steps, and the
               teacher-forced check with the traffic's cache type.
+              Then Mixtral-8x7B at full width (32 layers, 8 experts, top-2,
+              seed-0 weights drawn on the card, experts stacked). Traffic
+              E: bs1, one 64-token prompt, bf16 cache of capacity 128.
+              Traffic F: bs8, eight 512-token prompts, bf16 cache of
+              capacity 576. Each as C, plus F's prefill profile, a
+              teacher-forced check that holds the routing flips against
+              the f32 run and the logits with the f32 run's expert choice
+              replayed, and the MoE block held per layer: on hidden states
+              the kernel path recorded (first and last layer, prefill and
+              first decode step), moe_align's tables on the card equal the
+              CPU's bit for bit, and moe_block on the card is held against
+              a dense f32 reference that uses no routing table.
 5. load     — writes a 2-layer TinyLlama-width AutoAWQ GEMM checkpoint,
-              loads it with ``AutoAWQForCausalLM.from_quantized`` and checks
-              its logits against the model built in memory from the same
-              nibbles.
+              loads it with ``AutoAWQForCausalLM.from_quantized``, unfused
+              (the default; decode through K8, two launches a step) and
+              fused, and checks each one's logits against the model built
+              in memory from the same nibbles.
 6. a ``kernels`` line: every ported kernel with launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -75,6 +92,13 @@ MISTRAL = dict(model_type="mistral", vocab_size=32000, hidden_size=4096,
                num_attention_heads=32, num_key_value_heads=8, head_dim=128,
                max_position_embeddings=32768, rope_theta=1e6,
                sliding_window=None)
+# Mixtral-8x7B-Instruct-v0.1's published config.json
+MIXTRAL = dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
+               intermediate_size=14336, num_hidden_layers=32,
+               num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+               num_experts=8, num_experts_per_tok=2, rope_theta=1e6,
+               rms_norm_eps=1e-5, max_position_embeddings=32768,
+               sliding_window=None)
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
 KERNEL_META = {
@@ -88,6 +112,10 @@ KERNEL_META = {
                           "autoawq_tpu/nn/modules.py:338"),
     "fused_attn_step": ("autoawq_tpu_torch/csrc/fused_attn_step.cu",
                         "autoawq_tpu/ops/fused_attn_step.py:54"),
+    "moe_gemm": ("autoawq_tpu_torch/csrc/moe_gemm.cu",
+                 "autoawq_tpu/ops/moe_gemm.py:88"),
+    "fused_mlp3": ("autoawq_tpu_torch/csrc/fused_mlp3.cu",
+                   "autoawq_tpu/ops/sharded_mlp.py:45"),
 }
 # tolerances, as max |kernel - twin| / max |twin| on the same inputs:
 # K1 dequantizes in f32 where the twin rounds weights to bf16 first, both
@@ -110,9 +138,17 @@ KERNEL_META = {
 # f32 rows equal to ~1e-6 to bf16, at most one ulp of the row maximum
 # apart (the H100 read at most 0.0031), and keep them in f32 for an int8
 # cache.
+# K6 is held per call over all its rows (the trailing dead blocks are zero
+# on both sides) at 1e-2: K1's arithmetic for blocks of 8 rows, K2's for
+# larger ones. K8 and moe_mlp at 2e-2, as K3: each holds two products and
+# an activation. Mixtral's MoE block on a layer's real hidden state
+# (moe_block: router, moe_align, two K6 calls, the combine) is held against
+# a dense f32 reference at 2e-2 of its maximum, moe_mlp's limit: bf16
+# rounds g, act(g)*u and the expert outputs, as the bf16 twin does.
 TOL = {"w4a16_gemv": 1e-2, "w4a16_gemm": 1e-2, "fused_mlp": 2e-2,
        "prefill_attention": 2 ** -6, "fused_attn_step": 2 ** -6,
-       "fused_attn_step_kv": 2 ** -7}
+       "fused_attn_step_kv": 2 ** -7, "moe_gemm": 1e-2, "moe_mlp": 2e-2,
+       "moe_block": 2e-2, "fused_mlp3": 2e-2}
 
 failures = []
 
@@ -129,14 +165,16 @@ def check(ok: bool, what: str) -> None:
 
 # ---------------------------------------------------------------- helpers
 
-def time_ms(fn, arg_sets, iters: int, reps: int = 3):
+def time_ms(fn, arg_sets, iters: int, reps: int = 3, graph: bool = True):
     """Device time of one call, in ms: ``iters`` calls cycling through
     ``arg_sets`` (copies of the weights that together exceed the L2 cache,
     so each call streams its weights from device memory, as decode does)
     are captured in a CUDA graph and replayed between CUDA events, so the
     host's per-call overhead does not hide the kernel. Also returns the
     eager time per call (a Python loop between the same events), which is
-    what an uncaptured caller pays."""
+    what an uncaptured caller pays. ``graph=False`` (a function that reads
+    the device on the host, as K6's twin does) returns the eager time
+    twice."""
     import torch
 
     for a in arg_sets[:2]:
@@ -150,6 +188,8 @@ def time_ms(fn, arg_sets, iters: int, reps: int = 3):
     end.record()
     torch.cuda.synchronize()
     eager = start.elapsed_time(end) / iters
+    if not graph:
+        return eager, eager
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(iters):
@@ -456,6 +496,175 @@ def _k5_case(rng, case, model, b, t, vl, dev, int8=False, window=None,
     return row
 
 
+def qlin_on_card(gen, k: int, n: int, gs: int = 128, zp: bool = True,
+                 experts=None):
+    """A random int4 LIN (stacked [E, ...] with ``experts``) in the port's
+    layout, drawn on the card by the torch.Generator ``gen``."""
+    import torch
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                             device=gen.device, generator=gen).to(
+                                 torch.int32)
+    lead = () if experts is None else (experts,)
+    g = k // gs
+    return {"qweight": words(*lead, k // 8, n),
+            "scales": (torch.rand(*lead, g, n, device=gen.device,
+                                  generator=gen) + 0.5) * 0.01,
+            "qzeros": words(*lead, -(-g // 8), n) if zp else None}
+
+
+def _moe_case(gen, case, w, t, dev, timing=True, iters=50):
+    """K6 against its twin: ``t`` tokens routed to 2 of the stack's experts
+    each (distinct, as top-k picks them), the tables from ``moe_align``.
+    With ``timing``: K6 (graph replay and eager), the twin (eager: it reads
+    the table on the host), bf16 ``torch.matmul`` per owned expert over its
+    pre-dequantized weight, summed, and the bound for the experts and rows
+    this routing needs."""
+    import torch
+
+    from autoawq_tpu_torch.ops import gemm
+    from autoawq_tpu_torch.ops import moe_gemm as mg
+
+    e, k8, n = w["qweight"].shape
+    kdim, k = 8 * k8, 2
+    topi = torch.rand(t, e, device=dev, generator=gen).topk(k, -1).indices
+    bm = mg.pick_block_m(t * k, e)
+    gather_idx, be, live, _ = mg.moe_align(topi, e, bm)
+    x = (torch.randn(t, kdim, device=dev, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    xs = torch.cat([x, x.new_zeros((1, kdim))])[
+        torch.clamp(gather_idx.long() // k, max=t)]
+    args = [xs, be, w["qweight"], w["scales"], w["qzeros"], live]
+
+    def run(xs, be, qw, sc, qz, live):
+        return mg.grouped_awq_matmul(xs, be, qw, sc, qz, block_m=bm,
+                                     live_blocks=live, max_live=t * k)
+
+    def plain(xs, be, qw, sc, qz, live):
+        return mg.grouped_awq_matmul_plain(xs, be, qw, sc, qz, block_m=bm,
+                                           live_blocks=live)
+
+    got, ref = run(*args), plain(*args)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    nlive = int(live)
+    dead_zero = not bool(got[nlive * bm:].any())
+    owned = sorted(set(topi.flatten().tolist()))
+    row = {"phase": "kernel", "kernel": "moe_gemm", "case": case,
+           "card": card(), "experts": e, "entries": t * k, "block_m": bm,
+           "blocks": be.numel(), "live_blocks": nlive,
+           "owned_experts": len(owned), "K": kdim, "N": n,
+           "gs": kdim // w["scales"].shape[1],
+           "zp": w["qzeros"] is not None, "max_abs_err": err,
+           "max_rel_err": rel, "dead_rows_zero": dead_zero,
+           "tol": TOL["moe_gemm"]}
+    check(rel <= TOL["moe_gemm"] and dead_zero,
+          f"moe_gemm {case}: rel err {rel:.3g}, dead rows zero {dead_zero}")
+    if timing:
+        read = len(owned) * sum(t_.numel() * t_.element_size() // e
+                                for t_ in w.values() if t_ is not None)
+        sets = copies(args, read)
+        row["ms"], row["eager_ms"] = time_ms(run, sets, iters)
+        row["plain_ms"], _ = time_ms(plain, sets[:1], 3, graph=False)
+        flat = []
+        for ex in owned:
+            flat += [x[(topi == ex).any(-1)], gemm.dequantize(
+                w["qweight"][ex], w["scales"][ex],
+                None if w["qzeros"] is None else w["qzeros"][ex],
+                dtype=torch.bfloat16)]
+
+        def per_expert_matmuls(*a):
+            return [torch.matmul(a[i], a[i + 1]) for i in range(0, len(a), 2)]
+        row["matmul_per_expert_ms"], _ = time_ms(
+            per_expert_matmuls,
+            copies(flat, sum(f.numel() * 2 for f in flat[1::2])), iters)
+        row["library_ms"] = None
+        row["library"] = ("none: no one call computes a grouped int4 GEMM; "
+                          "matmul_per_expert_ms is bf16 torch.matmul per "
+                          "owned expert over its pre-dequantized weight, "
+                          "summed")
+        row["bound_ms"], row["bound_by"] = bound(
+            read + 2 * t * k * (kdim + n), 2 * t * k * kdim * n)
+    emit(row)
+    return row
+
+
+def _moe_mlp_case(gen, gu, dn, t, dev):
+    """``moe_mlp`` (two K6 calls) against its plain twin, end to end."""
+    import torch
+
+    from autoawq_tpu_torch.ops import moe_gemm as mg
+
+    e, k8, n2 = gu["qweight"].shape
+    x = (torch.randn(t, 8 * k8, device=dev, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    topi = torch.rand(t, e, device=dev, generator=gen).topk(2, -1).indices
+    topw = torch.softmax(torch.rand(t, 2, device=dev, generator=gen), -1)
+    stacked = {"gate_up_proj": gu, "down_proj": dn}
+    got = mg.moe_mlp(stacked, x, topw, topi, "silu", n2 // 2)
+    ref = mg.moe_mlp(stacked, x, topw, topi, "silu", n2 // 2, method="plain")
+    err, rel = rel_err(got, ref)
+    check(rel <= TOL["moe_mlp"], f"moe_mlp T={t}: rel err {rel:.3g}")
+    emit({"phase": "kernel", "kernel": "moe_gemm", "case": f"moe_mlp T={t}",
+          "experts": e, "entries": 2 * t, "max_abs_err": err,
+          "max_rel_err": rel, "tol": TOL["moe_mlp"]})
+
+
+def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
+               zp=(True, True, True)):
+    """K8 against its twin; with ``timing``, the times of K8, the twin and
+    K3 on the same weights fused into one gate_up (no PyTorch call computes
+    the function), and the byte bound."""
+    import torch
+
+    from autoawq_tpu_torch.ops import fused_mlp as fm
+    from autoawq_tpu_torch.ops import sharded_mlp as sm
+
+    g = make_lin(rng, h, inter, 128, zp[0], dev)
+    u = make_lin(rng, h, inter, 128, zp[1], dev)
+    d = make_lin(rng, inter, h, 128, zp[2], dev)
+    x = (torch.randn(m, h, device=dev) * 0.5).to(torch.bfloat16)
+    args = [x] + [lin[key] for lin in (g, u, d)
+                  for key in ("qweight", "scales")] + [
+        g["qzeros"], u["qzeros"], d["qzeros"]]
+
+    def run(*a):
+        return sm.fused_mlp3(*a, inter=inter, act=act)
+
+    def plain(*a):
+        return sm.fused_mlp3_plain(*a, inter=inter, act=act)
+
+    got, ref = run(*args), plain(*args)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    row = {"phase": "kernel", "kernel": "fused_mlp3", "case": case,
+           "card": card(), "M": m, "H": h, "inter": inter, "act": act,
+           "zp": list(zp), "max_abs_err": err, "max_rel_err": rel,
+           "tol": TOL["fused_mlp3"]}
+    check(rel <= TOL["fused_mlp3"], f"fused_mlp3 {case}: rel err {rel:.3g}")
+    if timing:
+        wb = lin_bytes(g) + lin_bytes(u) + lin_bytes(d)
+        sets = copies(args, wb)
+        row["ms"], row["eager_ms"] = time_ms(run, sets, 200)
+        row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
+        if all(zp):
+            gu = {key: torch.cat([g[key], u[key]], dim=1)
+                  for key in ("qweight", "scales", "qzeros")}
+            k3 = [x, gu["qweight"], gu["scales"], d["qweight"], d["scales"],
+                  gu["qzeros"], d["qzeros"]]
+            row["k3_fused_ms"], _ = time_ms(
+                lambda *a: fm.fused_mlp(*a, inter=inter, act=act),
+                copies(k3, wb), 200)
+        row["library_ms"] = None
+        row["library"] = ("none: no PyTorch call computes the function; "
+                          "k3_fused_ms is K3 on the same weights fused")
+        row["bound_ms"], row["bound_by"] = bound(
+            wb + 2 * m * h * 2, 2 * m * 3 * h * inter)
+    emit(row)
+    return row
+
+
 def phase_kernels(dev):
     """Every kernel against its twin at the main path's shapes. Returns the
     representative row per kernel for the ``kernels`` line."""
@@ -501,6 +710,43 @@ def phase_kernels(dev):
              timing=False)
     _k5_case(rng, "qkv bias", MISTRAL, 8, 128, 100, dev, bias=True,
              timing=False)
+    # K8 at traffic G's shapes and a Mixtral expert's, then the edge cases
+    for m in (1, 8):
+        row = _mlp3_case(rng, f"TinyLlama M={m}", m, 2048, 5632, "silu", dev)
+        if m == 1:
+            rep["fused_mlp3"] = row
+    _mlp3_case(rng, "Mixtral expert M=1", 1, 4096, 14336, "silu", dev)
+    _mlp3_case(rng, "gelu tanh, symmetric", 3, 2048, 5632,
+               "gelu_pytorch_tanh", dev, timing=False, zp=(False,) * 3)
+    _mlp3_case(rng, "exact gelu, mixed zeros", 20, 2048, 5632, "gelu", dev,
+               timing=False, zp=(True, False, True))
+    # K6 at traffic E's and F's shapes over 8 Mixtral experts
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
+                    MIXTRAL["num_experts"])
+    gu = qlin_on_card(gen, h, 2 * inter, experts=ne)
+    dn = qlin_on_card(gen, inter, h, experts=ne)
+    rep["moe_gemm"] = _moe_case(gen, "E decode, gate_up", gu, 1, dev)
+    _moe_case(gen, "E decode, down", dn, 1, dev)
+    _moe_case(gen, "E prefill, gate_up (bm 8)", gu, 64, dev)
+    _moe_case(gen, "F decode, gate_up", gu, 8, dev)
+    _moe_case(gen, "F decode, down", dn, 8, dev)
+    _moe_case(gen, "F prefill, gate_up (bm 128)", gu, 4096, dev, iters=10)
+    _moe_case(gen, "F prefill, down (bm 128)", dn, 4096, dev, iters=10)
+    for t in (1, 8):
+        _moe_mlp_case(gen, gu, dn, t, dev)
+    del gu, dn
+    _moe_case(gen, "symmetric", qlin_on_card(gen, h, 2 * inter, zp=False,
+                                             experts=ne), 1, dev,
+              timing=False)
+    _moe_case(gen, "g64", qlin_on_card(gen, h, 2 * inter, gs=64,
+                                       experts=ne), 8, dev, timing=False)
+    small = qlin_on_card(gen, 1024, 640, experts=ne)
+    _moe_case(gen, "dead blocks", small, 3, dev, timing=False)
+    _moe_case(gen, "bm 32", small, 512, dev, timing=False)
+    _moe_case(gen, "bm 96, masked 128-row tile", small, 1536, dev,
+              timing=False)
     return rep
 
 
@@ -625,20 +871,9 @@ def phase_e2e(dev):
 
     # traffic A: bs1 ctx64 greedy decode (bench.py's shape)
     _build.reset_launches()
-    run_gen(prompt_a, 32)
-    run_gen(prompt_a, 512)
-    t_small, t_big = [], []
-    for _ in range(3):
-        before = dict(_build.LAUNCHES)
-        t_small.append(run_gen(prompt_a, 32)[0])
-        mid = dict(_build.LAUNCHES)
-        dt, out_a = run_gen(prompt_a, 512)
-        t_big.append(dt)
-        after = dict(_build.LAUNCHES)
-    per_token = {k: ((after[k] - mid[k]) - (mid[k] - before[k])) / 480
-                 for k in after}
+    tok_s, t_small, t_big, per_token, out_a = _quotient(
+        lambda n: run_gen(prompt_a, n), 32, 512, 3, warm=(32, 512))
     counts["A"] = dict(_build.LAUNCHES)
-    tok_s = (512 - 32) / max(min(t_big) - min(t_small), 1e-9)
     check(out_a.shape == (1, 64 + 512), "traffic A output shape")
     emit({"phase": "e2e", "traffic": "A", "batch": 1, "prompt": 64,
           "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
@@ -681,12 +916,84 @@ def phase_e2e(dev):
               "rows": rows})
     emit({"phase": "e2e", "model": "tinyllama", "peak_memory_bytes": peak})
     del params
+    counts["G"], per_token_g = _traffic_g(cfg, prompt_a, dev)
     counts_cd, per_step_cd = _mistral_traffics(dev)
+    counts_ef, per_step_ef = _mixtral_traffics(dev)
     counts.update(counts_cd)
+    counts.update(counts_ef)
     total = {k: sum(c[k] for c in counts.values()) for k in counts["A"]}
     for name, n in total.items():
         check(n > 0, f"kernel {name} never launched on the main path")
-    return total, {"A": per_token, **per_step_cd}
+    return total, {"A": per_token, "G": per_token_g, **per_step_cd,
+                   **per_step_ef}
+
+
+def _quotient(run, small: int, big: int, reps: int, warm=()):
+    """Decode steps per second by the difference quotient of a ``small``-
+    and a ``big``-token generation, min of ``reps`` runs each (``run(n)``
+    returns (seconds, output)), and the launches per decode step from the
+    same runs: the quotient cancels prefill and fixed costs. Returns
+    (steps/s, small times, big times, launches per step, last output)."""
+    from autoawq_tpu_torch.ops import _build
+
+    for n in warm:
+        run(n)
+    t_small, t_big = [], []
+    for _ in range(reps):
+        before = dict(_build.LAUNCHES)
+        t_small.append(run(small)[0])
+        mid = dict(_build.LAUNCHES)
+        dt, out = run(big)
+        t_big.append(dt)
+        after = dict(_build.LAUNCHES)
+    per_step = {k: ((after[k] - mid[k]) - (mid[k] - before[k])) / (big - small)
+                for k in after}
+    rate = (big - small) / max(min(t_big) - min(t_small), 1e-9)
+    return rate, t_small, t_big, per_step, out
+
+
+def _traffic_g(cfg, prompt, dev):
+    """Traffic G: TinyLlama unfused (seed 0, the JAX synthesiser's draw) as
+    the facade's default ``from_quantized`` leaves a checkpoint, driven
+    through ``AwqCausalLM.generate``: K1 for q, k, v and o, K8 for the MLP.
+    Decode tok/s by A's method (512- and 32-token quotient, min of 3)."""
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    model = AwqCausalLM(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev), device=dev)
+    assert "gate_proj" in model.params["layers"][0]["mlp"]
+
+    def run(n):
+        t = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=n).cpu()
+        return time.perf_counter() - t, out
+
+    _build.reset_launches()
+    tok_s, t_small, t_big, per_token, out = _quotient(run, 32, 512, 3,
+                                                      warm=(32, 512))
+    counts = dict(_build.LAUNCHES)
+    layers = cfg.num_hidden_layers
+    check(out.shape == (1, prompt.shape[1] + 512), "traffic G output shape")
+    check(per_token["fused_mlp3"] == layers and per_token["fused_mlp"] == 0,
+          f"traffic G: {per_token['fused_mlp3']} fused_mlp3 launches per "
+          f"decode step, expected {layers}")
+    emit({"phase": "e2e", "traffic": "G", "card": card(), "batch": 1,
+          "prompt": prompt.shape[1], "layout": "unfused",
+          "method": "A's: 512- and 32-token quotient, min of 3",
+          "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
+          "launches": counts, "launches_per_decode_token": per_token})
+    emit({"phase": "e2e", "step": "profile", "traffic": "G", "card": card(),
+          "what": "decode_step", **profile_decode(cfg, model.params, prompt,
+                                                  16)})
+    rows = _teacher_forced(cfg, model.params, prompt, 8)
+    _check_teacher_forced("G", rows)
+    emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": "G",
+          "layout": "unfused", "rows": rows})
+    return counts, per_token
 
 
 def _check_teacher_forced(name, rows):
@@ -698,10 +1005,12 @@ def _check_teacher_forced(name, rows):
         check(math.isfinite(r["kernel_vs_f32"]), "non-finite logits")
 
 
-def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps):
-    """Traffic C or D: decode tok/s as B times the difference quotient of a
-    64- and a 16-token greedy generation (min of ``reps`` each), prefill
-    seconds, launches per decode step (one token for each sequence), and a
+def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps,
+                     expect):
+    """Traffic C, D, E or F: decode tok/s as B times the difference
+    quotient of a 64- and a 16-token greedy generation (min of ``reps``
+    each), prefill seconds, launches per decode step (one token for each
+    sequence), held exactly against ``expect`` (kernel -> launches), and a
     profile of 8 decode steps. Returns the launch counts of its run."""
     import torch
 
@@ -717,17 +1026,8 @@ def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps):
         return time.perf_counter() - t, out
 
     _build.reset_launches()
-    run_gen(16)  # warm-up
-    t16, t64 = [], []
-    for _ in range(reps):
-        before = dict(_build.LAUNCHES)
-        t16.append(run_gen(16)[0])
-        mid = dict(_build.LAUNCHES)
-        dt, out = run_gen(64)
-        t64.append(dt)
-        after = dict(_build.LAUNCHES)
-    per_step = {k: ((after[k] - mid[k]) - (mid[k] - before[k])) / 48
-                for k in after}
+    steps_s, t16, t64, per_step, out = _quotient(run_gen, 16, 64, reps,
+                                                 warm=(16,))
     caches = gen.init_kv_cache(cfg, b, cap, torch.bfloat16, prompt.device,
                                kv_quant=kv_quant)
     t_pre = []
@@ -742,15 +1042,13 @@ def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps):
     check(out.shape == (b, s + 64) and bool((out[:, s:] >= 0).all())
           and bool((out[:, s:] < cfg.vocab_size).all()),
           f"traffic {name} output")
-    check(counts["fused_attn_step"] > 0,
-          f"traffic {name}: fused_attn_step never launched")
-    check(per_step["fused_attn_step"] == cfg.num_hidden_layers,
-          f"traffic {name}: {per_step['fused_attn_step']} fused_attn_step "
-          f"launches per decode step, expected {cfg.num_hidden_layers}")
+    for kernel, n in expect.items():
+        check(per_step[kernel] == n,
+              f"traffic {name}: {per_step[kernel]} {kernel} launches per "
+              f"decode step, expected {n}")
     emit({"phase": "e2e", "traffic": name, "card": card(), "batch": b,
           "prompt": s, "cache": "int8" if kv_quant else "bf16",
-          "capacity": cap,
-          "decode_tok_s": b * 48 / max(min(t64) - min(t16), 1e-9),
+          "capacity": cap, "decode_tok_s": b * steps_s,
           "t_16_s": t16, "t_64_s": t64, "prefill_s": min(t_pre),
           "prefill_runs_s": t_pre, "prefill_tok_s": b * s / min(t_pre),
           "launches": counts, "launches_per_decode_step": per_step})
@@ -788,7 +1086,8 @@ def _mistral_traffics(dev):
                                                (8, s))).to(dev)
         t0 = time.perf_counter()
         counts[name], per_step[name] = _batched_traffic(
-            cfg, params, name, prompt, cap, kv_quant, reps)
+            cfg, params, name, prompt, cap, kv_quant, reps,
+            {"fused_attn_step": cfg.num_hidden_layers})
         rows = _teacher_forced(cfg, params, prompt, tf_steps, kv_quant)
         _check_teacher_forced(name, rows)
         emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
@@ -798,6 +1097,269 @@ def _mistral_traffics(dev):
     emit({"phase": "e2e", "model": "mistral-7b",
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     return counts, per_step
+
+
+def synth_moe_on_card(cfg, seed, dev):
+    """Seeded random W4 g128 Mixtral weights with zero points, drawn on the
+    card by a torch.Generator directly in the port's layout: fused qkv, a
+    bf16 router (std 0.02, as the JAX synthesiser's), experts stacked. Not
+    the JAX synthesiser's draw, whose numpy on the host would take minutes
+    at 47 B parameters."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+    h, v, ne = cfg.hidden_size, cfg.vocab_size, cfg.num_experts
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    nq = cfg.num_attention_heads * cfg.head_dim_
+    nqkv = nq + 2 * cfg.num_key_value_heads * cfg.head_dim_
+
+    def normal(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(bf)
+
+    def norm():
+        return {"weight": torch.ones(h, dtype=bf, device=dev)}
+
+    params = {"embed_tokens": {"weight": normal(v, h)}, "norm": norm(),
+              "lm_head": {"kernel": normal(h, v)}, "layers": []}
+    for _ in range(cfg.num_hidden_layers):
+        params["layers"].append({
+            "input_layernorm": norm(),
+            "self_attn": {"qkv_proj": qlin_on_card(gen, h, nqkv),
+                          "o_proj": qlin_on_card(gen, nq, h)},
+            "post_attention_layernorm": norm(),
+            "mlp": {"gate": {"kernel": normal(h, ne)},
+                    "experts_stacked": {
+                        "gate_up_proj": qlin_on_card(gen, h, 2 * inter,
+                                                     experts=ne),
+                        "down_proj": qlin_on_card(gen, inter, h,
+                                                  experts=ne)}}})
+    return params
+
+
+def _mixtral_traffics(dev):
+    """Mixtral-8x7B at full width: traffics E (bs1) and F (bs8), each with
+    K6's launches per decode step held at two per layer, then the
+    teacher-forced check with routing record and replay."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg = ModelConfig(**MIXTRAL)
+    layers = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = synth_moe_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    nbytes = torch.cuda.memory_allocated()
+    emit({"phase": "e2e", "model": "mixtral-8x7b", "step": "synth",
+          "layers": layers, "seconds": time.perf_counter() - t0,
+          "allocated_bytes_after_synth": nbytes})
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(4)
+    counts, per_step = {}, {}
+    for name, b, s, cap, tf_steps in (("E", 1, 64, 128, 4),
+                                      ("F", 8, 512, 576, 2)):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (b, s))).to(dev)
+        t0 = time.perf_counter()
+        counts[name], per_step[name] = _batched_traffic(
+            cfg, params, name, prompt, cap, False, 3,
+            {"moe_gemm": 2 * layers,
+             "fused_attn_step": layers if b >= 8 else 0})
+        if name == "F":
+            caches = gen.init_kv_cache(cfg, b, cap, torch.bfloat16, dev)
+            emit({"phase": "e2e", "step": "profile", "traffic": name,
+                  "card": card(), "what": "prefill", **device_profile(
+                      lambda i: gen.prefill(cfg, params, prompt, caches), 2)})
+            del caches
+        rows, routing, taps = _teacher_forced_moe(cfg, params, prompt,
+                                                  tf_steps)
+        _check_teacher_forced(name, rows)
+        share_k = routing["kernel_flip_share"]
+        share_p = routing["plain_bf16_flip_share"]
+        check(share_k <= 2 * share_p + 0.01,
+              f"traffic {name}: kernel path flips {share_k:.4f} of the "
+              f"(token, layer) expert sets of the f32 run, the bf16 twin "
+              f"{share_p:.4f}")
+        emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
+              "layers": layers, "cache": "bf16", "routing": routing,
+              "rows": rows, "seconds": time.perf_counter() - t0})
+        emit({"phase": "e2e", "step": "moe_block_per_layer", "traffic": name,
+              "card": card(), "limit": TOL["moe_block"],
+              "rows": _moe_layer_check(cfg, params, name, taps)})
+        del taps
+    emit({"phase": "e2e", "model": "mixtral-8x7b", "card": card(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    return counts, per_step
+
+
+def _teacher_forced_moe(cfg, params, prompt, steps):
+    """Mixtral's teacher-forced check. Routing near-ties flip between runs
+    that differ only by rounding, and one flipped expert moves a token's
+    output far more than rounding does, so this holds two things, with
+    ``modules.moe_route`` wrapped to record each call's expert choice:
+    (a) the share of (token, layer) top-k sets that differ from the f32
+    plain run's, for the kernel path and the bf16 plain run, all three on
+    the kernel path's greedy tokens; (b) ``_check_teacher_forced``'s logit
+    criterion with both bf16 runs replaying the f32 run's choice. Returns
+    (per-position rows, routing summary, taps): the taps are the kernel
+    path's MoE inputs (layer, [T, H]) at the first and last layer of the
+    prefill and of the first decode step, for ``_moe_layer_check``."""
+    import torch
+
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s = prompt.shape
+    route = modules.moe_route
+    layers = cfg.num_hidden_layers
+    tape = {"record": None, "replay": None, "i": 0, "taps": None}
+    tap_calls = (0, layers - 1, layers, 2 * layers - 1)
+
+    def taped(cfg_, p, xt, method="auto", topi=None):
+        if tape["taps"] is not None and tape["i"] in tap_calls:
+            tape["taps"].append((tape["i"] % layers, xt.clone()))
+        if tape["replay"] is not None:
+            topi = tape["replay"][tape["i"]]
+        topw, topi = route(cfg_, p, xt, method, topi)
+        if tape["record"] is not None:
+            tape["record"].append(topi)
+        tape["i"] += 1
+        return topw, topi
+
+    def run(method, dtype, tokens, record=None, replay=None, taps=None):
+        """prefill, then ``steps`` decode steps on ``tokens`` (extended
+        with its own greedy tokens when it comes empty)."""
+        tape.update(record=record, replay=replay, i=0, taps=taps)
+        cache = gen.init_kv_cache(cfg, b, s + steps, dtype, prompt.device)
+        logits = [gen.prefill(cfg, params, prompt, cache, method, dtype)[0]]
+        greedy = not tokens
+        for step in range(steps):
+            if greedy:
+                tokens.append(logits[-1].argmax(-1)[:, None])
+            logits.append(gen.decode_step(cfg, params, tokens[step], cache,
+                                          s + step, method, dtype)[0])
+        return logits
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rec = {"kernel": [], "plain": [], "plain_f32": []}
+    tokens, taps = [], []
+    modules.moe_route = taped
+    try:
+        free_k = run("auto", bf, tokens, record=rec["kernel"], taps=taps)
+        run("plain", bf, tokens, record=rec["plain"])
+        ref = run("plain", f32, tokens, record=rec["plain_f32"])
+        kern = run("auto", bf, tokens, replay=rec["plain_f32"])
+        plain = run("plain", bf, tokens, replay=rec["plain_f32"])
+    finally:
+        modules.moe_route = route
+
+    def flip_share(runs):
+        diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                   for x, y in zip(runs, rec["plain_f32"]))
+        return diff / sum(x.shape[0] for x in runs)
+
+    routing = {"route_calls": len(rec["plain_f32"]),
+               "token_layer_sets": sum(x.shape[0] for x in rec["plain_f32"]),
+               "kernel_flip_share": flip_share(rec["kernel"]),
+               "plain_bf16_flip_share": flip_share(rec["plain"])}
+    rows = []
+    for i in range(steps + 1):
+        agree = (kern[i].argmax(-1) == ref[i].argmax(-1)).float().mean()
+        rows.append({"position": s + i - 1,
+                     "kernel_vs_f32": rel_err(kern[i], ref[i])[1],
+                     "plain_bf16_vs_f32": rel_err(plain[i], ref[i])[1],
+                     "kernel_vs_plain": rel_err(kern[i], plain[i])[1],
+                     "free_routing_kernel_vs_f32": rel_err(free_k[i],
+                                                           ref[i])[1],
+                     "argmax_agree_f32": agree.item()})
+    return rows, routing, taps
+
+
+def _moe_layer_check(cfg, params, name, taps):
+    """Mixtral's MoE block held per layer on the hidden states the kernel
+    path fed it (``taps``: (layer, xt [T, H])). For each: ``moe_align``'s
+    tables on the card equal the CPU's bit for bit (the CPU's are held
+    against JAX's by the tests); ``moe_block`` on the card (router,
+    ``moe_align``, two K6 launches, the inverse-permutation combine) is
+    within ``TOL["moe_block"]`` of a dense f32 reference with the same
+    expert choice that shares no routing table, gather or combine with the
+    routed path: each chosen expert's MLP in f32 from dequantized weights on
+    the tokens that chose it, weighted and summed per token. The bf16
+    twin's distance from the same reference is printed beside it."""
+    import torch
+
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.ops import moe_gemm as mg
+    from autoawq_tpu_torch.ops.fused_mlp import act_fn
+    from autoawq_tpu_torch.ops.gemm import dequantize
+
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    ne = cfg.num_experts
+    route = modules.moe_route
+    rows = []
+
+    def expert(lin, e):  # expert e's weight, dequantized to f32 [K, N]
+        qz = lin.get("qzeros")
+        return dequantize(lin["qweight"][e], lin["scales"][e],
+                          None if qz is None else qz[e])
+
+    for layer, xt in taps:
+        p = params["layers"][layer]["mlp"]
+        st = p["experts_stacked"]
+        seen = []
+
+        def recorded(*a, **kw):
+            seen.append(route(*a, **kw))
+            return seen[-1]
+
+        before = _build.LAUNCHES["moe_gemm"]
+        modules.moe_route = recorded
+        try:
+            got = modules.moe_block(cfg, p, xt[None]).reshape(xt.shape)
+        finally:
+            modules.moe_route = route
+        launches = _build.LAUNCHES["moe_gemm"] - before
+        (topw, topi), = seen
+        bm = mg.pick_block_m(topi.numel(), ne)
+        tables = ("gather_idx", "block_expert", "live_blocks", "entry_rows")
+        on_card = mg.moe_align(topi, ne, bm)
+        on_cpu = mg.moe_align(topi.cpu(), ne, bm)
+        align_equal = {t: torch.equal(a.cpu(), b)
+                       for t, a, b in zip(tables, on_card, on_cpu)}
+        twin = mg.moe_mlp(st, xt, topw, topi, cfg.hidden_act, inter,
+                          method="plain")
+        x32 = xt.float()
+        ref = torch.zeros_like(x32)
+        for e in range(ne):
+            hit = topi == e
+            tok = hit.any(-1).nonzero()[:, 0]
+            if tok.numel() == 0:
+                continue
+            g2 = x32[tok] @ expert(st["gate_up_proj"], e)
+            hmid = act_fn(cfg.hidden_act, g2[:, :inter]) * g2[:, inter:]
+            y = hmid @ expert(st["down_proj"], e)
+            ref[tok] += (topw * hit).sum(-1)[tok, None] * y
+        err = rel_err(got, ref)[1]
+        twin_err = rel_err(twin, ref)[1]
+        where = f"traffic {name} layer {layer} ({xt.shape[0]} tokens)"
+        check(launches == 2, f"{where}: {launches} moe_gemm launches in "
+              "moe_block, expected 2")
+        check(all(align_equal.values()), f"{where}: moe_align on the card "
+              f"differs from the CPU's: {align_equal}")
+        check(err <= TOL["moe_block"], f"{where}: moe_block {err:.4g} of "
+              f"the dense f32 reference's maximum, limit {TOL['moe_block']}")
+        rows.append({"layer": layer, "tokens": xt.shape[0], "block_m": bm,
+                     "live_blocks": int(on_card[2]),
+                     "align_equal_cpu": all(align_equal.values()),
+                     "kernel_vs_f32": err, "plain_bf16_vs_f32": twin_err,
+                     "moe_gemm_launches": launches})
+    return rows
 
 
 def phase_load(dev):
@@ -812,6 +1374,7 @@ def phase_load(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn import modules
     from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.ops._build import BUILD_DIR
 
     cfg = dataclasses.replace(ModelConfig(**TINYLLAMA), num_hidden_layers=2)
@@ -855,7 +1418,6 @@ def phase_load(dev):
                 "scales": torch.from_numpy(sc.astype(np.float32)).to(dev),
                 "qzeros": pack_port(z4).to(dev)}
         mem["layers"].append(lp)
-    mem = fuse_model(cfg, mem)
     path = os.path.join(BUILD_DIR, "smoke_ckpt")
     os.makedirs(path, exist_ok=True)
     try:
@@ -866,24 +1428,45 @@ def phase_load(dev):
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(hf, f)
         save_file(sd, os.path.join(path, "model.safetensors"))
-        t = time.perf_counter()
-        model = AutoAWQForCausalLM.from_quantized(path, fuse_layers=True)
-        t_load = time.perf_counter() - t
+        models, t_load = {}, {}
+        for fused in (False, True):  # the facade's default first
+            t = time.perf_counter()
+            models[fused] = AutoAWQForCausalLM.from_quantized(
+                path, fuse_layers=fused)
+            t_load[fused] = time.perf_counter() - t
     finally:
         shutil.rmtree(path, ignore_errors=True)
     prompt = torch.from_numpy(rng.integers(0, v, (1, 16))).to(dev)
-    out = model.generate(prompt, max_new_tokens=8)
-    with torch.inference_mode():
-        got = model(prompt, dtype=bf)
-        ref = modules.forward(cfg, mem, prompt, dtype=bf)
-    err = (got - ref).abs().max().item()
-    # same nibbles, same kernels, deterministic reductions: exact
-    check(err == 0.0, f"load: logits differ from the in-memory model by {err}")
-    check(out.shape == (1, 24), "load: generate output shape")
-    check(bool(torch.isfinite(got).all()), "load: non-finite logits")
-    emit({"phase": "load", "layers": cfg.num_hidden_layers,
-          "load_s": t_load, "max_abs_err": err,
-          "new_tokens": out[0, 16:].tolist()})
+    for fused in (False, True):
+        model = models[fused]
+        if fused:
+            mem = fuse_model(cfg, mem)
+        launches = []
+        for n in (4, 8):
+            _build.reset_launches()
+            out = model.generate(prompt, max_new_tokens=n)
+            launches.append(dict(_build.LAUNCHES))
+        per_step = {k: (launches[1][k] - launches[0][k]) / 4
+                    for k in launches[0]}
+        with torch.inference_mode():
+            got = model(prompt, dtype=bf)
+            ref = modules.forward(cfg, mem, prompt, dtype=bf)
+        err = (got - ref).abs().max().item()
+        layout = "fused" if fused else "unfused"
+        # same nibbles, same kernels, deterministic reductions: exact
+        check(err == 0.0, f"load ({layout}): logits differ from the "
+              f"in-memory model by {err}")
+        check(out.shape == (1, 24), f"load ({layout}): generate output shape")
+        check(bool(torch.isfinite(got).all()),
+              f"load ({layout}): non-finite logits")
+        mlp_kernel = "fused_mlp" if fused else "fused_mlp3"
+        check(per_step[mlp_kernel] == cfg.num_hidden_layers,
+              f"load ({layout}): {per_step[mlp_kernel]} {mlp_kernel} "
+              f"launches per decode step, expected {cfg.num_hidden_layers}")
+        emit({"phase": "load", "layout": layout,
+              "layers": cfg.num_hidden_layers, "load_s": t_load[fused],
+              "max_abs_err": err, "launches_per_decode_step": per_step,
+              "new_tokens": out[0, 16:].tolist()})
 
 
 def main(argv=None) -> int:
@@ -942,7 +1525,8 @@ def main(argv=None) -> int:
                 "launches_per_decode_step": {
                     t: per[name] for t, per in per_token.items()},
                 "shape": {k: r[k] for k in ("M", "K", "N", "B", "S", "H",
-                                            "inter", "T", "vl", "cache")
+                                            "inter", "T", "vl", "cache",
+                                            "experts", "entries", "block_m")
                           if k in r},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "eager_ms": r["eager_ms"],

@@ -22,7 +22,7 @@ def test_port_imports_nothing_forbidden():
         "from autoawq_tpu_torch.io import hf, safetensors, serialize\n"
         "from autoawq_tpu_torch.nn import fuse, modules\n"
         "from autoawq_tpu_torch.ops import (_build, attention, "
-        "fused_attn_step, fused_mlp, gemm)\n"
+        "fused_attn_step, fused_mlp, gemm, moe_gemm, sharded_mlp)\n"
         "from autoawq_tpu_torch.serve import generate\n"
         "from autoawq_tpu_torch.utils import synth\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

@@ -170,7 +170,7 @@ def test_sampled_generation_is_seeded(rng):
 
 
 @pytest.mark.parametrize("change", [
-    {"num_experts": 4, "num_experts_per_tok": 2},
+    {"num_experts": 4, "num_experts_per_tok": 2, "scoring_func": "sigmoid"},
     {"pos_embed": "alibi"}, {"rope_scaling": (("factor", 2.0),
                                               ("rope_type", "yarn"))},
     {"kv_lora_rank": 16}, {"norm_kind": "ln"}, {"qk_norm": True},
