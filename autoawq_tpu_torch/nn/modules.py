@@ -24,6 +24,8 @@ stacked expert LIN holds the same leaves with a leading expert axis
 
 ``method`` is "auto" (the kernels on a CUDA tensor, their plain twins on a
 CPU tensor) or "plain" (the twins everywhere; JAX's ``method="jnp"``).
+``paged_attn`` picks the paged decode attention route (:func:`_paged_decode`)
+and is threaded from the paged engine; JAX reads ``AWQ_TPU_PAGED_ATTN``.
 Features outside the slice raise ``NotImplementedError`` naming their
 ROADMAP item (:func:`check_supported`).
 """
@@ -42,6 +44,7 @@ from autoawq_tpu_torch.ops import attention as attn_ops
 from autoawq_tpu_torch.ops import fused_attn_step as fas
 from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
 from autoawq_tpu_torch.ops import moe_gemm as moe_ops
+from autoawq_tpu_torch.ops import paged_attn as paged_ops
 from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
 from autoawq_tpu_torch.ops.gemm import awq_matmul
 
@@ -227,15 +230,119 @@ def _attend_grouped(q, kc, vc, mask, scale, dtype, ks=None, vs=None):
     return out.to(dtype).reshape(b, 1, nh * hd)
 
 
+def _cache_write(c: torch.Tensor, u: torch.Tensor, pos) -> None:
+    """Write u [B, H, S, ...] into the cache c [B, H, T, ...] at rows
+    pos..pos+S-1, in place: ``pos`` an int (the whole batch) or a [B]
+    tensor of per-slot offsets (the slot pool), written through index
+    tensors so no position is read on the host."""
+    if isinstance(pos, int):
+        c[:, :, pos: pos + u.shape[2]] = u
+        return
+    rows = torch.arange(c.shape[0], device=c.device)[:, None]
+    cols = pos.long()[:, None] + torch.arange(u.shape[2], device=c.device)
+    c[rows, :, cols] = u.transpose(1, 2).to(c.dtype)
+
+
+def _paged_write(pages: torch.Tensor, new: torch.Tensor, table: torch.Tensor,
+                 pos: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Scatter one decode token's K or V (or their int8 scales) into the
+    page pool, in place (JAX ``_paged_write`` returns a new pool). pages
+    [nkv, P, ps, hd] (or scales [nkv, P, ps]); new [B, nkv, hd] (or
+    [B, nkv]); table [B, PPS]; pos [B]. Slot b writes page
+    table[b, pos // ps] at line pos % ps. Inactive slots all point at the
+    trash page 0 at line 0, so their writes collide there: which one lands
+    is undefined, and that line is never read."""
+    pg = table.gather(1, (pos.long() // page_size)[:, None])[:, 0].long()
+    pages[:, pg, pos.long() % page_size] = new.transpose(0, 1).to(pages.dtype)
+    return pages
+
+
+def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, kv_cache: Dict[str, Any], scale: float,
+                  method: str, paged_attn: str):
+    """Decode attention over a paged KV cache (JAX ``_paged_decode``):
+    kv_cache {"k_pages"/"v_pages": [nkv, P, ps, hd], "page_table":
+    [B, PPS] int, "pos": [B] int} plus "k_page_s"/"v_page_s" [nkv, P, ps]
+    f32 for an int8 pool; s == 1. Writes this token's K/V, then attends
+    through the route ``paged_attn``: "bespoke" (K7, the default), "stock"
+    (K9: bf16 pools without a window; raises ValueError on any other pool,
+    where JAX falls to the gather) or "gather" (the JAX default's
+    formulation: the table's pages gathered into a slab, grouped GQA).
+    ``method="plain"`` takes the gather, as JAX's "jnp" does. On a CPU
+    tensor K7 and K9 run their twins. ALiBi pools are refused upstream
+    (``check_supported``)."""
+    b, _, nh, hd = q.shape
+    nkv = k.shape[2]
+    ps = kv_cache["k_pages"].shape[2]
+    table, pos = kv_cache["page_table"], kv_cache["pos"]
+    quant = "k_page_s" in kv_cache
+    kt, vt = k[:, 0], v[:, 0]  # [B, nkv, hd]
+    kss = vss = None
+    if quant:
+        kt, ks_new = _kv_quantize(kt)
+        vt, vs_new = _kv_quantize(vt)
+        kss = _paged_write(kv_cache["k_page_s"], ks_new, table, pos, ps)
+        vss = _paged_write(kv_cache["v_page_s"], vs_new, table, pos, ps)
+    kp = _paged_write(kv_cache["k_pages"], kt, table, pos, ps)
+    vp = _paged_write(kv_cache["v_pages"], vt, table, pos, ps)
+    lengths = pos + 1
+    new_cache = {**kv_cache, "pos": pos + 1}
+    softcap = cfg.attn_softcap or None
+    window = cfg.sliding_window or None  # 0 means no window
+    if method != "plain" and paged_attn == "bespoke":
+        out = paged_ops.paged_decode_attention(
+            q[:, 0], kp, vp, table, lengths, scale=scale, k_scales=kss,
+            v_scales=vss, softcap=softcap, window=window)
+        return out.reshape(b, 1, nh * hd), new_cache
+    if method != "plain" and paged_attn == "stock":
+        if quant or window or kp.dtype != torch.bfloat16:
+            raise ValueError(
+                "paged_attn='stock' (K9) takes bf16 pools without a sliding "
+                f"window; this pool is {kp.dtype}"
+                + (f" with window {window}" if window else ""))
+        out = paged_ops.stock_paged_attention(
+            (q[:, 0] * scale).to(kp.dtype), kp, vp, lengths, table,
+            pages_per_compute_block=min(8, table.shape[1]), softcap=softcap)
+        return out.reshape(b, 1, nh * hd), new_cache
+    if paged_attn not in ("bespoke", "stock", "gather"):
+        raise ValueError(f"unknown paged_attn {paged_attn!r} "
+                         "(bespoke | stock | gather)")
+    kb = paged_ops.gather_slab(kp, table)  # [B, nkv, T, hd]
+    vb = paged_ops.gather_slab(vp, table)
+    qg = q[:, 0].reshape(b, nkv, nh // nkv, hd)
+    scores = torch.einsum("bgrd,bgtd->bgrt", qg.float(),
+                          kb.to(q.dtype).float()) * scale
+    if quant:  # fold int8 K scales; dequantized pages never materialize
+        scores = scores * paged_ops.gather_slab(kss, table)[:, :, None, :]
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    idx = torch.arange(kb.shape[2], device=q.device)[None, :]
+    valid = idx < lengths[:, None]  # [B, T]
+    if window:
+        valid = valid & (idx >= (lengths - window)[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = probs * paged_ops.gather_slab(vss, table)[:, :, None, :]
+    probs = probs.to(q.dtype)
+    out = torch.einsum("bgrt,bgtd->bgrd", probs.float(),
+                       vb.to(q.dtype).float()).to(q.dtype)
+    return out.reshape(b, 1, nh * hd), new_cache
+
+
 def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               cos: torch.Tensor, sin: torch.Tensor,
               mask: Optional[torch.Tensor],
               kv_cache: Optional[Dict[str, Any]] = None,
-              method: str = "auto", causal_prefill: bool = False):
+              method: str = "auto", causal_prefill: bool = False,
+              paged_attn: str = "bespoke"):
     """Self-attention over a contiguous KV cache [B, nkv, T, hd] (or none),
-    bf16 or int8 (``k_s``/``v_s`` [B, nkv, T] f32 scales beside it).
-    Returns (y [B, S, H], kv_cache with ``pos`` advanced). The cache is
-    written in place (JAX writes a new buffer with dynamic_update_slice)."""
+    bf16 or int8 (``k_s``/``v_s`` [B, nkv, T] f32 scales beside it), or a
+    paged pool (``k_pages`` in the cache: :func:`_paged_decode`). ``pos``
+    is an int, or a [B] tensor of per-slot offsets (the slot pool; K5 takes
+    only an int, as JAX's takes only a scalar). Returns (y [B, S, H],
+    kv_cache with ``pos`` advanced). Caches are written in place (JAX writes
+    new buffers)."""
     b, s, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim_)
@@ -255,16 +362,23 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     k = apply_rope(k, cos, sin)
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
 
+    if kv_cache is not None and "k_pages" in kv_cache:
+        out, kv_cache = _paged_decode(cfg, q, k, v, kv_cache, scale, method,
+                                      paged_attn)
+        return (linear(p["o_proj"], out.to(x.dtype), cfg.hidden_size, method),
+                kv_cache)
     if kv_cache is not None:
         pos = kv_cache["pos"]
         kc, vc = kv_cache["k"], kv_cache["v"]
         ks, vs = kv_cache.get("k_s"), kv_cache.get("v_s")  # int8 cache
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         if ks is not None:
-            kt, ks[:, :, pos: pos + s] = _kv_quantize(kt)
-            vt, vs[:, :, pos: pos + s] = _kv_quantize(vt)
-        kc[:, :, pos: pos + s] = kt
-        vc[:, :, pos: pos + s] = vt
+            kt, ks_new = _kv_quantize(kt)
+            vt, vs_new = _kv_quantize(vt)
+            _cache_write(ks, ks_new, pos)
+            _cache_write(vs, vs_new, pos)
+        _cache_write(kc, kt, pos)
+        _cache_write(vc, vt, pos)
         kv_cache = {**kv_cache, "pos": pos + s}
         if not causal_prefill:
             if s == 1 and method != "plain" and (
@@ -448,11 +562,12 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
           cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
           kv_cache: Optional[Dict[str, Any]] = None, method: str = "auto",
-          causal_prefill: bool = False):
+          causal_prefill: bool = False, paged_attn: str = "bespoke"):
     """One pre-norm decoder layer; an MLP with experts is an MoE block."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin, mask,
-                                   kv_cache, method, causal_prefill)
+                                   kv_cache, method, causal_prefill,
+                                   paged_attn)
     x = x + attn_out
     h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     if "experts" in p["mlp"] or "experts_stacked" in p["mlp"]:

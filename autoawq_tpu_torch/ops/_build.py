@@ -30,7 +30,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "prefill_attention",
-           "fused_attn_step", "moe_gemm", "fused_mlp3")
+           "fused_attn_step", "moe_gemm", "fused_mlp3", "paged_attn",
+           "paged_attn_stock")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,6 +56,8 @@ ARGTYPES = {
     "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
     "moe_gemm": [_P] * 8 + [_I] * 7 + [_P],
     "fused_mlp3": [_P] * 13 + [_I] * 9 + [_P],
+    "paged_attn": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
+    "paged_attn_stock": [_P] * 6 + [_I] * 9 + [_F, _P],
 }
 
 

@@ -36,6 +36,39 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
             for _ in range(cfg.num_hidden_layers)]
 
 
+def _cache_len(caches: List[Dict[str, torch.Tensor]]) -> int:
+    """Capacity (T) of a cache list ([B, H, T, D] K/V, or an int8 cache's
+    [B, H, T] scales beside them)."""
+    return next(iter(caches[0].values())).shape[2]
+
+
+_warned_long_rope = set()
+
+
+def _check_rope_capacity(cfg: ModelConfig, capacity: int) -> None:
+    """The JAX package keys dynamic-NTK / longrope tables on the cache
+    capacity, which past original_max_position_embeddings selects the
+    long-context factors for the whole generation; it warns once per
+    (model, capacity). The port runs default and llama3 rope only (the rest
+    raise in ``check_supported``), so for its configs this never warns."""
+    if cfg.rope_type not in ("dynamic", "longrope"):
+        return
+    rs = cfg.rope_scaling_dict or {}
+    orig = (cfg.original_max_position_embeddings
+            or rs.get("original_max_position_embeddings")
+            or cfg.max_position_embeddings)
+    if orig and capacity > orig and (cfg.model_type,
+                                     capacity) not in _warned_long_rope:
+        _warned_long_rope.add((cfg.model_type, capacity))
+        import warnings
+
+        warnings.warn(
+            f"KV-cache capacity {capacity} > original_max_position_embeddings "
+            f"{orig}: {cfg.rope_type} rope uses its long-context factors for "
+            "the whole generation. Size max_seq_len to the expected "
+            "prompt+generation length to keep short-context numerics.")
+
+
 def _run_blocks(cfg, params, x, positions, mask, caches, pos, method,
                 causal_prefill=False):
     cos, sin = modules.rope_tables(cfg, positions)
@@ -60,7 +93,7 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     x = modules.embed(cfg, params, tokens, dtype)
     causal_prefill = cfg.sliding_window is None
     mask = modules.causal_mask(
-        s, s if causal_prefill else caches[0]["k"].shape[2], device=dev,
+        s, s if causal_prefill else _cache_len(caches), device=dev,
         sliding_window=cfg.sliding_window)
     x = _run_blocks(cfg, params, x, positions, mask, caches, 0, method,
                     causal_prefill=causal_prefill)
@@ -75,7 +108,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step for token [B, 1] at position ``pos`` (the number of
     tokens already cached); returns (logits [B, V] f32, caches)."""
-    max_t = caches[0]["k"].shape[2]
+    max_t = _cache_len(caches)
     dev = token.device
     positions = torch.full((1, 1), pos, device=dev)
     x = modules.embed(cfg, params, token, dtype)

@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 
 1. device   — card name and count, torch / CUDA versions, nvidia-smi's name
               and power limit.
-2. build    — compiles the seven kernels from ``autoawq_tpu_torch/csrc`` (one
+2. build    — compiles the nine kernels from ``autoawq_tpu_torch/csrc`` (one
               nvcc per source, in parallel) and prints ptxas' register and
               shared-memory summary for each.
 3. kernels  — each kernel at the main path's shapes against its plain twin
@@ -40,6 +40,26 @@ Phases, each printing JSON lines:
               a 64- and a 16-token generation), prefill seconds, launches
               per decode step, a profile of 8 decode steps, and the
               teacher-forced check with the traffic's cache type.
+              Then the same Mistral through the paged engine
+              (``serve/paged.PagedBatchingEngine``, 8 slots, 64-row pages,
+              8 a slot, 136 in the pool). Traffic H: 16 requests of 64
+              seeded tokens, 128 new tokens each, greedy, prefix cache on,
+              decode attention through K7: steady-state decode tok/s with
+              the 8 slots busy (8 times the difference quotient of 64 and
+              16 ``step()`` calls after an untimed admission, min of 3),
+              the whole run's tok/s, launches per step held exactly (K7
+              32, K1 64, K3 32, K5 0), a profile of 8 steps and the
+              teacher-forced check of the paged step against
+              ``method="plain"``. Traffic I: H's steady state on an int8
+              pool (K7 folds the scales). Traffic J: H's steady state
+              through K9 (``paged_attn="stock"``). Traffic K: the HTTP
+              server (``start_server(engine, port=0, burst=16)``) on
+              loopback over a pool of 7 pages a slot and 120 pages: two
+              warm-up clients, then 16 concurrent SSE clients, each a
+              shared 256-token system prefix plus its own 64 tokens, 64
+              new tokens: throughput, TTFT p50 / p95, prefix hits and
+              reused pages held exactly, then ``run(burst=16)`` against
+              ``run(burst=1)`` on the same 8 requests.
               Then Mixtral-8x7B at full width (32 layers, 8 experts, top-2,
               seed-0 weights drawn on the card, experts stacked). Traffic
               E: bs1, one 64-token prompt, bf16 cache of capacity 128.
@@ -116,6 +136,10 @@ KERNEL_META = {
                  "autoawq_tpu/ops/moe_gemm.py:88"),
     "fused_mlp3": ("autoawq_tpu_torch/csrc/fused_mlp3.cu",
                    "autoawq_tpu/ops/sharded_mlp.py:45"),
+    "paged_attn": ("autoawq_tpu_torch/csrc/paged_attn.cu",
+                   "autoawq_tpu/ops/paged_attn.py:40"),
+    "paged_attn_stock": ("autoawq_tpu_torch/csrc/paged_attn_stock.cu",
+                         "autoawq_tpu/nn/modules.py:459"),
 }
 # tolerances, as max |kernel - twin| / max |twin| on the same inputs:
 # K1 dequantizes in f32 where the twin rounds weights to bf16 first, both
@@ -145,10 +169,27 @@ KERNEL_META = {
 # (moe_block: router, moe_align, two K6 calls, the combine) is held against
 # a dense f32 reference at 2e-2 of its maximum, moe_mlp's limit: bf16
 # rounds g, act(g)*u and the expert outputs, as the bf16 twin does.
+# K7 and K9 are held per (slot, query head) row. K7 returns f32 and its twin
+# computes the same f32 function (one softmax where K7 runs an online one
+# over pages), so they differ only by the order of sums over up to 512
+# rows: 1e-4 of the row maximum, ~100 f32 roundings' worth. K9 returns bf16
+# and, with a group of 8 query heads, rounds its running output to bf16
+# after every block of pages as the stock kernel does: two bf16 ulps of the
+# row maximum, 2^-6, as K4's and K5's limit.
 TOL = {"w4a16_gemv": 1e-2, "w4a16_gemm": 1e-2, "fused_mlp": 2e-2,
        "prefill_attention": 2 ** -6, "fused_attn_step": 2 ** -6,
        "fused_attn_step_kv": 2 ** -7, "moe_gemm": 1e-2, "moe_mlp": 2e-2,
-       "moe_block": 2e-2, "fused_mlp3": 2e-2}
+       "moe_block": 2e-2, "fused_mlp3": 2e-2, "paged_attn": 1e-4,
+       "paged_attn_stock": 2 ** -6}
+# the paged pools of traffics H-K (CHIP_AB_R5_PAGED.json's pool for H, I
+# and J; scripts/bench_serve.py's paged configuration for K)
+PAGED_POOL = dict(max_batch=8, page_size=64, pages_per_seq=8,
+                  total_pages=136)
+SERVE_POOL = dict(max_batch=8, page_size=64, pages_per_seq=7,
+                  total_pages=120)
+# ragged lengths of the kernels phase's paged cases: 1 (two trash-page
+# slots) up to the table's 512 rows
+PAGED_LENGTHS = [1, 512, 77, 128, 300, 1, 64, 65]
 
 failures = []
 
@@ -665,6 +706,113 @@ def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
     return row
 
 
+def _paged_case(gen, kernel, case, model, dev, int8=False, window=None,
+                softcap=None, alibi=False, timing=True, ppcb=8):
+    """K7 (``kernel="paged_attn"``) or K9 (``"paged_attn_stock"``) against
+    its twin on a pool of H's size (136 pages of 64 rows, 8 pages a slot,
+    ``PAGED_LENGTHS``), per (slot, head) row. With ``timing``: graph-replay
+    and eager times, the twin's time, the yardstick (the table's pages
+    gathered with index_select plus one SDPA with a length mask, timed
+    together) and the byte bound over the live rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from autoawq_tpu_torch.nn.modules import _kv_quantize
+    from autoawq_tpu_torch.ops import paged_attn as pa
+
+    nh, nkv, hd = (model["num_attention_heads"],
+                   model["num_key_value_heads"], model["head_dim"])
+    b, ps, pps, n_pool = 8, PAGED_POOL["page_size"], \
+        PAGED_POOL["pages_per_seq"], PAGED_POOL["total_pages"]
+    q = torch.randn(b, nh, hd, device=dev, generator=gen)
+    kp, vp = (torch.randn(nkv, n_pool, ps, hd, device=dev, generator=gen)
+              * 0.5 for _ in range(2))
+    table = (torch.randperm(n_pool - 1, device=dev, generator=gen)[
+        : b * pps] + 1).reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    table[lengths == 1] = 0  # inactive slots hold the trash page
+    scale = hd ** -0.5
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = _kv_quantize(kp), _kv_quantize(vp)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    if kernel == "paged_attn":
+        slopes = (torch.rand(nh, device=dev, generator=gen) * 0.1
+                  if alibi else None)
+        args = [q, kp, vp, table, lengths, ks, vs, slopes]
+
+        def run(q, kp, vp, table, lengths, ks, vs, slopes):
+            return pa.paged_decode_attention(
+                q, kp, vp, table, lengths, scale=scale, k_scales=ks,
+                v_scales=vs, softcap=softcap, window=window,
+                alibi_slopes=slopes)
+
+        def plain(q, kp, vp, table, lengths, ks, vs, slopes):
+            return pa.paged_decode_attention_plain(
+                q, kp, vp, table, lengths, scale=scale, k_scales=ks,
+                v_scales=vs, softcap=softcap, window=window,
+                alibi_slopes=slopes)
+    else:
+        args = [(q * scale).to(torch.bfloat16), kp, vp, lengths, table]
+
+        def run(q, kp, vp, lengths, table):
+            return pa.stock_paged_attention(
+                q, kp, vp, lengths, table, pages_per_compute_block=ppcb,
+                softcap=softcap)
+
+        def plain(q, kp, vp, lengths, table):
+            return pa.stock_paged_attention_plain(
+                q, kp, vp, lengths, table, pages_per_compute_block=ppcb,
+                softcap=softcap)
+    got, ref = run(*args), plain(*args)
+    torch.cuda.synchronize()
+    rel = row_rel_err(got, ref, hd)
+    vl = lengths.long()
+    lo = (vl - window).clamp_min(0) if window else torch.zeros_like(vl)
+    live = int((vl.clamp(max=pps * ps) - lo).sum())  # rows the call needs
+    row = {"phase": "kernel", "kernel": kernel, "case": case, "card": card(),
+           "B": b, "nh": nh, "nkv": nkv, "hd": hd, "ps": ps, "PPS": pps,
+           "pool": "int8" if int8 else "bf16", "lengths": PAGED_LENGTHS,
+           "live_rows": live, "window": window, "softcap": softcap,
+           "alibi": alibi, "max_abs_err": rel_err(got, ref)[0],
+           "max_row_rel_err": rel, "tol": TOL[kernel]}
+    check(rel <= TOL[kernel] and bool(torch.isfinite(got).all()),
+          f"{kernel} {case}: per-row rel err {rel:.3g}")
+    if timing:
+        elem = 1 if int8 else 2
+        io = 4 if kernel == "paged_attn" else 2  # q and out: f32 or bf16
+        nbytes = (2 * live * nkv * hd * elem + (8 * live * nkv if int8 else 0)
+                  + 2 * b * nh * hd * io + 4 * b * (pps + 1))
+        sets = copies(args, 2 * live * nkv * hd * elem)
+        row["ms"], row["eager_ms"] = time_ms(run, sets, 200)
+        row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
+        row["bound_ms"], row["bound_by"] = bound(nbytes,
+                                                 4 * nh * hd * live)
+        row["library_ms"] = None
+        row["library"] = "none for an int8 pool"
+        if not int8:
+            flat = table.reshape(-1).long()
+            t = pps * ps
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < vl[:, None])[:, None, None, :]
+            qb = q.to(torch.bfloat16)[:, :, None, :]
+
+            def library(qb, kp, vp, flat, mask):
+                kb = kp.index_select(1, flat).view(nkv, b, t, hd)
+                vb = vp.index_select(1, flat).view(nkv, b, t, hd)
+                return F.scaled_dot_product_attention(
+                    qb, kb.transpose(0, 1), vb.transpose(0, 1),
+                    attn_mask=mask, scale=scale, enable_gqa=True)
+            row["library_ms"], _ = time_ms(library, copies(
+                [qb, kp, vp, flat, mask], 2 * live * nkv * hd * elem), 200)
+            row["library"] = ("the table's pages gathered with index_select "
+                              "plus torch scaled_dot_product_attention "
+                              "(enable_gqa, length mask), timed together")
+    emit(row)
+    return row
+
+
 def phase_kernels(dev):
     """Every kernel against its twin at the main path's shapes. Returns the
     representative row per kernel for the ``kernels`` line."""
@@ -747,6 +895,28 @@ def phase_kernels(dev):
     _moe_case(gen, "bm 32", small, 512, dev, timing=False)
     _moe_case(gen, "bm 96, masked 128-row tile", small, 1536, dev,
               timing=False)
+    del small
+    # K7 and K9 at H's decode shape (I's int8 pool for K7), then the edges
+    rep["paged_attn"] = _paged_case(gen, "paged_attn", "H: Mistral bf16",
+                                    MISTRAL, dev)
+    _paged_case(gen, "paged_attn", "I: Mistral int8", MISTRAL, dev,
+                int8=True)
+    for case, kw in (("window 100", dict(window=100)),
+                     ("softcap 30", dict(softcap=30.0)),
+                     ("ALiBi slopes", dict(alibi=True)),
+                     ("int8, window, softcap, ALiBi",
+                      dict(int8=True, window=100, softcap=30.0,
+                           alibi=True))):
+        _paged_case(gen, "paged_attn", case, MISTRAL, dev, timing=False,
+                    **kw)
+    _paged_case(gen, "paged_attn", "TinyLlama widths, rep 8", TINYLLAMA, dev,
+                timing=False)
+    rep["paged_attn_stock"] = _paged_case(gen, "paged_attn_stock",
+                                          "J: Mistral bf16", MISTRAL, dev)
+    _paged_case(gen, "paged_attn_stock", "softcap 30, 2 pages a block",
+                MISTRAL, dev, softcap=30.0, ppcb=2, timing=False)
+    _paged_case(gen, "paged_attn_stock", "TinyLlama widths, rep 8 (bf16 "
+                "running output)", TINYLLAMA, dev, timing=False)
     return rep
 
 
@@ -1094,9 +1264,303 @@ def _mistral_traffics(dev):
               "layers": cfg.num_hidden_layers,
               "cache": "int8" if kv_quant else "bf16", "rows": rows,
               "seconds": time.perf_counter() - t0})
+    counts_p, per_step_p = _paged_traffics(cfg, params, dev)
+    counts.update(counts_p)
+    per_step.update(per_step_p)
     emit({"phase": "e2e", "model": "mistral-7b",
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     return counts, per_step
+
+
+def _paged_engine(cfg, params, pool=PAGED_POOL, **kw):
+    from autoawq_tpu_torch.serve.paged import PagedBatchingEngine
+
+    return PagedBatchingEngine(cfg, params, **pool, **kw)
+
+
+def _busy_engine(cfg, params, prompts, **kw):
+    """A paged engine with its eight slots admitted (one step, untimed) and
+    128 new tokens each to go."""
+    import torch
+
+    eng = _paged_engine(cfg, params, **kw)
+    for i, p in enumerate(prompts[:8]):
+        eng.add_request(i, p, max_new_tokens=128)
+    eng.step()
+    torch.cuda.synchronize()
+    return eng
+
+
+def _paged_traffic(cfg, params, name, prompts, reps, expect, whole_run,
+                   **kw):
+    """Traffic H, I or J: steady-state decode tok/s with the eight slots
+    busy (8 times the difference quotient of 64 and 16 ``step()`` calls
+    after an untimed admission, min of ``reps``), launches per decode step
+    held exactly against ``expect``, with ``whole_run`` the 16 requests
+    (128 new tokens each) drained by ``run()``, and a profile of 8 steps.
+    Returns the launch counts of its runs and the launches per step."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t16, t64, per_step = [], [], {}
+    for _ in range(reps):
+        eng = _busy_engine(cfg, params, prompts, **kw)
+        before = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        for _ in range(16):
+            eng.step()
+        t16.append(time.perf_counter() - t)
+        mid = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        for _ in range(64):
+            eng.step()
+        t64.append(time.perf_counter() - t)
+        after = dict(_build.LAUNCHES)
+        per_step = {k: ((after[k] - mid[k]) - (mid[k] - before[k])) / 48
+                    for k in after}
+        check(sum(r is not None for r in eng.slots) == 8,
+              f"traffic {name}: a slot retired inside the timed window")
+        busy = eng  # the last one, 47 tokens a slot to go, is profiled
+    row = {"phase": "e2e", "traffic": name, "card": card(), "batch": 8,
+           "prompt": len(prompts[0]), "pool": PAGED_POOL,
+           "kv": "int8" if kw.get("kv_quant") else "bf16",
+           "route": kw.get("paged_attn", "bespoke"),
+           "steady_decode_tok_s": 8 * 48 / max(min(t64) - min(t16), 1e-9),
+           "t_16_steps_s": t16, "t_64_steps_s": t64,
+           "launches_per_decode_step": per_step}
+    for kernel, n in expect.items():
+        check(per_step[kernel] == n,
+              f"traffic {name}: {per_step[kernel]} {kernel} launches per "
+              f"decode step, expected {n}")
+    if whole_run:
+        eng = _paged_engine(cfg, params, **kw)
+        for i, p in enumerate(prompts):
+            eng.add_request(i, p, max_new_tokens=128)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run()
+        wall = time.perf_counter() - t
+        toks = sum(len(v) for v in out.values())
+        check(len(out) == len(prompts) and toks == 128 * len(prompts)
+              and all(0 <= x < cfg.vocab_size for v in out.values()
+                      for x in v), f"traffic {name}: whole-run output")
+        row.update(requests=len(prompts), whole_run_s=wall,
+                   whole_run_tok_s=toks / wall, stats=eng.stats())
+        del eng
+    counts = dict(_build.LAUNCHES)
+    row["launches"] = counts
+    emit(row)
+    emit({"phase": "e2e", "step": "profile", "traffic": name, "card": card(),
+          "what": "paged decode step (8 slots busy)",
+          **device_profile(lambda i: busy.step(), 8)})
+    del busy
+    return counts, per_step
+
+
+def _teacher_forced_paged(cfg, params, prompts, steps, **kw):
+    """The paged decode step on the kernel path (bf16), the plain path
+    (``method="plain"``: the gather and the plain twins, bf16) and the plain
+    path in f32, fed the kernel path's greedy tokens: per-step errors
+    against f32, as ``_teacher_forced`` gives them. The kernel engine admits
+    the eight prompts; the plain engines start from copies of its page
+    pool, table and positions (f32 copies for the f32 run's K/V), so the
+    three differ only by the decode steps under test."""
+    import torch
+
+    from autoawq_tpu_torch.serve.paged import paged_decode_step
+
+    runs = {"kernel": ("auto", torch.bfloat16),
+            "plain": ("plain", torch.bfloat16),
+            "plain_f32": ("plain", torch.float32)}
+    with torch.inference_mode():
+        kern = _paged_engine(cfg, params, **kw)
+        for i, p in enumerate(prompts[:8]):
+            kern.add_request(i, p, max_new_tokens=steps + 2)
+        kern._admit()
+        table = kern._h2d(kern.table)
+        pages = {}
+        for key, (_, dtype) in runs.items():
+            pages[key] = [{k: (v.clone() if not v.is_floating_point()
+                               or k.endswith("_s")
+                               else v.to(dtype, copy=True))
+                           for k, v in pc.items()} for pc in kern.pages]
+        del kern.pages
+        tok = kern._h2d(kern.last_token[:, None])
+        pos = kern._h2d(kern.pos)
+        route = kern.paged_attn
+        rows = []
+        for step in range(steps):
+            logits = {key: paged_decode_step(cfg, params, tok, pages[key],
+                                             table, pos, method, dtype,
+                                             route)[0]
+                      for key, (method, dtype) in runs.items()}
+            ref = logits["plain_f32"]
+            agree = (logits["kernel"].argmax(-1) == ref.argmax(-1)).float()
+            rows.append({"position": int(kern.pos[0]) + step,
+                         "kernel_vs_f32": rel_err(logits["kernel"], ref)[1],
+                         "plain_bf16_vs_f32": rel_err(logits["plain"],
+                                                      ref)[1],
+                         "kernel_vs_plain": rel_err(logits["kernel"],
+                                                    logits["plain"])[1],
+                         "argmax_agree_f32": agree.mean().item()})
+            tok = logits["kernel"].argmax(-1)[:, None]
+            pos = pos + 1
+    return rows
+
+
+def _paged_traffics(cfg, params, dev):
+    """Mistral-7B through the paged engine: traffics H (bf16 pool, K7), I
+    (int8 pool, K7 folding the scales), J (K9) and K (the HTTP server over
+    K's pool). Returns the launch counts of each and H-J's launches per
+    decode step."""
+    import numpy as np
+
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(16)]
+    counts, per_step = {}, {}
+    for name, kw, whole_run in (
+            ("H", {}, True), ("I", dict(kv_quant=True), False),
+            ("J", dict(paged_attn="stock"), False)):
+        t0 = time.perf_counter()
+        kernel = "paged_attn_stock" if name == "J" else "paged_attn"
+        other = "paged_attn" if name == "J" else "paged_attn_stock"
+        counts[name], per_step[name] = _paged_traffic(
+            cfg, params, name, prompts, 3,
+            {kernel: layers, other: 0, "w4a16_gemv": 2 * layers,
+             "fused_mlp": layers, "fused_attn_step": 0}, whole_run, **kw)
+        rows = _teacher_forced_paged(cfg, params, prompts, 3, **kw)
+        _check_teacher_forced(name, rows)
+        emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
+              "layers": layers, "rows": rows,
+              "seconds": time.perf_counter() - t0})
+    counts["K"] = _serve_traffic(cfg, params)
+    return counts, per_step
+
+
+def _sse_client(port, prompt, max_tokens, out, key, barrier=None):
+    """One streamed completion over loopback: token ids, TTFT and total
+    seconds into ``out[key]``."""
+    import urllib.request
+
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_tokens": max_tokens, "stream": True}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions", data=body,
+        headers={"Content-Type": "application/json"})
+    if barrier is not None:
+        barrier.wait()
+    t0 = time.perf_counter()
+    first, toks = None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.strip()
+            if line == b"data: [DONE]":
+                break
+            if line.startswith(b"data: "):
+                ids = json.loads(line[6:])["choices"][0].get("token_ids")
+                if ids:
+                    first = first or time.perf_counter()
+                    toks += ids
+    out[key] = {"tokens": toks, "ttft_s": None if first is None
+                else first - t0, "total_s": time.perf_counter() - t0}
+
+
+def _serve_traffic(cfg, params):
+    """Traffic K: ``start_server(engine, port=0, burst=16)`` on loopback over
+    K's pool; two sequential warm-up clients, then 16 concurrent SSE
+    clients, each a shared seeded 256-token system prefix plus its own
+    64-token prompt, 64 tokens each (scripts/bench_serve.py's paged
+    configuration at Mistral width). The prefix counts are held exactly:
+    the first warm-up client's cold admission (M = 320: K2 and K4) caches
+    the four system-prompt pages, and every later client reuses them.
+    Then ``run(burst=16)`` and ``run(burst=1)`` of eight such requests (32
+    new tokens each) give equal greedy streams. Returns the launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve.server import start_server
+
+    rng = np.random.default_rng(9999)
+    system = rng.integers(0, cfg.vocab_size, (256,))
+    own = [np.random.default_rng(i).integers(0, cfg.vocab_size, (64,))
+           for i in range(20)]
+    prompts = [np.concatenate([system, o]) for o in own]
+    eng = _paged_engine(cfg, params, pool=SERVE_POOL)
+    es, httpd = start_server(eng, port=0, burst=16)
+    port = httpd.server_address[1]
+    _build.reset_launches()
+    warm, out = {}, {}
+    try:
+        _sse_client(port, prompts[16], 64, warm, "cold")
+        cold = dict(_build.LAUNCHES)
+        _sse_client(port, prompts[17], 64, warm, "hit")
+        st_warm = eng.stats()
+        before = dict(_build.LAUNCHES)
+        barrier = threading.Barrier(16)
+        threads = [threading.Thread(target=_sse_client,
+                                    args=(port, prompts[i], 64, out, i,
+                                          barrier)) for i in range(16)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        after = dict(_build.LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        es.shutdown()
+    layers = cfg.num_hidden_layers
+    timed = {k: after[k] - before[k] for k in after}
+    check(not any(t.is_alive() for t in threads)
+          and len(out) == 16 and all(len(v["tokens"]) == 64
+                                     for v in out.values()),
+          "traffic K: not every client got its 64 tokens")
+    check(st_warm["prefix_hits"] == 1 and st_warm["prefix_pages_reused"] == 4
+          and st["prefix_hits"] == 17 and st["prefix_pages_reused"] == 68,
+          f"traffic K: prefix counts {st_warm} then {st}, expected 1 / 4 "
+          "then 17 / 68 (every timed client reuses the 4 system pages)")
+    check(cold["w4a16_gemm"] == 4 * layers
+          and cold["prefill_attention"] == layers
+          and timed["w4a16_gemm"] == 0 and timed["prefill_attention"] == 0,
+          f"traffic K: K2 {cold['w4a16_gemm']} and K4 "
+          f"{cold['prefill_attention']} launches in the cold admission, "
+          f"{timed['w4a16_gemm']} and {timed['prefill_attention']} after")
+    ttft = sorted(v["ttft_s"] for v in out.values() if v["ttft_s"])
+    toks = sum(len(v["tokens"]) for v in out.values())
+    emit({"phase": "e2e", "traffic": "K", "card": card(), "clients": 16,
+          "pool": SERVE_POOL, "burst": 16, "system_prefix": 256,
+          "prompt": 64, "max_tokens": 64, "tokens_streamed": toks,
+          "wall_s": wall, "throughput_tok_s": toks / wall,
+          "ttft_p50_s": ttft[len(ttft) // 2],
+          "ttft_p95_s": ttft[max(0, int(len(ttft) * 0.95) - 1)],
+          "warmup_ttft_s": {k: v["ttft_s"] for k, v in warm.items()},
+          "prefix_hits": st["prefix_hits"],
+          "prefix_pages_reused": st["prefix_pages_reused"],
+          "launches_cold_admission": cold, "launches_timed": timed})
+    del eng
+    streams = []
+    for burst in (16, 1):
+        e = _paged_engine(cfg, params, pool=SERVE_POOL)
+        for i in range(8):
+            e.add_request(i, prompts[i], max_new_tokens=32)
+        streams.append(e.run(burst=burst))
+        del e
+    torch.cuda.synchronize()
+    check(streams[0] == streams[1],
+          "traffic K: run(burst=16) and run(burst=1) streams differ")
+    emit({"phase": "e2e", "traffic": "K", "step": "burst_vs_single",
+          "requests": 8, "equal": streams[0] == streams[1]})
+    counts = dict(_build.LAUNCHES)
+    return counts
 
 
 def synth_moe_on_card(cfg, seed, dev):
@@ -1526,7 +1990,9 @@ def main(argv=None) -> int:
                     t: per[name] for t, per in per_token.items()},
                 "shape": {k: r[k] for k in ("M", "K", "N", "B", "S", "H",
                                             "inter", "T", "vl", "cache",
-                                            "experts", "entries", "block_m")
+                                            "experts", "entries", "block_m",
+                                            "nh", "nkv", "hd", "ps", "PPS",
+                                            "pool", "live_rows")
                           if k in r},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "eager_ms": r["eager_ms"],

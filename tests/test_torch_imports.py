@@ -22,8 +22,10 @@ def test_port_imports_nothing_forbidden():
         "from autoawq_tpu_torch.io import hf, safetensors, serialize\n"
         "from autoawq_tpu_torch.nn import fuse, modules\n"
         "from autoawq_tpu_torch.ops import (_build, attention, "
-        "fused_attn_step, fused_mlp, gemm, moe_gemm, sharded_mlp)\n"
-        "from autoawq_tpu_torch.serve import generate\n"
+        "fused_attn_step, fused_mlp, gemm, moe_gemm, paged_attn, "
+        "sharded_mlp)\n"
+        "from autoawq_tpu_torch.serve import batching, generate, paged, "
+        "server\n"
         "from autoawq_tpu_torch.utils import synth\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "bad += list(_build._libs)  # no kernel is built at import\n"

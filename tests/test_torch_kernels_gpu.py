@@ -18,7 +18,12 @@ of the attention output carried through the o product), k_new / v_new
 2^-7 per head row (one bf16 rounding of the same f32 row; f32 for an int8
 cache). K6 per call 1e-2 of max |twin| (K1's arithmetic for blocks of 8
 rows, K2's for larger blocks); K8 and ``moe_mlp`` 2e-2, as K3 (two
-products and an activation)."""
+products and an activation). K7 per (slot, head) row at 1e-4 of the row
+maximum: it returns f32 and computes the twin's f32 function, so only the
+order of the sums differs (an online softmax over pages against one
+softmax). K9 per row at 2^-6, two bf16 ulps of the row maximum: both round
+the f32 result to bf16, and with a group of 8 query heads the running
+output after every block too."""
 
 import numpy as np
 import pytest
@@ -26,7 +31,8 @@ import torch
 
 from autoawq_tpu_torch.core.packing import pack_port
 from autoawq_tpu_torch.ops import (_build, attention, fused_attn_step,
-                                   fused_mlp, gemm, moe_gemm, sharded_mlp)
+                                   fused_mlp, gemm, moe_gemm, paged_attn,
+                                   sharded_mlp)
 
 pytestmark = pytest.mark.gpu
 
@@ -400,3 +406,163 @@ def test_moe_prefill_and_decode_never_sync_the_host(cuda, rng, b, s):
     assert _build.LAUNCHES["moe_gemm"] == 8  # 2 layers x 2, twice
     assert _build.LAUNCHES["fused_attn_step"] == (2 if b == 8 else 0)
     assert bool(torch.isfinite(logits).all())
+
+
+def paged_pool(gen, b, nh, nkv, hd, ps, n_pool, pps, lengths, dev,
+               dtype=torch.bfloat16, int8=False):
+    """Random pools [nkv, n_pool, ps, hd] and a table whose slots own
+    distinct pages; a slot of length 1 keeps the trash page 0."""
+    q = torch.randn(b, nh, hd, device=dev, generator=gen)
+    k, v = (torch.randn(nkv, n_pool, ps, hd, device=dev, generator=gen)
+            for _ in range(2))
+    perm = torch.randperm(n_pool - 1, device=dev, generator=gen)[: b * pps]
+    table = (perm + 1).reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    table[lengths == 1] = 0
+    if int8:
+        from autoawq_tpu_torch.nn.modules import _kv_quantize
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+        return q, k, v, table, lengths, ks, vs
+    return q, k.to(dtype), v.to(dtype), table, lengths, None, None
+
+
+@pytest.mark.parametrize("case", [
+    "bf16", "f32", "int8", "window", "softcap", "alibi", "tinyllama",
+    "mha_odd_hd", "group16"])
+def test_paged_attn_k7(cuda, case):
+    """K7 against its twin: Mistral's decode shape (B 8, 32/8 heads, hd 128,
+    ps 64, 8 pages a slot, ragged lengths with 1 and 512 and a trash-page
+    slot), then the int8 pool, a window, softcap, ALiBi, TinyLlama widths,
+    MHA with hd 96 and ps 16, and a group of 16."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = dict(b=8, nh=32, nkv=8, hd=128, ps=64, n_pool=80, pps=8,
+                 lengths=[1, 512, 77, 128, 300, 1, 64, 65])
+    if case == "tinyllama":
+        shape.update(nh=32, nkv=4, hd=64)
+    if case == "mha_odd_hd":
+        shape.update(b=3, nh=4, nkv=4, hd=96, ps=16, n_pool=40, pps=8,
+                     lengths=[1, 128, 45])
+    if case == "group16":
+        shape.update(b=2, nh=32, nkv=2, hd=64, lengths=[200, 3])
+    q, k, v, table, lengths, ks, vs = paged_pool(
+        g, dev=cuda, dtype=torch.float32 if case == "f32" else torch.bfloat16,
+        int8=case == "int8", **shape)
+    kw = dict(scale=shape["hd"] ** -0.5, k_scales=ks, v_scales=vs)
+    if case == "window":
+        kw["window"] = 100
+    if case == "softcap":
+        kw["softcap"] = 30.0
+    if case == "alibi":
+        kw["alibi_slopes"] = torch.rand(shape["nh"], device=cuda,
+                                        generator=g) * 0.1
+    before = _build.LAUNCHES["paged_attn"]
+    got = paged_attn.paged_decode_attention(q, k, v, table, lengths, **kw)
+    assert _build.LAUNCHES["paged_attn"] == before + 1
+    ref = paged_attn.paged_decode_attention_plain(q, k, v, table, lengths,
+                                                  **kw)
+    assert got.dtype == torch.float32
+    assert row_rel(got, ref, shape["hd"]) <= 1e-4
+
+
+@pytest.mark.parametrize("nh,nkv,hd,ppcb,softcap", [
+    (32, 8, 128, 8, None), (32, 8, 128, 4, 30.0), (32, 4, 64, 8, None),
+    (32, 4, 64, 2, 30.0)])
+def test_paged_attn_stock_k9(cuda, nh, nkv, hd, ppcb, softcap):
+    """K9 against its twin at Mistral's (group 4: f32 running output) and
+    TinyLlama's widths (group 8: the running output in bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, table, lengths, _, _ = paged_pool(
+        g, 8, nh, nkv, hd, 64, 80, 8, [1, 512, 77, 128, 300, 1, 64, 65],
+        cuda)
+    q = (q * hd ** -0.5).to(torch.bfloat16)
+    before = _build.LAUNCHES["paged_attn_stock"]
+    got = paged_attn.stock_paged_attention(
+        q, k, v, lengths, table, pages_per_compute_block=ppcb,
+        softcap=softcap)
+    assert _build.LAUNCHES["paged_attn_stock"] == before + 1
+    ref = paged_attn.stock_paged_attention_plain(
+        q, k, v, lengths, table, pages_per_compute_block=ppcb,
+        softcap=softcap)
+    assert got.dtype == torch.bfloat16
+    assert row_rel(got, ref, hd) <= 2 ** -6
+
+
+def test_paged_attn_refusals(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, table, lengths, _, _ = paged_pool(g, 2, 8, 2, 64, 16, 8, 2,
+                                               [3, 20], cuda)
+    with pytest.raises(NotImplementedError):  # head dim 512
+        paged_attn.paged_decode_attention(
+            torch.zeros(2, 8, 512, device=cuda),
+            torch.zeros(2, 8, 16, 512, device=cuda),
+            torch.zeros(2, 8, 16, 512, device=cuda), table, lengths,
+            scale=1.0)
+    with pytest.raises(ValueError):  # int8 pages without scales
+        paged_attn.paged_decode_attention(q, k.to(torch.int8),
+                                          v.to(torch.int8), table, lengths,
+                                          scale=1.0)
+    with pytest.raises(ValueError):  # K9 takes bf16 only
+        paged_attn.stock_paged_attention(
+            q.bfloat16(), k.float(), v.float(), lengths, table,
+            pages_per_compute_block=2)
+
+
+def tiny_llama(gen, dev):
+    """A 2-layer fused llama (8/2 heads, hd 64) with random int4 weights on
+    the card."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(model_type="llama", vocab_size=256, hidden_size=512,
+                      intermediate_size=1024, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=2,
+                      head_dim=64)
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=2, fp_dtype=torch.bfloat16, device=dev))
+    return cfg, params
+
+
+@pytest.mark.parametrize("route", ["bespoke", "stock"])
+def test_paged_and_slot_decode_steps_never_sync_the_host(cuda, route):
+    """One paged decode step (K7 or K9 with K1 and K3 around it) and one
+    slot-pool decode step (per-slot positions: index-tensor cache writes,
+    no K5) never wait for the card under
+    ``torch.cuda.set_sync_debug_mode("error")``; the inputs are on the card
+    already, as a captured step would hold them."""
+    from autoawq_tpu_torch.serve import batching, paged
+    from autoawq_tpu_torch.serve import generate as gen
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cfg, params = tiny_llama(g, cuda)
+    b = 8
+    eng = paged.PagedBatchingEngine(cfg, params, max_batch=b, page_size=16,
+                                    total_pages=80, pages_per_seq=8,
+                                    paged_attn=route)
+    for i in range(b):
+        eng.add_request(i, torch.randint(0, 256, (20 + 7 * i,),
+                                         generator=torch.Generator()
+                                         .manual_seed(i)).numpy(),
+                        max_new_tokens=30)
+    eng.step()  # admits every slot and builds the kernels
+    tokens = eng._h2d(eng.last_token[:, None])
+    table, pos = eng._h2d(eng.table), eng._h2d(eng.pos)
+    caches = gen.init_kv_cache(cfg, b, 64, device=cuda)
+    spos = torch.arange(b, device=cuda) * 3 + 5
+    batching.batched_decode_step(cfg, params, tokens, caches, spos)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = paged.paged_decode_step(cfg, params, tokens, eng.pages,
+                                            table, pos, paged_attn=route)
+        slot_logits, _ = batching.batched_decode_step(cfg, params, tokens,
+                                                      caches, spos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    name = "paged_attn" if route == "bespoke" else "paged_attn_stock"
+    assert _build.LAUNCHES[name] == 2
+    assert _build.LAUNCHES["fused_attn_step"] == 0
+    assert _build.LAUNCHES["fused_mlp"] == 4
+    assert bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(slot_logits).all())
