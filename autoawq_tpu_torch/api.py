@@ -24,17 +24,7 @@ from autoawq_tpu_torch.io import serialize
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.serve import generate as gen
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; an explicit device is taken as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "autoawq_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda")
-    return torch.device(device)
+from autoawq_tpu_torch.utils.device import resolve_device
 
 
 def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:

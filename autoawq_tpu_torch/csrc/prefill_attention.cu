@@ -6,139 +6,248 @@
 // Replaces jax's stock TPU flash_attention as reached from
 // autoawq_tpu/nn/modules.py::_flash_prefill (prefill with s >= 128).
 //
-// Bound on the H100: operations at long prompts (4 * S^2 / 2 * hd flops per
-// head against 2 * S * hd * 4 bytes), bytes at short ones. This first
-// kernel runs its dot products on the CUDA cores in f32, so it stays far
-// from the tensor-core bound; mma-based tiles are later work.
+// Bound on the H100: operations from S of about 512 (4 * S^2 / 2 * hd
+// flops per head against 2 * S * hd * 4 bytes), bytes below.
 //
-// Design: one block per (q tile of BQ rows, head, batch). HD / 32 threads
-// share one query row, each owning 32 of its dims (partial dot products
-// meet by warp shuffles). The block walks BKV-key tiles of K and V through
-// shared memory only up to the diagonal, reading its kv head h / (nh / nkv)
-// directly (no repeat is materialized), and keeps the online softmax
-// (running max, running sum, rescaled f32 accumulator) in registers.
-// Instances: HD 64 and 128 with 64-row tiles; HD 256 with 32-row tiles, so
-// its 256 threads and 32 KB of K/V tiles fit as the others do. The wrapper
-// zero-pads any other head dim up to the next instance (exact, as
+// Design: flash attention on the tensor cores (the structure of
+// FlashAttention-3 without its warp specialisation or ping-pong). One
+// warpgroup (128 threads) per block owns 64 query rows of one head; the
+// blocks of the longest causal rows are issued first (the q tile runs in
+// reverse order of blockIdx.z, the grid's slowest axis). The block walks
+// 64-key tiles of its kv head (h / (nh / nkv), no repeat materialized) up
+// to the diagonal through a 2-stage cp.async ring, so tile j + 1's copy
+// overlaps tile j's products. Per tile: S = Q K^T with wgmma m64n64k16 (Q
+// and K from shared memory, 128-byte swizzle, f32 accumulators in
+// registers); the causal mask only on the diagonal tile; the online
+// softmax in registers with exp2 and the scale folded in; P rounded to
+// bf16 (as the twin rounds its probabilities) and fed from registers as
+// the A operand of O += P V (wgmma m64n{hd}k16, V read MN-major from the
+// same swizzled tile layout as K). Instances: hd 64, 128 and 256 (Q plus
+// two stages of K and V: 40, 80 and 160 KB of dynamic shared memory). The
+// wrapper zero-pads any other head dim up to the next instance (exact, as
 // _flash_prefill pads to a multiple of 64).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-template <int HD, int BQ, int BKV>
-__global__ void __launch_bounds__(BQ * (HD / 32))
+constexpr int BQ = 64;   // query rows per block (one warpgroup)
+constexpr int BKV = 64;  // keys per tile
+
+template <int HD>
+struct Smem {
+  static constexpr int Q = BQ * HD * 2;
+  static constexpr int KV = BKV * HD * 2;  // one K or V tile
+  static constexpr int BYTES = Q + 4 * KV + 1024;
+};
+
+// PV's wgmma at the head dim's width.
+template <int HD>
+__device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void pv_wgmma<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  hop::wgmma_rs_n64_mn(o, a, db);
+}
+template <>
+__device__ __forceinline__ void pv_wgmma<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  hop::wgmma_rs_n128_mn(o, a, db);
+}
+template <>
+__device__ __forceinline__ void pv_wgmma<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  hop::wgmma_rs_n256_mn(o, a, db);
+}
+
+// Copy `rows` token rows of hd values (row r at src + r * tok; rows past
+// `valid` are zero-filled) into a 128-byte-swizzled tile.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long tok, int valid, int tid) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / 128; ++i) {
+    const int idx = tid + 128 * i;
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r < valid;
+    hop::cp_async16(dst + hop::swz(r, 8 * c, ROWS),
+                    ok ? src + r * tok + 8 * c : src, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ out, int S, int NH, int NKV,
                     long long q_tok, long long k_tok, long long v_tok,
                     float scale_log2) {
-  constexpr int TPR = HD / 32;  // threads per query row
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV][HD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKV][HD];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (hop::smem_addr(smem_raw) + 1023) & ~static_cast<uint32_t>(1023);
+  using SM = Smem<HD>;
+  const uint32_t q_sa = base;
+  const uint32_t kv_sa = base + SM::Q;  // stage st: K, then V
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // longest rows first
   const int kvh = h / (NH / NKV);
-  const int row = threadIdx.x / TPR;
-  const int part = threadIdx.x % TPR;
-  const int i = qt * BQ + row;
-  const int d0 = part * 32;
+  const int q0 = qt * BQ;
 
-  float qf[32], o[32];
-  {
-    const __nv_bfloat16* qp = q + ((long long)b * S + i) * q_tok + h * HD + d0;
+  const __nv_bfloat16* kb = k + (long long)b * S * k_tok + kvh * HD;
+  const __nv_bfloat16* vb = v + (long long)b * S * v_tok + kvh * HD;
+  load_rows<HD, BQ>(q_sa, q + ((long long)b * S + q0) * q_tok + h * HD,
+                    q_tok, S - q0, tid);
+  load_rows<HD, BKV>(kv_sa, kb, k_tok, S, tid);
+  load_rows<HD, BKV>(kv_sa + SM::KV, vb, v_tok, S, tid);
+  hop::cp_async_commit();
+
+  float o[HD / 2];
 #pragma unroll
-    for (int d = 0; d < 32; ++d) {
-      qf[d] = i < S ? __bfloat162float(qp[d]) * scale_log2 : 0.0f;
-      o[d] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // and row0 + 8
+
+  const int n_tiles = qt + 1;  // key tiles up to the diagonal
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t k_sa = kv_sa + (j & 1) * 2 * SM::KV;
+    const uint32_t v_sa = k_sa + SM::KV;
+    hop::cp_async_wait<0>();
+    hop::fence_proxy_async();
+    __syncthreads();  // tile j landed; every thread is done with tile j - 1
+    if (j + 1 < n_tiles) {
+      const uint32_t nk = kv_sa + ((j + 1) & 1) * 2 * SM::KV;
+      const int k1 = (j + 1) * BKV;
+      load_rows<HD, BKV>(nk, kb + k1 * k_tok, k_tok, S - k1, tid);
+      load_rows<HD, BKV>(nk + SM::KV, vb + k1 * v_tok, v_tok, S - k1, tid);
     }
+    hop::cp_async_commit();
+
+    float s[32];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * 64 * 128 + (kk & 3) * 32;
+      hop::wgmma_ss_n64(s, hop::desc_sw128(q_sa + off, 16, 1024),
+                        hop::desc_sw128(k_sa + off, 16, 1024), kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+
+    if (j == qt) {  // the diagonal tile: keys past the row (or past S)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = j * BKV + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int row = row0 + ((i >> 1) & 1) * 8;
+        if (key > row) s[i] = -CUDART_INF_F;
+      }
+    }
+    // online softmax; rows row0 (i % 4 < 2) and row0 + 8 (i % 4 >= 2), each
+    // shared by the 4 threads of a quad
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        mx = fmaxf(mx, s[4 * c + 2 * r] * scale_log2);
+        mx = fmaxf(mx, s[4 * c + 2 * r + 1] * scale_log2);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m_run[r] - mx);
+      m_run[r] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * c + 2 * r + e;
+          s[i] = exp2f(fmaf(s[i], scale_log2, -mx));
+          sum += s[i];
+        }
+      }
+      l_run[r] = l_run[r] * corr[r] + sum;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // P as wgmma's A fragments: key block kc (16 keys) = column blocks
+    // 2kc, 2kc + 1 of the S accumulator
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      pa[kc][0] = hop::pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+      pa[kc][1] = hop::pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+      pa[kc][2] = hop::pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+      pa[kc][3] = hop::pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    }
+    hop::fence_regs(o);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      pv_wgmma<HD>(o, pa[kc],
+                   hop::desc_sw128(v_sa + kc * 2048, BKV * 128, 1024));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(o);
   }
-  float m_run = -CUDART_INF_F, l_run = 0.0f;
 
-  const int kend = min(S, qt * BQ + BQ);
-  for (int j0 = 0; j0 < kend; j0 += BKV) {
-    __syncthreads();
-    constexpr int CHUNKS = BKV * HD / 8;  // 16-byte chunks per tile
-    for (int c = threadIdx.x; c < CHUNKS; c += blockDim.x) {
-      const int jj = c / (HD / 8);
-      const int dd = (c % (HD / 8)) * 8;
-      const int j = j0 + jj;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (j < S) {
-        kv4 = *reinterpret_cast<const uint4*>(
-            k + ((long long)b * S + j) * k_tok + kvh * HD + dd);
-        vv4 = *reinterpret_cast<const uint4*>(
-            v + ((long long)b * S + j) * v_tok + kvh * HD + dd);
-      }
-      *reinterpret_cast<uint4*>(&Ks[jj][dd]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[jj][dd]) = vv4;
-    }
-    __syncthreads();
-
-    float s[BKV];
-    float m_new = m_run;
+  float inv[2];
 #pragma unroll
-    for (int jj = 0; jj < BKV; ++jj) {
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(&Ks[jj][d0]);
-      float acc = 0.0f;
-#pragma unroll
-      for (int d = 0; d < 16; ++d) {
-        const float2 kf = __bfloat1622float2(kr[d]);
-        acc = fmaf(qf[2 * d], kf.x, acc);
-        acc = fmaf(qf[2 * d + 1], kf.y, acc);
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      const int j = j0 + jj;
-      s[jj] = (j <= i && j < S) ? acc : -CUDART_INF_F;
-      m_new = fmaxf(m_new, s[jj]);
-    }
-    // rows past S see only masked keys; keep their arithmetic finite
-    const float m_use = m_new == -CUDART_INF_F ? 0.0f : m_new;
-    const float corr = exp2f(m_run - m_use);
-    l_run *= corr;
-#pragma unroll
-    for (int d = 0; d < 32; ++d) o[d] *= corr;
-#pragma unroll
-    for (int jj = 0; jj < BKV; ++jj) {
-      const float p = exp2f(s[jj] - m_use);
-      l_run += p;
-      const __nv_bfloat162* vr =
-          reinterpret_cast<const __nv_bfloat162*>(&Vs[jj][d0]);
-#pragma unroll
-      for (int d = 0; d < 16; ++d) {
-        const float2 vf = __bfloat1622float2(vr[d]);
-        o[2 * d] = fmaf(p, vf.x, o[2 * d]);
-        o[2 * d + 1] = fmaf(p, vf.y, o[2 * d + 1]);
-      }
-    }
-    m_run = m_new;
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.0f / l;
   }
-
-  if (i < S) {
-    const float inv = 1.0f / l_run;
-    __nv_bfloat16* op = out + (((long long)b * S + i) * NH + h) * HD + d0;
 #pragma unroll
-    for (int d = 0; d < 32; d += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(op + d) =
-          __floats2bfloat162_rn(o[d] * inv, o[d + 1] * inv);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* op = out + (((long long)b * S + row) * NH + h) * HD;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      const int col = 8 * c + 2 * (lane & 3);
+      *reinterpret_cast<__nv_bfloat162*>(op + col) = __floats2bfloat162_rn(
+          o[4 * c + 2 * r] * inv[r], o[4 * c + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-template <int HD, int BQ, int BKV>
-void launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-            const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S, int NH,
-            int NKV, long long q_tok, long long k_tok, long long v_tok,
-            float scale_log2, cudaStream_t st) {
-  dim3 grid((S + BQ - 1) / BQ, NH, B);
-  prefill_attn_kernel<HD, BQ, BKV><<<grid, BQ * (HD / 32), 0, st>>>(
+template <int HD>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+           const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S, int NH,
+           int NKV, long long q_tok, long long k_tok, long long v_tok,
+           float scale_log2, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        prefill_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<HD>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  dim3 grid(NH, B, (S + BQ - 1) / BQ);
+  prefill_attn_kernel<HD><<<grid, 128, Smem<HD>::BYTES, st>>>(
       q, k, v, out, S, NH, NKV, q_tok, k_tok, v_tok, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -153,17 +262,14 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
   auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (HD == 64) {
-    launch<64, 64, 64>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+  if (HD == 64)
+    return launch<64>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+                      scale_log2, st);
+  if (HD == 128)
+    return launch<128>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
                        scale_log2, st);
-  } else if (HD == 128) {
-    launch<128, 64, 64>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
-                        scale_log2, st);
-  } else if (HD == 256) {
-    launch<256, 32, 32>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
-                        scale_log2, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (HD == 256)
+    return launch<256>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+                       scale_log2, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

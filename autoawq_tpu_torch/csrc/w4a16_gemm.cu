@@ -1,43 +1,128 @@
 // K2: W4A16 GEMM for M >= 256 (prefill), y = x @ dequant(qweight).
 //
 // Replaces autoawq_tpu/ops/pallas_gemm.py::_kernel_ws (called from _ws_matmul),
-// the TPU's weights-stationary mode for M >= WS_MIN_M.
+// the TPU's weights-stationary mode for M >= WS_MIN_M: each weight
+// superblock dequantized once and reused for every M tile.
 //
 // Bound on the H100: operations once M is in the hundreds (2*M*N*K flops on
 // 0.5*N*K weight bytes passes the ~295 flops/byte balance point near
-// M = 150); the tensor cores are the limit.
+// M = 150); at the main path's shapes the tensor cores are the limit.
 //
-// Design (simple first; wgmma and TMA are later work): a 128x128 output
-// tile per block of 8 warps, the tile body of w4a16_tile.cuh (the weight
-// tile dequantized once into shared memory as bf16, mma.sync.m16n8k16 with
-// f32 accumulators; single-buffered, so the time follows the K loop).
-// Ragged M and N are masked on load (zeros) and on store.
-#include "w4a16_tile.cuh"
+// Design (w4a16_wgmma.cuh): the Hopper form of "dequantize once, reuse
+// across M". A 227 KB shared memory cannot hold a K x 128 bf16 weight slab,
+// so each block takes 128 weight columns by 256 rows of x (128 where
+// 256-row tiles would leave SMs idle) and walks K 64 deep: a producer
+// warpgroup keeps a 4-stage TMA ring of x tiles and PACKED weight tiles (a quarter
+// of bf16's bytes) in flight, and two consumer warpgroups compute the
+// tile's transpose with wgmma m64nTOKk16 whose A operand is the
+// dequantized weight in registers (each value dequantized once per block,
+// for all its rows), double-buffered so the next step's dequant runs while
+// this step's wgmmas do. Blocks are rastered in groups of 16 row tiles, so
+// a weight tile is read from memory about once per group. The tensor maps
+// are encoded per call on the host (the driver's cuTensorMapEncodeTiled,
+// reached through the runtime).
+#include <cudaTypedefs.h>
+
+#include "w4a16_wgmma.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-w4a16_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int32_t* __restrict__ qw,
-                  const float* __restrict__ sc,
-                  const int32_t* __restrict__ qz,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                  int group_size) {
-  const int m0 = blockIdx.y * 128;
-  awq::gemm_tile<4>(x + (size_t)m0 * K, min(128, M - m0), qw, sc, qz,
-                    out + (size_t)m0 * N, K, N, blockIdx.x * awq::TILE_N,
-                    group_size);
+template <int TOK>
+__global__ void __launch_bounds__(awq::wg::THREADS, 1)
+w4a16_gemm_kernel(awq::wg::Params p, const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap ts,
+                  const __grid_constant__ CUtensorMap tz) {
+  extern __shared__ uint8_t smem[];
+  awq::wg::gemm_block<TOK>(p, &tx, &tw, &ts, &tz, smem);
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// A 2-D tensor map over a row-major [rows, cols] array (cols innermost),
+// boxes of [box_rows, box_cols]; out-of-bounds elements read as zeros.
+bool map_2d(CUtensorMap* m, CUtensorMapDataType type, int elem_bytes,
+            const void* base, int rows, int cols, int box_rows, int box_cols,
+            CUtensorMapSwizzle swizzle) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t steps[2] = {1, 1};
+  return fn(m, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int TOK>
+int launch(const void* x, const void* qw, const void* sc, const void* qz,
+           const awq::wg::Params& p, cudaStream_t stream) {
+  using namespace awq::wg;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        w4a16_gemm_kernel<TOK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<TOK>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int G = p.K / p.gs;
+  CUtensorMap tx, tw, ts, tz;
+  bool ok = map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K, TOK,
+                   BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, p.K / 8, p.N,
+                   BK / 8, BN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            map_2d(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sc, G, p.N, 2, BN,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (ok && qz != nullptr)
+    ok = map_2d(&tz, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qz, (G + 7) / 8, p.N,
+                2, BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    tz = tw;  // unread
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = ((p.M + TOK - 1) / TOK) * ((p.N + BN - 1) / BN);
+  w4a16_gemm_kernel<TOK><<<blocks, THREADS, Layout<TOK>::SMEM, stream>>>(
+      p, tx, tw, ts, tz);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// N must be a multiple of 4 and every pointer 16-byte aligned (TMA).
 extern "C" int w4a16_gemm(const void* x, const void* qw, const void* sc,
                           const void* qz, void* out, int M, int K, int N,
                           int group_size, void* stream) {
-  dim3 grid((N + awq::TILE_N - 1) / awq::TILE_N, (M + 127) / 128);
-  w4a16_gemm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(qw),
-      static_cast<const float*>(sc), static_cast<const int32_t*>(qz),
-      static_cast<__nv_bfloat16*>(out), M, K, N, group_size);
-  return static_cast<int>(cudaGetLastError());
+  using namespace awq::wg;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (N % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<__nv_bfloat16*>(out), M, K, N, group_size,
+           qz != nullptr};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 256-row tiles halve the dequant work per flop; take them when they
+  // still give every SM a block
+  const int tall = ((M + 255) / 256) * ((N + BN - 1) / BN);
+  return tall >= sms ? launch<256>(x, qw, sc, qz, p, st)
+                     : launch<128>(x, qw, sc, qz, p, st);
 }

@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 from autoawq_tpu_torch.config import AwqConfig
 from autoawq_tpu_torch.io import hf as hf_io
 from autoawq_tpu_torch.models.config import ModelConfig
+from autoawq_tpu_torch.utils.device import resolve_device
 
 
 def load_config(path: str) -> Tuple[ModelConfig, Optional[AwqConfig]]:
@@ -24,9 +25,11 @@ def load_config(path: str) -> Tuple[ModelConfig, Optional[AwqConfig]]:
     return cfg, qcfg
 
 
-def from_quantized(path: str, device="cpu"
+def from_quantized(path: str, device=None
                    ) -> Tuple[ModelConfig, AwqConfig, Dict[str, Any]]:
-    """Load an AutoAWQ GEMM checkpoint directory into port params."""
+    """Load an AutoAWQ GEMM checkpoint directory into port params, on the
+    card unless ``device`` names another (with no card and no device it
+    raises, as the facade does)."""
     if not os.path.isdir(path):
         raise FileNotFoundError(
             f"{path} is not a local directory (the port has no hub download)")
@@ -41,5 +44,6 @@ def from_quantized(path: str, device="cpu"
         raise NotImplementedError(
             f"{qcfg.w_bit}-bit weights are not in the port yet (ROADMAP "
             "queue 1 item 14)")
+    device = resolve_device(device)
     sd = hf_io.load_state_dict_from_dir(path)
     return cfg, qcfg, hf_io.params_from_state_dict(cfg, sd, device)

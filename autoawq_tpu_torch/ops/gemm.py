@@ -137,11 +137,19 @@ def w4a16_gemm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     gs = _check(x, qweight, scales, qzeros, "w4a16_gemm", 32)
     m, k = x.shape
     n = qweight.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _build.launch("w4a16_gemm", x.data_ptr(), qweight.data_ptr(),
-                  scales.data_ptr(), _build.ptr(qzeros), out.data_ptr(),
-                  m, k, n, gs)
-    return out
+    # K2 reads its operands with TMA, which needs 16-byte aligned rows and
+    # bases: pad the columns of a width that is not a multiple of 4 (no
+    # model of the port has one; the pad costs a copy of the weights)
+    n_pad = -(-n // 4) * 4
+    ops = [qweight, scales, qzeros]
+    if n_pad != n or any(t is not None and t.data_ptr() % 16 for t in ops):
+        ops = [None if t is None else
+               torch.nn.functional.pad(t, (0, n_pad - n)) for t in ops]
+    out = torch.empty((m, n_pad), dtype=x.dtype, device=x.device)
+    _build.launch("w4a16_gemm", x.data_ptr(), ops[0].data_ptr(),
+                  ops[1].data_ptr(), _build.ptr(ops[2]), out.data_ptr(),
+                  m, k, n_pad, gs)
+    return out if n_pad == n else out[:, :n].contiguous()
 
 
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,

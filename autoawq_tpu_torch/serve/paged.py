@@ -39,7 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from autoawq_tpu_torch.api import resolve_device
+from autoawq_tpu_torch.utils.device import resolve_device
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.serve import generate as gen

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, needs one CUDA device
     python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --root DIR --phases device,prefill   # A/B
 
 Phases, each printing JSON lines:
 
@@ -16,7 +17,9 @@ Phases, each printing JSON lines:
               CUDA-event times of CUDA-graph replays (kernel, plain twin,
               one PyTorch library call where one computes the same
               function; the kernel's eager per-call time beside them) and
-              the least time the card could take (bound).
+              the least time the card could take (bound). K2 and K4 also
+              at traffic D's prefill shapes (Mistral's four linears at
+              M = 16,384; B=8, S=2048, 32/8 heads, hd 128).
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
@@ -39,7 +42,8 @@ Phases, each printing JSON lines:
               2112. Each: decode tok/s (B times the difference quotient of
               a 64- and a 16-token generation), prefill seconds, launches
               per decode step, a profile of 8 decode steps, and the
-              teacher-forced check with the traffic's cache type.
+              teacher-forced check with the traffic's cache type; D also
+              a profile of one prefill.
               Then the same Mistral through the paged engine
               (``serve/paged.PagedBatchingEngine``, 8 slots, 64-row pages,
               8 a slot, 136 in the pool). Traffic H: 16 requests of 64
@@ -79,6 +83,11 @@ Phases, each printing JSON lines:
               in memory from the same nibbles.
 6. a ``kernels`` line: every ported kernel with launches, error and times.
 
+Asked for by name only: ``prefill`` — K2 and K4 at B's and D's prefill
+shapes and traffic B's and D's prefill seconds, for an A/B of two checkouts
+in one call: ``--root DIR`` imports the port (and builds its kernels) from
+another checkout, such as a parent commit unpacked with ``git archive``.
+
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Without a CUDA device, or outside a checkout of the
 repo, the script exits 1 at once.
@@ -98,6 +107,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load")
+EXTRA_PHASES = ("prefill",)  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 1024 * 1024
@@ -121,6 +131,12 @@ MIXTRAL = dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
                sliding_window=None)
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
+# Mistral-7B's four linears (fused qkv and gate_up) at traffic D's prefill,
+# M = 8 x 2048 rows, and K4 at D's shape (B, S, nh, nkv, hd)
+D_LINEARS = {"qkv": (4096, 6144), "o": (4096, 4096),
+             "gate_up": (4096, 28672), "down": (14336, 4096)}
+D_M = 8 * 2048
+D_ATTN = (8, 2048, 32, 8, 128)
 KERNEL_META = {
     "w4a16_gemv": ("autoawq_tpu_torch/csrc/w4a16_gemv.cu",
                    "autoawq_tpu/ops/pallas_gemm.py:98"),
@@ -310,9 +326,12 @@ def card() -> str:
 def phase_device():
     import torch
 
+    import autoawq_tpu_torch
+
     smi = card()
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "port": os.path.dirname(os.path.abspath(autoawq_tpu_torch.__file__)),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvidia_smi": smi})
 
@@ -325,14 +344,19 @@ def phase_build():
     summary = {}
     for name, log in logs.items():
         lines = [ln.strip() for ln in str(log["ptxas"]).splitlines()
-                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln
+                 or "Performance Loss" in ln]
         summary[name] = {"seconds": round(float(log["seconds"]), 2),
                          "ptxas": lines}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "kernels": summary})
 
 
-def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True):
+def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
+               iters=200, yardsticks=True):
+    """One K1 / K2 call against its twin; with ``timing``, its time over
+    ``iters`` calls and (with ``yardsticks``) the twin's, the library
+    call's and the bound."""
     import torch
 
     from autoawq_tpu_torch.ops import gemm
@@ -353,15 +377,18 @@ def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True):
     if timing:
         wb = lin_bytes(lin)
         sets = copies(args, wb)
-        row["ms"], row["eager_ms"] = time_ms(fn, sets, 200)
-        row["plain_ms"], _ = time_ms(gemm.awq_matmul_plain, sets[:2], 10)
+        row["ms"], row["eager_ms"] = time_ms(fn, sets, iters)
+        row["bound_ms"], row["bound_by"] = bound(
+            wb + 2 * m * k + 2 * m * n, 2 * m * n * k)
+    if timing and yardsticks:
+        row["plain_ms"], _ = time_ms(gemm.awq_matmul_plain, sets[:2],
+                                     min(iters, 10))
         w = gemm.dequantize(lin["qweight"], lin["scales"], lin["qzeros"],
                             dtype=torch.bfloat16)
         wsets = copies([x, w], w.numel() * 2)
-        row["library_ms"], _ = time_ms(torch.matmul, wsets, 200)
+        row["library_ms"], _ = time_ms(torch.matmul, wsets, iters)
         row["library"] = "bf16 torch.matmul on the pre-dequantized weight"
-        row["bound_ms"], row["bound_by"] = bound(
-            wb + 2 * m * k + 2 * m * n, 2 * m * n * k)
+        del w, wsets
     emit(row)
     return row
 
@@ -404,7 +431,11 @@ def _mlp_case(rng, m, act, dev, timing=True):
     return row
 
 
-def _attn_case(b, s, nh, nkv, hd, dev, timing=True):
+def _attn_case(b, s, nh, nkv, hd, dev, timing=True, iters=200,
+               yardsticks=True, case="prefill"):
+    """One K4 call against its twin, held per row; with ``timing``, its
+    time over ``iters`` calls and (with ``yardsticks``) the twin's, SDPA's
+    and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -420,7 +451,7 @@ def _attn_case(b, s, nh, nkv, hd, dev, timing=True):
     err, rel = rel_err(got, ref)
     row_rel = row_rel_err(got, ref, hd)
     row = {"phase": "kernel", "kernel": "prefill_attention",
-           "case": "prefill", "B": b, "S": s, "nh": nh, "nkv": nkv, "hd": hd,
+           "case": case, "B": b, "S": s, "nh": nh, "nkv": nkv, "hd": hd,
            "max_abs_err": err, "max_rel_err": rel,
            "max_row_rel_err": row_rel, "tol": TOL["prefill_attention"]}
     check(row_rel <= TOL["prefill_attention"],
@@ -428,18 +459,21 @@ def _attn_case(b, s, nh, nkv, hd, dev, timing=True):
           f"{row_rel:.3g}")
     if timing:
         args = [[q, k, v, scale]]
-        row["ms"], row["eager_ms"] = time_ms(at.prefill_attention, args, 200)
-        row["plain_ms"], _ = time_ms(at.prefill_attention_plain, args, 10)
+        row["ms"], row["eager_ms"] = time_ms(at.prefill_attention, args,
+                                             iters)
+        flops = 4 * b * nh * hd * (s * (s + 1) / 2)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    if timing and yardsticks:
+        row["plain_ms"], _ = time_ms(at.prefill_attention_plain, args,
+                                     min(iters, 10))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
         def sdpa(a, b_, c):
             return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
                                                   enable_gqa=True)
-        row["library_ms"], _ = time_ms(sdpa, [[qt, kt, vt]], 200)
+        row["library_ms"], _ = time_ms(sdpa, [[qt, kt, vt]], iters)
         row["library"] = "torch scaled_dot_product_attention (causal)"
-        flops = 4 * b * nh * hd * (s * (s + 1) / 2)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     emit(row)
     return row
 
@@ -555,13 +589,15 @@ def qlin_on_card(gen, k: int, n: int, gs: int = 128, zp: bool = True,
             "qzeros": words(*lead, -(-g // 8), n) if zp else None}
 
 
-def _moe_case(gen, case, w, t, dev, timing=True, iters=50):
+def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
+              yardsticks=True):
     """K6 against its twin: ``t`` tokens routed to 2 of the stack's experts
     each (distinct, as top-k picks them), the tables from ``moe_align``.
     With ``timing``: K6 (graph replay and eager), the twin (eager: it reads
     the table on the host), bf16 ``torch.matmul`` per owned expert over its
     pre-dequantized weight, summed, and the bound for the experts and rows
-    this routing needs."""
+    this routing needs (the twin and the matmuls only with
+    ``yardsticks``)."""
     import torch
 
     from autoawq_tpu_torch.ops import gemm
@@ -607,6 +643,9 @@ def _moe_case(gen, case, w, t, dev, timing=True, iters=50):
                                 for t_ in w.values() if t_ is not None)
         sets = copies(args, read)
         row["ms"], row["eager_ms"] = time_ms(run, sets, iters)
+        row["bound_ms"], row["bound_by"] = bound(
+            read + 2 * t * k * (kdim + n), 2 * t * k * kdim * n)
+    if timing and yardsticks:
         row["plain_ms"], _ = time_ms(plain, sets[:1], 3, graph=False)
         flat = []
         for ex in owned:
@@ -625,8 +664,6 @@ def _moe_case(gen, case, w, t, dev, timing=True, iters=50):
                           "matmul_per_expert_ms is bf16 torch.matmul per "
                           "owned expert over its pre-dequantized weight, "
                           "summed")
-        row["bound_ms"], row["bound_by"] = bound(
-            read + 2 * t * k * (kdim + n), 2 * t * k * kdim * n)
     emit(row)
     return row
 
@@ -836,8 +873,13 @@ def phase_kernels(dev):
             row = _gemm_case(rng, "w4a16_gemm", case, m, k, n, 128, True, dev)
             if m == 768 and case == "gate_up":
                 rep["w4a16_gemm"] = row
+    for case, (k, n) in D_LINEARS.items():  # K2 at traffic D's prefill
+        _gemm_case(rng, "w4a16_gemm", f"D {case}", D_M, k, n, 128, True, dev,
+                   iters=10)
     _gemm_case(rng, "w4a16_gemm", "ragged", 300, 2048, 2500, 32, False, dev,
                timing=False)
+    _gemm_case(rng, "w4a16_gemm", "K % 64 = 32, g32", 512, 2080, 1024, 32,
+               True, dev, timing=False)
     for m in (1, 8):
         row = _mlp_case(rng, m, "silu", dev)
         if m == 1:
@@ -845,6 +887,7 @@ def phase_kernels(dev):
     _mlp_case(rng, 3, "gelu_pytorch_tanh", dev, timing=False)
     _mlp_case(rng, 20, "gelu", dev, timing=False)
     rep["prefill_attention"] = _attn_case(2, 384, 32, 4, 64, dev)
+    _attn_case(*D_ATTN, dev, iters=10, case="D prefill")
     for hd in (128, 96, 256):  # 96 is zero-padded to K4's 128 instance
         _attn_case(1, 200, 8, 2, hd, dev, timing=False)
     # K5 at traffic C's and D's last decode step, then the edge shapes
@@ -1236,6 +1279,7 @@ def _mistral_traffics(dev):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.serve import generate as gen
     from autoawq_tpu_torch.utils.synth import random_quantized_params
 
     cfg = ModelConfig(**MISTRAL)
@@ -1258,6 +1302,13 @@ def _mistral_traffics(dev):
         counts[name], per_step[name] = _batched_traffic(
             cfg, params, name, prompt, cap, kv_quant, reps,
             {"fused_attn_step": cfg.num_hidden_layers})
+        if name == "D":
+            caches = gen.init_kv_cache(cfg, 8, cap, torch.bfloat16, dev,
+                                       kv_quant=True)
+            emit({"phase": "e2e", "step": "profile", "traffic": name,
+                  "card": card(), "what": "prefill", **device_profile(
+                      lambda i: gen.prefill(cfg, params, prompt, caches), 1)})
+            del caches
         rows = _teacher_forced(cfg, params, prompt, tf_steps, kv_quant)
         _check_teacher_forced(name, rows)
         emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
@@ -1826,6 +1877,68 @@ def _moe_layer_check(cfg, params, name, taps):
     return rows
 
 
+def phase_prefill(dev):
+    """The prefill kernels and prefills of the checkout under test, for an
+    A/B of two checkouts in one call (``--root``, in turns: parent, change,
+    change, parent): K2 at B's M=768 gate_up and D's four linears, K4 at B's
+    and D's shapes, K6 at F's prefill (kernel times, each call held against
+    its twin), then
+    traffic B's and D's prefill seconds as the e2e phase times them (host
+    clock around one prefill ending in a synchronize; min of 3 after a
+    warm-up), on the e2e phase's weights."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    rng = np.random.default_rng(5)
+    torch.manual_seed(5)
+    k, n = LINEARS["gate_up"]
+    _gemm_case(rng, "w4a16_gemm", "gate_up", 768, k, n, 128, True, dev,
+               yardsticks=False)
+    for case, (k, n) in D_LINEARS.items():
+        _gemm_case(rng, "w4a16_gemm", f"D {case}", D_M, k, n, 128, True, dev,
+                   iters=10, yardsticks=False)
+    _attn_case(2, 384, 32, 4, 64, dev, yardsticks=False)
+    _attn_case(*D_ATTN, dev, iters=10, yardsticks=False, case="D prefill")
+    # K6, whose prefill tile K2 no longer shares, at traffic F's prefill
+    draw = torch.Generator(device=dev)
+    draw.manual_seed(5)
+    h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
+                    MIXTRAL["num_experts"])
+    for case, (k, n) in (("F prefill, gate_up (bm 128)", (h, 2 * inter)),
+                         ("F prefill, down (bm 128)", (inter, h))):
+        _moe_case(draw, case, qlin_on_card(draw, k, n, experts=ne), 4096,
+                  dev, iters=10, yardsticks=False)
+    for name, model, b, s, cap, kv_quant in (
+            ("B", TINYLLAMA, 2, 384, 384 + 32, False),
+            ("D", MISTRAL, 8, 2048, 2112, True)):
+        cfg = ModelConfig(**model)
+        torch.cuda.empty_cache()
+        params = fuse_model(cfg, random_quantized_params(
+            cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (b, s))).to(dev)
+        caches = gen.init_kv_cache(cfg, b, cap, torch.bfloat16, dev,
+                                   kv_quant=kv_quant)
+        runs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = gen.prefill(cfg, params, prompt, caches)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()),
+              f"traffic {name}: non-finite prefill logits")
+        emit({"phase": "prefill", "traffic": name, "card": card(),
+              "batch": b, "prompt": s, "prefill_s": min(runs[1:]),
+              "prefill_runs_s": runs[1:]})
+        del params, caches, logits
+
+
 def phase_load(dev):
     import dataclasses
 
@@ -1936,18 +2049,27 @@ def phase_load(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
+    ap.add_argument("--root", default=HERE,
+                    help="the checkout whose port is under test (default: "
+                    "the one this script sits in)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    root = os.path.abspath(args.root)
 
-    # the port under test is the checkout this script sits in, never a copy
-    # installed elsewhere
-    if not os.path.isdir(os.path.join(HERE, "autoawq_tpu_torch")):
-        print("chip_smoke: no autoawq_tpu_torch/ beside this script; run it "
-              "from the root of a checkout", file=sys.stderr)
+    # the port under test is a checkout's (this script's by default), never
+    # a copy installed elsewhere
+    if not os.path.isdir(os.path.join(root, "autoawq_tpu_torch")):
+        where = "beside this script" if root == HERE else f"in {root}"
+        print(f"chip_smoke: no autoawq_tpu_torch/ {where}; run it from the "
+              "root of a checkout", file=sys.stderr)
         return 1
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
+    if root not in sys.path:
+        sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
@@ -1977,6 +2099,8 @@ def main(argv=None) -> int:
         total, per_token = timed("e2e", phase_e2e, dev)
     if "load" in phases:
         timed("load", phase_load, dev)
+    if "prefill" in phases:
+        timed("prefill", phase_prefill, dev)
     if rep:
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -79,11 +79,21 @@ def test_w4a16_gemv(cuda, rng, m, k, n, gs, zp):
 
 @pytest.mark.parametrize("m,k,n,gs,zp", [
     (256, 64, 40, 32, True), (300, 256, 2500, 64, False),
-    (768, 2048, 11264, 128, True), (256, 5632, 2048, 128, True)])
+    (768, 2048, 11264, 128, True), (256, 5632, 2048, 128, True),
+    # Mistral's gate_up at M = 4096; K = 64 (one partial 64-deep step);
+    # K = 2080 (K % 64 = 32, the last step half zeros) with g32; g64;
+    # N = 2500 (a ragged last column tile); M = 257 (one row in the last
+    # 128-row tile); N = 2502 (rows not 16-byte aligned: one-word copies)
+    (4096, 4096, 28672, 128, True), (256, 64, 4096, 64, False),
+    (512, 2080, 1024, 32, True), (384, 4096, 6144, 64, True),
+    (300, 2048, 2500, 128, True), (257, 2048, 2048, 128, True),
+    (256, 512, 2502, 32, True)])
 def test_w4a16_gemm(cuda, rng, m, k, n, gs, zp):
     w = lin(rng, k, n, gs, zp, cuda)
     x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    before = _build.LAUNCHES["w4a16_gemm"]
     got = gemm.w4a16_gemm(x, *w)
+    assert _build.LAUNCHES["w4a16_gemm"] == before + 1
     assert rel(got, gemm.awq_matmul_plain(x, *w)) <= 1e-2
 
 
@@ -118,7 +128,11 @@ def row_rel(a, b, hd):
 
 @pytest.mark.parametrize("b,s,nh,nkv,hd", [
     (1, 130, 4, 2, 64), (2, 384, 32, 4, 64), (1, 200, 8, 8, 128),
-    (1, 150, 4, 2, 96), (1, 140, 4, 1, 256)])
+    (1, 150, 4, 2, 96), (1, 140, 4, 1, 256),
+    # traffic D's prefill (Mistral-7B, 8 x 2048); S = 129 and 1000 (a
+    # ragged last q and key tile); hd 96 (zero-padded to 128) and 256
+    (8, 2048, 32, 8, 128), (2, 129, 32, 8, 128), (1, 1000, 8, 2, 128),
+    (2, 1000, 8, 4, 96), (1, 1000, 4, 2, 256), (1, 64, 2, 1, 64)])
 def test_prefill_attention(cuda, b, s, nh, nkv, hd):
     q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
     kv = torch.randn(b, s, 2 * nkv, hd, device=cuda).to(torch.bfloat16)

@@ -56,7 +56,8 @@ def test_port_load_matches_jax_load(tmp_path, rng, zero_point, fuse):
 
 def test_from_quantized_keeps_dtypes_when_asked(tmp_path):
     save_jax(tmp_path)
-    cfg, qcfg, params = serialize.from_quantized(str(tmp_path))
+    cfg, qcfg, params = serialize.from_quantized(str(tmp_path),
+                                                 device="cpu")
     assert qcfg.q_group_size == 64 and cfg.num_hidden_layers == 2
     assert params["embed_tokens"]["weight"].dtype == torch.float16
     assert params["layers"][0]["mlp"]["down_proj"]["scales"].dtype == \
@@ -92,4 +93,13 @@ def test_non_gemm_versions_raise(tmp_path):
     raw["quantization_config"]["version"] = "gemv"
     cfg_path.write_text(json.dumps(raw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serialize.from_quantized(str(tmp_path))
+
+
+def test_from_quantized_defaults_to_the_card(tmp_path, monkeypatch):
+    """With no device, the loader puts the weights on the card, as every
+    entry point does: without one it raises rather than load on the CPU."""
+    save_jax(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         serialize.from_quantized(str(tmp_path))
