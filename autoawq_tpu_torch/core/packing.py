@@ -11,8 +11,10 @@ own neighbouring columns, so one warp's loads of a packed row are one
 coalesced 128-byte transaction, and a thread unpacks eight consecutive
 K-rows of its column in registers. Zero points ``z4 [G, N]`` pack the same
 way along G (``[ceil(G / 8), N]``, pad rows 0). Scales are float32
-``[G, N]``. N is not padded: the kernels mask the ragged edge, so a fused
-qkv of 2560 columns stays 2560 wide (the planar layout pads it to 3072).
+``[G, N]``. N is padded only up to a multiple of 4 (``pad_cols``: 16-byte
+rows for K2's TMA), where a weight is built: the kernels mask the ragged
+edge, so a fused qkv of 2560 columns stays 2560 wide (the planar layout
+pads it to 3072).
 
 Planar layout and AutoAWQ GEMM order: see the JAX package's
 ``core/packing.py`` docstring; the functions here are copies of its numpy
@@ -28,6 +30,7 @@ import torch
 
 AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 SUPERBLOCK = 1024  # logical columns per planar superblock
+COL_ALIGN = 4  # port columns: int32 / f32 rows of 16 bytes (K2's TMA)
 
 
 # ----------------------------------------------------------------------------
@@ -134,12 +137,28 @@ def unpack_port(words, rows: Optional[int] = None) -> torch.Tensor:
     return q if rows is None else q[:rows]
 
 
+def pad_cols(qweight: torch.Tensor, scales: torch.Tensor,
+             qzeros: Optional[torch.Tensor] = None):
+    """A port triple with its columns zero-padded up to a multiple of
+    ``COL_ALIGN``, once, where the port builds a weight: kernel K2 reads
+    its operands with TMA, which needs 16-byte rows. A pad column has
+    scale 0, so it dequantizes to 0; the logical width stays with the
+    caller as ``out_features``. No model of the port has such a width."""
+    pad = -qweight.shape[-1] % COL_ALIGN
+    if not pad:
+        return qweight, scales, qzeros
+    return tuple(None if t is None else torch.nn.functional.pad(t, (0, pad))
+                 for t in (qweight, scales, qzeros))
+
+
 def planar_to_port(qweight, scales, qzeros, out_features: int,
                    device="cpu"):
     """A planar LIN triple (numpy, JAX package layout) -> port tensors
     ``(qweight, scales, qzeros or None)`` on ``device``, lane padding
-    stripped. The K rows (including a K pad, whose nibbles dequantize to 0)
-    are kept. Unpacking runs in numpy, packing on ``device``."""
+    stripped down to ``out_features`` rounded up to ``COL_ALIGN``
+    (:func:`pad_cols`). The K rows (including a K pad, whose nibbles
+    dequantize to 0) are kept. Unpacking runs in numpy, packing on
+    ``device``."""
     scales = np.asarray(scales)
     g = scales.shape[0]
     q4 = torch.from_numpy(unpack_planar(qweight, out_features)).to(device)
@@ -150,7 +169,7 @@ def planar_to_port(qweight, scales, qzeros, out_features: int,
     if qzeros is not None:
         qz = pack_port(torch.from_numpy(
             unpack_planar(qzeros, out_features, rows=g)).to(device))
-    return qw, sc, qz
+    return pad_cols(qw, sc, qz)
 
 
 def awq_to_port(qweight, qzeros, scales):

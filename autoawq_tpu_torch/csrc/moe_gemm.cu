@@ -24,7 +24,7 @@
 //   (w4a16_common.cuh gemv_column) with the expert's offsets, one thread
 //   per output column, split-K across grid.z with a deterministic
 //   reduction pass, as K1.
-// - bm >= 16: K2's tensor-core tile (w4a16_tile.cuh) with TM = 32, 64 or
+// - bm >= 16: the mma.sync tensor-core tile of w4a16_tile.cuh, TM = 32, 64 or
 //   128 rows, the smallest that holds bm; a token block of more rows than
 //   TM runs as several tiles.
 #include "w4a16_tile.cuh"

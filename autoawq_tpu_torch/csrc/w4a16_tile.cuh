@@ -1,6 +1,6 @@
-// The tensor-core tile of the port's W4A16 GEMMs (sm_90a): K2
-// (w4a16_gemm.cu) and the grouped GEMM K6 (moe_gemm.cu) for token blocks
-// of 16 rows or more.
+// The tensor-core tile of the grouped W4A16 GEMM K6 (moe_gemm.cu) for
+// token blocks of 16 rows or more (sm_90a). K2 (w4a16_gemm.cu) does not use
+// it: its design is w4a16_wgmma.cuh.
 //
 // One TM x 128 output tile of y = x @ dequant(W), TM = 32 * MI, per block
 // of 8 warps (2 x 4), K walked 32 deep. Each step the block stages a

@@ -4,9 +4,9 @@ and stacking of quantized MoE experts into ``experts_stacked``.
 Counterpart of ``autoawq_tpu/nn/fuse.fuse_model``. The planar layout pads
 every tensor's columns, so the JAX package unpacks, concatenates and
 repacks; the port's layout (core/packing.py) packs along K only and leaves
-N unpadded, so fusing is a concatenation of the packed words, scales and
-zeros along N, and stacking a ``torch.stack`` over experts, both bit-exact
-by construction.
+N unpadded (up to a multiple of 4), so fusing is a concatenation of the
+packed words, scales and zeros along N, and stacking a ``torch.stack`` over
+experts, both bit-exact by construction.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from autoawq_tpu_torch.core.packing import pack_port
+from autoawq_tpu_torch.core.packing import pack_port, pad_cols
 from autoawq_tpu_torch.models.config import ModelConfig
 
 
@@ -28,17 +28,26 @@ def _const8_zeros(scales: torch.Tensor) -> torch.Tensor:
 
 
 def _fuse(lins: List[Dict[str, Any]], ns: List[int]) -> Dict[str, Any]:
+    """Concatenate the members' logical columns (``ns``: a member's pad
+    columns, ``core/packing.pad_cols``, are dropped), then pad the fused
+    width once."""
     if any("lora_a" in p for p in lins):
         raise ValueError("fuse before adding LoRA adapters")
     key = "qweight" if "qweight" in lins[0] else "kernel"
-    out = {key: torch.cat([p[key] for p in lins], dim=1)}
+    out = {key: torch.cat([p[key][:, :n] for p, n in zip(lins, ns)], dim=1)}
     if key == "qweight":
-        out["scales"] = torch.cat([p["scales"] for p in lins], dim=1)
+        out["scales"] = torch.cat([p["scales"][:, :n]
+                                   for p, n in zip(lins, ns)], dim=1)
+        qz = None
         if any("qzeros" in p for p in lins):
             # mixed symmetric/asymmetric members: constant-8 zeros
-            out["qzeros"] = torch.cat([
-                p["qzeros"] if "qzeros" in p else _const8_zeros(p["scales"])
-                for p in lins], dim=1)
+            qz = torch.cat([
+                (p["qzeros"] if "qzeros" in p
+                 else _const8_zeros(p["scales"]))[:, :n]
+                for p, n in zip(lins, ns)], dim=1)
+        out[key], out["scales"], qz = pad_cols(out[key], out["scales"], qz)
+        if qz is not None:
+            out["qzeros"] = qz
     if any(p.get("bias") is not None for p in lins):
         ref = next(p["bias"] for p in lins if p.get("bias") is not None)
         out["bias"] = torch.cat([

@@ -56,8 +56,8 @@ ARGTYPES = {
     "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
     "moe_gemm": [_P] * 8 + [_I] * 7 + [_P],
     "fused_mlp3": [_P] * 13 + [_I] * 9 + [_P],
-    "paged_attn": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
-    "paged_attn_stock": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "paged_attn": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
+    "paged_attn_stock": [_P] * 7 + [_I] * 11 + [_F, _P],
 }
 
 

@@ -34,7 +34,7 @@ def supported(m: int, hidden: int, inter: int, gu: dict, dn: dict,
     """Shape gate for K3 (the port's ``_fused_mlp_ok`` shape half)."""
     return (m <= M_MAX and act in ACTS
             and gu["qweight"].shape == (hidden // 8, 2 * inter)
-            and dn["qweight"].shape[0] * 8 == inter
+            and dn["qweight"].shape == (inter // 8, hidden)
             and "lora_a" not in gu and "lora_a" not in dn)
 
 

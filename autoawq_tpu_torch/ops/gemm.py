@@ -131,25 +131,27 @@ def w4a16_gemv(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
 def w4a16_gemm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                qzeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: x [M, K] bf16 -> [M, N] bf16 (dispatched for M >= 256; group
-    sizes must be multiples of 32)."""
+    sizes must be multiples of 32; N a multiple of 4 and 16-byte aligned
+    operands, else ValueError)."""
     if x.device.type == "cpu":
         return awq_matmul_plain(x, qweight, scales, qzeros)
     gs = _check(x, qweight, scales, qzeros, "w4a16_gemm", 32)
     m, k = x.shape
     n = qweight.shape[1]
     # K2 reads its operands with TMA, which needs 16-byte aligned rows and
-    # bases: pad the columns of a width that is not a multiple of 4 (no
-    # model of the port has one; the pad costs a copy of the weights)
-    n_pad = -(-n // 4) * 4
-    ops = [qweight, scales, qzeros]
-    if n_pad != n or any(t is not None and t.data_ptr() % 16 for t in ops):
-        ops = [None if t is None else
-               torch.nn.functional.pad(t, (0, n_pad - n)) for t in ops]
-    out = torch.empty((m, n_pad), dtype=x.dtype, device=x.device)
-    _build.launch("w4a16_gemm", x.data_ptr(), ops[0].data_ptr(),
-                  ops[1].data_ptr(), _build.ptr(ops[2]), out.data_ptr(),
-                  m, k, n_pad, gs)
-    return out if n_pad == n else out[:, :n].contiguous()
+    # bases; the port's loaders pad a weight's columns once
+    # (core/packing.pad_cols), and K2 copies no weight
+    if n % 4 or any(t is not None and t.data_ptr() % 16
+                    for t in (qweight, scales, qzeros)):
+        raise ValueError(
+            f"w4a16_gemm: {n} columns, or an operand off a 16-byte boundary: "
+            "K2 takes 16-byte aligned operands of a width that is a multiple "
+            "of 4 (pad the weight once with core/packing.pad_cols)")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _build.launch("w4a16_gemm", x.data_ptr(), qweight.data_ptr(),
+                  scales.data_ptr(), _build.ptr(qzeros), out.data_ptr(),
+                  m, k, n, gs)
+    return out
 
 
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,

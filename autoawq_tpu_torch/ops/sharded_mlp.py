@@ -36,7 +36,7 @@ def supported(m: int, hidden: int, inter: int, gate: Dict[str, Any],
     return (m <= M_MAX and act in ACTS
             and gate["qweight"].shape == (hidden // 8, inter)
             and up["qweight"].shape == (hidden // 8, inter)
-            and down["qweight"].shape[0] * 8 == inter)
+            and down["qweight"].shape == (inter // 8, hidden))
 
 
 def fused_mlp3_plain(x, g_qweight, g_scales, u_qweight, u_scales, d_qweight,

@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, needs one CUDA device
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --root DIR --phases device,prefill   # A/B
+    python3 chip_smoke.py --root DIR --phases device,paged     # A/B
 
 Phases, each printing JSON lines:
 
@@ -19,7 +20,9 @@ Phases, each printing JSON lines:
               function; the kernel's eager per-call time beside them) and
               the least time the card could take (bound). K2 and K4 also
               at traffic D's prefill shapes (Mistral's four linears at
-              M = 16,384; B=8, S=2048, 32/8 heads, hd 128).
+              M = 16,384; B=8, S=2048, 32/8 heads, hd 128). K7 and K9 also
+              at their splits' edges and on a long table (8 slots of 4096
+              rows, timed with its bound and yardstick).
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
@@ -83,10 +86,13 @@ Phases, each printing JSON lines:
               in memory from the same nibbles.
 6. a ``kernels`` line: every ported kernel with launches, error and times.
 
-Asked for by name only: ``prefill`` — K2 and K4 at B's and D's prefill
-shapes and traffic B's and D's prefill seconds, for an A/B of two checkouts
-in one call: ``--root DIR`` imports the port (and builds its kernels) from
-another checkout, such as a parent commit unpacked with ``git archive``.
+Asked for by name only, each for an A/B of two checkouts in one call
+(``--root DIR`` imports the port, and builds its kernels, from another
+checkout, such as a parent commit unpacked with ``git archive``):
+``prefill`` — K2 and K4 at B's and D's prefill shapes and traffic B's and
+D's prefill seconds; ``paged`` — K7 at H's and I's shapes, K9 at J's, both
+on a long table (8 slots of 4096 rows), and H's, I's and J's device ms a
+decode step with K7's or K9's profile rows.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Without a CUDA device, or outside a checkout of the
@@ -107,7 +113,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load")
-EXTRA_PHASES = ("prefill",)  # asked for by name only
+EXTRA_PHASES = ("prefill", "paged")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 1024 * 1024
@@ -186,9 +192,11 @@ KERNEL_META = {
 # a dense f32 reference at 2e-2 of its maximum, moe_mlp's limit: bf16
 # rounds g, act(g)*u and the expert outputs, as the bf16 twin does.
 # K7 and K9 are held per (slot, query head) row. K7 returns f32 and its twin
-# computes the same f32 function (one softmax where K7 runs an online one
-# over pages), so they differ only by the order of sums over up to 512
-# rows: 1e-4 of the row maximum, ~100 f32 roundings' worth. K9 returns bf16
+# computes the same f32 function (one softmax where K7 runs online ones
+# over splits and merges them), so they differ by the order of sums over up
+# to 4096 rows and, on the tensor cores, by the ~2^-17 residual of q and p
+# split into bf16 hi + lo parts: 1e-4 of the row maximum (the H100 reads
+# ~5e-6). K9 returns bf16
 # and, with a group of 8 query heads, rounds its running output to bf16
 # after every block of pages as the stock kernel does: two bf16 ulps of the
 # row maximum, 2^-6, as K4's and K5's limit.
@@ -206,6 +214,9 @@ SERVE_POOL = dict(max_batch=8, page_size=64, pages_per_seq=7,
 # ragged lengths of the kernels phase's paged cases: 1 (two trash-page
 # slots) up to the table's 512 rows
 PAGED_LENGTHS = [1, 512, 77, 128, 300, 1, 64, 65]
+# the long-table case of K7 and K9: 8 slots of 4096 rows, 64 pages of 64
+# a slot (K9 in compute blocks of 8 pages, the engine's choice)
+LONG_TABLE = dict(lengths=[4096] * 8, pps=64)
 
 failures = []
 
@@ -279,6 +290,15 @@ def row_rel_err(a, b, hd: int) -> float:
     d = (a.float() - b.float()).reshape(-1, hd).abs().amax(-1)
     r = b.float().reshape(-1, hd).abs().amax(-1).clamp_min(1e-30)
     return (d / r).max().item()
+
+
+def bf16_order(x):
+    """bf16 values as int32 in the order of their values (-0 and +0 both 0),
+    so that two values one bf16 ulp apart differ by 1."""
+    import torch
+
+    bits = x.contiguous().view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
 
 
 def make_lin(rng, k: int, n: int, gs: int, zp: bool, device):
@@ -744,13 +764,17 @@ def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
 
 
 def _paged_case(gen, kernel, case, model, dev, int8=False, window=None,
-                softcap=None, alibi=False, timing=True, ppcb=8):
+                softcap=None, alibi=False, timing=True, ppcb=8,
+                lengths=PAGED_LENGTHS, pps=PAGED_POOL["pages_per_seq"],
+                yardsticks=True):
     """K7 (``kernel="paged_attn"``) or K9 (``"paged_attn_stock"``) against
     its twin on a pool of H's size (136 pages of 64 rows, 8 pages a slot,
-    ``PAGED_LENGTHS``), per (slot, head) row. With ``timing``: graph-replay
-    and eager times, the twin's time, the yardstick (the table's pages
-    gathered with index_select plus one SDPA with a length mask, timed
-    together) and the byte bound over the live rows."""
+    ``PAGED_LENGTHS``), or on ``pps`` pages a slot for ``lengths`` (a pool
+    of one page more than the slots own), per (slot, head) row. With
+    ``timing``: graph-replay and eager times, the twin's time, the
+    yardstick (the table's pages gathered with index_select plus one SDPA
+    with a length mask, timed together) and the byte bound over the live
+    rows (without ``yardsticks``, the kernel's times and bound only)."""
     import torch
     import torch.nn.functional as F
 
@@ -759,14 +783,15 @@ def _paged_case(gen, kernel, case, model, dev, int8=False, window=None,
 
     nh, nkv, hd = (model["num_attention_heads"],
                    model["num_key_value_heads"], model["head_dim"])
-    b, ps, pps, n_pool = 8, PAGED_POOL["page_size"], \
-        PAGED_POOL["pages_per_seq"], PAGED_POOL["total_pages"]
+    b, ps = len(lengths), PAGED_POOL["page_size"]
+    n_pool = max(PAGED_POOL["total_pages"], b * pps + 1)
     q = torch.randn(b, nh, hd, device=dev, generator=gen)
     kp, vp = (torch.randn(nkv, n_pool, ps, hd, device=dev, generator=gen)
               * 0.5 for _ in range(2))
     table = (torch.randperm(n_pool - 1, device=dev, generator=gen)[
         : b * pps] + 1).reshape(b, pps).to(torch.int32)
-    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    lens = lengths
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     table[lengths == 1] = 0  # inactive slots hold the trash page
     scale = hd ** -0.5
     ks = vs = None
@@ -810,12 +835,19 @@ def _paged_case(gen, kernel, case, model, dev, int8=False, window=None,
     live = int((vl.clamp(max=pps * ps) - lo).sum())  # rows the call needs
     row = {"phase": "kernel", "kernel": kernel, "case": case, "card": card(),
            "B": b, "nh": nh, "nkv": nkv, "hd": hd, "ps": ps, "PPS": pps,
-           "pool": "int8" if int8 else "bf16", "lengths": PAGED_LENGTHS,
+           "pool": "int8" if int8 else "bf16",
+           "lengths": lens if len(set(lens)) > 1 else f"{b} x {lens[0]}",
            "live_rows": live, "window": window, "softcap": softcap,
+           "ppcb": ppcb if kernel == "paged_attn_stock" else None,
            "alibi": alibi, "max_abs_err": rel_err(got, ref)[0],
            "max_row_rel_err": rel, "tol": TOL[kernel]}
     check(rel <= TOL[kernel] and bool(torch.isfinite(got).all()),
           f"{kernel} {case}: per-row rel err {rel:.3g}")
+    if kernel == "paged_attn_stock":  # K9's bf16 outputs apart, in ulps
+        ulps = (bf16_order(got) - bf16_order(ref)).abs()
+        row["ulps_max"] = int(ulps.max())
+        row["share_one_ulp"] = float((ulps == 1).float().mean())
+        row["share_over_one_ulp"] = float((ulps > 1).float().mean())
     if timing:
         elem = 1 if int8 else 2
         io = 4 if kernel == "paged_attn" else 2  # q and out: f32 or bf16
@@ -823,9 +855,12 @@ def _paged_case(gen, kernel, case, model, dev, int8=False, window=None,
                   + 2 * b * nh * hd * io + 4 * b * (pps + 1))
         sets = copies(args, 2 * live * nkv * hd * elem)
         row["ms"], row["eager_ms"] = time_ms(run, sets, 200)
-        row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
         row["bound_ms"], row["bound_by"] = bound(nbytes,
                                                  4 * nh * hd * live)
+        if not yardsticks:
+            emit(row)
+            return row
+        row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
         row["library_ms"] = None
         row["library"] = "none for an int8 pool"
         if not int8:
@@ -960,7 +995,33 @@ def phase_kernels(dev):
                 MISTRAL, dev, softcap=30.0, ppcb=2, timing=False)
     _paged_case(gen, "paged_attn_stock", "TinyLlama widths, rep 8 (bf16 "
                 "running output)", TINYLLAMA, dev, timing=False)
+    _paged_split_cases(gen, dev)
+    for kernel in ("paged_attn", "paged_attn_stock"):
+        _paged_case(gen, kernel, "long table: 8 x 4096 rows", MISTRAL, dev,
+                    **LONG_TABLE)
     return rep
+
+
+def _paged_split_cases(gen, dev):
+    """K7 and K9 at the edges of their splits (one 64-row page a split),
+    against their twins at the usual limits."""
+    edges = dict(lengths=[63, 64, 65, 4095, 4096], pps=64)
+    ones = dict(lengths=[1] * 8)
+    for case, kw in (("lengths at split edges", edges),
+                     ("every slot of length 1", ones),
+                     ("window 70 cuts a split", dict(window=70)),
+                     ("int8, softcap, ALiBi across splits",
+                      dict(int8=True, softcap=30.0, alibi=True, **edges))):
+        _paged_case(gen, "paged_attn", case, MISTRAL, dev, timing=False,
+                    **kw)
+    for case, kw in (("lengths at split edges", edges),
+                     ("every slot of length 1", ones),
+                     ("rep 8, 2 pages a block, 16-page table",
+                      dict(ppcb=2, pps=16, lengths=[1, 1024, 77, 128, 300,
+                                                    1, 64, 999]))):
+        _paged_case(gen, "paged_attn_stock", case,
+                    TINYLLAMA if "rep 8" in case else MISTRAL, dev,
+                    timing=False, **kw)
 
 
 def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
@@ -1000,12 +1061,13 @@ def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
     return rows
 
 
-def device_profile(run, calls: int):
+def device_profile(run, calls: int, match=()):
     """torch.profiler over ``calls`` calls of ``run(i)``: host wall ms per
     call, device ms per call, the device's busy share, device activities
-    (kernels, copies) per call, and device time by kernel name. Only the
-    device's own events are summed: an operator's row repeats the time of
-    the kernels it launched."""
+    (kernels, copies) per call, and device time by kernel name (the twelve
+    largest, and every kernel whose name holds a string of ``match``).
+    Only the device's own events are summed: an operator's row repeats the
+    time of the kernels it launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1024,13 +1086,18 @@ def device_profile(run, calls: int):
                    and e.self_device_time_total > 0), reverse=True)
     dev_us = sum(r[0] for r in rows)
     check(dev_us > 0, "torch.profiler recorded no device time")
-    return {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
-            "device_ms_per_call": dev_us / 1e3 / calls,
-            "device_busy_share": dev_us / 1e6 / wall,
-            "device_activities_per_call": sum(r[1] for r in rows) / calls,
-            "by_kernel": [{"name": k[:80], "us_per_call": us / calls,
-                           "count_per_call": n / calls}
-                          for us, n, k in rows[:12]]}
+    def kernel_rows(sel):
+        return [{"name": k[:80], "us_per_call": us / calls,
+                 "count_per_call": n / calls} for us, n, k in sel]
+    out = {"calls": calls, "wall_ms_per_call": wall * 1e3 / calls,
+           "device_ms_per_call": dev_us / 1e3 / calls,
+           "device_busy_share": dev_us / 1e6 / wall,
+           "device_activities_per_call": sum(r[1] for r in rows) / calls,
+           "by_kernel": kernel_rows(rows[:12])}
+    if match:
+        out["matched"] = kernel_rows([r for r in rows
+                                      if any(m in r[2] for m in match)])
+    return out
 
 
 def profile_decode(cfg, params, prompt, steps, kv_quant=False):
@@ -1939,6 +2006,72 @@ def phase_prefill(dev):
         del params, caches, logits
 
 
+def phase_paged(dev):
+    """The paged decode kernels and steps of the checkout under test, for
+    an A/B of two checkouts in one call (``--root``, in turns: parent,
+    change, change, parent): K7 at H's and I's shapes and on the long
+    table, K9 at J's shape and on the long table (kernel times, each call
+    held against its twin), then traffic H's, I's and J's decode step
+    with the 8 slots busy, on the e2e phase's Mistral weights: device ms a
+    step under torch.profiler over 8 steps (after 4 untimed), with K7's
+    or K9's own rows."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    from autoawq_tpu_torch.ops import paged_attn as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cases = (("paged_attn", "H: Mistral bf16", {}),
+             ("paged_attn", "I: Mistral int8", dict(int8=True)),
+             ("paged_attn", "long table: 8 x 4096 rows", LONG_TABLE),
+             ("paged_attn_stock", "J: Mistral bf16", {}),
+             ("paged_attn_stock", "long table: 8 x 4096 rows", LONG_TABLE))
+    for kernel, case, kw in cases:
+        _paged_case(gen, kernel, case, MISTRAL, dev, yardsticks=False, **kw)
+    if hasattr(pa, "MAX_SPLITS"):  # the split design: other split counts
+        default = pa.MAX_SPLITS
+        try:
+            for most in (64, 32, 8):
+                pa.MAX_SPLITS = most
+                for kernel, case, kw in cases[2::2]:  # the long tables
+                    _paged_case(gen, kernel, f"{case}, at most {most} splits "
+                                "a slot", MISTRAL, dev, yardsticks=False, **kw)
+        finally:
+            pa.MAX_SPLITS = default
+    if hasattr(pa, "SPLIT_ROWS"):  # the split design: longer splits
+        default = pa.SPLIT_ROWS
+        try:
+            for rows in (64, 128, 256):
+                pa.SPLIT_ROWS = rows
+                for kernel, case, kw in (cases[0], cases[1], cases[3]):
+                    _paged_case(gen, kernel, f"{case}, splits of {rows} "
+                                "rows", MISTRAL, dev, yardsticks=False, **kw)
+        finally:
+            pa.SPLIT_ROWS = default
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    rng = np.random.default_rng(5)  # the prompts of _paged_traffics
+    prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(16)]
+    for name, kw in (("H", {}), ("I", dict(kv_quant=True)),
+                     ("J", dict(paged_attn="stock"))):
+        eng = _busy_engine(cfg, params, prompts, **kw)
+        for _ in range(4):
+            eng.step()
+        emit({"phase": "paged", "traffic": name, "card": card(),
+              "what": "paged decode step (8 slots busy)",
+              **device_profile(lambda i: eng.step(), 8,
+                               match=("paged", "combine"))})
+        del eng
+    del params
+
+
 def phase_load(dev):
     import dataclasses
 
@@ -2101,6 +2234,8 @@ def main(argv=None) -> int:
         timed("load", phase_load, dev)
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
+    if "paged" in phases:
+        timed("paged", phase_paged, dev)
     if rep:
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -20,8 +20,10 @@ cache). K6 per call 1e-2 of max |twin| (K1's arithmetic for blocks of 8
 rows, K2's for larger blocks); K8 and ``moe_mlp`` 2e-2, as K3 (two
 products and an activation). K7 per (slot, head) row at 1e-4 of the row
 maximum: it returns f32 and computes the twin's f32 function, so only the
-order of the sums differs (an online softmax over pages against one
-softmax). K9 per row at 2^-6, two bf16 ulps of the row maximum: both round
+order of the sums differs (online softmaxes over splits, merged, against
+one softmax), plus the ~2^-17 residual of q and p split into bf16 hi + lo
+parts on the tensor cores. K9 per row at 2^-6, two bf16 ulps of the row
+maximum: both round
 the f32 result to bf16, and with a group of 8 query heads the running
 output after every block too."""
 
@@ -29,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from autoawq_tpu_torch.core.packing import pack_port
+from autoawq_tpu_torch.core.packing import pack_port, pad_cols
 from autoawq_tpu_torch.ops import (_build, attention, fused_attn_step,
                                    fused_mlp, gemm, moe_gemm, paged_attn,
                                    sharded_mlp)
@@ -83,18 +85,32 @@ def test_w4a16_gemv(cuda, rng, m, k, n, gs, zp):
     # Mistral's gate_up at M = 4096; K = 64 (one partial 64-deep step);
     # K = 2080 (K % 64 = 32, the last step half zeros) with g32; g64;
     # N = 2500 (a ragged last column tile); M = 257 (one row in the last
-    # 128-row tile); N = 2502 (rows not 16-byte aligned: one-word copies)
+    # 128-row tile); N = 2502 (rows not 16-byte aligned: padded once to
+    # 2504 columns as the port's loaders build it, core/packing.pad_cols)
     (4096, 4096, 28672, 128, True), (256, 64, 4096, 64, False),
     (512, 2080, 1024, 32, True), (384, 4096, 6144, 64, True),
     (300, 2048, 2500, 128, True), (257, 2048, 2048, 128, True),
     (256, 512, 2502, 32, True)])
 def test_w4a16_gemm(cuda, rng, m, k, n, gs, zp):
-    w = lin(rng, k, n, gs, zp, cuda)
+    w = pad_cols(*lin(rng, k, n, gs, zp, cuda))
     x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
     before = _build.LAUNCHES["w4a16_gemm"]
     got = gemm.w4a16_gemm(x, *w)
     assert _build.LAUNCHES["w4a16_gemm"] == before + 1
-    assert rel(got, gemm.awq_matmul_plain(x, *w)) <= 1e-2
+    assert rel(got[:, :n], gemm.awq_matmul_plain(x, *w)[:, :n]) <= 1e-2
+
+
+def test_w4a16_gemm_raises_on_a_ragged_raw_operand(cuda, rng):
+    """K2 copies no weight: a raw operand of N = 2502 (rows off 16 bytes)
+    or off a 16-byte base raises, where the wrapper once padded it."""
+    x = torch.randn(256, 512, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gemm.w4a16_gemm(x, *lin(rng, 512, 2502, 32, True, cuda))
+    qw, sc, qz = lin(rng, 512, 2052, 32, True, cuda)
+    off = torch.empty(qw.numel() + 1, dtype=qw.dtype, device=cuda)[1:]
+    off = off.view(qw.shape).copy_(qw)  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        gemm.w4a16_gemm(x, off, sc, qz)
 
 
 def test_dispatcher_routes_by_m(cuda, rng):
@@ -442,12 +458,17 @@ def paged_pool(gen, b, nh, nkv, hd, ps, n_pool, pps, lengths, dev,
 
 @pytest.mark.parametrize("case", [
     "bf16", "f32", "int8", "window", "softcap", "alibi", "tinyllama",
-    "mha_odd_hd", "group16"])
+    "mha_odd_hd", "group16", "split_edges", "all_length_1",
+    "window_cuts_a_split", "int8_softcap_alibi", "odd_hd_f32"])
 def test_paged_attn_k7(cuda, case):
     """K7 against its twin: Mistral's decode shape (B 8, 32/8 heads, hd 128,
     ps 64, 8 pages a slot, ragged lengths with 1 and 512 and a trash-page
     slot), then the int8 pool, a window, softcap, ALiBi, TinyLlama widths,
-    MHA with hd 96 and ps 16, and a group of 16."""
+    MHA with hd 96 and ps 16, and a group of 16. Then the split design's
+    edges (splits of one 64-row page): lengths 63, 64, 65, 4095 and 4096
+    over 64-page tables, every slot of length 1, a window of 70 that starts
+    inside a split, int8 with softcap and ALiBi across splits, and hd 36 on
+    f32 pools (element loads, no 16-byte vectors)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     shape = dict(b=8, nh=32, nkv=8, hd=128, ps=64, n_pool=80, pps=8,
                  lengths=[1, 512, 77, 128, 300, 1, 64, 65])
@@ -458,15 +479,27 @@ def test_paged_attn_k7(cuda, case):
                      lengths=[1, 128, 45])
     if case == "group16":
         shape.update(b=2, nh=32, nkv=2, hd=64, lengths=[200, 3])
+    if case == "split_edges":
+        shape.update(b=5, n_pool=321, pps=64,
+                     lengths=[63, 64, 65, 4095, 4096])
+    if case == "all_length_1":
+        shape.update(lengths=[1] * 8)
+    if case == "odd_hd_f32":
+        shape.update(b=3, nh=8, nkv=2, hd=36, ps=16, n_pool=40,
+                     lengths=[1, 128, 45])
     q, k, v, table, lengths, ks, vs = paged_pool(
-        g, dev=cuda, dtype=torch.float32 if case == "f32" else torch.bfloat16,
-        int8=case == "int8", **shape)
+        g, dev=cuda,
+        dtype=torch.float32 if case in ("f32", "odd_hd_f32")
+        else torch.bfloat16,
+        int8=case in ("int8", "int8_softcap_alibi"), **shape)
     kw = dict(scale=shape["hd"] ** -0.5, k_scales=ks, v_scales=vs)
     if case == "window":
         kw["window"] = 100
-    if case == "softcap":
+    if case == "window_cuts_a_split":
+        kw["window"] = 70  # slot 300 keeps rows 230-299: from inside a page
+    if case in ("softcap", "int8_softcap_alibi"):
         kw["softcap"] = 30.0
-    if case == "alibi":
+    if case in ("alibi", "int8_softcap_alibi"):
         kw["alibi_slopes"] = torch.rand(shape["nh"], device=cuda,
                                         generator=g) * 0.1
     before = _build.LAUNCHES["paged_attn"]
@@ -478,16 +511,25 @@ def test_paged_attn_k7(cuda, case):
     assert row_rel(got, ref, shape["hd"]) <= 1e-4
 
 
-@pytest.mark.parametrize("nh,nkv,hd,ppcb,softcap", [
-    (32, 8, 128, 8, None), (32, 8, 128, 4, 30.0), (32, 4, 64, 8, None),
-    (32, 4, 64, 2, 30.0)])
-def test_paged_attn_stock_k9(cuda, nh, nkv, hd, ppcb, softcap):
+@pytest.mark.parametrize("nh,nkv,hd,ppcb,softcap,pps,lengths", [
+    (32, 8, 128, 8, None, 8, None), (32, 8, 128, 4, 30.0, 8, None),
+    (32, 4, 64, 8, None, 8, None), (32, 4, 64, 2, 30.0, 8, None),
+    (32, 4, 64, 2, None, 16, [1, 1024, 77, 128, 300, 1, 64, 999]),
+    (32, 8, 128, 8, None, 64, [63, 64, 65, 4095, 4096]),
+    (32, 8, 128, 64, 30.0, 64, [4096, 1, 2000]),
+    (32, 8, 128, 8, None, 8, [1] * 8)])
+def test_paged_attn_stock_k9(cuda, nh, nkv, hd, ppcb, softcap, pps,
+                             lengths):
     """K9 against its twin at Mistral's (group 4: f32 running output) and
-    TinyLlama's widths (group 8: the running output in bf16)."""
+    TinyLlama's widths (group 8: the running output in bf16); then group 8
+    with 2-page blocks over a 16-page table (two splits a block), lengths
+    at the splits' edges over 64-page tables (one block of 64 pages: 64
+    splits merged into it), and every slot of length 1."""
     g = torch.Generator(device=cuda).manual_seed(4)
+    lengths = lengths or [1, 512, 77, 128, 300, 1, 64, 65]
+    b = len(lengths)
     q, k, v, table, lengths, _, _ = paged_pool(
-        g, 8, nh, nkv, hd, 64, 80, 8, [1, 512, 77, 128, 300, 1, 64, 65],
-        cuda)
+        g, b, nh, nkv, hd, 64, b * pps + 1, pps, lengths, cuda)
     q = (q * hd ** -0.5).to(torch.bfloat16)
     before = _build.LAUNCHES["paged_attn_stock"]
     got = paged_attn.stock_paged_attention(
@@ -519,6 +561,31 @@ def test_paged_attn_refusals(cuda):
         paged_attn.stock_paged_attention(
             q.bfloat16(), k.float(), v.float(), lengths, table,
             pages_per_compute_block=2)
+
+
+def test_paged_attn_refuses_a_misaligned_pool(cuda):
+    """K7 and K9 read pool rows as 16-byte vectors: a contiguous pool whose
+    base sits one element past an alignment raises ValueError in both
+    wrappers, and nothing is launched."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, table, lengths, _, _ = paged_pool(g, 2, 8, 2, 64, 16, 8, 2,
+                                               [3, 20], cuda)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    ks, vs = shifted(k), shifted(v)
+    assert ks.is_contiguous() and ks.data_ptr() % 16
+    launches = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attn.paged_decode_attention(q, ks, vs, table, lengths,
+                                          scale=1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attn.stock_paged_attention(q.bfloat16(), ks, vs, lengths,
+                                         table, pages_per_compute_block=2)
+    assert dict(_build.LAUNCHES) == launches
 
 
 def tiny_llama(gen, dev):

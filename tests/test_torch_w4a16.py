@@ -116,3 +116,47 @@ def test_wrappers_use_twin_only_on_cpu(rng):
     assert _build.LAUNCHES == before
     with pytest.raises(ValueError):
         gemm.awq_matmul(x, *port, method="pallas")
+
+
+@pytest.mark.parametrize("loader", ["jax_tree", "fused"])
+def test_loaders_build_k2_ready_ragged_width(rng, loader):
+    """A linear of N = 2502 built by the port's loaders (a JAX tree's
+    planar triple through ``convert``, as ``utils/synth`` builds every
+    linear, and two 1251-wide members through ``nn/fuse``; AutoAWQ
+    checkpoints hold N % 8 == 0 only) comes out K2-ready: columns padded once to a multiple of 4, contiguous
+    and 16-byte aligned, so K2's wrapper copies nothing. ``awq_matmul``
+    with ``out_features`` still equals the JAX package's on the CPU."""
+    from autoawq_tpu_torch.convert import lin_from_planar
+    from autoawq_tpu_torch.nn.fuse import _fuse
+
+    k, n, gs = 256, 2502, 64
+    q4 = rng.integers(0, 16, (k, n))
+    z4 = rng.integers(0, 16, (k // gs, n))
+    sc = ((rng.random((k // gs, n)) + 0.5) * 0.01).astype(np.float16)
+    if loader == "jax_tree":
+        lin = lin_from_planar({"qweight": jp.pack_planar(q4),
+                               "scales": jp.pad_scales_planar(
+                                   sc.astype(np.float32)),
+                               "qzeros": jp.pack_planar(z4)}, n)
+    else:
+        h = n // 2
+        lin = _fuse([lin_from_planar({"qweight": jp.pack_planar(q[:, sl]),
+                                      "scales": jp.pad_scales_planar(
+                                          sc[:, sl].astype(np.float32)),
+                                      "qzeros": jp.pack_planar(z[:, sl])}, h)
+                     for q, z, sl in [(q4, z4, slice(0, h)),
+                                      (q4, z4, slice(h, n))]], [h, h])
+    port = (lin["qweight"], lin["scales"], lin["qzeros"])
+    for t in port:
+        assert t.shape[-1] == 2504 and t.is_contiguous()
+        assert t.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(
+        gemm.dequantize(*port)[:, n:].numpy(), 0.0)  # pad columns are 0
+    x = rng.standard_normal((5, k)).astype(np.float32)
+    ref = awq_matmul_jnp(jnp.asarray(x), jnp.asarray(jp.pack_planar(q4)),
+                         jnp.asarray(jp.pad_scales_planar(
+                             sc.astype(np.float32))),
+                         jnp.asarray(jp.pack_planar(z4)), out_features=n)
+    got = gemm.awq_matmul(torch.from_numpy(x), *port, out_features=n)
+    assert got.shape == (5, n)
+    close(got, np.asarray(ref), 1e-5)
