@@ -20,9 +20,8 @@
 // this step's wgmmas do. Blocks are rastered in groups of 16 row tiles, so
 // a weight tile is read from memory about once per group. The tensor maps
 // are encoded per call on the host (the driver's cuTensorMapEncodeTiled,
-// reached through the runtime).
-#include <cudaTypedefs.h>
-
+// reached through the runtime). K6's prefill instance (moe_gemm.cu) runs
+// the same body with an expert's offsets.
 #include "w4a16_wgmma.cuh"
 
 namespace {
@@ -33,40 +32,12 @@ w4a16_gemm_kernel(awq::wg::Params p, const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap tw,
                   const __grid_constant__ CUtensorMap ts,
                   const __grid_constant__ CUtensorMap tz) {
+  using namespace awq::wg;
   extern __shared__ uint8_t smem[];
-  awq::wg::gemm_block<TOK>(p, &tx, &tw, &ts, &tz, smem);
-}
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// A 2-D tensor map over a row-major [rows, cols] array (cols innermost),
-// boxes of [box_rows, box_cols]; out-of-bounds elements read as zeros.
-bool map_2d(CUtensorMap* m, CUtensorMapDataType type, int elem_bytes,
-            const void* base, int rows, int cols, int box_rows, int box_cols,
-            CUtensorMapSwizzle swizzle) {
-  auto fn = encode_fn();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                        static_cast<cuuint64_t>(rows)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                       static_cast<cuuint32_t>(box_rows)};
-  cuuint32_t steps[2] = {1, 1};
-  return fn(m, type, 2, const_cast<void*>(base), dims, strides, box, steps,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  int mi, ni;
+  tile_of(blockIdx.x, (p.M + TOK - 1) / TOK, (p.N + BN - 1) / BN, mi, ni);
+  const Tile tile{mi * TOK, p.M, ni * BN, 0, 0, 0};
+  gemm_block<TOK>(p, &tx, &tw, &ts, &tz, smem, tile);
 }
 
 template <int TOK>
@@ -83,18 +54,9 @@ int launch(const void* x, const void* qw, const void* sc, const void* qz,
   }
   const int G = p.K / p.gs;
   CUtensorMap tx, tw, ts, tz;
-  bool ok = map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K, TOK,
-                   BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
-            map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, p.K / 8, p.N,
-                   BK / 8, BN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-            map_2d(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sc, G, p.N, 2, BN,
-                   CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (ok && qz != nullptr)
-    ok = map_2d(&tz, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qz, (G + 7) / 8, p.N,
-                2, BN, CU_TENSOR_MAP_SWIZZLE_NONE);
-  else
-    tz = tw;  // unread
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!maps(TOK, x, p.M, p.K, qw, p.K / 8, sc, G, qz, (G + 7) / 8, p.N, &tx,
+            &tw, &ts, &tz))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = ((p.M + TOK - 1) / TOK) * ((p.N + BN - 1) / BN);
   w4a16_gemm_kernel<TOK><<<blocks, THREADS, Layout<TOK>::SMEM, stream>>>(
       p, tx, tw, ts, tz);

@@ -1,6 +1,8 @@
-// The pipelined tensor-core body of K2 (w4a16_gemm.cu), sm_90a.
+// The pipelined tensor-core body of K2 (w4a16_gemm.cu) and of K6's prefill
+// instance (moe_gemm.cu), sm_90a.
 //
-// The block computes a 128-column by TOK-row tile (TOK = 256 or 128) of
+// The block computes a 128-column by TOK-row tile (K2: TOK = 256 or 128;
+// K6: 16, 32, 64 or 128, the smallest that holds a token block) of
 // y = x @ dequant(W) as its transpose, y^T = dequant(W)^T x^T, so that the
 // dequantized weights are wgmma's A operand, which may come from
 // registers: they never touch shared memory. Two consumer warpgroups own
@@ -35,10 +37,21 @@
 // groups past G, whose scales arrive as zeros); stores are masked. Group
 // sizes are multiples of 32, so each 32-row half of a step lies in one
 // group: g = (k0 + 32 h) / gs for half h. TMA needs 16-byte rows: N % 4
-// == 0 (the wrapper pads other widths).
+// == 0 (the port's loaders pad other widths once).
+//
+// A Tile names the block's rows [m0, m_end) and columns n0.. and the first
+// row of its weight matrix in the packed, scale and zero-point maps: 0 for
+// K2; for K6 the block's expert e in maps over the stacked [E * K/8, N],
+// [E * G, N] and [E * ceil(G/8), N] (a K-major box of 8 packed rows never
+// leaves the expert, K/8 being a multiple of 8; the second scale or zero
+// row of a box at an expert's end, or a step's half past K, may belong to
+// expert e + 1, and only multiplies x columns past K, which TMA fills
+// with zeros). Rows of x past m_end (another block's, in K6) are read but
+// never stored.
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "w4a16_common.cuh"
 #include "wgmma.cuh"
@@ -71,6 +84,11 @@ struct Params {
   int zeros;  // qzeros given (else the zero point is 8)
 };
 
+struct Tile {
+  int m0, m_end, n0;
+  int w_row0, s_row0, z_row0;  // first rows of the weight in the maps
+};
+
 // The producer: fill stage t % STAGES with K step t's tiles for every t,
 // each once the consumers have released the stage's previous step.
 template <int TOK>
@@ -78,8 +96,8 @@ __device__ __forceinline__ void produce(const Params& p, const CUtensorMap* tx,
                                         const CUtensorMap* tw,
                                         const CUtensorMap* ts,
                                         const CUtensorMap* tz, uint32_t base,
-                                        uint32_t full, uint32_t empty, int m0,
-                                        int n0, int T) {
+                                        uint32_t full, uint32_t empty,
+                                        const Tile& tile, int T) {
   using L = Layout<TOK>;
   const uint32_t bytes = L::X + L::W + L::S + (p.zeros ? L::Z : 0);
   for (int t = 0; t < T; ++t) {
@@ -89,11 +107,12 @@ __device__ __forceinline__ void produce(const Params& p, const CUtensorMap* tx,
     const uint32_t bar = full + 8 * s;
     const int k0 = t * BK, g0 = k0 / p.gs;
     hop::mbar_arrive_expect_tx(bar, bytes);
-    hop::tma_load_2d(st, tx, k0, m0, bar);
-    hop::tma_load_2d(st + L::X, tw, n0, k0 / 8, bar);
-    hop::tma_load_2d(st + L::X + L::W, ts, n0, g0, bar);
+    hop::tma_load_2d(st, tx, k0, tile.m0, bar);
+    hop::tma_load_2d(st + L::X, tw, tile.n0, tile.w_row0 + k0 / 8, bar);
+    hop::tma_load_2d(st + L::X + L::W, ts, tile.n0, tile.s_row0 + g0, bar);
     if (p.zeros)
-      hop::tma_load_2d(st + L::X + L::W + L::S, tz, n0, g0 >> 3, bar);
+      hop::tma_load_2d(st + L::X + L::W + L::S, tz, tile.n0,
+                       tile.z_row0 + (g0 >> 3), bar);
   }
 }
 
@@ -156,24 +175,26 @@ __device__ __forceinline__ void wgmma_step(float (&acc)[TOK / 2],
 #pragma unroll
   for (int s = 0; s < BK / 16; ++s) {
     const uint64_t db = hop::desc_sw128(x_sa + 32 * s, 16, 1024);
+    if constexpr (TOK == 16) hop::wgmma_rs_n16_k(acc, a[s], db);
+    if constexpr (TOK == 32) hop::wgmma_rs_n32_k(acc, a[s], db);
+    if constexpr (TOK == 64) hop::wgmma_rs_n64_k(acc, a[s], db);
     if constexpr (TOK == 128) hop::wgmma_rs_n128_k(acc, a[s], db);
     if constexpr (TOK == 256) hop::wgmma_rs_n256_k(acc, a[s], db);
   }
 }
 
-// The block's tile: blocks are numbered so that a group of RASTER_M token
-// tiles walks the column tiles together (their x rows stay in L2 while
-// each weight tile is read once per group).
-template <int TOK>
-__device__ __forceinline__ void tile_of(int bid, int M, int N, int& m0,
-                                        int& n0) {
-  const int num_m = (M + TOK - 1) / TOK, num_n = (N + BN - 1) / BN;
+// The block's tile (row tile mi of num_m, column tile ni of num_n): blocks
+// are numbered so that a group of RASTER_M row tiles walks the column
+// tiles together (their x rows stay in L2 while each weight tile is read
+// once per group; in K6 neighbouring token blocks mostly share an expert).
+__device__ __forceinline__ void tile_of(int bid, int num_m, int num_n,
+                                        int& mi, int& ni) {
   const int per_group = RASTER_M * num_n;
   const int first_m = (bid / per_group) * RASTER_M;
   const int gm = min(num_m - first_m, RASTER_M);
   const int in_group = bid % per_group;
-  m0 = (first_m + in_group % gm) * TOK;
-  n0 = (in_group / gm) * BN;
+  mi = first_m + in_group % gm;
+  ni = in_group / gm;
 }
 
 // The consumers (threads 0-255): A fragments dequantized in registers,
@@ -181,8 +202,8 @@ __device__ __forceinline__ void tile_of(int bid, int M, int N, int& m0,
 // the tile's transpose stored to y.
 template <int TOK>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* base,
-                                        uint32_t full, uint32_t empty, int m0,
-                                        int n0, int T) {
+                                        uint32_t full, uint32_t empty,
+                                        const Tile& tile, int T) {
   using L = Layout<TOK>;
   const int tid = threadIdx.x;
   const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -236,9 +257,9 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* base,
   for (int j = 0; j < TOK / 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int n = n0 + c + 8 * (i >> 1);
-      const int m = m0 + 8 * j + 2 * (lane & 3) + (i & 1);
-      if (m < p.M && n < p.N)
+      const int n = tile.n0 + c + 8 * (i >> 1);
+      const int m = tile.m0 + 8 * j + 2 * (lane & 3) + (i & 1);
+      if (m < tile.m_end && n < p.N)
         p.out[(size_t)m * p.N + n] = __float2bfloat16(acc[4 * j + i]);
     }
   }
@@ -250,11 +271,9 @@ __device__ __forceinline__ void gemm_block(const Params& p,
                                            const CUtensorMap* tw,
                                            const CUtensorMap* ts,
                                            const CUtensorMap* tz,
-                                           uint8_t* smem) {
+                                           uint8_t* smem, const Tile& tile) {
   using L = Layout<TOK>;
   const int tid = threadIdx.x;
-  int m0, n0;
-  tile_of<TOK>(blockIdx.x, p.M, p.N, m0, n0);
 
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
@@ -277,11 +296,67 @@ __device__ __forceinline__ void gemm_block(const Params& p,
   if (tid >= CONSUMERS) {
     hop::regs_dec<40>();
     if (tid == CONSUMERS)
-      produce<TOK>(p, tx, tw, ts, tz, base_sa, full, empty, m0, n0, T);
+      produce<TOK>(p, tx, tw, ts, tz, base_sa, full, empty, tile, T);
   } else {
     hop::regs_inc<232>();
-    consume<TOK>(p, base, full, empty, m0, n0, T);
+    consume<TOK>(p, base, full, empty, tile, T);
   }
+}
+
+// Host side: the driver's cuTensorMapEncodeTiled, reached through the
+// runtime, and a 2-D tensor map over a row-major [rows, cols] array (cols
+// innermost), boxes of [box_rows, box_cols]; out-of-bounds elements read
+// as zeros.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+inline bool map_2d(CUtensorMap* m, CUtensorMapDataType type, int elem_bytes,
+                   const void* base, long long rows, int cols, int box_rows,
+                   int box_cols, CUtensorMapSwizzle swizzle) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t steps[2] = {1, 1};
+  return fn(m, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four maps of a call: x [rows, K] in boxes of [TOK, BK] (128-byte
+// swizzle), packed weights [w_rows, N], scales [s_rows, N] and zero
+// points [z_rows, N] in boxes of [BK / 8, BN], [2, BN], [2, BN].
+inline bool maps(int tok, const void* x, long long rows, int K,
+                 const void* qw, long long w_rows, const void* sc,
+                 long long s_rows, const void* qz, long long z_rows, int N,
+                 CUtensorMap* tx, CUtensorMap* tw, CUtensorMap* ts,
+                 CUtensorMap* tz) {
+  bool ok = map_2d(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, rows, K, tok,
+                   BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            map_2d(tw, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, w_rows, N,
+                   BK / 8, BN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            map_2d(ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sc, s_rows, N, 2,
+                   BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (ok && qz != nullptr)
+    ok = map_2d(tz, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qz, z_rows, N, 2, BN,
+                CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    *tz = *tw;  // unread
+  return ok;
 }
 
 }  // namespace wg

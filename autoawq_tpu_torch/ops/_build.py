@@ -46,7 +46,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 ARGTYPES = {
-    "w4a16_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "w4a16_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "w4a16_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -54,7 +54,7 @@ ARGTYPES = {
                           _L, _L, _L, _F, _P],
     # 25 pointers (inputs, outputs, scratch), 16 ints, scale, stream
     "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
-    "moe_gemm": [_P] * 8 + [_I] * 7 + [_P],
+    "moe_gemm": [_P] * 7 + [_I] * 10 + [_P],
     "fused_mlp3": [_P] * 13 + [_I] * 9 + [_P],
     "paged_attn": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
     "paged_attn_stock": [_P] * 7 + [_I] * 11 + [_F, _P],

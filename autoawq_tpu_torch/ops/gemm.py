@@ -5,7 +5,9 @@ Counterpart of ``autoawq_tpu/ops/gemm.py`` and ``ops/pallas_gemm.py``:
 * :func:`awq_matmul_plain` — the plain twin: dequantize ``(q - z) * s`` in
   f32, cast to x's dtype, matmul with f32 accumulation, cast back (the
   semantics of ``awq_matmul_jnp``). The CPU path and the kernels' oracle.
-* :func:`w4a16_gemv` (kernel K1, ``csrc/w4a16_gemv.cu``) for M < 256 and
+* :func:`w4a16_gemv` (kernel K1, ``csrc/w4a16_gemv.cu`` on the tensor-core
+  GEMV core ``csrc/w4a16_gemv.cuh``; :func:`gemv_plan` sizes its launch) for
+  M < 256 and
   :func:`w4a16_gemm` (kernel K2, ``csrc/w4a16_gemm.cu``) for M >= 256: the
   same split the TPU makes at ``WS_MIN_M`` (``pallas_gemm.py:74``).
 * :func:`awq_matmul` — the dispatcher.
@@ -18,14 +20,17 @@ and the comparison phase of ``chip_smoke.py``).
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from autoawq_tpu_torch.ops import _build
 
 WS_MIN_M = 256  # M at which prefill linears switch from K1 to K2
-_BLOCK_COLS = 128  # K1 threads (output columns) per block
+_BLOCK_COLS = 128  # output columns a block of the CUDA-core GEMV (K3-K5, K8)
+GEMV_COLS = 32  # weight columns a warp of the tensor-core GEMV (K1, K6)
+GEMV_WARPS = 8
+GEMV_CTA_ROWS = 256  # rows of x a CTA of it covers at most (8 warps x 32)
 
 
 def dequantize(qweight: torch.Tensor, scales: torch.Tensor,
@@ -67,8 +72,12 @@ def awq_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
 
 
 def _check(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-           qzeros: Optional[torch.Tensor], name: str, min_gs: int) -> int:
-    """Validate a kernel call; returns the group size."""
+           qzeros: Optional[torch.Tensor], name: str, min_gs: int,
+           aligned: bool = False) -> int:
+    """Validate a kernel call; returns the group size. With ``aligned`` (K1
+    and K2, which load weights 16 bytes at a time, K2 with TMA): N % 4 == 0
+    and 16-byte aligned bases, or ValueError (the port's loaders pad columns
+    once, core/packing.pad_cols)."""
     if x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be a contiguous 2-D tensor on a "
                          "16-byte boundary (the kernels load 8 bf16 at once)")
@@ -93,6 +102,11 @@ def _check(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous {dt} on "
                              f"{x.device}")
+    if aligned and (n % 4 or any(t.data_ptr() % 16 for t, _ in tensors)):
+        raise ValueError(
+            f"{name}: {n} columns, or an operand off a 16-byte boundary: the "
+            "kernel takes 16-byte aligned operands of a width that is a "
+            "multiple of 4 (pad the weight once with core/packing.pad_cols)")
     return gs
 
 
@@ -102,29 +116,73 @@ def _sm_count(index: int) -> int:
 
 
 def gemv_splits(m: int, k: int, n: int, device: torch.device) -> int:
-    """K splits for K1 (and K3's down pass): aim at ~4 blocks per SM, with
-    at least 8 packed rows (64 K-rows) per split."""
+    """K splits of the CUDA-core GEMV passes of K3, K5 and K8
+    (``csrc/w4a16_common.cuh``): aim at ~4 blocks per SM, with at least 8
+    packed rows (64 K-rows) per split."""
     mt = 8 if m >= 8 else (4 if m >= 4 else (2 if m >= 2 else 1))
     blocks = -(-n // _BLOCK_COLS) * -(-m // mt)
     want = -(-4 * _sm_count(device.index or 0) // blocks)
     return max(1, min(want, (k // 8) // 8))
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_plan(m: int, k: int, n: int, blocks: int, sms: int
+              ) -> Tuple[int, int, int]:
+    """Launch shape of the tensor-core GEMV (K1; K6's decode instance with
+    ``blocks`` token blocks of at most 8 rows): ``(nt, rg, csize)``, the n8
+    tiles of x rows a warp holds (1, 2 or 4: rows up to 8, 16, 32 a warp),
+    the row groups of 32 a CTA covers (1, 2, 4 or 8, over min(m, 256)
+    rows) and the CTAs of a cluster that split K (1 to 4). A cluster's
+    reduction and co-scheduling cost more than they buy once the grid has
+    about an SM's worth of CTAs (H100 measurements, PERF.md), so csize
+    grows only while the CTAs number fewer than ``sms / 2`` where the CTA
+    already splits K four ways or more, fewer than ``sms`` otherwise, and
+    while each warp keeps at least two 32-deep K chunks. The CTA's columns
+    follow (:func:`gemv_cta`)."""
+    rows = min(m, GEMV_CTA_ROWS)
+    nt = 1 if rows <= 8 else (2 if rows <= 16 else 4)
+    rg = 1
+    while 32 * rg < rows:
+        rg *= 2
+    cols, slices = gemv_cta(nt, rg)
+    ctas = -(-n // cols) * max(1, blocks) * -(-m // GEMV_CTA_ROWS)
+    chunks = k // 32
+    target = sms // 2 if slices >= 4 else sms
+    csize = 1
+    while (csize < 4 and ctas * csize < target
+           and chunks >= 2 * 2 * csize * slices):
+        csize *= 2
+    return nt, rg, csize
+
+
+def gemv_cta(nt: int, rg: int) -> Tuple[int, int]:
+    """The tensor-core GEMV's CTA for ``nt`` n8 tiles a warp and ``rg`` row
+    groups: ``(columns, k_slices)``, 8 warps of 32 columns x 32 rows x one
+    slice of the CTA's K range. Up to 16 rows: 32 columns and 8 K slices;
+    then 128 / 32 / 64 / 32 columns for 1 / 2 / 4 / 8 row groups (the
+    fastest of the shapes timed on the H100; warps that share rows read x
+    once through L1)."""
+    col_warps = 1 if nt < 4 else {1: 4, 2: 1, 4: 2, 8: 1}[rg]
+    return GEMV_COLS * col_warps, GEMV_WARPS // (col_warps * rg)
+
+
 def w4a16_gemv(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                qzeros: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: x [M, K] bf16 -> [M, N] bf16 (any M; dispatched for M < 256)."""
+    """K1: x [M, K] bf16 -> [M, N] bf16 (any M; dispatched for M < 256;
+    above 256 rows it reads the weight once per 256). Group sizes must be
+    multiples of 32, N a multiple of 4 and the operands 16-byte aligned,
+    else ValueError."""
     if x.device.type == "cpu":
         return awq_matmul_plain(x, qweight, scales, qzeros)
-    gs = _check(x, qweight, scales, qzeros, "w4a16_gemv", 8)
+    gs = _check(x, qweight, scales, qzeros, "w4a16_gemv", 32,
+                aligned=True)
     m, k = x.shape
     n = qweight.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    splits = gemv_splits(m, k, n, x.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    nt, rg, csize = gemv_plan(m, k, n, 1, _sm_count(x.device.index or 0))
     _build.launch("w4a16_gemv", x.data_ptr(), qweight.data_ptr(),
                   scales.data_ptr(), _build.ptr(qzeros), out.data_ptr(),
-                  _build.ptr(ws), m, k, n, gs, splits)
+                  m, k, n, gs, nt, rg, csize)
     return out
 
 
@@ -135,18 +193,10 @@ def w4a16_gemm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     operands, else ValueError)."""
     if x.device.type == "cpu":
         return awq_matmul_plain(x, qweight, scales, qzeros)
-    gs = _check(x, qweight, scales, qzeros, "w4a16_gemm", 32)
+    gs = _check(x, qweight, scales, qzeros, "w4a16_gemm", 32,
+                aligned=True)
     m, k = x.shape
     n = qweight.shape[1]
-    # K2 reads its operands with TMA, which needs 16-byte aligned rows and
-    # bases; the port's loaders pad a weight's columns once
-    # (core/packing.pad_cols), and K2 copies no weight
-    if n % 4 or any(t is not None and t.data_ptr() % 16
-                    for t in (qweight, scales, qzeros)):
-        raise ValueError(
-            f"w4a16_gemm: {n} columns, or an operand off a 16-byte boundary: "
-            "K2 takes 16-byte aligned operands of a width that is a multiple "
-            "of 4 (pad the weight once with core/packing.pad_cols)")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _build.launch("w4a16_gemm", x.data_ptr(), qweight.data_ptr(),
                   scales.data_ptr(), _build.ptr(qzeros), out.data_ptr(),

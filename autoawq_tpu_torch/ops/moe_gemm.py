@@ -26,8 +26,8 @@ import torch
 
 from autoawq_tpu_torch.ops import _build
 from autoawq_tpu_torch.ops.fused_mlp import act_fn
-from autoawq_tpu_torch.ops.gemm import (_BLOCK_COLS, _sm_count,
-                                        awq_matmul_plain)
+from autoawq_tpu_torch.ops.gemm import (_sm_count, awq_matmul_plain,
+                                        gemv_plan)
 
 BLOCK_M = 8  # decode token rows per block (moe_gemm.BLOCK_M in JAX)
 
@@ -38,6 +38,19 @@ def pick_block_m(total_entries: int, num_experts: int) -> int:
     if total_entries <= 64:
         return BLOCK_M
     return min(128, max(8, (total_entries // (4 * num_experts)) // 8 * 8))
+
+
+def tile_rows(block_m: int) -> int:
+    """K6's instance for token blocks of ``block_m`` rows: 0 for the
+    tensor-core GEMV (``block_m <= 8``: one n8 tile a block), else the rows
+    of the wgmma tile, the smallest of 16 / 32 / 64 / 128 that holds the
+    block (a larger tile's extra rows, the next block's, are not stored)."""
+    if block_m <= 8:
+        return 0
+    for tok in (16, 32, 64, 128):
+        if block_m <= tok:
+            return tok
+    raise ValueError(f"grouped_awq_matmul: block_m {block_m} > 128")
 
 
 def moe_align(topi: torch.Tensor, num_experts: int, block_m: int = BLOCK_M
@@ -117,9 +130,9 @@ def _check(xs, block_expert, qweight, scales, qzeros, live_blocks,
                          f"qweight {tuple(qweight.shape)} scales "
                          f"{tuple(scales.shape)} block_m {block_m}")
     gs = k // g
-    if gs % (8 if block_m <= 8 else 32):
+    if gs % 32:
         raise ValueError(f"grouped_awq_matmul: group size {gs} is not a "
-                         f"multiple of {8 if block_m <= 8 else 32}")
+                         "multiple of 32")
     tensors = [(qweight, torch.int32), (scales, torch.float32),
                (block_expert, torch.int32)]
     if block_expert.shape != (rows // block_m,):
@@ -137,15 +150,13 @@ def _check(xs, block_expert, qweight, scales, qzeros, live_blocks,
         if t.device != xs.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"grouped_awq_matmul: operands must be "
                              f"contiguous {dt} on {xs.device}")
+    if n % 4 or any(t.data_ptr() % 16 for t in (qweight, scales, qzeros)
+                    if t is not None):
+        raise ValueError(
+            f"grouped_awq_matmul: {n} columns, or a weight operand off a "
+            "16-byte boundary: K6 takes 16-byte aligned operands of a width "
+            "that is a multiple of 4")
     return gs
-
-
-def _splits(nb_live: int, k: int, n: int, device: torch.device) -> int:
-    """K splits of the bm <= 8 path, K1's rule: ~4 blocks per SM over the
-    blocks that can be live, at least 8 packed rows per split."""
-    blocks = -(-n // _BLOCK_COLS) * max(1, nb_live)
-    want = -(-4 * _sm_count(device.index or 0) // blocks)
-    return max(1, min(want, (k // 8) // 8))
 
 
 def grouped_awq_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
@@ -157,7 +168,10 @@ def grouped_awq_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
     b through expert ``block_expert[b]``. ``live_blocks`` (int32 [1] on the
     device, from :func:`moe_align`) skips the trailing dead blocks, whose
     rows come back zero; ``max_live``, a host-side bound on it from shapes
-    alone (T*k), sizes the split-K of the decode path."""
+    alone (T*k), sizes the grid of the decode instance (``block_m <= 8``:
+    K1's tensor-core GEMV core, :func:`gemm.gemv_plan`); larger blocks take
+    K2's wgmma body. Group sizes must be multiples of 32, N a multiple of 4
+    and the weight operands 16-byte aligned, else ValueError."""
     if xs.device.type == "cpu":
         return grouped_awq_matmul_plain(xs, block_expert, qweight, scales,
                                         qzeros, block_m=block_m,
@@ -168,16 +182,15 @@ def grouped_awq_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
     e, _, n = qweight.shape
     nb = rows // block_m
     out = torch.empty((rows, n), dtype=xs.dtype, device=xs.device)
-    splits = 1
-    if block_m <= 8:
-        splits = _splits(min(nb, max_live), k, n, xs.device)
-    ws = (torch.empty((splits, rows, n), dtype=torch.float32,
-                      device=xs.device) if splits > 1 else None)
+    live_rows, csize, tok = max(1, min(nb, max_live)), 1, tile_rows(block_m)
+    if tok == 0:
+        csize = gemv_plan(block_m, k, n, live_rows,
+                          _sm_count(xs.device.index or 0))[2]
     _build.launch("moe_gemm", xs.data_ptr(), block_expert.data_ptr(),
                   live_blocks.data_ptr(), qweight.data_ptr(),
                   scales.data_ptr(), _build.ptr(qzeros), out.data_ptr(),
-                  _build.ptr(ws), nb, block_m, k, n, scales.shape[1], gs,
-                  splits)
+                  e, nb, block_m, k, n, scales.shape[1], gs, live_rows,
+                  csize, tok)
     return out
 
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --root DIR --phases device,prefill   # A/B
     python3 chip_smoke.py --root DIR --phases device,paged     # A/B
+    python3 chip_smoke.py --root DIR --phases device,linears   # A/B
 
 Phases, each printing JSON lines:
 
@@ -18,7 +19,8 @@ Phases, each printing JSON lines:
               CUDA-event times of CUDA-graph replays (kernel, plain twin,
               one PyTorch library call where one computes the same
               function; the kernel's eager per-call time beside them) and
-              the least time the card could take (bound). K2 and K4 also
+              the least time the card could take (bound). K1 also at
+              Mistral's qkv and o at M = 1, 8 and 64. K2 and K4 also
               at traffic D's prefill shapes (Mistral's four linears at
               M = 16,384; B=8, S=2048, 32/8 heads, hd 128). K7 and K9 also
               at their splits' edges and on a long table (8 slots of 4096
@@ -92,7 +94,11 @@ checkout, such as a parent commit unpacked with ``git archive``):
 ``prefill`` — K2 and K4 at B's and D's prefill shapes and traffic B's and
 D's prefill seconds; ``paged`` — K7 at H's and I's shapes, K9 at J's, both
 on a long table (8 slots of 4096 rows), and H's, I's and J's device ms a
-decode step with K7's or K9's profile rows.
+decode step with K7's or K9's profile rows; ``linears`` — K1 at
+TinyLlama's and Mistral's linears (M = 1, 8, 64, 255), K6 at E's and F's
+decode and prefill shapes, controls K2, K3 and K8, and A's, H's, E's and
+F's device ms a decode step and F's prefill seconds with K1's and K6's
+profile rows.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Without a CUDA device, or outside a checkout of the
@@ -113,7 +119,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load")
-EXTRA_PHASES = ("prefill", "paged")  # asked for by name only
+EXTRA_PHASES = ("prefill", "paged", "linears")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 1024 * 1024
@@ -164,9 +170,10 @@ KERNEL_META = {
                          "autoawq_tpu/nn/modules.py:459"),
 }
 # tolerances, as max |kernel - twin| / max |twin| on the same inputs:
-# K1 dequantizes in f32 where the twin rounds weights to bf16 first, both
-# round the output to bf16, and the sums run in another order: ~1e-2
-# covers a few bf16 ulps of the output's scale. K2 rounds weights exactly
+# K1 keeps q - z exact and scales each group's f32 sum once, where the twin
+# rounds (q - z) * s to bf16 first; both round the output to bf16, and the
+# sums run in another order: ~1e-2 covers a few bf16 ulps of the output's
+# scale. K2 rounds weights exactly
 # like the twin; K3 keeps g and u in f32 where the twin rounds both.
 # K4 is held per query row and head, as max over rows of max |diff_row| /
 # max |twin_row|: a causal output's scale falls from |v| in row 0 to about
@@ -373,10 +380,10 @@ def phase_build():
 
 
 def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
-               iters=200, yardsticks=True):
+               iters=200, yardsticks=True, plain=True):
     """One K1 / K2 call against its twin; with ``timing``, its time over
-    ``iters`` calls and (with ``yardsticks``) the twin's, the library
-    call's and the bound."""
+    ``iters`` calls and (with ``yardsticks``) the library call's (and, with
+    ``plain``, the twin's) and the bound."""
     import torch
 
     from autoawq_tpu_torch.ops import gemm
@@ -401,8 +408,9 @@ def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
         row["bound_ms"], row["bound_by"] = bound(
             wb + 2 * m * k + 2 * m * n, 2 * m * n * k)
     if timing and yardsticks:
-        row["plain_ms"], _ = time_ms(gemm.awq_matmul_plain, sets[:2],
-                                     min(iters, 10))
+        if plain:
+            row["plain_ms"], _ = time_ms(gemm.awq_matmul_plain, sets[:2],
+                                         min(iters, 10))
         w = gemm.dequantize(lin["qweight"], lin["scales"], lin["qzeros"],
                             dtype=torch.bfloat16)
         wsets = copies([x, w], w.numel() * 2)
@@ -610,14 +618,14 @@ def qlin_on_card(gen, k: int, n: int, gs: int = 128, zp: bool = True,
 
 
 def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
-              yardsticks=True):
+              yardsticks=True, time_plain=True):
     """K6 against its twin: ``t`` tokens routed to 2 of the stack's experts
     each (distinct, as top-k picks them), the tables from ``moe_align``.
     With ``timing``: K6 (graph replay and eager), the twin (eager: it reads
     the table on the host), bf16 ``torch.matmul`` per owned expert over its
     pre-dequantized weight, summed, and the bound for the experts and rows
     this routing needs (the twin and the matmuls only with
-    ``yardsticks``)."""
+    ``yardsticks``, the twin not without ``time_plain``)."""
     import torch
 
     from autoawq_tpu_torch.ops import gemm
@@ -666,7 +674,8 @@ def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
         row["bound_ms"], row["bound_by"] = bound(
             read + 2 * t * k * (kdim + n), 2 * t * k * kdim * n)
     if timing and yardsticks:
-        row["plain_ms"], _ = time_ms(plain, sets[:1], 3, graph=False)
+        if time_plain:
+            row["plain_ms"], _ = time_ms(plain, sets[:1], 3, graph=False)
         flat = []
         for ex in owned:
             flat += [x[(topi == ex).any(-1)], gemm.dequantize(
@@ -899,6 +908,11 @@ def phase_kernels(dev):
             row = _gemm_case(rng, "w4a16_gemv", case, m, k, n, 128, True, dev)
             if m == 1 and case == "qkv":
                 rep["w4a16_gemv"] = row
+    for m in (1, 8, 64):  # Mistral's qkv and o: E, H, I, J, K decode and
+        for case in ("qkv", "o"):  # H's and K's M=64 prefills
+            k, n = D_LINEARS[case]
+            _gemm_case(rng, "w4a16_gemv", f"Mistral {case}", m, k, n, 128,
+                       True, dev)
     for gs, zp in ((32, True), (64, True), (128, False)):
         _gemm_case(rng, "w4a16_gemv", "qkv", 1, 2048, 2560, gs, zp, dev)
     for case, (k, n) in LINEARS.items():  # K1 at the K1/K2 switch point
@@ -1100,9 +1114,9 @@ def device_profile(run, calls: int, match=()):
     return out
 
 
-def profile_decode(cfg, params, prompt, steps, kv_quant=False):
+def profile_decode(cfg, params, prompt, steps, kv_quant=False, match=()):
     """``device_profile`` over ``steps`` greedy decode steps after a
-    prefill of ``prompt``."""
+    prefill of ``prompt`` (kernel rows named with ``match`` kept)."""
     import torch
 
     from autoawq_tpu_torch.serve import generate as gen
@@ -1116,7 +1130,7 @@ def profile_decode(cfg, params, prompt, steps, kv_quant=False):
     def step(i):
         logits, _ = gen.decode_step(cfg, params, token[0], caches, s + i)
         token[0] = logits.argmax(-1)[:, None]
-    return device_profile(step, steps)
+    return device_profile(step, steps, match=match)
 
 
 def phase_e2e(dev):
@@ -1971,7 +1985,7 @@ def phase_prefill(dev):
                    iters=10, yardsticks=False)
     _attn_case(2, 384, 32, 4, 64, dev, yardsticks=False)
     _attn_case(*D_ATTN, dev, iters=10, yardsticks=False, case="D prefill")
-    # K6, whose prefill tile K2 no longer shares, at traffic F's prefill
+    # K6, whose prefill instance runs K2's body, at traffic F's prefill
     draw = torch.Generator(device=dev)
     draw.manual_seed(5)
     h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
@@ -2069,6 +2083,123 @@ def phase_paged(dev):
               **device_profile(lambda i: eng.step(), 8,
                                match=("paged", "combine"))})
         del eng
+    del params
+
+
+# kernel names of K1 and K6 in profiles (this design's and the first's:
+# gemv_partial / gemv_reduce are also K3's and K5's CUDA-core GEMV passes)
+LINEAR_MATCH = ("gemv", "moe")
+
+
+def phase_linears(dev):
+    """K1 and K6 of the checkout under test, for an A/B of two checkouts in
+    one call (``--root``, in turns: parent, change, change, parent), each
+    call held against its twin: K1 at TinyLlama's four linears at M = 1
+    and 8, at Mistral's qkv and o at M = 1, 8 and 64 and at qkv M = 255
+    (beside bf16 torch.matmul on the pre-dequantized weight and the byte
+    bound); K6 at E's and F's decode (gate_up, down), E's prefill (bm 8)
+    and F's prefill (bm 128), beside the per-expert matmuls and the bound;
+    controls K2 (B's M=768 gate_up, D's gate_up), K3 and K8 at M=1. Then
+    device and host ms of 8 profiled decode steps of A, H (paged engine,
+    8 slots busy), E and F, with K1's and K6's profile rows, and F's
+    prefill seconds (min of 3 after a warm-up) with a profile of one
+    prefill, on the e2e phase's weights."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    rng = np.random.default_rng(9)
+    torch.manual_seed(9)
+    for m in (1, 8):
+        for case, (k, n) in LINEARS.items():
+            _gemm_case(rng, "w4a16_gemv", case, m, k, n, 128, True, dev,
+                       plain=False)
+    for m in (1, 8, 64):
+        for case in ("qkv", "o"):
+            k, n = D_LINEARS[case]
+            _gemm_case(rng, "w4a16_gemv", f"Mistral {case}", m, k, n, 128,
+                       True, dev, plain=False)
+    _gemm_case(rng, "w4a16_gemv", "qkv", 255, *LINEARS["qkv"], 128, True,
+               dev, plain=False)
+    _gemm_case(rng, "w4a16_gemv", "Mistral qkv", 255, *D_LINEARS["qkv"],
+               128, True, dev, plain=False)
+    _gemm_case(rng, "w4a16_gemm", "gate_up", 768, *LINEARS["gate_up"], 128,
+               True, dev, yardsticks=False)
+    _gemm_case(rng, "w4a16_gemm", "D gate_up", D_M, *D_LINEARS["gate_up"],
+               128, True, dev, iters=10, yardsticks=False)
+    _mlp_case(rng, 1, "silu", dev)
+    _mlp3_case(rng, "TinyLlama M=1", 1, 2048, 5632, "silu", dev)
+    draw = torch.Generator(device=dev)
+    draw.manual_seed(9)
+    h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
+                    MIXTRAL["num_experts"])
+    gu = qlin_on_card(draw, h, 2 * inter, experts=ne)
+    dn = qlin_on_card(draw, inter, h, experts=ne)
+    for case, w, t in (("E decode, gate_up", gu, 1), ("E decode, down", dn, 1),
+                       ("F decode, gate_up", gu, 8), ("F decode, down", dn, 8),
+                       ("E prefill, gate_up (bm 8)", gu, 64),
+                       ("E prefill, down (bm 8)", dn, 64),
+                       ("F prefill, gate_up (bm 128)", gu, 4096),
+                       ("F prefill, down (bm 128)", dn, 4096)):
+        _moe_case(draw, case, w, t, dev, iters=10 if t > 64 else 50,
+                  time_plain=False)
+    del gu, dn
+
+    def steps(name, cfg, params, prompt):
+        emit({"phase": "linears", "traffic": name, "card": card(),
+              "what": "decode step", **profile_decode(
+                  cfg, params, prompt, 8, match=LINEAR_MATCH)})
+
+    cfg = ModelConfig(**TINYLLAMA)
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 64))).to(dev)  # traffic A's prompt
+    steps("A", cfg, params, prompt)
+    del params
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    prng = np.random.default_rng(5)  # the prompts of _paged_traffics
+    eng = _busy_engine(cfg, params, [prng.integers(0, cfg.vocab_size, (64,))
+                                     for _ in range(16)])
+    for _ in range(4):
+        eng.step()
+    emit({"phase": "linears", "traffic": "H", "card": card(),
+          "what": "paged decode step (8 slots busy)",
+          **device_profile(lambda i: eng.step(), 8, match=LINEAR_MATCH)})
+    del eng, params
+    cfg = ModelConfig(**MIXTRAL)
+    torch.cuda.empty_cache()
+    params = synth_moe_on_card(cfg, 0, dev)
+    mrng = np.random.default_rng(4)  # the prompts of _mixtral_traffics
+    for name, b, s in (("E", 1, 64), ("F", 8, 512)):
+        prompt = torch.from_numpy(mrng.integers(0, cfg.vocab_size,
+                                                (b, s))).to(dev)
+        steps(name, cfg, params, prompt)
+        if name != "F":
+            continue
+        caches = gen.init_kv_cache(cfg, b, s + 64, torch.bfloat16, dev)
+        runs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = gen.prefill(cfg, params, prompt, caches)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()),
+              "traffic F: non-finite prefill logits")
+        emit({"phase": "linears", "traffic": "F", "card": card(),
+              "what": "prefill", "prefill_s": min(runs[1:]),
+              "prefill_runs_s": runs[1:], **device_profile(
+                  lambda i: gen.prefill(cfg, params, prompt, caches), 1,
+                  match=LINEAR_MATCH)})
+        del caches, logits
     del params
 
 
@@ -2236,6 +2367,8 @@ def main(argv=None) -> int:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:
         timed("paged", phase_paged, dev)
+    if "linears" in phases:
+        timed("linears", phase_linears, dev)
     if rep:
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -7,7 +7,8 @@ conftest import jax).
 
 Tolerances, as max |kernel - twin| / max |twin|: K1 1e-2 (f32 dequant vs
 the twin's bf16-rounded weights, bf16 output), K2 1e-2 (bf16 output, other
-summation order), K3 2e-2 (g and u kept in f32 where the twin rounds them).
+summation order; K1 keeps q - z exact and scales each group's f32 sum, the
+twin rounds (q - z) * s to bf16), K3 2e-2 (g and u kept in f32 where the twin rounds them).
 K4 2^-6 per query row and head, as max over rows of max |diff_row| /
 max |twin_row| (a causal output's scale falls with the row, so a global
 maximum would hide a wrong late row; both sides round to bf16, so a sound
@@ -98,6 +99,37 @@ def test_w4a16_gemm(cuda, rng, m, k, n, gs, zp):
     got = gemm.w4a16_gemm(x, *w)
     assert _build.LAUNCHES["w4a16_gemm"] == before + 1
     assert rel(got[:, :n], gemm.awq_matmul_plain(x, *w)[:, :n]) <= 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 64, 255])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (4096, 6144)],
+                         ids=["tinyllama_qkv", "mistral_qkv"])
+def test_w4a16_gemv_rows_at_model_widths(cuda, rng, m, k, n):
+    """K1's tensor-core GEMV at the row counts that change its plan (one n8
+    tile, a partial one, several, row groups of 32 over warps, 255 rows)
+    at TinyLlama's and Mistral's qkv widths: one launch, held against the
+    twin."""
+    w = lin(rng, k, n, 128, True, cuda)
+    x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+    before = _build.LAUNCHES["w4a16_gemv"]
+    got = gemm.w4a16_gemv(x, *w)
+    assert _build.LAUNCHES["w4a16_gemv"] == before + 1
+    assert rel(got, gemm.awq_matmul_plain(x, *w)) <= 1e-2
+
+
+def test_w4a16_gemv_raises_on_what_it_does_not_take(cuda, rng):
+    """K1 loads 16 bytes of weights a lane and walks K 32 deep: N % 4 != 0,
+    an operand off a 16-byte base and groups of 16 raise ValueError."""
+    x = torch.randn(1, 512, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gemm.w4a16_gemv(x, *lin(rng, 512, 2502, 32, True, cuda))
+    qw, sc, qz = lin(rng, 512, 2052, 32, True, cuda)
+    off = torch.empty(qw.numel() + 1, dtype=qw.dtype, device=cuda)[1:]
+    off = off.view(qw.shape).copy_(qw)  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        gemm.w4a16_gemv(x, off, sc, qz)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gemm.w4a16_gemv(x, *lin(rng, 512, 2048, 16, True, cuda))
 
 
 def test_w4a16_gemm_raises_on_a_ragged_raw_operand(cuda, rng):
@@ -288,6 +320,48 @@ def test_moe_gemm(cuda, t, k_dim, n, gs, zp):
     assert not got[dead:].any()
 
 
+@pytest.mark.parametrize("bm,t,gs,zp", [
+    (8, 3, 64, False),     # the GEMV instance; blocks past max_live zeroed
+    (16, 40, 64, True),    # the 16-row wgmma tile
+    (24, 100, 32, False),  # 24 rows in a 32-row tile: 8 rows of the next
+    (64, 300, 128, True),
+    (96, 500, 64, False),  # 96 rows in a 128-row tile
+    (128, 700, 128, True)])
+def test_moe_gemm_instances_store_only_their_blocks(cuda, bm, t, gs, zp):
+    """K6 called straight through its C entry with an output longer than
+    its rows, prefilled: every block's rows equal the twin's (no block's
+    tile writes into its neighbour's rows), the dead trailing blocks are
+    zero, and no row past the last block changes, though an instance
+    larger than bm reads rows past it."""
+    gen = torch.Generator(device=cuda).manual_seed(bm)
+    e, k, k_dim, n = 8, 2, 512, 384
+    w = stack(gen, e, k_dim, n, gs, zp, cuda)
+    topi = routed(gen, t, e, k, cuda)
+    gather_idx, be, live, _ = moe_gemm.moe_align(topi, e, bm)
+    x = (torch.randn(t, k_dim, device=cuda, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    xs = torch.cat([x, x.new_zeros((1, k_dim))])[
+        torch.clamp(gather_idx.long() // k, max=t)]
+    nb, rows = be.numel(), be.numel() * bm
+    tok = moe_gemm.tile_rows(bm)
+    max_live = min(nb, t * k)
+    csize = gemm.gemv_plan(bm, k_dim, n, max_live, 132)[2] if tok == 0 else 1
+    out = torch.full((rows + 128, n), 7.0, dtype=torch.bfloat16,
+                     device=cuda)
+    _build.launch("moe_gemm", xs.data_ptr(), be.data_ptr(), live.data_ptr(),
+                  w["qweight"].data_ptr(), w["scales"].data_ptr(),
+                  _build.ptr(w["qzeros"]), out.data_ptr(), e, nb, bm, k_dim,
+                  n, k_dim // gs, gs, max_live, csize, tok)
+    torch.cuda.synchronize()
+    ref = moe_gemm.grouped_awq_matmul_plain(
+        xs, be, w["qweight"], w["scales"], w["qzeros"], block_m=bm,
+        live_blocks=live)
+    assert int(live) < nb  # the case has dead blocks
+    assert rel(out[:rows], ref) <= 1e-2
+    assert not out[int(live) * bm:rows].any()
+    assert bool((out[rows:] == 7.0).all())
+
+
 def test_moe_gemm_rejects(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     w = stack(gen, 4, 256, 64, 16, True, cuda)
@@ -298,7 +372,7 @@ def test_moe_gemm_rejects(cuda):
     with pytest.raises(TypeError):  # f32 activations
         moe_gemm.grouped_awq_matmul(xs, be, w["qweight"], w["scales"],
                                     w["qzeros"], **kw)
-    with pytest.raises(ValueError):  # the tile path needs groups of 32
+    with pytest.raises(ValueError):  # K6 needs groups of 32
         moe_gemm.grouped_awq_matmul(xs.to(torch.bfloat16), be, w["qweight"],
                                     w["scales"], w["qzeros"], **kw)
     with pytest.raises(ValueError):  # one expert per token block
