@@ -10,24 +10,23 @@
 //
 // Design: fused_mlp_common.cuh, with gate column j and its up partner
 // inter + j of the fused gate_up layout as the two operands (the same
-// words, scales and zeros, offset by inter columns).
+// words, scales and zeros, offset by inter columns). Two CUDA launches.
 #include "fused_mlp_common.cuh"
 
-// h: bf16 scratch [M, inter]; ws: f32 scratch [splits, M, N2] (splits > 1).
+// h: bf16 scratch [M, inter]; nt, cs1, cs2 from ops/gemm.gemv_plan.
 extern "C" int fused_mlp(const void* x, const void* gu_qw, const void* gu_sc,
                          const void* gu_qz, const void* dn_qw,
                          const void* dn_sc, const void* dn_qz, void* h,
-                         void* out, void* ws, int M, int H, int inter,
-                         int N2, int gs1, int gs2, int act, int splits,
+                         void* out, int M, int H, int inter, int N2, int gs1,
+                         int gs2, int act, int nt, int cs1, int cs2,
                          void* stream) {
   const auto* qw = static_cast<const int32_t*>(gu_qw);
   const auto* sc = static_cast<const float*>(gu_sc);
   const auto* qz = static_cast<const int32_t*>(gu_qz);
-  const awq::MlpOperand gate{qw, sc, qz, 2 * inter, gs1};
+  const awq::MlpOperand gate{qw, sc, qz};
   const awq::MlpOperand up{qw + inter, sc + inter,
-                           qz == nullptr ? nullptr : qz + inter, 2 * inter,
-                           gs1};
+                           qz == nullptr ? nullptr : qz + inter};
   return static_cast<int>(awq::launch_mlp(
-      x, gate, up, dn_qw, dn_sc, dn_qz, h, out, ws, M, H, inter, N2, gs2, act,
-      splits, static_cast<cudaStream_t>(stream)));
+      x, gate, up, 2 * inter, dn_qw, dn_sc, dn_qz, h, out, M, H, inter, N2,
+      gs1, gs2, act, nt, cs1, cs2, static_cast<cudaStream_t>(stream)));
 }

@@ -4,23 +4,24 @@
 //
 // Bound on the H100: bytes (the int4 gate, up and down weights, read once).
 //
-// Design: launch 1 (gate_up_act) pairs columns. A block of 8 warps owns 32
-// gate columns j (one per lane) and the up columns j beside them; each warp
-// walks one eighth of K, the eight partial sums meet in shared memory, and
-// only h = act(g) * u goes out, as bf16 [M, inter] (a few KB; the TPU
-// kernels likewise cast h to x's dtype before the down product). Launches
-// 2 and 3 are the split-K GEMV and its reduction pass from
-// w4a16_common.cuh (the K1 machinery) on h against the down weights. One
-// call therefore costs three CUDA launches; a grid-wide sync that folds
-// them into one is later work.
+// Design: two launches of the tensor-core GEMV core (w4a16_gemv.cuh), no
+// workspace. Pass 1 places gate column j of the CTA's pairs in the first
+// half of its columns and up column j (the same j of the up operand) in
+// the second, so after the CTA's reduction it holds g and u of each of its
+// pairs; its tile epilogue (ActMul) writes only h = act(g) * u, as bf16
+// [M, inter] (a few KB; the TPU kernels likewise cast h to x's dtype
+// before the down product). Pass 2 is K1's job (DenseJob, named DownJob
+// here) on h against the down weights. Both passes take the CTA shape and
+// cluster of ops/gemm.gemv_plan for their own K and N. Pass 2 is a
+// programmatic dependent launch: its CTAs start while pass 1's last ones
+// run and copy their first weights (which do not depend on h) before they
+// wait for pass 1 to finish (0.6-1.2 us a call faster than a plain launch
+// on the H100; PERF.md).
 #pragma once
 
-#include "w4a16_common.cuh"
+#include "w4a16_gemv.cuh"
 
 namespace awq {
-
-constexpr int MLP_WARPS = 8;
-constexpr int MLP_MT = 8;  // rows per pass; M tiles beyond 8 run on grid.y
 
 __device__ __forceinline__ float mlp_act(float g, int act) {
   if (act == 0) return g / (1.0f + __expf(-g));  // silu
@@ -30,108 +31,75 @@ __device__ __forceinline__ float mlp_act(float g, int act) {
   return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
 }
 
-// One operand of the gate/up pass: packed words [K/8, ld], f32 scales and
-// packed zeros (null: symmetric) of row stride ld, groups of gs rows.
+// Pass 1's tile epilogue: h[r][p0 + c] = bf16(act(g) * u) with g, u the
+// CTA's columns c and c + half of row r.
+struct ActMul {
+  static constexpr bool TILE = true;
+  __nv_bfloat16* h;
+  int inter, p0, half, act;
+  __device__ __forceinline__ void finish(const float* red, int rows, int e0,
+                                         int step) const {
+    for (int q = e0; q < rows * half; q += step) {
+      const int r = q / half, c = q % half;
+      if (p0 + c >= inter) continue;
+      const float g = red[r * 2 * half + c];
+      const float u = red[r * 2 * half + half + c];
+      h[(size_t)r * inter + p0 + c] = __float2bfloat16(mlp_act(g, act) * u);
+    }
+  }
+};
+
+struct ActOut {
+  static constexpr bool TRIGGER = true;  // pass 2 may start early
+  __nv_bfloat16* h;
+  int inter, act;
+  __device__ ActMul at(int p0, int half, int m0) const {
+    return {h + (size_t)m0 * inter, inter, p0, half, act};
+  }
+};
+
+// Pass 2: K1's job, under a name of its own in profiles; it copies its
+// first weights before it waits for pass 1 (WAIT: a dependent launch).
+struct DownJob : gv::DenseJob {
+  static constexpr bool WAIT = true;
+};
+
+// One gate or up operand: packed words, f32 scales and packed zeros (null:
+// symmetric), their row stride given beside them.
 struct MlpOperand {
   const int32_t* qw;
   const float* sc;
   const int32_t* qz;
-  int ld;
-  int gs;
 };
 
-__global__ void __launch_bounds__(MLP_WARPS * 32)
-gate_up_act(const __nv_bfloat16* __restrict__ x, MlpOperand gate,
-            MlpOperand up, __nv_bfloat16* __restrict__ h, int M, int K,
-            int inter, int act) {
-  __shared__ float part[MLP_WARPS][2][MLP_MT][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * 32 + lane;  // column of both operands
-  const int m0 = blockIdx.y * MLP_MT;
-  const int K8 = K / 8;
-  const int per = (K8 + MLP_WARPS - 1) / MLP_WARPS;
-  const int r0 = warp * per;
-  const int r1 = min(K8, r0 + per);
-  float ag[MLP_MT], au[MLP_MT];
-#pragma unroll
-  for (int m = 0; m < MLP_MT; ++m) ag[m] = au[m] = 0.0f;
-  if (j < inter) {
-    int gg_cur = -1, gu_cur = -1;
-    float sg = 0.f, zg = 0.f, su = 0.f, zu = 0.f;
-    for (int r = r0; r < r1; ++r) {
-      const uint32_t wg =
-          static_cast<uint32_t>(__ldg(gate.qw + (size_t)r * gate.ld + j));
-      const uint32_t wu =
-          static_cast<uint32_t>(__ldg(up.qw + (size_t)r * up.ld + j));
-      const int gg = (8 * r) / gate.gs;
-      if (gg != gg_cur) {
-        sg = __ldg(gate.sc + (size_t)gg * gate.ld + j);
-        zg = zero_point(gate.qz, gg, j, gate.ld);
-        gg_cur = gg;
-      }
-      const int gu = (8 * r) / up.gs;
-      if (gu != gu_cur) {
-        su = __ldg(up.sc + (size_t)gu * up.ld + j);
-        zu = zero_point(up.qz, gu, j, up.ld);
-        gu_cur = gu;
-      }
-      float vg[8], vu[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        vg[i] = (nibble(wg, i) - zg) * sg;
-        vu[i] = (nibble(wu, i) - zu) * su;
-      }
-#pragma unroll
-      for (int m = 0; m < MLP_MT; ++m) {
-        if (m0 + m < M) {
-          float xv[8];
-          load_x8(x + (size_t)(m0 + m) * K + 8 * r, xv);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            ag[m] = fmaf(xv[i], vg[i], ag[m]);
-            au[m] = fmaf(xv[i], vu[i], au[m]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MLP_MT; ++m) {
-    part[warp][0][m][lane] = ag[m];
-    part[warp][1][m][lane] = au[m];
-  }
-  __syncthreads();
-  if (warp == 0 && j < inter) {
-#pragma unroll
-    for (int m = 0; m < MLP_MT; ++m) {
-      if (m0 + m >= M) break;
-      float g = 0.f, u = 0.f;
-#pragma unroll
-      for (int w = 0; w < MLP_WARPS; ++w) {
-        g += part[w][0][m][lane];
-        u += part[w][1][m][lane];
-      }
-      h[(size_t)(m0 + m) * inter + j] = __float2bfloat16(mlp_act(g, act) * u);
-    }
-  }
-}
-
-// The three launches on `stream`. h: bf16 scratch [M, inter]; ws: f32
-// scratch [splits, M, N2] (splits > 1).
+// The two launches on `stream`: gate and up of row stride ld and group
+// size gs1 over x [M, H]; down [inter/8, N2] of group size gs2; h bf16
+// [M, inter]; nt n8 tiles a warp, cs1 / cs2 CTAs a cluster in each pass.
 inline cudaError_t launch_mlp(const void* x, MlpOperand gate, MlpOperand up,
-                              const void* dn_qw, const void* dn_sc,
-                              const void* dn_qz, void* h, void* out, void* ws,
-                              int M, int H, int inter, int N2, int dn_gs,
-                              int act, int splits, cudaStream_t stream) {
-  dim3 grid((inter + 31) / 32, (M + MLP_MT - 1) / MLP_MT);
-  gate_up_act<<<grid, MLP_WARPS * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), gate, up,
-      static_cast<__nv_bfloat16*>(h), M, H, inter, act);
-  cudaError_t err = cudaGetLastError();
+                              int ld, const void* dn_qw, const void* dn_sc,
+                              const void* dn_qz, void* h, void* out, int M,
+                              int H, int inter, int N2, int gs1, int gs2,
+                              int act, int nt, int cs1, int cs2,
+                              cudaStream_t stream) {
+  if (M < 1 || M > 32 || inter % 4 != 0 || N2 % 4 != 0 || gs1 % 32 != 0 ||
+      gs2 % 32 != 0 || H % gs1 != 0 || inter % gs2 != 0 ||
+      !gv::plan_ok(nt, 1, cs1, false) || !gv::plan_ok(nt, 1, cs2, false))
+    return cudaErrorInvalidValue;
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  const gv::PairJob<ActOut> p1{
+      static_cast<const __nv_bfloat16*>(x),
+      M, H, gs1, ld, cs1,
+      gv::Pairs{{gate.qw, up.qw}, {gate.sc, up.sc}, {gate.qz, up.qz},
+                inter, inter, inter, 0, 0},
+      ActOut{hb, inter, act}};
+  cudaError_t err = gv::launch_plan<false>(p1, nt, 1, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemv(h, dn_qw, dn_sc, dn_qz, out, ws, M, inter, N2, dn_gs,
-                     splits, stream);
+  const DownJob p2{{hb, static_cast<const int32_t*>(dn_qw),
+                    static_cast<const float*>(dn_sc),
+                    static_cast<const int32_t*>(dn_qz),
+                    static_cast<__nv_bfloat16*>(out), M, inter, N2, gs2,
+                    cs2}};
+  return gv::launch_plan<false>(p2, nt, 1, stream);
 }
 
 }  // namespace awq

@@ -92,11 +92,13 @@ moe_gemv(GemvArgs a) {
   }
   const int e = a.block_expert[b];
   const int K8 = a.K / 8;
-  awq::gv::gemv_block<1, 1, 1>(
-      a.xs + (size_t)b * a.bm * a.K, a.bm, a.qw + (size_t)e * K8 * a.N,
-      a.sc + (size_t)e * a.G * a.N,
+  const awq::gv::Dense w{
+      a.qw + (size_t)e * K8 * a.N, a.sc + (size_t)e * a.G * a.N,
       a.qz == nullptr ? nullptr : a.qz + (size_t)e * ((a.G + 7) / 8) * a.N,
-      y, a.K, a.N, a.gs, n0, rank, a.csize, ring);
+      a.N, n0};
+  awq::gv::gemv_block<1, 1, 1>(a.xs + (size_t)b * a.bm * a.K, a.bm, w, a.N,
+                               awq::gv::StoreBf16{y, a.N, n0}, a.K, a.gs,
+                               rank, a.csize, ring);
 }
 
 template <int TOK>

@@ -1,5 +1,7 @@
 // Shared pieces of the paged decode attention kernels K7 (paged_attn.cu) and
 // K9 (paged_attn_stock.cu), sm_90a: the split kernels both launch first.
+// K5 (fused_attn_step.cu) launches the same split kernels over its
+// contiguous cache, addressed by DenseAddr below.
 //
 // Page pools are [nkv, P, ps, hd] row-major (one page of one kv head is ps
 // contiguous rows of hd elements); a slot's page-table row is
@@ -172,11 +174,60 @@ inline SplitArgs split_args(const void* q, const void* kp, const void* vp,
   return a;
 }
 
+// Where a split kernel finds its rows (the kernels' bodies are the same for
+// both).
+// PagedAddr (K7, K9): pools [nkv, P, ps, hd] read through the slot's page
+// table row; a length per slot, counting the current token, and with a
+// window the rows t >= vl - window; q [B, nh, hd].
+struct PagedAddr {
+  static constexpr bool TABLE = true;
+  __device__ __forceinline__ static int length(const SplitArgs& a, int b) {
+    return a.lengths[b];
+  }
+  __device__ __forceinline__ static int lo(const SplitArgs& a, int vl) {
+    return a.window > 0 ? max(0, vl - a.window) : 0;
+  }
+  __device__ __forceinline__ static size_t q_row(const SplitArgs& a, int b,
+                                                 int h) {
+    return (size_t)b * a.nh + h;
+  }
+  __device__ __forceinline__ static size_t row(const SplitArgs& a,
+                                               const int* tb, int pg0, int b,
+                                               int g, int t) {
+    return ((size_t)a.P * g + tb[t / a.ps - pg0]) * a.ps + t % a.ps;
+  }
+};
+
+// DenseAddr (K5): a contiguous cache [B, nkv, T, hd] (T in a.P; a "page"
+// is ps consecutive rows of one (row, kv head), no table) with scales
+// [B, nkv, T]; one length for every row at lengths[0] (clamped to T),
+// counting the cached rows only (the current token is K5's own diagonal
+// term), so a window keeps the rows t > vl - window; q rows of K5's f32
+// qkv [B, nh + 2 nkv, hd].
+struct DenseAddr {
+  static constexpr bool TABLE = false;
+  __device__ __forceinline__ static int length(const SplitArgs& a, int) {
+    return min(a.lengths[0], a.P);
+  }
+  __device__ __forceinline__ static int lo(const SplitArgs& a, int vl) {
+    return a.window > 0 ? max(0, vl - a.window + 1) : 0;
+  }
+  __device__ __forceinline__ static size_t q_row(const SplitArgs& a, int b,
+                                                 int h) {
+    return (size_t)b * (a.nh + 2 * a.nkv) + h;
+  }
+  __device__ __forceinline__ static size_t row(const SplitArgs& a,
+                                               const int*, int, int b, int g,
+                                               int t) {
+    return ((size_t)b * a.nkv + g) * a.P + t;
+  }
+};
+
 // Per query head and split: scores (q . k) * scale * kscale, optional
 // softcap tanh(s / c) * c, optional ALiBi slope * (t - (vl - 1)), over the
 // live rows t of the split (t < vl, t < pps * ps, t >= vl - window with a
 // window), as the partial (m, l, acc) described above.
-template <typename QT, typename PT, int LPR, int RC>
+template <typename QT, typename PT, int LPR, int RC, class Addr>
 __global__ void __launch_bounds__(NW * 32) split_kernel(SplitArgs a) {
   // rows a group loads before using them: fewer when the registers are
   // short (f32 pools, 8 query heads a CTA, or 4 groups a warp)
@@ -205,10 +256,11 @@ __global__ void __launch_bounds__(NW * 32) split_kernel(SplitArgs a) {
   // the split's page ids: their loads do not wait for the length (the
   // split's pages always lie in the table; rows past vl are never read)
   int* tb = reinterpret_cast<int*>(smem);
-  for (int i = tid; i < npg; i += NW * 32)
-    tb[i] = a.table[(size_t)b * a.pps + pg0 + i];
-  const int vl = a.lengths[b];
-  const int lo = a.window > 0 ? max(0, vl - a.window) : 0;
+  if constexpr (Addr::TABLE)
+    for (int i = tid; i < npg; i += NW * 32)
+      tb[i] = a.table[(size_t)b * a.pps + pg0 + i];
+  const int vl = Addr::length(a, b);
+  const int lo = Addr::lo(a, vl);
   const int t_begin = max(s0, lo), t_end = min(s1, min(vl, rows));
   const size_t part0 = ((size_t)b * a.nh + h0) * a.nsplit + s;  // head r0
   float* ml = a.part + (size_t)a.B * a.nh * a.nsplit * a.hd;
@@ -220,7 +272,7 @@ __global__ void __launch_bounds__(NW * 32) split_kernel(SplitArgs a) {
   float qr[RC][8], slope[RC], m[RC], l[RC], acc[RC][8];
 #pragma unroll
   for (int r = 0; r < RC; ++r) {
-    const QT* qh = q + ((size_t)b * a.nh + h0 + r) * a.hd;
+    const QT* qh = q + (Addr::q_row(a, b, h0) + r) * a.hd;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       qr[r][i] = (r < nr && d0 + i < a.hd) ? to_f(qh[d0 + i]) : 0.0f;
@@ -242,8 +294,7 @@ __global__ void __launch_bounds__(NW * 32) split_kernel(SplitArgs a) {
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u;
       const bool ok = t < t_end;
-      const size_t row =
-          ok ? ((size_t)g * a.P + tb[t / a.ps - pg0]) * a.ps + t % a.ps : 0;
+      const size_t row = ok ? Addr::row(a, tb, pg0, b, g, t) : 0;
       kc[u] = load_chunk<PT>(kp, row, a.hd, d0, ok, a.vec);
       vc[u] = load_chunk<PT>(vp, row, a.hd, d0, ok, a.vec);
       ksc[u] = (a.ks != nullptr && ok) ? a.ks[row] : 1.0f;
@@ -441,7 +492,7 @@ inline size_t mma_smem(int spp, int hdp, int nst, bool i8, bool qlo) {
   return head + (walk > merge ? walk : merge);
 }
 
-template <typename QT, typename PT, int HDP>
+template <typename QT, typename PT, int HDP, class Addr>
 __global__ void __launch_bounds__(NW * 32) mma_split_kernel(SplitArgs a) {
   constexpr bool I8 = sizeof(PT) == 1;
   constexpr bool QLO = sizeof(QT) == 4;  // an f32 q: hi + lo bf16 parts
@@ -472,20 +523,24 @@ __global__ void __launch_bounds__(NW * 32) mma_split_kernel(SplitArgs a) {
   // length and q (zero past nr heads and hd dims)
   constexpr int QE = 16 * HDP / (NW * 32);  // q elements a thread
   int* tb = reinterpret_cast<int*>(smem_raw);
-  const int pid = tid < npg ? a.table[(size_t)b * a.pps + pg0 + tid] : 0;
-  const int vl = a.lengths[b];
+  const int pid = Addr::TABLE && tid < npg
+                      ? a.table[(size_t)b * a.pps + pg0 + tid]
+                      : 0;
+  const int vl = Addr::length(a, b);
   float qv[QE];
 #pragma unroll
   for (int k = 0; k < QE; ++k) {
     const int e = tid + k * NW * 32, r = e / HDP, d = e % HDP;
     qv[k] = (r < nr && d < a.hd)
-                ? to_f(q[((size_t)b * a.nh + h0 + r) * a.hd + d])
+                ? to_f(q[(Addr::q_row(a, b, h0) + r) * a.hd + d])
                 : 0.0f;
   }
-  if (tid < npg) tb[tid] = pid;
-  for (int i = tid + NW * 32; i < npg; i += NW * 32)
-    tb[i] = a.table[(size_t)b * a.pps + pg0 + i];
-  const int lo = a.window > 0 ? max(0, vl - a.window) : 0;
+  if constexpr (Addr::TABLE) {
+    if (tid < npg) tb[tid] = pid;
+    for (int i = tid + NW * 32; i < npg; i += NW * 32)
+      tb[i] = a.table[(size_t)b * a.pps + pg0 + i];
+  }
+  const int lo = Addr::lo(a, vl);
   const int t_begin = max(s0, lo), t_end = min(s1, min(vl, rows));
   const size_t part0 = ((size_t)b * a.nh + h0) * a.nsplit + s;  // head r0
   float* ml = a.part + (size_t)a.B * a.nh * a.nsplit * a.hd;
@@ -520,8 +575,7 @@ __global__ void __launch_bounds__(NW * 32) mma_split_kernel(SplitArgs a) {
     for (int e = tid; e < TR * CPR; e += NW * 32) {
       const int i = e / CPR, c = e % CPR, t = tt0 + i;
       const bool in = t >= t_begin && t < t_end;
-      const size_t row =
-          in ? ((size_t)a.P * g + tb[t / a.ps - pg0]) * a.ps + t % a.ps : 0;
+      const size_t row = in ? Addr::row(a, tb, pg0, b, g, t) : 0;
       const bool ok = in && c < live;
       const size_t src = row * a.hd + c * (16 / sizeof(PT));
       // a bf16 tile is used where it lands (swizzled); an int8 one is
@@ -726,13 +780,13 @@ __global__ void __launch_bounds__(NW * 32) mma_split_kernel(SplitArgs a) {
   }
 }
 
-template <typename QT, typename PT, int HDP>
+template <typename QT, typename PT, int HDP, class Addr>
 cudaError_t launch_mma(const SplitArgs& a, cudaStream_t st) {
   const int rep = a.nh / a.nkv;
   const int grid = a.B * a.nkv * ((rep + 15) / 16) * a.nsplit;
   const size_t smem =
       mma_smem(a.spp, HDP, a.nst, sizeof(PT) == 1, sizeof(QT) == 4);
-  auto kernel = mma_split_kernel<QT, PT, HDP>;
+  auto kernel = mma_split_kernel<QT, PT, HDP, Addr>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -751,10 +805,10 @@ inline int lanes_per_row(int hd) {
   return hd <= 64 ? 8 : (hd <= 128 ? 16 : 32);
 }
 
-template <typename QT, typename PT, int LPR, int RC>
+template <typename QT, typename PT, int LPR, int RC, class Addr>
 cudaError_t launch_split(const SplitArgs& a, int grid, cudaStream_t st) {
   const size_t smem = split_smem(a.spp, RC, LPR);
-  auto kernel = split_kernel<QT, PT, LPR, RC>;
+  auto kernel = split_kernel<QT, PT, LPR, RC, Addr>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -767,14 +821,14 @@ cudaError_t launch_split(const SplitArgs& a, int grid, cudaStream_t st) {
 // The split kernel for a pool type, head dim and group size: the
 // tensor-core kernel for bf16 and int8 pools with whole 16-byte row chunks,
 // the CUDA-core kernel for the rest (f32 pools, other head dims).
-template <typename QT, typename PT>
+template <typename QT, typename PT, class Addr = PagedAddr>
 cudaError_t launch_split_for(SplitArgs a, cudaStream_t st) {
   if constexpr (sizeof(PT) != 4) {
     if (a.vec && (a.hd * (int)sizeof(PT)) % 16 == 0) {
       a.nst = a.spp * a.ps > TR ? 2 : 1;
-      if (a.hd <= 64) return launch_mma<QT, PT, 64>(a, st);
-      if (a.hd <= 128) return launch_mma<QT, PT, 128>(a, st);
-      return launch_mma<QT, PT, 256>(a, st);
+      if (a.hd <= 64) return launch_mma<QT, PT, 64, Addr>(a, st);
+      if (a.hd <= 128) return launch_mma<QT, PT, 128, Addr>(a, st);
+      return launch_mma<QT, PT, 256, Addr>(a, st);
     }
   }
   const int rep = a.nh / a.nkv;
@@ -782,13 +836,13 @@ cudaError_t launch_split_for(SplitArgs a, cudaStream_t st) {
   const int grid = a.B * a.nkv * ((rep + rc - 1) / rc) * a.nsplit;
   const int lpr = lanes_per_row(a.hd);
   if (rc == 4) {
-    if (lpr == 8) return launch_split<QT, PT, 8, 4>(a, grid, st);
-    if (lpr == 16) return launch_split<QT, PT, 16, 4>(a, grid, st);
-    return launch_split<QT, PT, 32, 4>(a, grid, st);
+    if (lpr == 8) return launch_split<QT, PT, 8, 4, Addr>(a, grid, st);
+    if (lpr == 16) return launch_split<QT, PT, 16, 4, Addr>(a, grid, st);
+    return launch_split<QT, PT, 32, 4, Addr>(a, grid, st);
   }
-  if (lpr == 8) return launch_split<QT, PT, 8, 8>(a, grid, st);
-  if (lpr == 16) return launch_split<QT, PT, 16, 8>(a, grid, st);
-  return launch_split<QT, PT, 32, 8>(a, grid, st);
+  if (lpr == 8) return launch_split<QT, PT, 8, 8, Addr>(a, grid, st);
+  if (lpr == 16) return launch_split<QT, PT, 16, 8, Addr>(a, grid, st);
+  return launch_split<QT, PT, 32, 8, Addr>(a, grid, st);
 }
 
 }  // namespace paged

@@ -53,10 +53,14 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include "w4a16_common.cuh"
 #include "wgmma.cuh"
 
 namespace awq {
+
+__device__ __forceinline__ float nibble(uint32_t w, int i) {
+  return static_cast<float>((w >> (4 * i)) & 0xFu);
+}
+
 namespace wg {
 
 constexpr int BN = 128;  // weight columns a block (64 a warpgroup)

@@ -48,14 +48,13 @@ _F = ctypes.c_float
 ARGTYPES = {
     "w4a16_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "w4a16_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_mlp": [_P] * 9 + [_I] * 10 + [_P],
     "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _F, _P],
-    # 25 pointers (inputs, outputs, scratch), 16 ints, scale, stream
-    "fused_attn_step": [_P] * 25 + [_I] * 16 + [_F, _P],
+    # 21 pointers (inputs, outputs, scratch), 21 ints, scale, stream
+    "fused_attn_step": [_P] * 21 + [_I] * 21 + [_F, _P],
     "moe_gemm": [_P] * 7 + [_I] * 10 + [_P],
-    "fused_mlp3": [_P] * 13 + [_I] * 9 + [_P],
+    "fused_mlp3": [_P] * 12 + [_I] * 10 + [_P],
     "paged_attn": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
     "paged_attn_stock": [_P] * 7 + [_I] * 11 + [_F, _P],
 }

@@ -23,15 +23,18 @@ path and the kernel's oracle; a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from autoawq_tpu_torch.ops import _build
-from autoawq_tpu_torch.ops.gemm import _check, _sm_count, dequantize, gemv_splits
+from autoawq_tpu_torch.ops import paged_attn as pa
+from autoawq_tpu_torch.ops.gemm import (_check, _sm_count, core_ok,
+                                        dequantize, gemv_plan)
 
 B_MAX = 8  # decode rows per call (fused_attn_step.B_MAX in the JAX package)
-HEAD_DIM_MAX = 256  # K5's largest instance: 8 dims per lane of a warp
+HEAD_DIM_MAX = 256  # the split kernel's widest tile (paged_attn_common.cuh)
+KV_PAGE = 64  # cache rows a "page" of the split kernel: one tile of it
 _NAME = "fused_attn_step"
 
 
@@ -42,7 +45,8 @@ def supported(cfg, p: Dict[str, Any], x: torch.Tensor,
     MHA, decode rows up to ``B_MAX``, ``hd % 8 == 0``. The gates that exist
     for the TPU's VMEM and lanes (``SLAB_MAX``, ``b * nh <= 256``,
     ``rep <= REP_PAD``, ``_lanes``/``PAIRS`` alignment, ``t % 8``) are not
-    kept: K5 is split-KV and holds no whole-cache slab."""
+    kept: K5 is split-KV and holds no whole-cache slab. The GEMV core's
+    gate is: qkv and o as ``gemm.core_ok`` takes them."""
     qkv, o = p.get("qkv_proj"), p.get("o_proj")
     if qkv is None or o is None or "qweight" not in qkv or "qweight" not in o:
         return False
@@ -62,7 +66,8 @@ def supported(cfg, p: Dict[str, Any], x: torch.Tensor,
         return False
     return (8 * qkv["qweight"].shape[0] == x.shape[-1]
             and qkv["qweight"].shape[1] >= (nh + 2 * nkv) * hd
-            and 8 * o["qweight"].shape[0] == nh * hd)
+            and 8 * o["qweight"].shape[0] == nh * hd
+            and core_ok(qkv) and core_ok(o))
 
 
 def _rope(u: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
@@ -123,11 +128,15 @@ def fused_attention_step_plain(
     return out, k.to(kv_dtype), v.to(kv_dtype)
 
 
-def kv_splits(b: int, nkv: int, t: int, device: torch.device) -> int:
-    """KV splits for K5's attention phase: ~16 one-warp blocks per SM, each
-    split at least 16 cache rows."""
-    want = -(-16 * _sm_count(device.index or 0) // (b * nkv))
-    return max(1, min(want, -(-t // 16)))
+def kv_plan(t: int) -> Tuple[int, int, int]:
+    """``(ps, spp, nsplit)`` of K5's split kernel over a cache of capacity
+    ``t``: the contiguous rows of one (row, kv head) read as pages of
+    ``KV_PAGE`` rows (the last one short), cut into splits of ``spp`` pages
+    as ``paged_attn.split_plan`` cuts K7's tables (from the capacity alone,
+    so one launch geometry serves every position)."""
+    pps = -(-t // KV_PAGE)
+    spp, nsplit = pa.split_plan(pps, KV_PAGE)
+    return KV_PAGE, spp, nsplit
 
 
 def _rows(t: torch.Tensor, b: int, half: int, name: str):
@@ -141,14 +150,18 @@ def _rows(t: torch.Tensor, b: int, half: int, name: str):
 def fused_attention_step(
         x: torch.Tensor, qkv: Dict[str, Any], o: Dict[str, Any],
         k_cache: torch.Tensor, v_cache: torch.Tensor, cos: torch.Tensor,
-        sin: torch.Tensor, valid_len: int, *, nh: int,
+        sin: torch.Tensor, valid_len: Union[int, torch.Tensor], *, nh: int,
         nkv: int, hd: int, scale: float, window: Optional[int] = None,
         k_scales: Optional[torch.Tensor] = None,
         v_scales: Optional[torch.Tensor] = None):
     """K5: x [B, H] bf16 (B <= 8), caches [B, nkv, T, hd] bf16, or int8 with
     ``k_scales``/``v_scales`` [B, nkv, T] f32; ``valid_len`` the number of
-    cached rows. The kernel reads it from a device int32 written here (the
-    form a captured decode step needs, with the position on the device)."""
+    cached rows, an int or a device int32 tensor of one element. The
+    kernels read it from device memory: the tensor itself, or for an int a
+    slot of the scratch that the first launch writes (a captured decode
+    step with the position on the device replays at any position). Group
+    sizes must be multiples of 32, the projections' widths multiples of 4
+    and all operands 16-byte aligned, else ValueError."""
     if x.device.type == "cpu":
         return fused_attention_step_plain(
             x, qkv, o, k_cache, v_cache, cos, sin, valid_len, nh=nh, nkv=nkv,
@@ -178,29 +191,43 @@ def fused_attention_step(
     if quant and (tuple(k_scales.shape) != (b, nkv, t)
                   or v_scales.shape != k_scales.shape):
         raise ValueError(f"{_NAME}: scales must be [B, nkv, T]")
+    pa._check_aligned(_NAME, k_cache, v_cache)
     nq = (nh + 2 * nkv) * hd
     gs_q = _check(x, qkv["qweight"], qkv["scales"], qkv.get("qzeros"), _NAME,
-                  8)
+                  32, aligned=True)
     n_qkv, n_o = qkv["qweight"].shape[1], o["qweight"].shape[1]
     if n_qkv < nq:
         raise ValueError(f"{_NAME}: qkv has {n_qkv} columns, needs {nq}")
     og = torch.empty((b, nh * hd), dtype=x.dtype, device=x.device)
-    gs_o = _check(og, o["qweight"], o["scales"], o.get("qzeros"), _NAME, 8)
+    gs_o = _check(og, o["qweight"], o["scales"], o.get("qzeros"), _NAME, 32,
+                  aligned=True)
     bias = qkv.get("bias")
     if bias is not None:
-        bias = bias.float().contiguous()
+        if bias.dtype not in (torch.bfloat16, torch.float32):
+            bias = bias.float()
+        bias = bias.to(x.device).contiguous()
         if bias.numel() < nq:
             raise ValueError(f"{_NAME}: qkv bias has {bias.numel()} values")
     cos, cs_stride = _rows(cos, b, hd // 2, "cos")
     sin, _ = _rows(sin, b, hd // 2, "sin")
-    vl = torch.full((1,), valid_len, dtype=torch.int32, device=x.device)
-    splits_q = gemv_splits(b, h, n_qkv, x.device)
-    splits_o = gemv_splits(b, nh * hd, n_o, x.device)
-    ns = kv_splits(b, nkv, t, x.device)
-    sizes = [splits_q * b * n_qkv, b * nq, b * nh * ns, b * nh * ns,
-             b * nh * ns * hd, splits_o * b * n_o if splits_o > 1 else 0]
-    ws = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    ws_q, qkvf, part_m, part_l, part_acc, ws_o = torch.split(ws, sizes)
+    sms = _sm_count(x.device.index or 0)
+    nt, _, cs_q = gemv_plan(b, h, nq, 1, sms)
+    _, _, cs_o = gemv_plan(b, nh * hd, n_o, 1, sms)
+    ps, spp, ns = kv_plan(t)
+    # f32 scratch: the qkv rows the attention reads, the splits' partials,
+    # and (for an int valid_len) the device slot of the length
+    n_qkvf, n_part = b * (nh + 2 * nkv) * hd, b * nh * ns * (hd + 2)
+    ws = torch.empty(n_qkvf + n_part + 1, dtype=torch.float32,
+                     device=x.device)
+    if isinstance(valid_len, torch.Tensor):
+        if (valid_len.dtype != torch.int32 or valid_len.device != x.device
+                or valid_len.numel() != 1):
+            raise ValueError(f"{_NAME}: valid_len must be an int or a "
+                             f"one-element int32 tensor on {x.device}")
+        vl_ptr, vl_val = valid_len.data_ptr(), -1
+    else:  # a negative length keeps no rows, as in the twin
+        vl_ptr = ws[n_qkvf + n_part:].data_ptr()
+        vl_val = max(0, int(valid_len))
     y = torch.empty((b, n_o), dtype=x.dtype, device=x.device)
     kv_dtype = torch.float32 if quant else torch.bfloat16
     k_new = torch.empty((b, nkv, hd), dtype=kv_dtype, device=x.device)
@@ -211,10 +238,10 @@ def fused_attention_step(
         _build.ptr(bias), o["qweight"].data_ptr(), o["scales"].data_ptr(),
         _build.ptr(o.get("qzeros")), k_cache.data_ptr(), v_cache.data_ptr(),
         _build.ptr(k_scales), _build.ptr(v_scales), cos.data_ptr(),
-        sin.data_ptr(), vl.data_ptr(), y.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), og.data_ptr(), ws_q.data_ptr(), qkvf.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        ws_o.data_ptr(), b, h, n_qkv, n_o, nh, nkv, hd, t, gs_q, gs_o,
-        splits_q, splits_o, ns, window or 0, cs_stride, int(quant),
+        sin.data_ptr(), vl_ptr, y.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), og.data_ptr(), ws.data_ptr(),
+        ws[n_qkvf:].data_ptr(), b, h, n_qkv, n_o, nh, nkv, hd, t, gs_q, gs_o,
+        nt, cs_q, cs_o, ps, spp, ns, window or 0, cs_stride, int(quant),
+        int(bias is not None and bias.dtype == torch.bfloat16), vl_val,
         float(scale))
     return y, k_new, v_new

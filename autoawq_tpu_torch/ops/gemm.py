@@ -6,8 +6,9 @@ Counterpart of ``autoawq_tpu/ops/gemm.py`` and ``ops/pallas_gemm.py``:
   f32, cast to x's dtype, matmul with f32 accumulation, cast back (the
   semantics of ``awq_matmul_jnp``). The CPU path and the kernels' oracle.
 * :func:`w4a16_gemv` (kernel K1, ``csrc/w4a16_gemv.cu`` on the tensor-core
-  GEMV core ``csrc/w4a16_gemv.cuh``; :func:`gemv_plan` sizes its launch) for
-  M < 256 and
+  GEMV core ``csrc/w4a16_gemv.cuh``, which K3, K5, K6 and K8 run too;
+  :func:`gemv_plan` sizes its launches, :func:`core_ok` says which weights
+  it takes) for M < 256 and
   :func:`w4a16_gemm` (kernel K2, ``csrc/w4a16_gemm.cu``) for M >= 256: the
   same split the TPU makes at ``WS_MIN_M`` (``pallas_gemm.py:74``).
 * :func:`awq_matmul` — the dispatcher.
@@ -27,8 +28,7 @@ import torch
 from autoawq_tpu_torch.ops import _build
 
 WS_MIN_M = 256  # M at which prefill linears switch from K1 to K2
-_BLOCK_COLS = 128  # output columns a block of the CUDA-core GEMV (K3-K5, K8)
-GEMV_COLS = 32  # weight columns a warp of the tensor-core GEMV (K1, K6)
+GEMV_COLS = 32  # weight columns a warp of the tensor-core GEMV
 GEMV_WARPS = 8
 GEMV_CTA_ROWS = 256  # rows of x a CTA of it covers at most (8 warps x 32)
 
@@ -115,24 +115,31 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_splits(m: int, k: int, n: int, device: torch.device) -> int:
-    """K splits of the CUDA-core GEMV passes of K3, K5 and K8
-    (``csrc/w4a16_common.cuh``): aim at ~4 blocks per SM, with at least 8
-    packed rows (64 K-rows) per split."""
-    mt = 8 if m >= 8 else (4 if m >= 4 else (2 if m >= 2 else 1))
-    blocks = -(-n // _BLOCK_COLS) * -(-m // mt)
-    want = -(-4 * _sm_count(device.index or 0) // blocks)
-    return max(1, min(want, (k // 8) // 8))
+def core_ok(lin) -> bool:
+    """Whether the tensor-core GEMV core takes a quantized linear (the
+    shape half of :func:`_check` with ``aligned``): groups a multiple of 32
+    rows, N a multiple of 4 and 16-byte aligned words, scales and zeros. A
+    dict without scales is judged by its words alone."""
+    qw, sc = lin["qweight"], lin.get("scales")
+    if qw.shape[1] % 4:
+        return False
+    if sc is not None:
+        k, g = 8 * qw.shape[0], sc.shape[0]
+        if k % g or (k // g) % 32:
+            return False
+    return all(t.data_ptr() % 16 == 0
+               for t in (qw, sc, lin.get("qzeros")) if t is not None)
 
 
 @functools.lru_cache(maxsize=None)
 def gemv_plan(m: int, k: int, n: int, blocks: int, sms: int
               ) -> Tuple[int, int, int]:
-    """Launch shape of the tensor-core GEMV (K1; K6's decode instance with
-    ``blocks`` token blocks of at most 8 rows): ``(nt, rg, csize)``, the n8
-    tiles of x rows a warp holds (1, 2 or 4: rows up to 8, 16, 32 a warp),
-    the row groups of 32 a CTA covers (1, 2, 4 or 8, over min(m, 256)
-    rows) and the CTAs of a cluster that split K (1 to 4). A cluster's
+    """Launch shape of the tensor-core GEMV (K1, each pass of K3, K5 and K8;
+    K6's decode instance with ``blocks`` token blocks of at most 8 rows):
+    ``(nt, rg, csize)``, the n8 tiles of x rows a warp holds (1, 2 or 4:
+    rows up to 8, 16, 32 a warp), the row groups of 32 a CTA covers (1, 2,
+    4 or 8, over min(m, 256) rows) and the CTAs of a cluster that split K
+    (1 to 4). A cluster's
     reduction and co-scheduling cost more than they buy once the grid has
     about an SM's worth of CTAs (H100 measurements, PERF.md), so csize
     grows only while the CTAs number fewer than ``sms / 2`` where the CTA

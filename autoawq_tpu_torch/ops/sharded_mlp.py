@@ -15,9 +15,9 @@ from typing import Any, Dict
 import torch
 
 from autoawq_tpu_torch.ops import _build
-from autoawq_tpu_torch.ops.fused_mlp import ACTS, act_fn
+from autoawq_tpu_torch.ops.fused_mlp import ACTS, act_fn, mlp_plan
 from autoawq_tpu_torch.ops.gemm import (_check, _pad_x_k, awq_matmul_plain,
-                                        dequantize, gemv_splits)
+                                        core_ok, dequantize)
 
 M_MAX = 32  # decode-size row cap (sharded_mlp.M_MAX in the JAX package)
 
@@ -27,7 +27,8 @@ def supported(m: int, hidden: int, inter: int, gate: Dict[str, Any],
     """Shape gate for K8, the model half of JAX ``supported`` without its
     TPU tiling gates: three quantized operands without LoRA, no gate or up
     bias, a K8 activation, M <= 32, and the unpadded widths the kernel reads
-    (gate and up [hidden/8, inter], down [inter/8, N])."""
+    (gate and up [hidden/8, inter], down [inter/8, N]), what the GEMV core
+    takes (``gemm.core_ok``), and one group size for gate and up."""
     lins = (gate, up, down)
     if not all("qweight" in p and "lora_a" not in p for p in lins):
         return False
@@ -36,7 +37,9 @@ def supported(m: int, hidden: int, inter: int, gate: Dict[str, Any],
     return (m <= M_MAX and act in ACTS
             and gate["qweight"].shape == (hidden // 8, inter)
             and up["qweight"].shape == (hidden // 8, inter)
-            and down["qweight"].shape == (inter // 8, hidden))
+            and down["qweight"].shape == (inter // 8, hidden)
+            and gate["scales"].shape == up["scales"].shape
+            and all(core_ok(p) for p in lins))
 
 
 def fused_mlp3_plain(x, g_qweight, g_scales, u_qweight, u_scales, d_qweight,
@@ -58,7 +61,9 @@ def fused_mlp3(x: torch.Tensor, g_qweight, g_scales, u_qweight, u_scales,
                d_qweight, d_scales, g_qzeros=None, u_qzeros=None,
                d_qzeros=None, *, inter: int, act: str = "silu"
                ) -> torch.Tensor:
-    """K8: x [..., H] bf16 (M <= 32 rows) -> [..., N] bf16."""
+    """K8: x [..., H] bf16 (M <= 32 rows) -> [..., N] bf16. Group sizes
+    must be multiples of 32 (one for gate and up), inter and N multiples of
+    4 and the operands 16-byte aligned, else ValueError."""
     if x.device.type == "cpu":
         return fused_mlp3_plain(x, g_qweight, g_scales, u_qweight, u_scales,
                                 d_qweight, d_scales, g_qzeros, u_qzeros,
@@ -74,20 +79,24 @@ def fused_mlp3(x: torch.Tensor, g_qweight, g_scales, u_qweight, u_scales,
         raise ValueError(f"fused_mlp3: M={m} > {M_MAX}")
     if g_qweight.shape[1] != inter or u_qweight.shape[1] != inter:
         raise ValueError("fused_mlp3: gate and up must hold inter columns")
-    gs_g = _check(x2, g_qweight, g_scales, g_qzeros, "fused_mlp3", 8)
-    gs_u = _check(x2, u_qweight, u_scales, u_qzeros, "fused_mlp3", 8)
+    gs_g = _check(x2, g_qweight, g_scales, g_qzeros, "fused_mlp3", 32,
+                  aligned=True)
+    gs_u = _check(x2, u_qweight, u_scales, u_qzeros, "fused_mlp3", 32,
+                  aligned=True)
+    if gs_g != gs_u:
+        raise ValueError(f"fused_mlp3: gate and up group sizes {gs_g} and "
+                         f"{gs_u} differ (the kernel takes one)")
     hbuf = torch.empty((m, inter), dtype=x.dtype, device=x.device)
-    gs_d = _check(hbuf, d_qweight, d_scales, d_qzeros, "fused_mlp3", 8)
+    gs_d = _check(hbuf, d_qweight, d_scales, d_qzeros, "fused_mlp3", 32,
+                  aligned=True)
     n2 = d_qweight.shape[1]
     out = torch.empty((m, n2), dtype=x.dtype, device=x.device)
-    splits = gemv_splits(m, inter, n2, x.device)
-    ws = (torch.empty((splits, m, n2), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    nt, cs1, cs2 = mlp_plan(m, h, inter, n2, x.device)
     _build.launch("fused_mlp3", x2.data_ptr(), g_qweight.data_ptr(),
                   g_scales.data_ptr(), _build.ptr(g_qzeros),
                   u_qweight.data_ptr(), u_scales.data_ptr(),
                   _build.ptr(u_qzeros), d_qweight.data_ptr(),
                   d_scales.data_ptr(), _build.ptr(d_qzeros), hbuf.data_ptr(),
-                  out.data_ptr(), _build.ptr(ws), m, h, inter, n2, gs_g,
-                  gs_u, gs_d, ACTS[act], splits)
+                  out.data_ptr(), m, h, inter, n2, gs_g, gs_d, ACTS[act], nt,
+                  cs1, cs2)
     return out.reshape(*lead, n2)

@@ -17,11 +17,15 @@ import torch
 
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
+from autoawq_tpu_torch.utils.device import resolve_device
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
-                  dtype: torch.dtype = torch.bfloat16, device="cpu",
+                  dtype: torch.dtype = torch.bfloat16, device=None,
                   kv_quant: bool = False) -> List[Dict[str, torch.Tensor]]:
+    """Zeroed per-layer caches on ``device`` (None: the card, or
+    RuntimeError without one; ``device="cpu"`` for the plain path)."""
+    device = resolve_device(device)
     shape = (batch, cfg.num_key_value_heads, max_seq_len, cfg.head_dim_)
     if kv_quant:
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -21,17 +21,22 @@ from autoawq_tpu_torch.core.packing import (padded_in_features,
                                             padded_out_features)
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn.modules import check_supported
+from autoawq_tpu_torch.utils.device import resolve_device
 
 
 def random_quantized_params(cfg: ModelConfig, seed: int = 0,
                             group_size: int = 128,
                             fp_dtype: Optional[torch.dtype] = None,
                             zero_point: bool = True, fused: bool = False,
-                            device="cpu") -> Dict[str, Any]:
-    """Random packed int4 llama params on ``device``. ``fp_dtype`` (default
-    float32) types the embedding, norms and lm_head; ``fused=True`` emits
-    qkv_proj / gate_up_proj directly."""
+                            device=None) -> Dict[str, Any]:
+    """Random packed int4 llama params on ``device`` (None: the card, or
+    RuntimeError without one; ``device="cpu"`` for the plain path). The
+    draws are numpy's on the host whatever the device, so one seed gives
+    the same values everywhere. ``fp_dtype`` (default float32) types the
+    embedding, norms and lm_head; ``fused=True`` emits qkv_proj /
+    gate_up_proj directly."""
     check_supported(cfg)
+    device = resolve_device(device)
     fp_dtype = fp_dtype or torch.float32
     rng = np.random.default_rng(seed)
     g = group_size

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --root DIR --phases device,prefill   # A/B
     python3 chip_smoke.py --root DIR --phases device,paged     # A/B
     python3 chip_smoke.py --root DIR --phases device,linears   # A/B
+    python3 chip_smoke.py --root DIR --phases device,decode_mlp_attn  # A/B
 
 Phases, each printing JSON lines:
 
@@ -20,7 +21,10 @@ Phases, each printing JSON lines:
               one PyTorch library call where one computes the same
               function; the kernel's eager per-call time beside them) and
               the least time the card could take (bound). K1 also at
-              Mistral's qkv and o at M = 1, 8 and 64. K2 and K4 also
+              Mistral's qkv and o at M = 1, 8 and 64. K3 also at
+              Mistral's MLP at M = 1 and 8; K3 and K8 beside the port's
+              unfused chain on K1 (gate_up or gate and up, act * up,
+              down) on the same weights. K2 and K4 also
               at traffic D's prefill shapes (Mistral's four linears at
               M = 16,384; B=8, S=2048, 32/8 heads, hd 128). K7 and K9 also
               at their splits' edges and on a long table (8 slots of 4096
@@ -98,7 +102,11 @@ decode step with K7's or K9's profile rows; ``linears`` — K1 at
 TinyLlama's and Mistral's linears (M = 1, 8, 64, 255), K6 at E's and F's
 decode and prefill shapes, controls K2, K3 and K8, and A's, H's, E's and
 F's device ms a decode step and F's prefill seconds with K1's and K6's
-profile rows.
+profile rows; ``decode_mlp_attn`` — K3 at TinyLlama's and Mistral's and
+K8 at TinyLlama's and a Mixtral expert's decode MLP (beside the unfused
+chain on K1), K5 at C's and D's last decode step, controls K1, K2, K6, K7
+and K9, and A's, G's, C's, D's and H's device ms a decode step with K3's,
+K5's and K8's profile rows.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Without a CUDA device, or outside a checkout of the
@@ -119,7 +127,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load")
-EXTRA_PHASES = ("prefill", "paged", "linears")  # asked for by name only
+EXTRA_PHASES = ("prefill", "paged", "linears",
+                "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 1024 * 1024
@@ -421,12 +430,33 @@ def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
     return row
 
 
-def _mlp_case(rng, m, act, dev, timing=True):
+def _unfused_chain(inter, act, lins):
+    """The port's unfused decode MLP on K1 (the yardstick of K3 and K8):
+    gate_up (or gate and up), ``act_fn(g) * u`` in PyTorch, down."""
+    from autoawq_tpu_torch.ops import fused_mlp as fm
+    from autoawq_tpu_torch.ops import gemm
+
+    def run(x, *w):
+        if len(lins) == 2:  # fused gate_up
+            gu = gemm.w4a16_gemv(x, *w[0:3])
+            g, u = gu[:, :inter], gu[:, inter:]
+        else:
+            g, u = gemm.w4a16_gemv(x, *w[0:3]), gemm.w4a16_gemv(x, *w[3:6])
+        return gemm.w4a16_gemv(fm.act_fn(act, g) * u, *w[-3:])
+    args = [t for lin in lins for t in (lin["qweight"], lin["scales"],
+                                        lin["qzeros"])]
+    return run, args
+
+
+def _mlp_case(rng, m, act, dev, timing=True, h=2048, inter=5632,
+              case="TinyLlama"):
+    """K3 against its twin; with ``timing``, the times of K3, the twin and
+    the unfused chain on K1 (``_unfused_chain``) on the same weights, and
+    the byte bound."""
     import torch
 
     from autoawq_tpu_torch.ops import fused_mlp as fm
 
-    h, inter = 2048, 5632
     gu = make_lin(rng, h, 2 * inter, 128, True, dev)
     dn = make_lin(rng, inter, h, 128, True, dev)
     x = (torch.randn(m, h, device=dev) * 0.5).to(torch.bfloat16)
@@ -442,16 +472,20 @@ def _mlp_case(rng, m, act, dev, timing=True):
     got, ref = run(*args), plain(*args)
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
-    row = {"phase": "kernel", "kernel": "fused_mlp", "case": f"mlp_{act}",
-           "M": m, "H": h, "inter": inter, "max_abs_err": err,
-           "max_rel_err": rel, "tol": TOL["fused_mlp"]}
+    row = {"phase": "kernel", "kernel": "fused_mlp",
+           "case": f"{case} mlp_{act}", "card": card(), "M": m, "H": h,
+           "inter": inter, "max_abs_err": err, "max_rel_err": rel,
+           "tol": TOL["fused_mlp"]}
     check(rel <= TOL["fused_mlp"],
-          f"fused_mlp M={m} {act}: rel err {rel:.3g}")
+          f"fused_mlp {case} M={m} {act}: rel err {rel:.3g}")
     if timing:
         wb = lin_bytes(gu) + lin_bytes(dn)
         sets = copies(args, wb)
         row["ms"], row["eager_ms"] = time_ms(run, sets, 200)
         row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
+        chain, chain_args = _unfused_chain(inter, act, (gu, dn))
+        row["unfused_chain_ms"], _ = time_ms(
+            chain, copies([x] + chain_args, wb), 200)
         row["library_ms"] = None
         row["bound_ms"], row["bound_by"] = bound(
             wb + 2 * m * h * 2, 2 * m * (h * 2 * inter + inter * h))
@@ -720,7 +754,8 @@ def _moe_mlp_case(gen, gu, dn, t, dev):
 
 def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
                zp=(True, True, True)):
-    """K8 against its twin; with ``timing``, the times of K8, the twin and
+    """K8 against its twin; with ``timing``, the times of K8, the twin, the
+    unfused chain on K1 (``_unfused_chain``: gate, up, act * up, down) and
     K3 on the same weights fused into one gate_up (no PyTorch call computes
     the function), and the byte bound."""
     import torch
@@ -755,6 +790,9 @@ def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
         sets = copies(args, wb)
         row["ms"], row["eager_ms"] = time_ms(run, sets, 200)
         row["plain_ms"], _ = time_ms(plain, sets[:2], 10)
+        chain, chain_args = _unfused_chain(inter, act, (g, u, d))
+        row["unfused_chain_ms"], _ = time_ms(
+            chain, copies([x] + chain_args, wb), 200)
         if all(zp):
             gu = {key: torch.cat([g[key], u[key]], dim=1)
                   for key in ("qweight", "scales", "qzeros")}
@@ -933,6 +971,9 @@ def phase_kernels(dev):
         row = _mlp_case(rng, m, "silu", dev)
         if m == 1:
             rep["fused_mlp"] = row
+    for m in (1, 8):  # H's and K's decode MLP (Mistral, 8 slots busy)
+        _mlp_case(rng, m, "silu", dev, h=MISTRAL["hidden_size"],
+                  inter=MISTRAL["intermediate_size"], case="Mistral")
     _mlp_case(rng, 3, "gelu_pytorch_tanh", dev, timing=False)
     _mlp_case(rng, 20, "gelu", dev, timing=False)
     rep["prefill_attention"] = _attn_case(2, 384, 32, 4, 64, dev)
@@ -2086,9 +2127,19 @@ def phase_paged(dev):
     del params
 
 
-# kernel names of K1 and K6 in profiles (this design's and the first's:
-# gemv_partial / gemv_reduce are also K3's and K5's CUDA-core GEMV passes)
-LINEAR_MATCH = ("gemv", "moe")
+# kernel names of K1 and K6 in profiles: K1's instances of the GEMV core
+# (DenseJob; K3's and K5's passes are named after their own jobs), K6's
+# kernels, and K1's kernel of the earlier design (gemv_kernel), so that one
+# list reads both checkouts of an A/B
+LINEAR_MATCH = ("DenseJob", "gemv", "moe")
+# kernel names of K3, K5 and K8 in profiles: the jobs of this design on the
+# GEMV core (ActOut, DownJob, RopeOut, OJob), K5's split kernel over its
+# contiguous cache (DenseAddr) and its combine, and the first design's
+# CUDA-core passes (under awq::gemv_ and awq::gate_, K5's qkv finish and
+# split), so that one list reads both checkouts of an A/B
+DECODE_MATCH = ("ActOut", "DownJob", "RopeOut", "OJob", "DenseAddr",
+                "attn_combine", "awq::gemv_", "awq::gate_", "qkv_finish",
+                "attn_spl")
 
 
 def phase_linears(dev):
@@ -2201,6 +2252,102 @@ def phase_linears(dev):
                   match=LINEAR_MATCH)})
         del caches, logits
     del params
+
+
+def phase_decode_mlp_attn(dev):
+    """K3, K8 and K5 of the checkout under test, for an A/B of two
+    checkouts in one call (``--root``, in turns: parent, change, change,
+    parent), each call held against its twin: K3 at TinyLlama's and
+    Mistral's decode MLP at M = 1 and 8 and K8 at traffic G's M = 1 and 8
+    and a Mixtral expert's M = 1 (beside the unfused chain on K1 and the
+    byte bound), K5 at traffic C's and D's last decode
+    step (this design's also at D with at most 17 and 33 splits a row and
+    kv head: two and one 64-row pages a split); controls K1
+    (TinyLlama qkv at M = 1, Mistral qkv and o at M = 8), K2 (B's M = 768
+    gate_up), K6 (E's and F's decode gate_up), K7 (H's shape) and K9
+    (J's). Then device and host ms of 8 profiled decode steps of A, G, C,
+    D and H (paged engine, 8 slots busy) with K3's, K5's and K8's profile
+    rows, on the e2e phase's weights and prompts."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    rng = np.random.default_rng(11)
+    torch.manual_seed(11)
+    for m in (1, 8):
+        _mlp_case(rng, m, "silu", dev)
+        _mlp_case(rng, m, "silu", dev, h=MISTRAL["hidden_size"],
+                  inter=MISTRAL["intermediate_size"], case="Mistral")
+    for m in (1, 8):
+        _mlp3_case(rng, f"TinyLlama M={m}", m, 2048, 5632, "silu", dev)
+    _mlp3_case(rng, "Mixtral expert M=1", 1, 4096, 14336, "silu", dev)
+    _k5_case(rng, "C: Mistral bf16", MISTRAL, 8, 128, 127, dev)
+    _k5_case(rng, "D: Mistral int8", MISTRAL, 8, 2112, 2111, dev, int8=True)
+    from autoawq_tpu_torch.ops import fused_attn_step as fas
+    from autoawq_tpu_torch.ops import paged_attn as pa
+    if hasattr(fas, "kv_plan"):  # this design: K5 at D with more splits
+        default = pa.MAX_SPLITS
+        try:
+            for most in (17, 33):  # two and one 64-row pages a split
+                pa.MAX_SPLITS = most
+                _k5_case(rng, f"D: Mistral int8, at most {most} splits",
+                         MISTRAL, 8, 2112, 2111, dev, int8=True)
+        finally:
+            pa.MAX_SPLITS = default
+    _gemm_case(rng, "w4a16_gemv", "qkv", 1, *LINEARS["qkv"], 128, True, dev,
+               plain=False)
+    for case in ("qkv", "o"):
+        _gemm_case(rng, "w4a16_gemv", f"Mistral {case}", 8,
+                   *D_LINEARS[case], 128, True, dev, plain=False)
+    _gemm_case(rng, "w4a16_gemm", "gate_up", 768, *LINEARS["gate_up"], 128,
+               True, dev, yardsticks=False)
+    draw = torch.Generator(device=dev)
+    draw.manual_seed(11)
+    gu = qlin_on_card(draw, MIXTRAL["hidden_size"],
+                      2 * MIXTRAL["intermediate_size"],
+                      experts=MIXTRAL["num_experts"])
+    for case, t in (("E decode, gate_up", 1), ("F decode, gate_up", 8)):
+        _moe_case(draw, case, gu, t, dev, time_plain=False)
+    del gu
+    _paged_case(draw, "paged_attn", "H: Mistral bf16", MISTRAL, dev,
+                yardsticks=False)
+    _paged_case(draw, "paged_attn_stock", "J: Mistral bf16", MISTRAL, dev,
+                yardsticks=False)
+
+    def steps(name, cfg, params, prompt, **kw):
+        emit({"phase": "decode_mlp_attn", "traffic": name, "card": card(),
+              "what": "decode step", **profile_decode(
+                  cfg, params, prompt, 8, match=DECODE_MATCH, **kw)})
+
+    cfg = ModelConfig(**TINYLLAMA)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 64))).to(dev)  # traffic A's (and G's) prompt
+    params = random_quantized_params(cfg, seed=0, fp_dtype=torch.bfloat16,
+                                     device=dev)
+    steps("G", cfg, params, prompt)  # unfused gate / up: K8
+    steps("A", cfg, fuse_model(cfg, params), prompt)
+    del params
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    crng = np.random.default_rng(3)  # the prompts of _mistral_traffics
+    for name, s, kv_quant in (("C", 64, False), ("D", 2048, True)):
+        prompt = torch.from_numpy(crng.integers(0, cfg.vocab_size,
+                                                (8, s))).to(dev)
+        steps(name, cfg, params, prompt, kv_quant=kv_quant)
+    prng = np.random.default_rng(5)  # the prompts of _paged_traffics
+    eng = _busy_engine(cfg, params, [prng.integers(0, cfg.vocab_size, (64,))
+                                     for _ in range(16)])
+    for _ in range(4):
+        eng.step()
+    emit({"phase": "decode_mlp_attn", "traffic": "H", "card": card(),
+          "what": "paged decode step (8 slots busy)",
+          **device_profile(lambda i: eng.step(), 8, match=DECODE_MATCH)})
+    del eng, params
 
 
 def phase_load(dev):
@@ -2369,6 +2516,8 @@ def main(argv=None) -> int:
         timed("paged", phase_paged, dev)
     if "linears" in phases:
         timed("linears", phase_linears, dev)
+    if "decode_mlp_attn" in phases:
+        timed("decode_mlp_attn", phase_decode_mlp_attn, dev)
     if rep:
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

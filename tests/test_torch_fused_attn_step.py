@@ -263,3 +263,145 @@ def test_k5_route_greedy_stream_equals_jax_forced(rng, monkeypatch, window):
     assert calls["jax"] > 0  # traced once per layer
     assert calls["port"] == 9 * 2  # every decode step, every layer
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def core_order(x, lin):
+    """The GEMV core's arithmetic (``csrc/w4a16_gemv.cuh``) in f32 on
+    bf16 inputs ``x`` [M, K]: exact (q - z) times bf16 x, one f32 sum per
+    group, scaled once by s, no rounding of the result."""
+    qw, sc, qz = lin["qweight"], lin["scales"], lin.get("qzeros")
+    shifts = 4 * torch.arange(8, dtype=torch.int32)
+    k = 8 * qw.shape[0]
+    q = ((qw[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(k, -1)
+    g = sc.shape[0]
+    z = (torch.full((g, q.shape[1]), 8) if qz is None else
+         ((qz[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(
+             -1, q.shape[1])[:g])
+    gs = k // g
+    xb = x.to(torch.bfloat16).double()
+    out = torch.zeros(x.shape[0], q.shape[1], dtype=torch.float64)
+    for i in range(g):
+        rows = slice(i * gs, (i + 1) * gs)
+        part = (xb[:, rows] @ (q[rows] - z[i]).double()).float()
+        out += part.double() * sc[i].double()
+    return out.float()
+
+
+def k5_order_mirror(pa, x, kc, vc, cos, sin, pos, nh, nkv, window):
+    """K5 on the core: qkv in f32 (``core_order``) plus the bias in f32,
+    neox RoPE in f32 on q and k, the attention in f32 over the bf16 cache
+    and the current token, the output rounded to bf16, o in the core's
+    order, rounded to bf16. Returns (y, k_new, v_new) with the k/v rows
+    rounded to the cache's bf16."""
+    b, hd = x.shape[0], HD
+    qkv = core_order(torch.from_numpy(x), pa["qkv_proj"])
+    nq = (nh + 2 * nkv) * hd
+    qkv = qkv[:, :nq]
+    if pa["qkv_proj"].get("bias") is not None:
+        qkv = qkv + pa["qkv_proj"]["bias"].float()[:nq]
+    c, s = torch.from_numpy(cos), torch.from_numpy(sin)
+    q = fas._rope(qkv[:, :nh * hd].reshape(b, nh, hd), c, s)
+    k = fas._rope(qkv[:, nh * hd:(nh + nkv) * hd].reshape(b, nkv, hd), c, s)
+    v = qkv[:, (nh + nkv) * hd:].reshape(b, nkv, hd)
+    kcache = torch.from_numpy(kc).bfloat16().float()
+    vcache = torch.from_numpy(vc).bfloat16().float()
+    qg = q.reshape(b, nkv, nh // nkv, hd)
+    idx = torch.arange(kc.shape[2])
+    ok = (idx < pos) & (idx > pos - window if window else True)
+    sc = torch.einsum("bgrd,bgtd->bgrt", qg, kcache) * HD ** -0.5
+    sc = torch.where(ok, sc, -torch.inf)
+    diag = (qg * k[:, :, None]).sum(-1, keepdim=True) * HD ** -0.5
+    m = torch.maximum(sc.amax(-1, keepdim=True), diag)
+    p, pd = torch.exp(sc - m), torch.exp(diag - m)
+    att = (torch.einsum("bgrt,bgtd->bgrd", p, vcache) + pd * v[:, :, None]
+           ) / (p.sum(-1, keepdim=True) + pd)
+    og = att.reshape(b, nh * hd).bfloat16()
+    y = core_order(og, pa["o_proj"]).bfloat16()
+    return y, k.bfloat16(), v.bfloat16()
+
+
+@pytest.mark.parametrize("b,nh,nkv,pos,window,bias", [
+    (1, 4, 2, 13, None, False),   # GQA
+    (8, 8, 2, 50, None, False),   # B = 8, rep 4
+    (1, 4, 2, 40, 16, False),     # sliding window
+    (1, 4, 2, 0, None, False),    # vl = 0
+    (2, 4, 4, 13, None, True),    # qkv bias, MHA
+])
+def test_kernel_order_within_tolerance(rng, b, nh, nkv, pos, window, bias):
+    """K5's order of arithmetic on the GEMV core (qkv in f32 with the
+    bias, then RoPE) and its split attention, mirrored in f32: k_new /
+    v_new held against JAX's kernel in interpret mode and the port's twin
+    at one bf16 ulp of the head row's maximum, 2^-7 (all three round f32
+    rows to bf16; this CPU read at most 2^-8); y against JAX at its
+    twin's 1e-2 and against the twin at the card's limit for K5,
+    ``TOL["fused_attn_step"]`` = 2^-6, two bf16 ulps of the row maximum
+    (this CPU read at most 2^-7)."""
+    ja, pa = _layer(rng, nh, nkv, bias)
+    x, kc, vc, cos, sin = _inputs(rng, b, nkv, pos)
+    y, k, v = k5_order_mirror(pa, x, kc, vc, cos, sin, pos, nh, nkv, window)
+    jy, jk, jv = _jax_step(ja, x, kc, vc, cos, sin, pos, nh, nkv, window)
+    ty, tk, tv = _port_step(pa, x, torch.from_numpy(kc).bfloat16(),
+                            torch.from_numpy(vc).bfloat16(), cos, sin, pos,
+                            nh, nkv, window)
+
+    def row_rel(a, r, n):
+        a = np.asarray(a, np.float32).reshape(-1, n)
+        r = np.asarray(r, np.float32).reshape(-1, n)
+        return (np.abs(a - r).max(-1) / np.abs(r).max(-1)).max()
+
+    for got, ref in ((k, jk), (v, jv), (k, tk.float()), (v, tv.float())):
+        assert row_rel(got.float(), ref, HD) <= 2 ** -7
+    assert _rel(y.float(), np.asarray(jy)[:, :H]) <= 1e-2
+    assert row_rel(y.float(), ty[:, :H].float(), H) <= 2 ** -6
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("nh,nkv,hd,h", [(32, 4, 64, 2048),
+                                         (32, 8, 128, 4096),
+                                         (8, 4, 256, 2048)],
+                         ids=["tinyllama", "mistral", "hd256"])
+def test_qkv_pair_map(b, nh, nkv, hd, h):
+    """The pair map of K5's qkv pass (``Pairs`` in w4a16_gemv.cuh with span
+    hd/2 and stride hd, mirrored here) on the CTA shape ``gemm.gemv_plan``
+    picks for B rows: CTA i's first half of columns holds rotary pairs
+    [i C/2, (i + 1) C/2), dim j of head p // (hd/2), its second half dim
+    j + hd/2 of the same head, each lane's 4 columns on 16 bytes inside
+    one head half. Every q, k and v column is computed once, in the CTA of
+    its rotary partner; a head may spread over several CTAs (hd/2 > C/2),
+    so no shape needs a finish pass."""
+    from autoawq_tpu_torch.ops import gemm
+    nt, rg, _ = gemm.gemv_plan(b, h, (nh + 2 * nkv) * hd, 1, 132)
+    cols, _ = gemm.gemv_cta(nt, rg)
+    half, hh = cols // 2, hd // 2
+    pairs = (nh + 2 * nkv) * hh
+    seen = np.zeros((nh + 2 * nkv) * hd, int)
+    for cta in range(-(-pairs // half)):
+        for c in range(0, cols, 4):  # a lane's first column
+            second = c >= half
+            p = cta * half + c - (half if second else 0)
+            if p >= pairs:
+                continue
+            head, j = divmod(p, hh)
+            assert j % 4 == 0 and j + 3 < hh  # inside one head half
+            col = head * hd + j + (hh if second else 0)
+            assert col % 4 == 0
+            seen[col:col + 4] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 128, 200, 1024, 2112, 4096, 32768])
+def test_kv_plan_over_a_contiguous_cache(t):
+    """K5's split plan: the cache rows of one (row, kv head) as pages of
+    ``KV_PAGE`` rows cut by ``paged_attn.split_plan``: at most MAX_SPLITS
+    splits of whole pages, one page a split where that allows, every row
+    in exactly one split, from the capacity alone."""
+    from autoawq_tpu_torch.ops import paged_attn as pa
+    ps, spp, nsplit = fas.kv_plan(t)
+    pps = -(-t // ps)
+    assert ps == fas.KV_PAGE and (spp, nsplit) == pa.split_plan(pps, ps)
+    assert 1 <= nsplit <= pa.MAX_SPLITS and spp >= 1
+    assert spp == 1 or -(-pps // (spp - 1)) > pa.MAX_SPLITS
+    rows = np.zeros(t, int)
+    for s in range(nsplit):
+        rows[s * spp * ps: min((s + 1) * spp * ps, t)] += 1
+    assert (rows == 1).all() and (nsplit - 1) * spp * ps < t

@@ -97,3 +97,90 @@ def test_gate_rejects_what_k3_does_not_take(rng, weights):
     assert not pm._fused_mlp_ok(cfg, port_p, x[:, :1], "plain", INTER)
     _, relu = cfgs("relu")
     assert not pm._fused_mlp_ok(relu, port_p, x[:, :1], "auto", INTER)
+
+
+def core_order(x, lin):
+    """The GEMV core's arithmetic (``csrc/w4a16_gemv.cuh``) in f32 on
+    bf16 inputs ``x`` [M, K]: exact (q - z) times bf16 x, one f32 sum per
+    group, scaled once by s, no rounding of the result."""
+    qw, sc, qz = lin["qweight"], lin["scales"], lin.get("qzeros")
+    shifts = 4 * torch.arange(8, dtype=torch.int32)
+    k = 8 * qw.shape[0]
+    q = ((qw[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(k, -1)
+    g = sc.shape[0]
+    z = (torch.full((g, q.shape[1]), 8) if qz is None else
+         ((qz[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(
+             -1, q.shape[1])[:g])
+    gs = k // g
+    xb = x.to(torch.bfloat16).double()
+    out = torch.zeros(x.shape[0], q.shape[1], dtype=torch.float64)
+    for i in range(g):
+        rows = slice(i * gs, (i + 1) * gs)
+        part = (xb[:, rows] @ (q[rows] - z[i]).double()).float()
+        out += part.double() * sc[i].double()
+    return out.float()
+
+
+def k3_order_mirror(x, gu, dn, act):
+    """K3 on the core: g and u in f32, h = act(g) * u rounded to bf16 (the
+    kernel's store), down in f32, rounded to bf16."""
+    g, u = core_order(x, gu).chunk(2, dim=-1)
+    h = (fm.act_fn(act, g) * u).to(torch.bfloat16)
+    return core_order(h, dn).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu_pytorch_tanh", "gelu"])
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_kernel_order_within_tolerance(rng, weights, act, m):
+    """K3's order of arithmetic on the GEMV core, held against JAX's
+    kernel in interpret mode at one bf16 ulp of the output scale, 2^-7
+    (the same per-group factoring, g and u kept in f32 and h rounded to
+    bf16 as the Pallas kernel does; the f32 sums run in another order, so
+    an element of h can round one ulp apart: this CPU read at most 9e-5)
+    and against the port's twin at the card's limit for K3,
+    ``TOL["fused_mlp"]`` = 2e-2 (the twin rounds g, u and its scaled
+    weights to bf16; this CPU read at most 1.1e-2)."""
+    jax_p, port_p = weights
+    x = (rng.standard_normal((m, H)) * 0.5).astype(np.float32)
+    pg, pd = port_p["gate_up_proj"], port_p["down_proj"]
+    mirror = k3_order_mirror(torch.from_numpy(x), pg, pd, act).float()
+    gu, dn = jax_p["gate_up_proj"], jax_p["down_proj"]
+    pallas = fused_mlp_pallas(jnp.asarray(x, jnp.bfloat16), gu["qweight"],
+                              gu["scales"], dn["qweight"], dn["scales"],
+                              gu["qzeros"], dn["qzeros"], inter=INTER,
+                              out_features=H, act=act, interpret=True)
+    twin = fm.fused_mlp_plain(torch.from_numpy(x).bfloat16(), pg["qweight"],
+                              pg["scales"], pd["qweight"], pd["scales"],
+                              pg["qzeros"], pd["qzeros"], inter=INTER,
+                              act=act)
+    close(mirror, np.asarray(pallas, np.float32), 2 ** -7)
+    close(mirror, twin.float(), 2e-2)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
+@pytest.mark.parametrize("h,inter", [(2048, 5632), (4096, 14336)],
+                         ids=["tinyllama", "mistral"])
+def test_gate_up_pair_map(m, h, inter):
+    """The pair map of K3's first pass (``Pairs`` in w4a16_gemv.cuh,
+    mirrored here): on the CTA shape ``gemm.gemv_plan`` picks, CTA i's
+    first half of columns holds gate columns [i C/2, (i + 1) C/2) and its
+    second half their up partners inter + j of the fused layout, each
+    lane's 4 columns in one operand on 16 bytes; every gate and up column
+    is computed by exactly one CTA, beside its partner."""
+    from autoawq_tpu_torch.ops import gemm
+    nt, rg, _ = gemm.gemv_plan(m, h, 2 * inter, 1, 132)
+    cols, _ = gemm.gemv_cta(nt, rg)
+    half = cols // 2
+    seen = np.zeros(2 * inter, int)
+    for cta in range(-(-inter // half)):
+        for c in range(0, cols, 4):  # a lane's first column
+            second = c >= half
+            p = cta * half + c - (half if second else 0)
+            if p >= inter:
+                continue
+            col = p + (inter if second else 0)
+            assert col % 4 == 0 and p + 3 < inter
+            seen[col:col + 4] += 1
+            partner = col - inter if second else col + inter
+            assert cta * half <= partner % inter < (cta + 1) * half
+    assert (seen == 1).all()

@@ -721,3 +721,173 @@ def test_paged_and_slot_decode_steps_never_sync_the_host(cuda, route):
     assert _build.LAUNCHES["fused_mlp"] == 4
     assert bool(torch.isfinite(logits).all())
     assert bool(torch.isfinite(slot_logits).all())
+
+
+# ---- K3, K8 and K5 on the tensor-core GEMV core (two launches for K3 and
+# K8, four for K5, no split-K workspace)
+
+MISTRAL_MLP = (4096, 14336)  # hidden, intermediate
+QUANTS = {"g32": (32, True), "g64": (64, True), "g128 symmetric": (128, False)}
+
+
+def card_lin(gen, k, n, gs, zp):
+    """A random int4 linear drawn on the card (Mistral widths would take
+    seconds to pack on the host)."""
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                             device=gen.device, generator=gen).to(torch.int32)
+    g = k // gs
+    return (words(k // 8, n),
+            (torch.rand(g, n, device=gen.device, generator=gen) + 0.5) * 0.01,
+            words(-(-g // 8), n) if zp else None)
+
+
+def cuda_kernels(fn):
+    """The CUDA kernels (memory copies and sets aside) that one call of
+    ``fn`` launches, counted by torch.profiler after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+@pytest.mark.parametrize("quant", list(QUANTS))
+@pytest.mark.parametrize("m", [1, 8, 9, 32])
+@pytest.mark.parametrize("kernel", ["fused_mlp", "fused_mlp3"])
+def test_decode_mlp_at_mistral_widths(cuda, kernel, m, quant):
+    """K3 and K8 at Mistral's MLP widths, at the row counts that change the
+    core's plan (one n8 tile, a partial second, 32 rows over 128-column
+    CTAs), with groups of 32 and 64 and without zero points: one counted
+    launch, held against the twin at K3's 2e-2."""
+    gs, zp = QUANTS[quant]
+    h, inter = MISTRAL_MLP
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m)
+    x = (torch.randn(m, h, device=cuda, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    dn = card_lin(gen, inter, h, gs, zp)
+    if kernel == "fused_mlp":
+        gu = card_lin(gen, h, 2 * inter, gs, zp)
+        args = (x, gu[0], gu[1], dn[0], dn[1], gu[2], dn[2])
+        fn, plain = fused_mlp.fused_mlp, fused_mlp.fused_mlp_plain
+    else:
+        g, u = card_lin(gen, h, inter, gs, zp), card_lin(gen, h, inter, gs, zp)
+        args = (x, g[0], g[1], u[0], u[1], dn[0], dn[1], g[2], u[2], dn[2])
+        fn, plain = sharded_mlp.fused_mlp3, sharded_mlp.fused_mlp3_plain
+    before = _build.LAUNCHES[kernel]
+    got = fn(*args, inter=inter)
+    assert _build.LAUNCHES[kernel] == before + 1
+    assert rel(got, plain(*args, inter=inter)) <= 2e-2
+
+
+@pytest.mark.parametrize("kernel", ["fused_mlp", "fused_mlp3"])
+def test_decode_mlp_takes_two_cuda_launches(cuda, rng, kernel):
+    h, inter = 2048, 5632
+    x = (torch.randn(8, h, device=cuda) * 0.5).to(torch.bfloat16)
+    dn = lin(rng, inter, h, 128, True, cuda)
+    if kernel == "fused_mlp":
+        gu = lin(rng, h, 2 * inter, 128, True, cuda)
+        n = cuda_kernels(lambda: fused_mlp.fused_mlp(
+            x, gu[0], gu[1], dn[0], dn[1], gu[2], dn[2], inter=inter))
+    else:
+        g, u = lin(rng, h, inter, 128, True, cuda), lin(rng, h, inter, 128,
+                                                        True, cuda)
+        n = cuda_kernels(lambda: sharded_mlp.fused_mlp3(
+            x, g[0], g[1], u[0], u[1], dn[0], dn[1], g[2], u[2], dn[2],
+            inter=inter))
+    assert n == 2
+
+
+def test_decode_mlp_raises_on_groups_the_core_does_not_take(cuda, rng):
+    """Groups of 16 rows (a multiple of 8, which the CUDA-core passes
+    took), and K8's gate and up of different group sizes, raise."""
+    x = torch.randn(2, 256, device=cuda).to(torch.bfloat16)
+    gu16 = lin(rng, 256, 1024, 16, True, cuda)
+    dn = lin(rng, 512, 256, 64, True, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_mlp.fused_mlp(x, gu16[0], gu16[1], dn[0], dn[1], gu16[2],
+                            dn[2], inter=512)
+    g16, g64 = lin(rng, 256, 512, 16, True, cuda), lin(rng, 256, 512, 64,
+                                                       True, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sharded_mlp.fused_mlp3(x, g16[0], g16[1], g16[0], g16[1], dn[0],
+                               dn[1], g16[2], g16[2], dn[2], inter=512)
+    g32 = lin(rng, 256, 512, 32, True, cuda)
+    with pytest.raises(ValueError, match="differ"):
+        sharded_mlp.fused_mlp3(x, g32[0], g32[1], g64[0], g64[1], dn[0],
+                               dn[1], g32[2], g64[2], dn[2], inter=512)
+
+
+@pytest.mark.parametrize("b,nh,nkv,hd,h,t,vl,window,int8,bias", [
+    (8, 16, 4, 64, 1024, 1024, 700, 100, False, False),   # window cuts a split
+    (4, 8, 4, 256, 2048, 300, 299, None, False, False),   # hd 256
+    (4, 8, 4, 256, 2048, 300, 200, 64, True, True),       # hd 256, int8
+    (8, 32, 8, 128, 4096, 2112, 1000, 129, True, False),  # int8, window
+    (3, 32, 8, 128, 4096, 64, 0, None, True, True),       # vl 0, int8, bias
+    (2, 8, 2, 128, 1024, 4096, 4096, None, False, False),  # whole cache
+    (1, 4, 4, 64, 512, 200, 150, 1, False, False),        # window 1: diagonal
+    (2, 8, 4, 64, 512, 128, -3, None, False, False),      # vl < 0: no rows
+])
+def test_fused_attn_step_split_edges(cuda, rng, b, nh, nkv, hd, h, t, vl,
+                                     window, int8, bias):
+    """K5's attention on K7's split kernel over the contiguous cache: a
+    window whose first row falls inside a split, head dims 64 / 128 / 256,
+    int8 caches, vl = 0 and a full cache, a window of one row (the diagonal
+    term alone), a negative length (no cached rows, as in the twin), with
+    and without a qkv bias: held against the twin at K5's limits."""
+    x, qkv, o, kc, vc, cos, sin, sc = k5_inputs(rng, cuda, b, nh, nkv, hd, h,
+                                                t, int8, bias)
+    kw = dict(nh=nh, nkv=nkv, hd=hd, scale=hd ** -0.5, window=window, **sc)
+    y, k, v = fused_attn_step.fused_attention_step(x, qkv, o, kc, vc, cos,
+                                                   sin, vl, **kw)
+    ry, rk, rv = fused_attn_step.fused_attention_step_plain(
+        x, qkv, o, kc, vc, cos, sin, vl, **kw)
+    assert row_rel(y, ry, h) <= 2 ** -6
+    assert row_rel(k, rk, hd) <= 2 ** -7 and row_rel(v, rv, hd) <= 2 ** -7
+
+
+def test_fused_attn_step_reads_the_length_from_the_card(cuda, rng):
+    """A captured step replays at any position: with the valid length a
+    device int32, one graph replayed after the length changes on the card
+    gives the new length's result; a host int gives the same result."""
+    b, nh, nkv, hd, h, t = 8, 32, 8, 128, 4096, 512
+    x, qkv, o, kc, vc, cos, sin, _ = k5_inputs(rng, cuda, b, nh, nkv, hd, h,
+                                               t, False)
+    kw = dict(nh=nh, nkv=nkv, hd=hd, scale=hd ** -0.5)
+    vl = torch.full((1,), 100, dtype=torch.int32, device=cuda)
+    step = fused_attn_step.fused_attention_step
+    ref = step(x, qkv, o, kc, vc, cos, sin, 100, **kw)[0]
+    assert torch.equal(step(x, qkv, o, kc, vc, cos, sin, vl, **kw)[0], ref)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(x, qkv, o, kc, vc, cos, sin, vl, **kw)[0]
+    vl.fill_(400)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, step(x, qkv, o, kc, vc, cos, sin, 400, **kw)[0])
+
+
+def test_fused_attn_step_takes_four_cuda_launches(cuda, rng):
+    x, qkv, o, kc, vc, cos, sin, sc = k5_inputs(rng, cuda, 8, 32, 8, 128,
+                                                4096, 2112, True, True)
+    kw = dict(nh=32, nkv=8, hd=128, scale=128 ** -0.5, **sc)
+    assert cuda_kernels(lambda: fused_attn_step.fused_attention_step(
+        x, qkv, o, kc, vc, cos, sin, 2000, **kw)) == 4
+
+
+def test_fused_attn_step_raises_on_groups_the_core_does_not_take(cuda, rng):
+    x, _, o, kc, vc, cos, sin, _ = k5_inputs(rng, cuda, 2, 4, 2, 64, 256, 64,
+                                             False)
+    qkv16 = dict(zip(("qweight", "scales", "qzeros"),
+                     lin(rng, 256, 8 * 64, 16, True, cuda)))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_attn_step.fused_attention_step(x, qkv16, o, kc, vc, cos, sin, 3,
+                                             nh=4, nkv=2, hd=64, scale=0.125)

@@ -69,7 +69,7 @@ def test_int8_cache_layout_matches_jax():
     port's cache dicts: same keys, shapes and types."""
     jcfg, cfg = JaxConfig(**KW), ModelConfig(**KW)
     ref = jgen.init_kv_cache(jcfg, 3, 40, jnp.bfloat16, kv_quant=True)
-    got = gen.init_kv_cache(cfg, 3, 40, torch.bfloat16, kv_quant=True)
+    got = gen.init_kv_cache(cfg, 3, 40, torch.bfloat16, "cpu", kv_quant=True)
     assert len(got) == len(ref) == KW["num_hidden_layers"]
     for g, r in zip(got, ref):
         assert g.keys() == r.keys() == {"k", "v", "k_s", "v_s"}
@@ -84,7 +84,8 @@ def _prefill_decode(jcfg, cfg, jp, pp, toks, t, steps, jmethod, pmethod,
     packages (f32); returns the logits pairs and the final caches."""
     b, s = toks.shape
     jc = jgen.init_kv_cache(jcfg, b, t, jnp.float32, kv_quant=kv_quant)
-    pc = gen.init_kv_cache(cfg, b, t, torch.float32, kv_quant=kv_quant)
+    pc = gen.init_kv_cache(cfg, b, t, torch.float32, "cpu",
+                            kv_quant=kv_quant)
     jl, jc = jgen.prefill(jcfg, jp, jnp.asarray(toks), jc, jmethod,
                           jnp.float32)
     pl, pc = gen.prefill(cfg, pp, torch.from_numpy(toks), pc, pmethod,

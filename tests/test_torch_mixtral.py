@@ -94,7 +94,7 @@ def test_prefill_and_decode_match_jax(rng):
     b, s, t = 2, 6, 10
     toks = rng.integers(0, MIX["vocab_size"], (b, s))
     jc = jgen.init_kv_cache(jcfg, b, t, jnp.float32)
-    pc = gen.init_kv_cache(cfg, b, t, torch.float32)
+    pc = gen.init_kv_cache(cfg, b, t, torch.float32, "cpu")
     jl, jc = jgen.prefill(jcfg, jp, jnp.asarray(toks), jc, "jnp",
                           jnp.float32)
     pl, pc = gen.prefill(cfg, pp, torch.from_numpy(toks), pc, "auto",
@@ -128,7 +128,7 @@ def test_synth_and_stacking_equal_jax(zero_point):
                    zero_point=zero_point)
     got = random_quantized_params(cfg, seed=3, group_size=64,
                                   fp_dtype=torch.bfloat16,
-                                  zero_point=zero_point)
+                                  zero_point=zero_point, device="cpu")
     assert_trees_equal(got, from_jax_params(cfg, _np(jp)))
     stacked = fuse.fuse_model(cfg, got)
     st = stacked["layers"][0]["mlp"]["experts_stacked"]
@@ -139,7 +139,7 @@ def test_synth_and_stacking_equal_jax(zero_point):
 
 def test_mixed_symmetric_experts_stack_with_constant_zeros():
     cfg = ModelConfig(**MIX)
-    pp = random_quantized_params(cfg, seed=4, group_size=64)
+    pp = random_quantized_params(cfg, seed=4, group_size=64, device="cpu")
     ref = modules.forward(cfg, pp, torch.arange(8)[None])
     for e in (1, 3):  # two symmetric members: zero points 8 made explicit
         for lin in pp["layers"][0]["mlp"]["experts"][e].values():

@@ -83,7 +83,7 @@ def test_prefill_and_decode_match_jax(rng):
     b, s, t = 2, 130, 136  # s >= 128: prefill takes the K4 route
     toks = rng.integers(0, KW["vocab_size"], (b, s))
     jc = jgen.init_kv_cache(jcfg, b, t, jnp.float32)
-    pc = gen.init_kv_cache(cfg, b, t, torch.float32)
+    pc = gen.init_kv_cache(cfg, b, t, torch.float32, "cpu")
     jl, jc = jgen.prefill(jcfg, jp, jnp.asarray(toks), jc, "jnp",
                           jnp.float32)
     pl, pc = gen.prefill(cfg, pp, torch.from_numpy(toks), pc, "auto",
@@ -129,7 +129,8 @@ def test_synth_equals_converted_jax_synth(fused, zero_point):
         zero_point=zero_point, fused=fused)))
     got = random_quantized_params(cfg, seed=3, group_size=128,
                                   fp_dtype=torch.bfloat16,
-                                  zero_point=zero_point, fused=fused)
+                                  zero_point=zero_point, fused=fused,
+                                  device="cpu")
     assert_trees_equal(got, ref)
 
 
@@ -188,11 +189,39 @@ def test_window_and_int8_cache_run(rng, window, kv_quant):
     own and together (held against JAX in test_torch_kv_quant.py)."""
     cfg = dataclasses.replace(ModelConfig(**KW), sliding_window=window)
     modules.check_supported(cfg)
-    caches = gen.init_kv_cache(cfg, 2, 16, kv_quant=kv_quant)
+    caches = gen.init_kv_cache(cfg, 2, 16, device="cpu", kv_quant=kv_quant)
     assert caches[0]["k"].dtype == (torch.int8 if kv_quant else
                                     torch.bfloat16)
-    pp = random_quantized_params(cfg, seed=7, group_size=64, fused=True)
+    pp = random_quantized_params(cfg, seed=7, group_size=64, fused=True,
+                                 device="cpu")
     toks = torch.from_numpy(rng.integers(0, KW["vocab_size"], (2, 9)))
     out = gen.generate(cfg, pp, toks, 5, dtype=torch.float32,
                        kv_quant=kv_quant)
     assert out.shape == (2, 14) and torch.equal(out[:, :9], toks)
+
+
+def test_init_kv_cache_defaults_to_the_card(monkeypatch):
+    """With no device, the caches go to the card, as every entry point
+    does: without one it raises rather than allocate on the CPU."""
+    cfg = ModelConfig(**KW)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen.init_kv_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen.init_kv_cache(cfg, 1, 8, kv_quant=True)
+    assert gen.init_kv_cache(cfg, 1, 8, device="cpu")[0]["k"].is_cpu
+
+
+def test_random_quantized_params_defaults_to_the_card(monkeypatch):
+    """The synthesiser follows the same rule; asked for the CPU, its draws
+    are the same whatever device a caller names (numpy's, on the host)."""
+    cfg = ModelConfig(**KW)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random_quantized_params(cfg, seed=3)
+    a = random_quantized_params(cfg, seed=3, device="cpu")
+    b = random_quantized_params(cfg, seed=3, device=torch.device("cpu"))
+    assert a["layers"][1]["mlp"]["down_proj"]["qweight"].is_cpu
+    torch.testing.assert_close(a["layers"][1]["mlp"]["down_proj"]["qweight"],
+                               b["layers"][1]["mlp"]["down_proj"]["qweight"],
+                               rtol=0, atol=0)

@@ -26,7 +26,7 @@ CFG = ModelConfig(model_type="llama", vocab_size=96, hidden_size=128,
 
 @pytest.fixture(scope="module")
 def params():
-    return random_quantized_params(CFG, seed=4, group_size=64)
+    return random_quantized_params(CFG, seed=4, group_size=64, device="cpu")
 
 
 def _engine(params, kind, pages_per_seq=8):

@@ -151,3 +151,86 @@ def test_jax_k8_route_drops_gate_up_bias_port_keeps_it(rng, monkeypatch):
     xt = torch.from_numpy(x)
     assert not pm._sharded_mlp_ok(cfg, port_p, xt, "auto", INTER)
     close(pm.mlp(cfg, port_p, xt), jax_jnp, 1e-5)
+
+
+def core_order(x, lin):
+    """The GEMV core's arithmetic (``csrc/w4a16_gemv.cuh``) in f32 on
+    bf16 inputs ``x`` [M, K]: exact (q - z) times bf16 x, one f32 sum per
+    group, scaled once by s, no rounding of the result."""
+    qw, sc, qz = lin["qweight"], lin["scales"], lin.get("qzeros")
+    shifts = 4 * torch.arange(8, dtype=torch.int32)
+    k = 8 * qw.shape[0]
+    q = ((qw[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(k, -1)
+    g = sc.shape[0]
+    z = (torch.full((g, q.shape[1]), 8) if qz is None else
+         ((qz[:, None, :] >> shifts[None, :, None]) & 0xF).reshape(
+             -1, q.shape[1])[:g])
+    gs = k // g
+    xb = x.to(torch.bfloat16).double()
+    out = torch.zeros(x.shape[0], q.shape[1], dtype=torch.float64)
+    for i in range(g):
+        rows = slice(i * gs, (i + 1) * gs)
+        part = (xb[:, rows] @ (q[rows] - z[i]).double()).float()
+        out += part.double() * sc[i].double()
+    return out.float()
+
+
+def k8_order_mirror(x, p, act):
+    """K8 on the core: g and u in f32 from their own operands, h = act(g)
+    * u rounded to bf16 (the kernel's store), down in f32, rounded to
+    bf16."""
+    g, u = core_order(x, p["gate_proj"]), core_order(x, p["up_proj"])
+    h = (sm.act_fn(act, g) * u).to(torch.bfloat16)
+    return core_order(h, p["down_proj"]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_pytorch_tanh"])
+@pytest.mark.parametrize("zp", [True, False])
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_kernel_order_within_tolerance(rng, act, zp, m):
+    """K8's order of arithmetic on the GEMV core, held against JAX's
+    kernel in interpret mode at one bf16 ulp of the output scale, 2^-7
+    (the same per-group factoring with g and u in f32 and h rounded to
+    bf16; the f32 sums run in another order, so an element of h can round
+    one ulp apart and carry into the down product: this CPU read at most
+    1.9e-3) and against the port's twin at the card's limit for K8,
+    ``TOL["fused_mlp3"]`` = 2e-2 (the twin rounds its scaled weights to
+    bf16; this CPU read at most 7.5e-3)."""
+    jax_p, port_p = weights(rng, zp)
+    x = (rng.standard_normal((m, H)) * 0.5).astype(np.float32)
+    mirror = k8_order_mirror(torch.from_numpy(x), port_p, act).float()
+    pallas = jsm.fused_mlp3_pallas(jnp.asarray(x, jnp.bfloat16),
+                                   *operands(jax_p, jax_arrays=True),
+                                   inter=INTER, out_features=H, act=act,
+                                   interpret=True)
+    twin = sm.fused_mlp3_plain(torch.from_numpy(x).bfloat16(),
+                               *operands(port_p), inter=INTER, act=act)
+    close(mirror, np.asarray(pallas, np.float32), 2 ** -7)
+    close(mirror, twin.float(), 2e-2)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
+@pytest.mark.parametrize("h,inter", [(2048, 5632), (4096, 14336)],
+                         ids=["tinyllama", "mixtral_expert"])
+def test_gate_up_pair_map(m, h, inter):
+    """The pair map of K8's first pass (``Pairs`` in w4a16_gemv.cuh,
+    mirrored here) on the CTA shape ``gemm.gemv_plan`` picks: CTA i's
+    first half of columns holds columns [i C/2, (i + 1) C/2) of the gate
+    operand, its second half the same columns of the up operand; each
+    lane's 4 columns lie in one operand on 16 bytes, and every gate and up
+    column is computed once, in the CTA of its partner."""
+    from autoawq_tpu_torch.ops import gemm
+    nt, rg, _ = gemm.gemv_plan(m, h, 2 * inter, 1, 132)
+    assert rg == 1
+    cols, _ = gemm.gemv_cta(nt, rg)
+    half = cols // 2
+    seen = np.zeros((2, inter), int)
+    for cta in range(-(-inter // half)):
+        for c in range(0, cols, 4):  # a lane's first column
+            operand = int(c >= half)
+            j = cta * half + c - operand * half
+            if j >= inter:
+                continue
+            assert j % 4 == 0 and j + 3 < inter
+            seen[operand, j:j + 4] += 1
+    assert (seen == 1).all()
