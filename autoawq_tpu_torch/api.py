@@ -1,6 +1,12 @@
-"""Top-level user API, the inference half of ``autoawq_tpu/api.py``:
+"""Top-level user API, the counterpart of ``autoawq_tpu/api.py``:
 
     from autoawq_tpu_torch import AutoAWQForCausalLM
+
+    model = AutoAWQForCausalLM.from_pretrained("/path/fp-checkpoint")
+    model.quantize(calib_data=token_id_lists,
+                   quant_config={"w_bit": 4, "q_group_size": 128,
+                                 "zero_point": True})
+    model.save_quantized("/path/awq-ckpt")  # AutoAWQ GEMM layout
 
     model = AutoAWQForCausalLM.from_quantized("/path/awq-ckpt",
                                               fuse_layers=True)
@@ -15,7 +21,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -23,6 +29,8 @@ from autoawq_tpu_torch.config import AwqConfig
 from autoawq_tpu_torch.io import serialize
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
+from autoawq_tpu_torch.quantize.calib import get_calib_dataset
+from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
 from autoawq_tpu_torch.serve import generate as gen
 from autoawq_tpu_torch.utils.device import resolve_device
 
@@ -50,6 +58,19 @@ class AwqCausalLM:
         self.params = params
         self.quant_config = qcfg
         self.device = resolve_device(device)
+        self._quantizer: Optional[AwqQuantizer] = None
+        # the source checkpoint, whose tokenizer files save_quantized copies
+        self._src_path: Optional[str] = None
+
+    @classmethod
+    def from_pretrained(cls, path: str, device=None) -> "AwqCausalLM":
+        """Load a float checkpoint (llama family or Mixtral) in float32 on
+        the card, unless ``device`` names another, for :meth:`quantize`."""
+        dev = resolve_device(device)
+        cfg, params = serialize.from_pretrained(path, dev)
+        m = cls(cfg, params, None, dev)
+        m._src_path = path
+        return m
 
     @classmethod
     def from_quantized(cls, path: str, fuse_layers: bool = False,
@@ -71,7 +92,58 @@ class AwqCausalLM:
             from autoawq_tpu_torch.nn.fuse import fuse_model
 
             params = fuse_model(cfg, params)
-        return cls(cfg, params, qcfg, dev)
+        m = cls(cfg, params, qcfg, dev)
+        m._src_path = path
+        return m
+
+    def quantize(self, tokenizer=None,
+                 quant_config: Union[AwqConfig, Dict, None] = None,
+                 calib_data: Any = "pileval", max_calib_samples: int = 128,
+                 max_calib_seq_len: int = 512, apply_clip: bool = True,
+                 duo_scaling: bool = True, export_compatible: bool = False,
+                 progress: bool = True,
+                 n_parallel_calib_samples: Optional[int] = None,
+                 offload_taps: bool = False,
+                 resume_dir: Optional[str] = None, mesh=None,
+                 quantize_lm_head: bool = False, **quantizer_kw) -> None:
+        """Run AWQ calibration and, unless ``export_compatible``, pack int4,
+        on the model's device; the packed weights stay there. The memory
+        knobs (``n_parallel_calib_samples``, ``offload_taps`` and, through
+        ``quantizer_kw``, ``max_chunk_memory``, ``weight_dtype``, ...) are
+        :class:`AwqQuantizer`'s. ``resume_dir``, ``mesh`` and
+        ``quantize_lm_head`` raise, naming their ROADMAP item."""
+        if isinstance(quant_config, dict) or quant_config is None:
+            quant_config = AwqConfig.from_dict(quant_config)
+        calib = get_calib_dataset(calib_data, tokenizer,
+                                  n_samples=max_calib_samples,
+                                  max_seq_len=max_calib_seq_len)
+        self._quantizer = AwqQuantizer(
+            self.cfg, quant_config, self.params, calib,
+            duo_scaling=duo_scaling, apply_clip=apply_clip,
+            progress=progress,
+            n_parallel_calib_samples=n_parallel_calib_samples,
+            offload_taps=offload_taps, resume_dir=resume_dir, mesh=mesh,
+            quantize_lm_head=quantize_lm_head, keep_on_device=True,
+            device=self.device, **quantizer_kw)
+        self.params = self._quantizer.quantize(
+            export_compatible=export_compatible)
+        self.quant_config = quant_config
+
+    def pack(self) -> None:
+        """Pack after ``quantize(export_compatible=True)``."""
+        if self._quantizer is None:
+            raise RuntimeError("call quantize(export_compatible=True) first")
+        self.params = self._quantizer.pack(self.params)
+
+    def save_quantized(self, path: str,
+                       shard_bytes: int = serialize.SHARD_BYTES) -> None:
+        """Write an AutoAWQ GEMM checkpoint directory (with the source
+        checkpoint's tokenizer files)."""
+        if self.quant_config is None:
+            raise RuntimeError("model is not quantized")
+        serialize.save_quantized(path, self.cfg, self.quant_config,
+                                 self.params, shard_bytes,
+                                 src_path=self._src_path)
 
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(input_ids, device=self.device)
@@ -108,15 +180,24 @@ class AwqCausalLM:
 
 
 class AutoAWQForCausalLM:
-    """Name-compatible dispatcher; the port serves the llama route and
+    """Name-compatible dispatcher; the port runs the llama route and
     Mixtral."""
 
-    @classmethod
-    def from_quantized(cls, path: str, **kw) -> AwqCausalLM:
+    @staticmethod
+    def _check_type(path: str) -> None:
         with open(os.path.join(path, "config.json")) as f:
             mt = json.load(f).get("model_type", "llama")
         if mt in ("llava", "llava_next", "qwen2_vl", "qwen2_5_vl"):
             raise NotImplementedError(
                 f"{mt} is not in the port yet (multimodal, ROADMAP queue 1 "
                 "item 17)")
+
+    @classmethod
+    def from_pretrained(cls, path: str, **kw) -> AwqCausalLM:
+        cls._check_type(path)
+        return AwqCausalLM.from_pretrained(path, **kw)
+
+    @classmethod
+    def from_quantized(cls, path: str, **kw) -> AwqCausalLM:
+        cls._check_type(path)
         return AwqCausalLM.from_quantized(path, **kw)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from autoawq_tpu_torch.core.packing import planar_to_port
+from autoawq_tpu_torch.io.hf import role_out_features
 from autoawq_tpu_torch.models.config import ModelConfig
 
 
@@ -28,24 +29,6 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
             device)
     return torch.from_numpy(a).to(device)
-
-
-def role_out_features(cfg: ModelConfig) -> Dict[str, int]:
-    """Logical out_features by linear name (llama and MoE subset of
-    ``io/hf.role_out_features``); an expert's roles are prefixed
-    ``experts.`` and the router is ``gate``."""
-    hd, nh, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
-    ie = cfg.moe_intermediate_size or cfg.intermediate_size
-    return {
-        "qkv_proj": (nh + 2 * nkv) * hd, "q_proj": nh * hd,
-        "k_proj": nkv * hd, "v_proj": nkv * hd, "o_proj": cfg.hidden_size,
-        "gate_up_proj": 2 * cfg.intermediate_size,
-        "gate_proj": cfg.intermediate_size, "up_proj": cfg.intermediate_size,
-        "down_proj": cfg.hidden_size, "lm_head": cfg.vocab_size,
-        "gate": cfg.num_experts, "experts.gate_up_proj": 2 * ie,
-        "experts.gate_proj": ie, "experts.up_proj": ie,
-        "experts.down_proj": cfg.hidden_size,
-    }
 
 
 def lin_from_planar(p: Dict[str, Any], n: int, device="cpu") -> Dict[str, Any]:
@@ -80,17 +63,17 @@ def stacked_from_planar(p: Dict[str, Any], n: int,
 def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
                   device) -> Dict[str, Any]:
     if "experts" not in mlp and "experts_stacked" not in mlp:
-        return {name: lin_from_planar(lin, outs[name], device)
+        return {name: lin_from_planar(lin, outs["mlp." + name], device)
                 for name, lin in mlp.items()}
     port: Dict[str, Any] = {"gate": lin_from_planar(mlp["gate"],
-                                                    outs["gate"], device)}
+                                                    outs["mlp.gate"], device)}
     if "experts_stacked" in mlp:
         port["experts_stacked"] = {
-            name: stacked_from_planar(lin, outs["experts." + name], device)
+            name: stacked_from_planar(lin, outs["mlp.experts." + name], device)
             for name, lin in mlp["experts_stacked"].items()}
     else:
         port["experts"] = [
-            {name: lin_from_planar(lin, outs["experts." + name], device)
+            {name: lin_from_planar(lin, outs["mlp.experts." + name], device)
              for name, lin in ep.items()} for ep in mlp["experts"]]
     return port
 
@@ -111,7 +94,9 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
     for lp in tree["layers"]:
         port = {name: _norm(lp[name], device)
                 for name in ("input_layernorm", "post_attention_layernorm")}
-        port["self_attn"] = {name: lin_from_planar(lin, outs[name], device)
+        port["self_attn"] = {name: lin_from_planar(lin,
+                                                   outs["self_attn." + name],
+                                                   device)
                              for name, lin in lp["self_attn"].items()}
         port["mlp"] = _mlp_from_jax(lp["mlp"], outs, device)
         params["layers"].append(port)

@@ -1,19 +1,127 @@
-"""Checkpoint load: HF-layout directories with AutoAWQ GEMM tensors.
+"""Checkpoint save and load: HF-layout directories with AutoAWQ GEMM
+tensors.
 
-Counterpart of ``autoawq_tpu/io/serialize.py`` (``load_config`` :166,
-``from_quantized`` :233), GEMM version only, local directories only.
+Counterpart of ``autoawq_tpu/io/serialize.py`` (``copy_aux_files`` :41,
+``save_quantized`` :103, ``write_safetensors`` :133, ``load_config``
+:166, ``from_quantized`` :233, ``from_pretrained`` :248), GEMM version
+only, local directories only. Directory layout:
+
+  config.json            HF model config + ``quantization_config``
+  model.safetensors      one file, or
+  model-0000N-of-0000M.safetensors + model.safetensors.index.json
 """
 
 from __future__ import annotations
 
+import fnmatch
 import json
 import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from autoawq_tpu_torch.config import AwqConfig
 from autoawq_tpu_torch.io import hf as hf_io
+from autoawq_tpu_torch.io.safetensors import save_file
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.utils.device import resolve_device
+
+SHARD_BYTES = 4 * 1024**3
+
+# tokenizer / processor / generation files that make a saved checkpoint
+# loadable by transformers' AutoTokenizer with no manual copying
+AUX_FILE_PATTERNS = (
+    "tokenizer.json", "tokenizer_config.json", "special_tokens_map.json",
+    "vocab.json", "vocab.txt", "merges.txt", "added_tokens.json",
+    "*.model",  # sentencepiece (tokenizer.model, spiece.model, ...)
+    "preprocessor_config.json", "processor_config.json",
+    "image_processor_config.json", "video_preprocessor_config.json",
+    "chat_template.json", "chat_template.jinja",
+    "generation_config.json", "spk_dict.pt",
+)
+
+
+def copy_aux_files(src_path: Optional[str], dst_path: str) -> list:
+    """Copy tokenizer / processor / generation_config files from the source
+    checkpoint directory into a save directory, and write a minimal
+    generation_config.json from config.json's token ids where the source
+    has none. Returns the names written."""
+    copied = []
+    if src_path and os.path.isdir(src_path) and (
+            os.path.abspath(src_path) != os.path.abspath(dst_path)):
+        for name in sorted(os.listdir(src_path)):
+            full = os.path.join(src_path, name)
+            if not os.path.isfile(full) or name.endswith(".safetensors"):
+                continue
+            if any(fnmatch.fnmatch(name, p) for p in AUX_FILE_PATTERNS):
+                shutil.copy2(full, os.path.join(dst_path, name))
+                copied.append(name)
+    if "generation_config.json" not in copied:
+        gen: Dict[str, Any] = {}
+        src_cfg = os.path.join(src_path or "", "config.json")
+        if src_path and os.path.isfile(src_cfg):
+            with open(src_cfg) as f:
+                raw = json.load(f)
+            for k in ("bos_token_id", "eos_token_id", "pad_token_id"):
+                if raw.get(k) is not None:
+                    gen[k] = raw[k]
+        if gen:
+            with open(os.path.join(dst_path, "generation_config.json"),
+                      "w") as f:
+                json.dump(gen, f, indent=2)
+            copied.append("generation_config.json")
+    return copied
+
+
+def save_quantized(path: str, cfg: ModelConfig, qcfg: AwqConfig,
+                   params: Dict[str, Any], shard_bytes: int = SHARD_BYTES,
+                   src_path: Optional[str] = None) -> None:
+    """Write ``params`` as an AutoAWQ GEMM checkpoint directory (written
+    through the port's own safetensors codec)."""
+    if qcfg.version.lower() != "gemm":
+        raise NotImplementedError(
+            f"saving AWQ version {qcfg.version!r} is not in the port yet "
+            "(checkpoint breadth, ROADMAP queue 1 item 14)")
+    os.makedirs(path, exist_ok=True)
+    copy_aux_files(src_path, path)
+    hf_cfg = cfg.to_hf_dict()
+    hf_cfg["quantization_config"] = qcfg.to_transformers_dict()
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    sd = hf_io.state_dict_from_params(cfg, params,
+                                      hf_io.role_out_features(cfg))
+    write_safetensors(path, sd, shard_bytes)
+
+
+def write_safetensors(path: str, sd: Dict[str, torch.Tensor],
+                      shard_bytes: int = SHARD_BYTES) -> None:
+    """Write a state dict as model.safetensors, or as size shards plus an
+    HF-style ``model.safetensors.index.json`` above ``shard_bytes``."""
+    def nbytes(t: torch.Tensor) -> int:
+        return t.numel() * t.element_size()
+
+    total = sum(nbytes(v) for v in sd.values())
+    if total <= shard_bytes:
+        save_file(sd, os.path.join(path, "model.safetensors"))
+        return
+    shards, cur, cur_bytes = [], {}, 0
+    for k, v in sd.items():
+        if cur and cur_bytes + nbytes(v) > shard_bytes:
+            shards.append(cur)
+            cur, cur_bytes = {}, 0
+        cur[k] = v
+        cur_bytes += nbytes(v)
+    shards.append(cur)
+    index = {"metadata": {"total_size": total}, "weight_map": {}}
+    n = len(shards)
+    for i, shard in enumerate(shards):
+        name = f"model-{i + 1:05d}-of-{n:05d}.safetensors"
+        save_file(shard, os.path.join(path, name))
+        for k in shard:
+            index["weight_map"][k] = name
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump(index, f, indent=2)
 
 
 def load_config(path: str) -> Tuple[ModelConfig, Optional[AwqConfig]]:
@@ -47,3 +155,17 @@ def from_quantized(path: str, device=None
     device = resolve_device(device)
     sd = hf_io.load_state_dict_from_dir(path)
     return cfg, qcfg, hf_io.params_from_state_dict(cfg, sd, device)
+
+
+def from_pretrained(path: str, device=None
+                    ) -> Tuple[ModelConfig, Dict[str, Any]]:
+    """Load a float HF checkpoint directory (llama family or Mixtral) into
+    float32 port params on the card, unless ``device`` names another."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"{path} is not a local directory (the port has no hub download)")
+    cfg, _ = load_config(path)
+    device = resolve_device(device)
+    sd = {k: v.float() for k, v in
+          hf_io.load_state_dict_from_dir(path).items()}
+    return cfg, hf_io.params_from_state_dict(cfg, sd, device)

@@ -24,6 +24,10 @@ stacked expert LIN holds the same leaves with a leading expert axis
 
 ``method`` is "auto" (the kernels on a CUDA tensor, their plain twins on a
 CPU tensor) or "plain" (the twins everywhere; JAX's ``method="jnp"``).
+``taps`` (a dict, for calibration) records each linear's input under the
+JAX package's names (``self_attn.q_proj``, ``mlp.down_proj``, ``mlp.gate``,
+``mlp.experts.{e}.up_proj``, ...); with taps set, the fused K3, K5 and K8
+routes are not taken, as JAX gates them with ``taps is None``.
 ``paged_attn`` picks the paged decode attention route (:func:`_paged_decode`)
 and is threaded from the paged engine; JAX reads ``AWQ_TPU_PAGED_ATTN``.
 Features outside the slice raise ``NotImplementedError`` naming their
@@ -94,6 +98,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def is_quantized(p: Dict[str, Any]) -> bool:
     return "qweight" in p
+
+
+def _tap(taps: Optional[Dict], name: str, x: torch.Tensor) -> None:
+    if taps is not None:
+        taps[name] = x
 
 
 def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
@@ -335,7 +344,7 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               mask: Optional[torch.Tensor],
               kv_cache: Optional[Dict[str, Any]] = None,
               method: str = "auto", causal_prefill: bool = False,
-              paged_attn: str = "bespoke"):
+              paged_attn: str = "bespoke", taps: Optional[Dict] = None):
     """Self-attention over a contiguous KV cache [B, nkv, T, hd] (or none),
     bf16 or int8 (``k_s``/``v_s`` [B, nkv, T] f32 scales beside it), or a
     paged pool (``k_pages`` in the cache: :func:`_paged_decode`). ``pos``
@@ -346,15 +355,19 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     b, s, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim_)
-    if (s == 1 and kv_cache is not None and isinstance(kv_cache["pos"], int)
+    if (taps is None and s == 1 and kv_cache is not None
+            and isinstance(kv_cache["pos"], int)
             and _fused_attn_ok(cfg, p, x, method, kv_cache)):
         return _fused_attention(cfg, p, x, cos, sin, kv_cache)
     if "qkv_proj" in p:
+        _tap(taps, "self_attn.qkv_proj", x)
         y = linear(p["qkv_proj"], x, (nh + 2 * nkv) * hd, method)
         q = y[..., : nh * hd].reshape(b, s, nh, hd)
         k = y[..., nh * hd: (nh + nkv) * hd].reshape(b, s, nkv, hd)
         v = y[..., (nh + nkv) * hd:].reshape(b, s, nkv, hd)
     else:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            _tap(taps, "self_attn." + name, x)
         q = linear(p["q_proj"], x, nh * hd, method).reshape(b, s, nh, hd)
         k = linear(p["k_proj"], x, nkv * hd, method).reshape(b, s, nkv, hd)
         v = linear(p["v_proj"], x, nkv * hd, method).reshape(b, s, nkv, hd)
@@ -365,8 +378,9 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     if kv_cache is not None and "k_pages" in kv_cache:
         out, kv_cache = _paged_decode(cfg, q, k, v, kv_cache, scale, method,
                                       paged_attn)
-        return (linear(p["o_proj"], out.to(x.dtype), cfg.hidden_size, method),
-                kv_cache)
+        out = out.to(x.dtype)
+        _tap(taps, "self_attn.o_proj", out)
+        return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
     if kv_cache is not None:
         pos = kv_cache["pos"]
         kc, vc = kv_cache["k"], kv_cache["v"]
@@ -385,6 +399,7 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                     ks is not None or (nkv != nh and _gqa_grouped_wins(
                         b, hd, kc.shape[2]))):
                 out = _attend_grouped(q, kc, vc, mask, scale, x.dtype, ks, vs)
+                _tap(taps, "self_attn.o_proj", out)
                 return (linear(p["o_proj"], out, cfg.hidden_size, method),
                         kv_cache)
             if ks is not None:  # plain / s > 1 fallback: dequantize the cache
@@ -397,6 +412,7 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         out = attn_ops.prefill_attention(q, k, v, scale)
     else:
         out = _attend(q, k, v, mask, scale, x.dtype)
+    _tap(taps, "self_attn.o_proj", out)
     return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
 
 
@@ -478,14 +494,15 @@ def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 
 
 def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-        method: str = "auto",
-        intermediate: Optional[int] = None) -> torch.Tensor:
+        method: str = "auto", intermediate: Optional[int] = None,
+        taps: Optional[Dict] = None, tap_prefix: str = "mlp.") -> torch.Tensor:
     """The gated MLP; ``intermediate`` overrides the config's width (an
     MoE expert's). Decode-size rows of a quantized model go through K3
     (fused gate_up) or K8 (separate gate and up)."""
     inter = intermediate or cfg.intermediate_size
     if "gate_up_proj" in p:
-        if _fused_mlp_ok(cfg, p, x, method, inter):
+        _tap(taps, tap_prefix + "gate_up_proj", x)
+        if taps is None and _fused_mlp_ok(cfg, p, x, method, inter):
             gu, dn = p["gate_up_proj"], p["down_proj"]
             y = mlp_ops.fused_mlp(
                 x, gu["qweight"], gu["scales"], dn["qweight"], dn["scales"],
@@ -497,7 +514,9 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         gu = linear(p["gate_up_proj"], x, 2 * inter, method)
         g, u = gu[..., :inter], gu[..., inter:]
     else:
-        if _sharded_mlp_ok(cfg, p, x, method, inter):
+        _tap(taps, tap_prefix + "gate_proj", x)
+        _tap(taps, tap_prefix + "up_proj", x)
+        if taps is None and _sharded_mlp_ok(cfg, p, x, method, inter):
             gate, up, dn = p["gate_proj"], p["up_proj"], p["down_proj"]
             y = mlp3_ops.fused_mlp3(
                 x, gate["qweight"], gate["scales"], up["qweight"],
@@ -510,6 +529,7 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         g = linear(p["gate_proj"], x, inter, method)
         u = linear(p["up_proj"], x, inter, method)
     h = mlp_ops.act_fn(cfg.hidden_act, g) * u
+    _tap(taps, tap_prefix + "down_proj", h)
     return linear(p["down_proj"], h, cfg.hidden_size, method)
 
 
@@ -534,14 +554,18 @@ def moe_route(cfg: ModelConfig, p: Dict[str, Any], xt: torch.Tensor,
 
 
 def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-              method: str = "auto") -> torch.Tensor:
+              method: str = "auto", taps: Optional[Dict] = None
+              ) -> torch.Tensor:
     """Sparse MoE block (Mixtral). Stacked experts (``fuse_model``) go
     through the grouped kernel K6 (``moe_mlp``, JAX's single-chip lowering
     of ``sharded_moe``); an ``experts`` list takes JAX's dense route, every
     expert's ``mlp`` on every token weighted by the routing, which at
-    decode runs K8 once per expert."""
+    decode runs K8 once per expert. Calibration (``taps``) takes the dense
+    route, so ``mlp.experts.{e}.*`` hold every token's row in token order,
+    as in JAX."""
     b, s, h = x.shape
     xt = x.reshape(-1, h)
+    _tap(taps, "mlp.gate", x)
     topw, topi = moe_route(cfg, p, xt, method)
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
     if "experts_stacked" in p:
@@ -554,7 +578,8 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         out = torch.zeros((xt.shape[0], h), dtype=torch.float32,
                           device=x.device)
         for e, ep in enumerate(p["experts"]):
-            ye = mlp(cfg, ep, xt[None], method, intermediate=inter)[0]
+            ye = mlp(cfg, ep, xt[None], method, intermediate=inter,
+                     taps=taps, tap_prefix=f"mlp.experts.{e}.")[0]
             out = out + weights[:, e: e + 1] * ye.float()
     return out.to(x.dtype).reshape(b, s, h)
 
@@ -562,17 +587,18 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
           cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
           kv_cache: Optional[Dict[str, Any]] = None, method: str = "auto",
-          causal_prefill: bool = False, paged_attn: str = "bespoke"):
+          causal_prefill: bool = False, paged_attn: str = "bespoke",
+          taps: Optional[Dict] = None):
     """One pre-norm decoder layer; an MLP with experts is an MoE block."""
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin, mask,
                                    kv_cache, method, causal_prefill,
-                                   paged_attn)
+                                   paged_attn, taps)
     x = x + attn_out
     h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     if "experts" in p["mlp"] or "experts_stacked" in p["mlp"]:
-        return x + moe_block(cfg, p["mlp"], h, method), kv_cache
-    return x + mlp(cfg, p["mlp"], h, method), kv_cache
+        return x + moe_block(cfg, p["mlp"], h, method, taps), kv_cache
+    return x + mlp(cfg, p["mlp"], h, method, taps=taps), kv_cache
 
 
 def embed(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,

@@ -16,9 +16,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from autoawq_tpu_torch.convert import lin_from_planar, role_out_features
+from autoawq_tpu_torch.convert import lin_from_planar
 from autoawq_tpu_torch.core.packing import (padded_in_features,
                                             padded_out_features)
+from autoawq_tpu_torch.io.hf import role_out_features
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn.modules import check_supported
 from autoawq_tpu_torch.utils.device import resolve_device
@@ -80,30 +81,30 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     for _ in range(cfg.num_hidden_layers):
         lp: Dict[str, Any] = {"input_layernorm": norm_p()}
         if fused:
-            lp["self_attn"] = {"qkv_proj": qlin(h, "qkv_proj"),
-                               "o_proj": qlin(hq, "o_proj")}
+            lp["self_attn"] = {"qkv_proj": qlin(h, "self_attn.qkv_proj"),
+                               "o_proj": qlin(hq, "self_attn.o_proj")}
         else:
-            lp["self_attn"] = {"q_proj": qlin(h, "q_proj"),
-                               "k_proj": qlin(h, "k_proj"),
-                               "v_proj": qlin(h, "v_proj"),
-                               "o_proj": qlin(hq, "o_proj")}
+            lp["self_attn"] = {"q_proj": qlin(h, "self_attn.q_proj"),
+                               "k_proj": qlin(h, "self_attn.k_proj"),
+                               "v_proj": qlin(h, "self_attn.v_proj"),
+                               "o_proj": qlin(hq, "self_attn.o_proj")}
         lp["post_attention_layernorm"] = norm_p()
         if cfg.is_moe:  # Mixtral: a float router and unfused experts
             lp["mlp"] = {
                 "gate": {"kernel": fp(
                     rng.standard_normal((h, cfg.num_experts)) * 0.02)},
                 "experts": [
-                    {"gate_proj": qlin(h, "experts.gate_proj"),
-                     "up_proj": qlin(h, "experts.up_proj"),
+                    {"gate_proj": qlin(h, "mlp.experts.gate_proj"),
+                     "up_proj": qlin(h, "mlp.experts.up_proj"),
                      "down_proj": qlin(cfg.moe_intermediate_size or inter,
-                                       "experts.down_proj")}
+                                       "mlp.experts.down_proj")}
                     for _ in range(cfg.num_experts)]}
         elif fused:
-            lp["mlp"] = {"gate_up_proj": qlin(h, "gate_up_proj"),
-                         "down_proj": qlin(inter, "down_proj")}
+            lp["mlp"] = {"gate_up_proj": qlin(h, "mlp.gate_up_proj"),
+                         "down_proj": qlin(inter, "mlp.down_proj")}
         else:
-            lp["mlp"] = {"gate_proj": qlin(h, "gate_proj"),
-                         "up_proj": qlin(h, "up_proj"),
-                         "down_proj": qlin(inter, "down_proj")}
+            lp["mlp"] = {"gate_proj": qlin(h, "mlp.gate_proj"),
+                         "up_proj": qlin(h, "mlp.up_proj"),
+                         "down_proj": qlin(inter, "mlp.down_proj")}
         params["layers"].append(lp)
     return params

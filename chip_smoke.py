@@ -90,7 +90,23 @@ Phases, each printing JSON lines:
               (the default; decode through K8, two launches a step) and
               fused, and checks each one's logits against the model built
               in memory from the same nibbles.
-6. a ``kernels`` line: every ported kernel with launches, error and times.
+6. quantize — AWQ on the card. TinyLlama at full width and depth (seed-0
+              float weights from ``io/hf.init_random_params``, f32, hot
+              embedding columns 0-5 x 8) quantized through the facade on
+              128 x 512 seeded calibration ids (g128, zero point, scale
+              and clip search, f32): wall seconds split into tapped
+              forwards, scale search, clip search and packing, peak
+              memory, layer 0's chosen ratio indices. Saved with
+              ``save_quantized``, reloaded (qweight / qzeros bit for bit,
+              scales equal to the fp16-rounded ones) and served fused:
+              prefill 2 x 384 (K2, K4), greedy decode of 32 tokens at bs1
+              (K1, K3), launches read after, teacher-forced logits against
+              the plain twins. Quality: 8 x 512 held-out tokens sampled
+              from the float model at temperature 1; KL report and
+              perplexity of AWQ and of round-to-nearest against it; AWQ's
+              mean KL must be below RTN's. Then Mistral-7B at full width,
+              cut to 2 of 32 layers: seconds a layer and peak memory.
+7. a ``kernels`` line: every ported kernel with launches, error and times.
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -126,7 +142,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "load")
+PHASES = ("device", "build", "kernels", "e2e", "load", "quantize")
 EXTRA_PHASES = ("prefill", "paged", "linears",
                 "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -150,6 +166,12 @@ MIXTRAL = dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
                num_experts=8, num_experts_per_tok=2, rope_theta=1e6,
                rms_norm_eps=1e-5, max_position_embeddings=32768,
                sliding_window=None)
+# AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
+# seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
+# tokens sampled from the float model for the quality gate
+QUANT_CALIB = (128, 512)
+QUANT_EVAL = (8, 512)
+QUANT_MISTRAL_LAYERS = 2  # Mistral-7B at full width, depth cut to 2 of 32
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
 # Mistral-7B's four linears (fused qkv and gate_up) at traffic D's prefill,
@@ -2457,6 +2479,198 @@ def phase_load(dev):
               "new_tokens": out[0, 16:].tolist()})
 
 
+def _outlier_fp(cfg, dev):
+    """Seeded float weights (``io/hf.init_random_params``, seed 0, f32 on
+    the card) with the hot embedding columns 0-5 (x 8) of
+    ``tests/test_quantizer.make_outlier_params``."""
+    from autoawq_tpu_torch.io.hf import init_random_params
+
+    params = init_random_params(cfg, seed=0, device=dev)
+    params["embed_tokens"]["weight"][:, :6] *= 8.0
+    return params
+
+
+def _rtn(params, qcfg):
+    """Round-to-nearest of every linear (no search), AWQ's baseline."""
+    from autoawq_tpu_torch.quantize.quantizer import quantize_linear_params
+    from autoawq_tpu_torch.utils.tree import iter_linears, set_by_path
+
+    out = {**params, "layers": []}
+    for lp in params["layers"]:
+        lq = {k: (dict(v) if isinstance(v, dict) else v)
+              for k, v in lp.items()}
+        for path, p in list(iter_linears(lq)):
+            set_by_path(lq, path, quantize_linear_params(p, qcfg))
+        out["layers"].append(lq)
+    return out
+
+
+def _quant_timings(q, seconds):
+    parts = dict(q.timings)
+    parts["other"] = seconds - sum(parts.values())
+    return parts
+
+
+def phase_quantize(dev):
+    """AWQ on the card: TinyLlama at full width and depth quantized, saved,
+    reloaded and served through K1-K4; AWQ against round-to-nearest on
+    held-out tokens sampled from the float model; Mistral-7B at full width,
+    depth cut, for the seconds a layer. Returns the launch counts of the
+    served checkpoint's run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.eval.perplexity import (kl_divergence_report,
+                                                   perplexity)
+    from autoawq_tpu_torch.io import serialize
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.tree import get_by_path, iter_linears
+
+    qcfg = AwqConfig(q_group_size=128, zero_point=True)
+    cfg = ModelConfig(**TINYLLAMA)
+    calib = np.random.default_rng(1).integers(0, cfg.vocab_size, QUANT_CALIB)
+    t = time.perf_counter()
+    fp = _outlier_fp(cfg, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "quantize", "step": "synth", "model": "tinyllama",
+          "layers": cfg.num_hidden_layers,
+          "seconds": time.perf_counter() - t})
+
+    # [1] quantize through the facade, on the card
+    torch.cuda.reset_peak_memory_stats()
+    model = AwqCausalLM(cfg, fp, device=dev)
+    t = time.perf_counter()
+    model.quantize(calib_data=calib, quant_config=qcfg,
+                   max_calib_samples=QUANT_CALIB[0],
+                   max_calib_seq_len=QUANT_CALIB[1], progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    q = model._quantizer
+    emit({"phase": "quantize", "step": "quantize", "model": "tinyllama",
+          "layers": cfg.num_hidden_layers, "calib": list(QUANT_CALIB),
+          "recipe": "g128, zero point, scale and clip search, f32",
+          "seconds": seconds, "seconds_by_part": _quant_timings(q, seconds),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "layer0_ratio_index": {
+              f"{c['group'].prev_op}->{','.join(c['group'].layers)}":
+              c["best"] for c in q.scale_choices[0]}})
+    check(all(math.isfinite(v) for v in q.timings.values()),
+          "quantize: timings")
+
+    # [2] save, reload bit for bit, serve through K1-K4
+    path = os.path.join(BUILD_DIR, "quant_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        model.save_quantized(path)
+        t_save = time.perf_counter() - t
+        _, _, loaded = serialize.from_quantized(path, dev)
+        mismatched = []
+        for lm, ll in zip(model.params["layers"], loaded["layers"]):
+            for lin_path, p in iter_linears(lm):
+                lq = get_by_path(ll, lin_path)
+                if "qweight" not in p:
+                    continue
+                same = (torch.equal(lq["qweight"], p["qweight"])
+                        and torch.equal(lq["qzeros"], p["qzeros"])
+                        and torch.equal(lq["scales"],
+                                        p["scales"].half().float()))
+                if not same:
+                    mismatched.append(lin_path)
+        check(not mismatched, f"quantize: reloaded tensors differ at "
+              f"{mismatched[:4]}")
+        del loaded
+        t = time.perf_counter()
+        served = AwqCausalLM.from_quantized(path, fuse_layers=True,
+                                            device=dev)
+        t_load = time.perf_counter() - t
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    prompt_b = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 384))).to(dev)
+    prompt_a = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, 64))).to(dev)
+    _build.reset_launches()
+    out_b = served.generate(prompt_b, max_new_tokens=1)
+    out_a = served.generate(prompt_a, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    check(out_b.shape == (2, 385) and out_a.shape == (1, 96),
+          "quantize: served output shapes")
+    for name in ("w4a16_gemv", "w4a16_gemm", "fused_mlp",
+                 "prefill_attention"):
+        check(counts[name] > 0, f"quantize: the served checkpoint never "
+              f"launched {name}")
+    emit({"phase": "quantize", "step": "serve", "save_s": t_save,
+          "load_s": t_load, "bit_equal_linears": not mismatched,
+          "launches": counts, "new_tokens": out_a[0, 64:].tolist()})
+    for name, prompt, steps in (("Q-A", prompt_a, 8), ("Q-B", prompt_b, 1)):
+        rows = _teacher_forced(cfg, served.params, prompt, steps)
+        _check_teacher_forced(name, rows)
+        emit({"phase": "quantize", "step": "kernel_vs_plain",
+              "traffic": name, "rows": rows})
+    del served
+
+    # [3] quality: AWQ against round-to-nearest, against the float model, on
+    # held-out tokens sampled from it at temperature 1 (scripts/quality.py)
+    t = time.perf_counter()
+    bos = torch.zeros((QUANT_EVAL[0], 1), dtype=torch.long, device=dev)
+    held = gen.generate(cfg, fp, bos, QUANT_EVAL[1], temperature=1.0,
+                        seed=13, method="plain", dtype=torch.float32)[:, 1:]
+    t_sample = time.perf_counter() - t
+    stream = held.reshape(-1).cpu().numpy()
+    kw = dict(seq_len=QUANT_EVAL[1], method="plain")
+    ppl_fp = perplexity(cfg, fp, stream, **kw)
+    quality = {"sample_s": t_sample, "eval_tokens": list(QUANT_EVAL),
+               "fp_ppl": ppl_fp}
+    for name, params in (("awq", model.params), ("rtn", _rtn(fp, qcfg))):
+        rep = kl_divergence_report(cfg, fp, cfg, params, held.cpu().numpy(),
+                                   method="plain")
+        ppl = perplexity(cfg, params, stream, **kw)
+        quality[name] = {"ppl": ppl, "delta_ppl": ppl - ppl_fp, **rep}
+    check(quality["awq"]["kl_mean"] < quality["rtn"]["kl_mean"],
+          f"quantize: AWQ's mean KL {quality['awq']['kl_mean']:.4g} is not "
+          f"below RTN's {quality['rtn']['kl_mean']:.4g}")
+    check(all(math.isfinite(quality[k]["ppl"]) for k in ("awq", "rtn"))
+          and math.isfinite(ppl_fp), "quantize: non-finite perplexity")
+    emit({"phase": "quantize", "step": "quality", "model": "tinyllama",
+          **quality})
+    del model, fp, q
+
+    # [4] Mistral-7B at full width, depth cut: seconds a layer
+    mcfg = dataclasses.replace(ModelConfig(**MISTRAL),
+                               num_hidden_layers=QUANT_MISTRAL_LAYERS)
+    mfp = _outlier_fp(mcfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mq = AwqQuantizer(mcfg, qcfg, mfp, calib, progress=False,
+                      keep_on_device=True, device=dev)
+    t = time.perf_counter()
+    out = mq.quantize()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    check(all("qweight" in p for lp in out["layers"]
+              for _, p in iter_linears(lp)), "quantize: Mistral not packed")
+    emit({"phase": "quantize", "step": "quantize", "model": "mistral-7b",
+          "layers": mcfg.num_hidden_layers,
+          "depth_cut": f"{QUANT_MISTRAL_LAYERS} of 32 layers",
+          "calib": list(QUANT_CALIB), "seconds": seconds,
+          "seconds_per_layer": seconds / mcfg.num_hidden_layers,
+          "seconds_by_part": _quant_timings(mq, seconds),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "layer0_ratio_index": [c["best"] for c in mq.scale_choices[0]]})
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2510,6 +2724,10 @@ def main(argv=None) -> int:
         total, per_token = timed("e2e", phase_e2e, dev)
     if "load" in phases:
         timed("load", phase_load, dev)
+    if "quantize" in phases:
+        counts = timed("quantize", phase_quantize, dev)
+        if total is not None:  # the served checkpoint's launches count too
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:

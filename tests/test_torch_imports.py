@@ -19,14 +19,18 @@ def test_port_imports_nothing_forbidden():
         "import sys\n"
         "import autoawq_tpu_torch, chip_smoke\n"
         "from autoawq_tpu_torch import api, convert\n"
+        "from autoawq_tpu_torch.core import quant\n"
+        "from autoawq_tpu_torch.eval import perplexity\n"
         "from autoawq_tpu_torch.io import hf, safetensors, serialize\n"
+        "from autoawq_tpu_torch.models import plugins\n"
         "from autoawq_tpu_torch.nn import fuse, modules\n"
         "from autoawq_tpu_torch.ops import (_build, attention, "
         "fused_attn_step, fused_mlp, gemm, moe_gemm, paged_attn, "
         "sharded_mlp)\n"
         "from autoawq_tpu_torch.serve import batching, generate, paged, "
         "server\n"
-        "from autoawq_tpu_torch.utils import synth\n"
+        "from autoawq_tpu_torch.quantize import calib, quantizer, scale\n"
+        "from autoawq_tpu_torch.utils import synth, tree\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "bad += list(_build._libs)  # no kernel is built at import\n"
         "print(bad)\n"

@@ -26,7 +26,9 @@ one softmax), plus the ~2^-17 residual of q and p split into bf16 hi + lo
 parts on the tensor cores. K9 per row at 2^-6, two bf16 ulps of the row
 maximum: both round
 the f32 result to bf16, and with a group of 8 query heads the running
-output after every block too."""
+output after every block too. The AWQ quantizer on the card: the CPU's
+grid index for every scale group and its scales within 1e-5; a checkpoint
+it wrote decodes the in-memory model's greedy tokens exactly."""
 
 import numpy as np
 import pytest
@@ -891,3 +893,81 @@ def test_fused_attn_step_raises_on_groups_the_core_does_not_take(cuda, rng):
     with pytest.raises(ValueError, match="multiple of 32"):
         fused_attn_step.fused_attention_step(x, qkv16, o, kc, vc, cos, sin, 3,
                                              nh=4, nkv=2, hd=64, scale=0.125)
+
+
+QUANT_TINY = dict(model_type="llama", vocab_size=256, hidden_size=128,
+                  intermediate_size=256, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=4, head_dim=32,
+                  max_position_embeddings=64)
+
+
+def outlier_tiny(device):
+    from autoawq_tpu_torch.io.hf import init_random_params
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(**QUANT_TINY)
+    params = init_random_params(cfg, seed=0, device=device)
+    params["embed_tokens"]["weight"][:, :6] *= 8.0
+    return cfg, params
+
+
+def test_quantizer_on_the_card_chooses_as_on_the_cpu(cuda):
+    """The AWQ searches on the card (the default device) pick the CPU's
+    grid index for every scale group, and scales within 1e-5 of theirs."""
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
+
+    calib = np.random.default_rng(42).integers(0, 256, (4, 32))
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", None)):
+        cfg, params = outlier_tiny(dev or cuda)
+        q = AwqQuantizer(cfg, AwqConfig(q_group_size=32), params, calib,
+                         progress=False, device=dev)
+        q.quantize()
+        assert q.device.type == name.replace("card", "cuda")
+        runs[name] = q
+    best = {k: [[c["best"] for c in layer] for layer in q.scale_choices]
+            for k, q in runs.items()}
+    assert best["card"] == best["cpu"]
+    for (_, a), (_, b) in zip(
+            (x for layer in runs["cpu"].all_scales for x in layer),
+            (x for layer in runs["card"].all_scales for x in layer)):
+        assert (a - b).abs().max() <= 1e-5 * a.abs().max()
+
+
+def test_card_quantized_checkpoint_decodes_as_the_quantized_model(
+        cuda, tmp_path):
+    """Quantized on the card, saved, reloaded fused: the greedy tokens of
+    the in-memory model with its floats rounded to fp16 (what the
+    checkpoint holds), through the same kernels."""
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.api import cast_params
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg, params = outlier_tiny(cuda)
+    model = AwqCausalLM(cfg, params)
+    model.quantize(calib_data=np.random.default_rng(1).integers(
+        0, 256, (4, 32)), quant_config={"q_group_size": 32}, progress=False)
+    assert model.params["layers"][0]["mlp"]["up_proj"]["qweight"].is_cuda
+    model.save_quantized(str(tmp_path))
+    loaded = AwqCausalLM.from_quantized(str(tmp_path), fuse_layers=True)
+    mem = cast_params(_map_floats(model.params, lambda t: t.half().float()),
+                      torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (1, 16))).to(cuda)
+    before = dict(_build.LAUNCHES)
+    got = loaded.generate(prompt, max_new_tokens=12)
+    assert _build.LAUNCHES["w4a16_gemv"] > before["w4a16_gemv"]
+    ref = gen.generate(cfg, fuse_model(cfg, mem), prompt, 12)
+    assert torch.equal(got, ref)
+
+
+def _map_floats(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_floats(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_floats(v, fn) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return fn(tree)
+    return tree
