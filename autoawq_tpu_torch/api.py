@@ -64,8 +64,10 @@ class AwqCausalLM:
 
     @classmethod
     def from_pretrained(cls, path: str, device=None) -> "AwqCausalLM":
-        """Load a float checkpoint (llama family or Mixtral) in float32 on
-        the card, unless ``device`` names another, for :meth:`quantize`."""
+        """Load a float checkpoint of the decoder zoo in float32 on the
+        card, unless ``device`` names another, for :meth:`quantize` (the
+        llama family and Mixtral quantize; the other types' plugins raise,
+        naming ROADMAP item 10)."""
         dev = resolve_device(device)
         cfg, params = serialize.from_pretrained(path, dev)
         m = cls(cfg, params, None, dev)
@@ -77,7 +79,8 @@ class AwqCausalLM:
                        device=None,
                        dtype: Optional[torch.dtype] = torch.bfloat16
                        ) -> "AwqCausalLM":
-        """Load an AutoAWQ GEMM checkpoint (llama family or Mixtral).
+        """Load an AutoAWQ GEMM checkpoint of any architecture the port
+        runs (``nn/modules.check_supported``).
         ``fuse_layers=True`` concatenates q/k/v and gate/up (one K1 launch
         for qkv, the fused decode MLP K3) and stacks MoE experts for the
         grouped kernel K6; the default keeps the checkpoint's layout, whose
@@ -180,8 +183,8 @@ class AwqCausalLM:
 
 
 class AutoAWQForCausalLM:
-    """Name-compatible dispatcher; the port runs the llama route and
-    Mixtral."""
+    """Name-compatible dispatcher over the port's decoder zoo (multimodal
+    types raise, naming ROADMAP item 17)."""
 
     @staticmethod
     def _check_type(path: str) -> None:

@@ -63,7 +63,8 @@ def stacked_from_planar(p: Dict[str, Any], n: int,
 def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
                   device) -> Dict[str, Any]:
     if "experts" not in mlp and "experts_stacked" not in mlp:
-        return {name: lin_from_planar(lin, outs["mlp." + name], device)
+        return {name: (to_tensor(lin, device) if name == "act_scale" else
+                       lin_from_planar(lin, outs["mlp." + name], device))
                 for name, lin in mlp.items()}
     port: Dict[str, Any] = {"gate": lin_from_planar(mlp["gate"],
                                                     outs["mlp.gate"], device)}
@@ -78,10 +79,20 @@ def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
     return port
 
 
+def _attn_from_jax(attn: Dict[str, Any], outs: Dict[str, int],
+                   device) -> Dict[str, Any]:
+    return {name: (_norm(p, device) if name in ("q_norm", "k_norm") else
+                   lin_from_planar(p, outs["self_attn." + name], device))
+            for name, p in attn.items()}
+
+
 def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
-    """The JAX package's llama or Mixtral param tree (numpy leaves) -> port
-    params."""
+    """The JAX package's param tree of any architecture the port runs
+    (numpy leaves) -> port params: every layer's norms (LayerNorm biases,
+    gemma2's feed-forward norms), attention (q/k norms), MLP (gated,
+    ``fc1`` / ``fc2``, ``act_scale``, experts), the learned positions,
+    bloom's ``embed_ln`` and an lm_head with its bias."""
     outs = role_out_features(cfg)
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": to_tensor(tree["embed_tokens"]["weight"],
@@ -91,13 +102,17 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     lin_from_planar(tree["lm_head"], outs["lm_head"], device)),
         "layers": [],
     }
+    for name in ("embed_positions", "embed_ln"):
+        if tree.get(name) is not None:
+            params[name] = _norm(tree[name], device)
     for lp in tree["layers"]:
-        port = {name: _norm(lp[name], device)
-                for name in ("input_layernorm", "post_attention_layernorm")}
-        port["self_attn"] = {name: lin_from_planar(lin,
-                                                   outs["self_attn." + name],
-                                                   device)
-                             for name, lin in lp["self_attn"].items()}
-        port["mlp"] = _mlp_from_jax(lp["mlp"], outs, device)
+        port: Dict[str, Any] = {}
+        for name, sub in lp.items():
+            if name == "self_attn":
+                port[name] = _attn_from_jax(sub, outs, device)
+            elif name == "mlp":
+                port[name] = _mlp_from_jax(sub, outs, device)
+            else:
+                port[name] = _norm(sub, device)
         params["layers"].append(port)
     return params

@@ -159,7 +159,7 @@ def from_quantized(path: str, device=None
 
 def from_pretrained(path: str, device=None
                     ) -> Tuple[ModelConfig, Dict[str, Any]]:
-    """Load a float HF checkpoint directory (llama family or Mixtral) into
+    """Load a float HF checkpoint directory of the decoder zoo into
     float32 port params on the card, unless ``device`` names another."""
     if not os.path.isdir(path):
         raise FileNotFoundError(

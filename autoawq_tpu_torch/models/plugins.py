@@ -2,7 +2,8 @@
 
 The port's copy of ``autoawq_tpu/models/plugins.py`` for the models the
 port runs: ``ScaleGroup`` :32, ``CLIP_AVOID`` :42, ``LlamaFamilyPlugin``
-:45 (the llama-family types ``nn/modules.check_supported`` accepts),
+:45 (the llama-family types; the rest of the zoo runs but does not
+quantize yet),
 ``MoEFamilyPlugin`` :148 (Mixtral), ``get_plugin`` :591 and
 ``make_inspect_fn`` :600. A plugin says which linears scale against which
 preceding op (``scale_groups``), which linears to quantize
@@ -112,7 +113,7 @@ PLUGINS: Dict[str, type] = {mt: plugin
 
 # the JAX package's other plugin types, by the ROADMAP item that ports them
 _LATER = {
-    **{mt: "the rest of the decoder zoo, ROADMAP queue 1 item 10"
+    **{mt: "the decoder zoo's quantization plugins, ROADMAP queue 1 item 10"
        for mt in ("qwen3", "gemma", "gemma2", "stablelm", "exaone", "minicpm",
                   "baichuan", "internlm2", "phi3", "phi3_v", "phimoe", "opt",
                   "bloom", "gptj", "gpt_neox", "gpt_bigcode", "starcoder2",

@@ -74,7 +74,9 @@ def fuse_model(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """In place: q/k/v -> qkv_proj, gate/up -> gate_up_proj (the dense MLP
     and each expert's), and a layer's experts into ``experts_stacked`` for
     the grouped kernel K6 when every expert's gate_up and down are
-    quantized."""
+    quantized. A natively fused qkv (mpt, bloom, neox, falcon, phi3, qwen
+    v1, baichuan, internlm2) stays as it is, and so does a non-gated
+    ``fc1`` / ``fc2`` MLP."""
     hd, nh, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
     inter = cfg.intermediate_size
     expert_inter = cfg.moe_intermediate_size or inter

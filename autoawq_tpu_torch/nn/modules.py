@@ -1,20 +1,27 @@
-"""The llama-family decoder as plain functions over a parameter dict.
+"""The decoder zoo as plain functions over a parameter dict.
 
-Counterpart of ``autoawq_tpu/nn/modules.py`` (the llama subset). The
+Counterpart of ``autoawq_tpu/nn/modules.py`` (all but MLA and MoE beyond
+Mixtral): RMS and LayerNorms, RoPE in six scaling flavours (neox or gptj
+style, partial rotary), ALiBi, learned positions, q/k norms, softcaps,
+parallel residual, gemma2's post norms, gated and non-gated MLPs. The
 parameter tree keeps the JAX package's names and [in, out] orientation:
 
   params = {"embed_tokens": {"weight": [V, H]},
-            "layers": [{"input_layernorm": {"weight"},
+            "embed_positions"?: {"weight"}, "embed_ln"?: {"weight", "bias"?},
+            "layers": [{"input_layernorm": {"weight", "bias"?},
                         "self_attn": {"qkv_proj" | "q_proj"/"k_proj"/"v_proj",
-                                      "o_proj"},
-                        "post_attention_layernorm": {"weight"},
+                                      "o_proj", "q_norm"?, "k_norm"?},
+                        "post_attention_layernorm"?: {...},
+                        "pre_feedforward_layernorm"?, "post_feedforward_layernorm"?,
                         "mlp": {"gate_up_proj" | "gate_proj"/"up_proj",
-                                "down_proj"}
-                                | {"gate": {"kernel": [H, E]},
-                                   "experts": [mlp dicts]
-                                   | "experts_stacked": {"gate_up_proj",
-                                                         "down_proj"}}}],
-            "norm": {"weight"}, "lm_head": {"kernel": [H, V]} | None}
+                                "down_proj", "act_scale"?}
+                               | {"fc1", "fc2", "act_scale"?}
+                               | {"gate": {"kernel": [H, E]},
+                                  "experts": [mlp dicts]
+                                  | "experts_stacked": {"gate_up_proj",
+                                                        "down_proj"}}}],
+            "norm": {"weight", "bias"?},
+            "lm_head": {"kernel": [H, V], "bias"?} | None}
 
 A quantized LIN is ``{"qweight": int32 [K/8, N], "scales": f32 [G, N],
 "qzeros"?: int32 [ceil(G/8), N], "bias"?: [N]}`` in the port's layout
@@ -25,12 +32,12 @@ stacked expert LIN holds the same leaves with a leading expert axis
 ``method`` is "auto" (the kernels on a CUDA tensor, their plain twins on a
 CPU tensor) or "plain" (the twins everywhere; JAX's ``method="jnp"``).
 ``taps`` (a dict, for calibration) records each linear's input under the
-JAX package's names (``self_attn.q_proj``, ``mlp.down_proj``, ``mlp.gate``,
-``mlp.experts.{e}.up_proj``, ...); with taps set, the fused K3, K5 and K8
-routes are not taken, as JAX gates them with ``taps is None``.
+JAX package's names (``self_attn.q_proj``, ``mlp.down_proj``, ``mlp.fc1``,
+``mlp.gate``, ``mlp.experts.{e}.up_proj``, ...); with taps set, the fused
+K3, K5 and K8 routes are not taken, as JAX gates them with ``taps is None``.
 ``paged_attn`` picks the paged decode attention route (:func:`_paged_decode`)
 and is threaded from the paged engine; JAX reads ``AWQ_TPU_PAGED_ATTN``.
-Features outside the slice raise ``NotImplementedError`` naming their
+Configs outside the port raise ``NotImplementedError`` naming their
 ROADMAP item (:func:`check_supported`).
 """
 
@@ -52,13 +59,13 @@ from autoawq_tpu_torch.ops import paged_attn as paged_ops
 from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
 from autoawq_tpu_torch.ops.gemm import awq_matmul
 
-_ROADMAP_ZOO = "the rest of the decoder zoo, ROADMAP queue 1 item 10"
 _ROADMAP_MOE = "MoE beyond Mixtral's routing, ROADMAP queue 1 item 12"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port's slice cannot run
-    exactly (it never computes something different without saying so)."""
+    """Raise NotImplementedError for a config the port cannot run exactly
+    (it never computes something different without saying so): MLA, and
+    MoE beyond Mixtral's softmax / greedy routing."""
     moe = cfg.is_moe
     unsupported = [
         (cfg.is_mla, "MLA attention (ROADMAP queue 1 item 12)"),
@@ -71,24 +78,8 @@ def check_supported(cfg: ModelConfig) -> None:
          f"shared experts ({_ROADMAP_MOE})"),
         (moe and cfg.first_k_dense_replace > 0,
          f"dense first layers in an MoE model ({_ROADMAP_MOE})"),
-        (cfg.pos_embed != "rope", f"{cfg.pos_embed} positions ({_ROADMAP_ZOO})"),
-        (cfg.rope_type not in ("default", "llama3"),
-         f"rope type {cfg.rope_type!r} ({_ROADMAP_ZOO})"),
-        (cfg.rope_style != "neox" or cfg.rotary_dim != cfg.head_dim_,
-         f"gptj-style or partial rotary ({_ROADMAP_ZOO})"),
-        (cfg.norm_kind != "rms" or cfg.norm_offset or cfg.embed_ln,
-         f"LayerNorm / offset norms ({_ROADMAP_ZOO})"),
-        (cfg.qk_norm, f"q/k norms ({_ROADMAP_ZOO})"),
-        (cfg.post_norms, f"post norms ({_ROADMAP_ZOO})"),
-        (cfg.parallel_residual, f"parallel residual ({_ROADMAP_ZOO})"),
-        (not cfg.gated_mlp, f"non-gated MLP ({_ROADMAP_ZOO})"),
-        (bool(cfg.attn_softcap or cfg.logit_softcap),
-         f"softcaps ({_ROADMAP_ZOO})"),
-        (bool(cfg.logit_scale or cfg.logit_divisor or cfg.residual_scale
-              or cfg.embed_scale or cfg.lm_head_bias),
-         f"logit / residual / embedding scales ({_ROADMAP_ZOO})"),
-        (cfg.hidden_act not in mlp_ops.ACTS and cfg.hidden_act != "relu",
-         f"activation {cfg.hidden_act!r} ({_ROADMAP_ZOO})"),
+        (moe and cfg.model_type != "mixtral",
+         f"{cfg.model_type} experts ({_ROADMAP_MOE})"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -118,25 +109,156 @@ def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     return y
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float) -> torch.Tensor:
-    """RMSNorm in f32 (HF Llama)."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+    """RMSNorm in f32 (HF Llama); gemma scales by (1 + weight)."""
     dtype = x.dtype
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    return (xf * weight.float()).to(dtype)
+    w = weight.float()
+    return (xf * (1.0 + w if offset else w)).to(dtype)
 
 
-def rope_params(cfg: ModelConfig) -> Tuple[np.ndarray, float]:
-    """(inv_freq [rot/2] float32, attention_scaling) for default and llama3
-    rope (HF ``modeling_rope_utils`` semantics, as in the JAX package)."""
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """LayerNorm in f32 with an optional bias (opt, bloom, gptj, neox,
+    bigcode, mpt, falcon, cohere, ...)."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        xf = xf + bias.float()
+    return xf.to(dtype)
+
+
+def norm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
+         ) -> torch.Tensor:
+    """The architecture's norm (``cfg.norm_kind``)."""
+    if cfg.norm_kind == "ln":
+        return layer_norm(x, p["weight"], p.get("bias"), cfg.rms_norm_eps)
+    return rms_norm(x, p["weight"], cfg.rms_norm_eps, cfg.norm_offset)
+
+
+@functools.lru_cache(maxsize=16)
+def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
+    """ALiBi per-head slopes [H] f32 on ``device``, built once: powers of
+    2^(-8/n) for the largest power of two n <= H, then the odd powers of
+    2^(-4/n) for the rest (the interpolation for head counts that are not
+    a power of two). Computed in float64 and rounded once; JAX's f32
+    ``pow`` is XLA's own approximation and drifts a few ulps (ROADMAP
+    §3)."""
+    n = 2 ** math.floor(math.log2(n_heads))
+    slopes = (2.0 ** (-8.0 / n)) ** np.arange(1, n + 1, dtype=np.float64)
+    if n < n_heads:
+        extra = (2.0 ** (-4.0 / n)) ** np.arange(
+            1, 1 + 2 * (n_heads - n), 2, dtype=np.float64)
+        slopes = np.concatenate([slopes, extra])
+    return torch.from_numpy(slopes.astype(np.float32)).to(device)
+
+
+def alibi_bias(n_heads: int, q_pos: torch.Tensor,
+               k_pos: torch.Tensor) -> torch.Tensor:
+    """Additive ALiBi bias [1, H, S, T]: slope_h * (j - i) for query
+    positions q_pos [S] and key positions k_pos [T]."""
+    rel = (k_pos[None, :] - q_pos[:, None]).float()
+    return alibi_slopes(n_heads, q_pos.device)[None, :, None, None] \
+        * rel[None, None]
+
+
+def alibi_slot_bias(n_heads: int, pos: torch.Tensor, t: int) -> torch.Tensor:
+    """Per-slot ALiBi bias [B, H, 1, T] for one query a slot at its own
+    position pos [B] (JAX ``batched_decode_step``: slopes * (k - pos_b),
+    not ``alibi_bias`` over the slots)."""
+    rel = (torch.arange(t, device=pos.device)[None, :]
+           - pos[:, None]).float()  # [B, T]
+    return alibi_slopes(n_heads, pos.device)[None, :, None, None] \
+        * rel[:, None, None, :]
+
+
+def rope_params(cfg: ModelConfig, seq_len: Optional[int] = None
+                ) -> Tuple[np.ndarray, float]:
+    """(inv_freq [rot/2] float32, attention_scaling) for cfg.rope_scaling,
+    HF ``modeling_rope_utils`` semantics as in the JAX package: default,
+    linear, dynamic-NTK, yarn (with deepseek's mscale), longrope / su and
+    llama3. ``seq_len`` is the context the tables serve (the prompt for a
+    plain forward, the cache capacity for generation); only dynamic-NTK
+    and longrope read it, and both fall back to max_position_embeddings."""
     rot = cfg.rotary_dim
-    inv_freq = 1.0 / (cfg.rope_theta
-                      ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    base = cfg.rope_theta
+    rs = cfg.rope_scaling_dict or {}
     kind = cfg.rope_type
-    if kind == "llama3":
-        rs = cfg.rope_scaling_dict
+    attention_scaling = 1.0
+
+    def default_inv_freq(b=base):
+        return 1.0 / (b ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+
+    if kind in ("default", "mrope"):
+        inv_freq = default_inv_freq()
+    elif kind == "linear":
+        inv_freq = default_inv_freq() / rs["factor"]
+    elif kind == "dynamic":
+        mpe = cfg.max_position_embeddings
+        s = max(seq_len or mpe, mpe)
+        b = base * ((rs["factor"] * s / mpe) - (rs["factor"] - 1)) ** (
+            rot / (rot - 2))
+        inv_freq = default_inv_freq(b)
+    elif kind == "yarn":
+        factor = rs["factor"]
+        mscale, mscale_all = rs.get("mscale"), rs.get("mscale_all_dim")
+
+        def get_mscale(scale, m=1.0):
+            return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+        attention_scaling = rs.get("attention_factor")
+        if attention_scaling is None:
+            if mscale and mscale_all:
+                attention_scaling = float(
+                    get_mscale(factor, mscale) / get_mscale(factor, mscale_all))
+            else:
+                attention_scaling = get_mscale(factor)
+        beta_fast = rs.get("beta_fast") or 32
+        beta_slow = rs.get("beta_slow") or 1
+        orig = (rs.get("original_max_position_embeddings")
+                or cfg.max_position_embeddings)
+
+        def corr_dim(n_rot):
+            return (rot * math.log(orig / (n_rot * 2 * math.pi))) / (
+                2 * math.log(base))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if rs.get("truncate", True):
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, rot - 1)
+        if low == high:
+            high += 0.001
+        ramp = np.clip(
+            (np.arange(rot // 2, dtype=np.float64) - low) / (high - low), 0, 1)
+        pos_freqs = base ** (np.arange(0, rot, 2, dtype=np.float64) / rot)
+        inv_freq = (1.0 / (factor * pos_freqs)) * ramp + (
+            1.0 / pos_freqs) * (1 - ramp)
+    elif kind in ("longrope", "su"):
+        orig = (cfg.original_max_position_embeddings
+                or rs.get("original_max_position_embeddings"))
+        if orig:  # phi3: factor = extended over pretrained length
+            factor = cfg.max_position_embeddings / orig
+        else:
+            orig = cfg.max_position_embeddings
+            factor = rs.get("factor")
+        attention_scaling = rs.get("attention_factor")
+        if attention_scaling is None:
+            attention_scaling = (
+                1.0 if factor <= 1.0
+                else math.sqrt(1 + math.log(factor) / math.log(orig)))
+        ext = np.asarray(
+            rs["long_factor"] if (seq_len or 0) > orig else rs["short_factor"],
+            dtype=np.float64)
+        inv_freq = 1.0 / (
+            ext * base ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    elif kind == "llama3":
+        inv_freq = default_inv_freq()
         factor = rs["factor"]
         low_f, high_f = rs["low_freq_factor"], rs["high_freq_factor"]
         old_len = rs["original_max_position_embeddings"]
@@ -147,35 +269,55 @@ def rope_params(cfg: ModelConfig) -> Tuple[np.ndarray, float]:
         smoothed = (1 - smooth) * inv_freq / factor + smooth * inv_freq
         medium = (wavelen >= old_len / high_f) & (wavelen <= old_len / low_f)
         inv_freq = np.where(medium, smoothed, inv_freq)
-    elif kind != "default":
-        raise NotImplementedError(f"rope type {kind!r} ({_ROADMAP_ZOO})")
-    return inv_freq.astype(np.float32), 1.0
+    else:
+        raise ValueError(f"unknown rope_scaling type {kind!r}")
+    return inv_freq.astype(np.float32), float(attention_scaling)
 
 
-@functools.lru_cache(maxsize=16)
-def _inv_freq(cfg: ModelConfig, device: torch.device
+@functools.lru_cache(maxsize=32)
+def _inv_freq(cfg: ModelConfig, seq_len: Optional[int], device: torch.device
               ) -> Tuple[torch.Tensor, float]:
-    """``rope_params`` as a tensor on ``device``, built once per config and
-    device (not copied to the device on every decode step)."""
-    inv_freq, scaling = rope_params(cfg)
+    """``rope_params`` as a tensor on ``device``, built once per config,
+    context length and device (not copied to the device every decode
+    step). Callers pass seq_len None where the table does not read it."""
+    inv_freq, scaling = rope_params(cfg, seq_len)
     return torch.from_numpy(inv_freq).to(device), scaling
 
 
-def rope_tables(cfg: ModelConfig, positions: torch.Tensor
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor,
+                seq_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [*, rot/2] float32 for the given positions."""
-    inv, scaling = _inv_freq(cfg, positions.device)
+    """cos/sin [*, rot/2] float32 for the given positions, pre-multiplied
+    by the attention factor (HF's ``emb.cos() * attention_scaling``). A
+    dynamic-NTK or longrope table is keyed on ``seq_len`` too, so one built
+    for one context is never reused for another."""
+    if cfg.rope_type not in ("dynamic", "longrope", "su"):
+        seq_len = None
+    inv, scaling = _inv_freq(cfg, seq_len, positions.device)
     angles = positions.float()[..., None] * inv
     return torch.cos(angles) * scaling, torch.sin(angles) * scaling
 
 
-def apply_rope(q: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """Neox half-split rotary embedding on q [B, S, H, D] (full rotary)."""
+def apply_rope(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rotary_dim: Optional[int] = None,
+               style: str = "neox") -> torch.Tensor:
+    """Rotary embedding on the first ``rotary_dim`` dims of q [B, S, H, D]
+    (all of them by default): "neox" rotates the two halves, "gptj" every
+    interleaved pair (gptj, cohere); the rest of the head passes through."""
+    d = q.shape[-1]
+    rot = rotary_dim or d
     c = cos[..., None, :]
     s = sin[..., None, :]
-    q1, q2 = q.float().chunk(2, dim=-1)
-    return torch.cat([q1 * c - q2 * s, q2 * c + q1 * s], dim=-1).to(q.dtype)
+    qr = q[..., :rot].float()
+    if style == "gptj":
+        q1, q2 = qr[..., 0::2], qr[..., 1::2]
+        out = torch.stack([q1 * c - q2 * s, q2 * c + q1 * s],
+                          dim=-1).reshape(qr.shape)
+    else:
+        q1, q2 = qr.chunk(2, dim=-1)
+        out = torch.cat([q1 * c - q2 * s, q2 * c + q1 * s], dim=-1)
+    out = out.to(q.dtype)
+    return out if rot == d else torch.cat([out, q[..., rot:]], dim=-1)
 
 
 def _kv_quantize(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,23 +337,31 @@ def _gqa_grouped_wins(b: int, hd: int, t: int) -> bool:
     return (b == 1 and hd >= 128) or b * t >= 16384
 
 
-def _flash_ok(method: str, q: torch.Tensor, k: torch.Tensor) -> bool:
-    """K4 eligibility (JAX ``_flash_ok``): equal q/k lengths, s >= 128.
-    Any head dim qualifies: the K4 wrapper pads it as ``_flash_prefill``
-    does."""
+def _flash_ok(cfg: ModelConfig, method: str, q: torch.Tensor,
+              k: torch.Tensor) -> bool:
+    """K4 eligibility (JAX ``_flash_ok``): no softcap, equal q/k lengths,
+    s >= 128. Any head dim qualifies: the K4 wrapper pads it as
+    ``_flash_prefill`` does."""
     s, t = q.shape[1], k.shape[1]
-    return method != "plain" and s == t and s >= 128
+    return (method != "plain" and not cfg.attn_softcap and s == t
+            and s >= 128)
 
 
-def _attend(q, k, v, mask, scale, dtype):
+def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return torch.tanh(scores / cap) * cap if cap else scores
+
+
+def _attend(q, k, v, mask, scale, dtype, softcap=None):
     """Repeat-KV softmax attention (the JAX einsum path), q [B, S, nh, hd],
-    k/v [B, T, nkv, hd] -> [B, S, nh * hd]."""
+    k/v [B, T, nkv, hd] -> [B, S, nh * hd]; the softcap goes on before the
+    mask (which may carry a per-head ALiBi bias [B|1, H, S, T])."""
     b, s, nh, hd = q.shape
     nkv = k.shape[2]
     if nkv != nh:
         k = k.repeat_interleave(nh // nkv, dim=2)
         v = v.repeat_interleave(nh // nkv, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    scores = _softcap(scores, softcap)
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(dtype)
@@ -219,18 +369,26 @@ def _attend(q, k, v, mask, scale, dtype):
     return out.to(dtype).reshape(b, s, nh * hd)
 
 
-def _attend_grouped(q, kc, vc, mask, scale, dtype, ks=None, vs=None):
+def _attend_grouped(q, kc, vc, mask, scale, dtype, ks=None, vs=None,
+                    softcap=None):
     """Grouped GQA decode over the cache layout [B, nkv, T, hd]; an int8
     cache's scales ``ks``/``vs`` [B, nkv, T] fold into the scores and the
-    probabilities (the dequantized cache never exists)."""
+    probabilities (the dequantized cache never exists). A per-head mask
+    (ALiBi) folds its heads as [nkv, rep]."""
     b, _, nh, hd = q.shape
     nkv = kc.shape[1]
-    qg = q[:, 0].reshape(b, nkv, nh // nkv, hd)
+    rep = nh // nkv
+    qg = q[:, 0].reshape(b, nkv, rep, hd)
     scores = torch.einsum("bgrd,bgtd->bgrt", qg.float(), kc.float()) * scale
     if ks is not None:
         scores = scores * ks[:, :, None, :]
+    scores = _softcap(scores, softcap)
     if mask is not None:
-        scores = scores + mask[:, :, 0][:, :, None, :]
+        m = mask[:, :, 0]  # [B|1, 1|H, T]
+        if m.shape[1] == 1:
+            scores = scores + m[:, :, None, :]
+        else:
+            scores = scores + m.reshape(m.shape[0], nkv, rep, -1)
     probs = torch.softmax(scores, dim=-1)
     if vs is not None:
         probs = probs * vs[:, :, None, :]
@@ -274,12 +432,12 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     [B, PPS] int, "pos": [B] int} plus "k_page_s"/"v_page_s" [nkv, P, ps]
     f32 for an int8 pool; s == 1. Writes this token's K/V, then attends
     through the route ``paged_attn``: "bespoke" (K7, the default), "stock"
-    (K9: bf16 pools without a window; raises ValueError on any other pool,
-    where JAX falls to the gather) or "gather" (the JAX default's
-    formulation: the table's pages gathered into a slab, grouped GQA).
-    ``method="plain"`` takes the gather, as JAX's "jnp" does. On a CPU
-    tensor K7 and K9 run their twins. ALiBi pools are refused upstream
-    (``check_supported``)."""
+    (K9: bf16 pools without a window or ALiBi; raises ValueError on any
+    other pool, where JAX falls to the gather) or "gather" (the JAX
+    default's formulation: the table's pages gathered into a slab, grouped
+    GQA). ``method="plain"`` takes the gather, as JAX's "jnp" does. On a
+    CPU tensor K7 and K9 run their twins. ALiBi models hand K7 their slopes
+    and the gather its bias."""
     b, _, nh, hd = q.shape
     nkv = k.shape[2]
     ps = kv_cache["k_pages"].shape[2]
@@ -298,17 +456,20 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     new_cache = {**kv_cache, "pos": pos + 1}
     softcap = cfg.attn_softcap or None
     window = cfg.sliding_window or None  # 0 means no window
+    alibi = cfg.pos_embed == "alibi"
     if method != "plain" and paged_attn == "bespoke":
         out = paged_ops.paged_decode_attention(
             q[:, 0], kp, vp, table, lengths, scale=scale, k_scales=kss,
-            v_scales=vss, softcap=softcap, window=window)
+            v_scales=vss, softcap=softcap, window=window,
+            alibi_slopes=alibi_slopes(nh, q.device) if alibi else None)
         return out.reshape(b, 1, nh * hd), new_cache
     if method != "plain" and paged_attn == "stock":
-        if quant or window or kp.dtype != torch.bfloat16:
+        if quant or window or alibi or kp.dtype != torch.bfloat16:
             raise ValueError(
                 "paged_attn='stock' (K9) takes bf16 pools without a sliding "
-                f"window; this pool is {kp.dtype}"
-                + (f" with window {window}" if window else ""))
+                f"window or ALiBi; this pool is {kp.dtype}"
+                + (f" with window {window}" if window else "")
+                + (" with ALiBi" if alibi else ""))
         out = paged_ops.stock_paged_attention(
             (q[:, 0] * scale).to(kp.dtype), kp, vp, lengths, table,
             pages_per_compute_block=min(8, table.shape[1]), softcap=softcap)
@@ -323,9 +484,12 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                           kb.to(q.dtype).float()) * scale
     if quant:  # fold int8 K scales; dequantized pages never materialize
         scores = scores * paged_ops.gather_slab(kss, table)[:, :, None, :]
-    if softcap:
-        scores = torch.tanh(scores / softcap) * softcap
+    scores = _softcap(scores, softcap)
     idx = torch.arange(kb.shape[2], device=q.device)[None, :]
+    if alibi:
+        rel = (idx - (lengths - 1)[:, None]).float()  # [B, T]
+        scores = scores + (alibi_slopes(nh, q.device).reshape(
+            nkv, nh // nkv)[None, :, :, None] * rel[:, None, None, :])
     valid = idx < lengths[:, None]  # [B, T]
     if window:
         valid = valid & (idx >= (lengths - window)[:, None])
@@ -371,9 +535,16 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         q = linear(p["q_proj"], x, nh * hd, method).reshape(b, s, nh, hd)
         k = linear(p["k_proj"], x, nkv * hd, method).reshape(b, s, nkv, hd)
         v = linear(p["v_proj"], x, nkv * hd, method).reshape(b, s, nkv, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps,
+                     cfg.norm_offset)
+        k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps,
+                     cfg.norm_offset)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, cos, sin, cfg.rotary_dim, cfg.rope_style)
+        k = apply_rope(k, cos, sin, cfg.rotary_dim, cfg.rope_style)
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    softcap = cfg.attn_softcap or None
 
     if kv_cache is not None and "k_pages" in kv_cache:
         out, kv_cache = _paged_decode(cfg, q, k, v, kv_cache, scale, method,
@@ -398,7 +569,8 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             if s == 1 and method != "plain" and (
                     ks is not None or (nkv != nh and _gqa_grouped_wins(
                         b, hd, kc.shape[2]))):
-                out = _attend_grouped(q, kc, vc, mask, scale, x.dtype, ks, vs)
+                out = _attend_grouped(q, kc, vc, mask, scale, x.dtype, ks, vs,
+                                      softcap)
                 _tap(taps, "self_attn.o_proj", out)
                 return (linear(p["o_proj"], out, cfg.hidden_size, method),
                         kv_cache)
@@ -408,10 +580,10 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             else:
                 k, v = kc.transpose(1, 2), vc.transpose(1, 2)
 
-    if causal_prefill and _flash_ok(method, q, k):
+    if causal_prefill and _flash_ok(cfg, method, q, k):
         out = attn_ops.prefill_attention(q, k, v, scale)
     else:
-        out = _attend(q, k, v, mask, scale, x.dtype)
+        out = _attend(q, k, v, mask, scale, x.dtype, softcap)
     _tap(taps, "self_attn.o_proj", out)
     return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
 
@@ -496,10 +668,19 @@ def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         method: str = "auto", intermediate: Optional[int] = None,
         taps: Optional[Dict] = None, tap_prefix: str = "mlp.") -> torch.Tensor:
-    """The gated MLP; ``intermediate`` overrides the config's width (an
-    MoE expert's). Decode-size rows of a quantized model go through K3
-    (fused gate_up) or K8 (separate gate and up)."""
+    """The MLP: non-gated ``fc1 -> act -> fc2``, or gated; ``intermediate``
+    overrides the config's width (an MoE expert's). Decode-size rows of a
+    quantized gated MLP go through K3 (fused gate_up) or K8 (separate gate
+    and up). ``act_scale`` (AutoAWQ's ScaledActivation) divides the
+    activation; K3 and K8 refuse it, as JAX's do."""
     inter = intermediate or cfg.intermediate_size
+    if "fc1" in p:
+        _tap(taps, tap_prefix + "fc1", x)
+        h = mlp_ops.act_fn(cfg.hidden_act, linear(p["fc1"], x, inter, method))
+        if "act_scale" in p:
+            h = h / p["act_scale"].to(h.dtype)
+        _tap(taps, tap_prefix + "fc2", h)
+        return linear(p["fc2"], h, cfg.hidden_size, method)
     if "gate_up_proj" in p:
         _tap(taps, tap_prefix + "gate_up_proj", x)
         if taps is None and _fused_mlp_ok(cfg, p, x, method, inter):
@@ -529,6 +710,8 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         g = linear(p["gate_proj"], x, inter, method)
         u = linear(p["up_proj"], x, inter, method)
     h = mlp_ops.act_fn(cfg.hidden_act, g) * u
+    if "act_scale" in p:
+        h = h / p["act_scale"].to(h.dtype)
     _tap(taps, tap_prefix + "down_proj", h)
     return linear(p["down_proj"], h, cfg.hidden_size, method)
 
@@ -589,22 +772,61 @@ def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
           kv_cache: Optional[Dict[str, Any]] = None, method: str = "auto",
           causal_prefill: bool = False, paged_attn: str = "bespoke",
           taps: Optional[Dict] = None):
-    """One pre-norm decoder layer; an MLP with experts is an MoE block."""
-    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
+    """One decoder layer: pre-norm residual; parallel attention and MLP off
+    the residual input (gptj, falcon, cohere, neox; one shared norm where
+    ``shared_input_norm``); minicpm's ``residual_scale`` on each branch;
+    gemma2's post-attention and pre/post-feedforward norms. An MLP with
+    experts is an MoE block."""
+    h = norm(cfg, p["input_layernorm"], x)
     attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin, mask,
                                    kv_cache, method, causal_prefill,
                                    paged_attn, taps)
-    x = x + attn_out
-    h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
+    if cfg.parallel_residual:
+        mlp_in = h if cfg.shared_input_norm else norm(
+            cfg, p["post_attention_layernorm"], x)
+        mlp_out = mlp(cfg, p["mlp"], mlp_in, method, taps=taps)
+        if cfg.residual_scale:
+            attn_out = attn_out * cfg.residual_scale
+            mlp_out = mlp_out * cfg.residual_scale
+        return x + attn_out + mlp_out, kv_cache
+    if cfg.residual_scale:
+        attn_out = attn_out * cfg.residual_scale
+    if cfg.post_norms:
+        x = x + norm(cfg, p["post_attention_layernorm"], attn_out)
+        h = norm(cfg, p["pre_feedforward_layernorm"], x)
+    else:
+        x = x + attn_out
+        h = norm(cfg, p["post_attention_layernorm"], x)
     if "experts" in p["mlp"] or "experts_stacked" in p["mlp"]:
-        return x + moe_block(cfg, p["mlp"], h, method, taps), kv_cache
-    return x + mlp(cfg, p["mlp"], h, method, taps=taps), kv_cache
+        mlp_out = moe_block(cfg, p["mlp"], h, method, taps)
+    else:
+        mlp_out = mlp(cfg, p["mlp"], h, method, taps=taps)
+    if cfg.residual_scale:
+        mlp_out = mlp_out * cfg.residual_scale
+    if cfg.post_norms:
+        mlp_out = norm(cfg, p["post_feedforward_layernorm"], mlp_out)
+    return x + mlp_out, kv_cache
 
 
 def embed(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          dtype: Optional[torch.dtype] = None,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embedding, times ``embed_scale`` in the embedding's dtype (so
+    a bf16 run multiplies by the scale rounded to bf16, as JAX and HF do),
+    plus learned positions (``positions`` [B|1, S] offset by
+    ``learned_pos_offset``), then bloom's embedding LayerNorm."""
     x = params["embed_tokens"]["weight"][tokens]
-    return x if dtype is None else x.to(dtype)
+    if dtype is not None:
+        x = x.to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    if cfg.pos_embed == "learned":
+        pe = params["embed_positions"]["weight"]
+        x = x + pe[positions.long() + cfg.learned_pos_offset].to(x.dtype)
+    if cfg.embed_ln:
+        x = layer_norm(x, params["embed_ln"]["weight"],
+                       params["embed_ln"].get("bias"), cfg.rms_norm_eps)
+    return x
 
 
 def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
@@ -623,15 +845,30 @@ def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
 
 def logits_fn(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
               method: str = "auto") -> torch.Tensor:
-    """Final norm and the lm_head (a plain matmul: the JAX package leaves
-    it to XLA), returning f32 logits."""
-    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
+    """Final norm and the lm_head (a plain matmul, with its bias where the
+    model has one: the JAX package leaves it to XLA), returning f32 logits
+    after ``logit_divisor``, ``logit_scale`` and ``logit_softcap``, all in
+    f32."""
+    x = norm(cfg, params["norm"], x)
     if params.get("lm_head") is not None:
         logits = linear(params["lm_head"], x, cfg.vocab_size, method)
     else:
         logits = torch.matmul(x, params["embed_tokens"]["weight"].to(
             x.dtype).t())
-    return logits.float()
+    logits = logits.float()
+    if cfg.logit_divisor:
+        logits = logits / cfg.logit_divisor
+    if cfg.logit_scale:
+        logits = logits * cfg.logit_scale
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def causal_prefill_ok(cfg: ModelConfig) -> bool:
+    """Whether a prompt from position 0 can attend as plain causal
+    attention over its own keys (K4's case): not with ALiBi or a window."""
+    return cfg.sliding_window is None and cfg.pos_embed != "alibi"
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -640,12 +877,15 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """Full prefill forward, tokens [B, S] -> logits [B, S, V] (f32)."""
     check_supported(cfg)
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    x = embed(cfg, params, tokens, dtype)
-    cos, sin = rope_tables(cfg, positions)
-    mask = causal_mask(s, device=tokens.device,
-                       sliding_window=cfg.sliding_window)
-    causal_prefill = cfg.sliding_window is None
+    dev = tokens.device
+    positions = torch.arange(s, device=dev)[None, :]
+    x = embed(cfg, params, tokens, dtype, positions)
+    cos, sin = rope_tables(cfg, positions, seq_len=s)
+    mask = causal_mask(s, device=dev, sliding_window=cfg.sliding_window)
+    if cfg.pos_embed == "alibi":
+        ar = torch.arange(s, device=dev)
+        mask = mask + alibi_bias(cfg.num_attention_heads, ar, ar)
+    causal_prefill = causal_prefill_ok(cfg)
     for lp in params["layers"]:
         x, _ = block(cfg, lp, x, cos, sin, mask, None, method, causal_prefill)
     return logits_fn(cfg, params, x, method)

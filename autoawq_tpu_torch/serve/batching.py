@@ -53,13 +53,16 @@ def batched_decode_step(cfg: ModelConfig, params: Dict[str, Any],
     """One decode token for every slot: tokens [B, 1], pos [B] (per-slot
     lengths, on the device); returns ([B, V] f32 logits, caches)."""
     max_t = gen._cache_len(caches)
-    x = modules.embed(cfg, params, tokens, dtype)
+    x = modules.embed(cfg, params, tokens, dtype, pos[:, None])
     ki = torch.arange(max_t, device=pos.device)[None, :]
     ok = ki <= pos[:, None]
     if cfg.sliding_window:
         ok = ok & (ki > pos[:, None] - cfg.sliding_window)
     mask = torch.where(ok, 0.0, -1e30).float()[:, None, None, :]
-    cos, sin = modules.rope_tables(cfg, pos[:, None])
+    if cfg.pos_embed == "alibi":  # each slot's query sits at its own pos
+        mask = mask + modules.alibi_slot_bias(cfg.num_attention_heads, pos,
+                                              max_t)
+    cos, sin = modules.rope_tables(cfg, pos[:, None], seq_len=max_t)
     for lp, cache in zip(params["layers"], caches):
         x, _ = modules.block(cfg, lp, x, cos, sin, mask,
                              kv_cache={**cache, "pos": pos}, method=method)
@@ -80,13 +83,16 @@ def prefill_chunk(cfg: ModelConfig, params: Dict[str, Any],
     max_t = gen._cache_len(row_caches)
     dev = tokens.device
     positions = pos0 + torch.arange(c, device=dev)[None, :]
-    x = modules.embed(cfg, params, tokens, dtype)
+    x = modules.embed(cfg, params, tokens, dtype, positions)
     ki = torch.arange(max_t, device=dev)[None, :]
     ok = ki <= positions[0][:, None]  # [C, T]
     if cfg.sliding_window:
         ok = ok & (ki > positions[0][:, None] - cfg.sliding_window)
     mask = torch.where(ok, 0.0, -1e30).float()[None, None]
-    cos, sin = modules.rope_tables(cfg, positions)
+    if cfg.pos_embed == "alibi":
+        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+                                         positions[0], ki[0])
+    cos, sin = modules.rope_tables(cfg, positions, seq_len=max_t)
     for lp, cache in zip(params["layers"], row_caches):
         x, _ = modules.block(cfg, lp, x, cos, sin, mask,
                              kv_cache={**cache, "pos": pos0}, method=method)

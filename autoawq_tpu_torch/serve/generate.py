@@ -50,11 +50,10 @@ _warned_long_rope = set()
 
 
 def _check_rope_capacity(cfg: ModelConfig, capacity: int) -> None:
-    """The JAX package keys dynamic-NTK / longrope tables on the cache
-    capacity, which past original_max_position_embeddings selects the
-    long-context factors for the whole generation; it warns once per
-    (model, capacity). The port runs default and llama3 rope only (the rest
-    raise in ``check_supported``), so for its configs this never warns."""
+    """Dynamic-NTK / longrope tables are keyed on the cache capacity (as in
+    the JAX package), which past original_max_position_embeddings selects
+    the long-context factors for the whole generation: warn once per
+    (model, capacity)."""
     if cfg.rope_type not in ("dynamic", "longrope"):
         return
     rs = cfg.rope_scaling_dict or {}
@@ -75,7 +74,10 @@ def _check_rope_capacity(cfg: ModelConfig, capacity: int) -> None:
 
 def _run_blocks(cfg, params, x, positions, mask, caches, pos, method,
                 causal_prefill=False):
-    cos, sin = modules.rope_tables(cfg, positions)
+    # the rope context is the cache capacity, so prefill and every decode
+    # step of one generation share one dynamic-NTK / longrope table
+    cos, sin = modules.rope_tables(cfg, positions,
+                                   seq_len=_cache_len(caches))
     for lp, cache in zip(params["layers"], caches):
         kv = {**cache, "pos": pos}
         x, _ = modules.block(cfg, lp, x, cos, sin, mask, kv_cache=kv,
@@ -88,17 +90,21 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
             dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Process the prompt [B, S]; returns (last-position logits [B, V] f32,
-    caches filled at positions 0..S-1). With a sliding window the prompt
-    attends over the cache under the windowed mask (no K4), as in JAX."""
+    caches filled at positions 0..S-1). With a sliding window or ALiBi the
+    prompt attends over the cache under its mask (no K4), as in JAX."""
     modules.check_supported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :]
-    x = modules.embed(cfg, params, tokens, dtype)
-    causal_prefill = cfg.sliding_window is None
-    mask = modules.causal_mask(
-        s, s if causal_prefill else _cache_len(caches), device=dev,
-        sliding_window=cfg.sliding_window)
+    x = modules.embed(cfg, params, tokens, dtype, positions)
+    causal_prefill = modules.causal_prefill_ok(cfg)
+    t = s if causal_prefill else _cache_len(caches)
+    mask = modules.causal_mask(s, t, device=dev,
+                               sliding_window=cfg.sliding_window)
+    if cfg.pos_embed == "alibi":
+        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+                                         positions[0],
+                                         torch.arange(t, device=dev))
     x = _run_blocks(cfg, params, x, positions, mask, caches, 0, method,
                     causal_prefill=causal_prefill)
     logits = modules.logits_fn(cfg, params, x[:, -1:, :], method)
@@ -115,9 +121,13 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     max_t = _cache_len(caches)
     dev = token.device
     positions = torch.full((1, 1), pos, device=dev)
-    x = modules.embed(cfg, params, token, dtype)
+    x = modules.embed(cfg, params, token, dtype, positions)
     mask = modules.causal_mask(1, max_t, offset=pos, device=dev,
                                sliding_window=cfg.sliding_window)
+    if cfg.pos_embed == "alibi":
+        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+                                         positions[0],
+                                         torch.arange(max_t, device=dev))
     x = _run_blocks(cfg, params, x, positions, mask, caches, pos, method)
     logits = modules.logits_fn(cfg, params, x, method)
     return logits[:, 0, :], caches

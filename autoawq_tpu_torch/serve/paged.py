@@ -62,8 +62,9 @@ def paged_decode_step(cfg: ModelConfig, params: Dict[str, Any],
     """One decode token for every slot against the page pool: tokens
     [B, 1], table [B, PPS], pos [B] on the device; returns ([B, V] f32
     logits, page_caches written in place)."""
-    x = modules.embed(cfg, params, tokens, dtype)
-    cos, sin = modules.rope_tables(cfg, pos[:, None])
+    cap = table.shape[1] * page_caches[0]["k_pages"].shape[2]
+    x = modules.embed(cfg, params, tokens, dtype, pos[:, None])
+    cos, sin = modules.rope_tables(cfg, pos[:, None], seq_len=cap)
     for lp, pc in zip(params["layers"], page_caches):
         kv = {**pc, "page_table": table, "pos": pos}
         x, _ = modules.block(cfg, lp, x, cos, sin, None, kv_cache=kv,

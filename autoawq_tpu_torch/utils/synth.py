@@ -1,12 +1,18 @@
-"""Synthetic quantized llama and Mixtral models for benchmarks and smoke
+"""Synthetic quantized models of the decoder zoo for benchmarks and smoke
 runs.
 
 Counterpart of ``autoawq_tpu/utils/synth.random_quantized_params``: the
 numpy draws are the JAX synthesiser's, call for call and shape for shape
 (planar-padded), so one seed names one model in both packages; each packed
 linear is then carried into the port's layout (``convert.lin_from_planar``).
-MoE layers get a float router ``gate`` and a list of unfused experts, as in
-JAX (its shared-expert branches belong to configs the port refuses).
+As in JAX: LayerNorms carry a zero bias; a parallel block with one shared
+input norm gets no post-attention norm; q/k norms are ones; a non-gated MLP
+is ``fc1`` / ``fc2``; MoE layers get a float router ``gate`` and a list of
+unfused experts (its shared-expert branches belong to configs the port
+refuses). Unlike JAX's, it emits gemma2's pre/post feed-forward norms
+(ones, no draws), without which a post-norm model cannot run. Like JAX's,
+it emits no learned-position table and no bloom ``embed_ln``; a caller that
+needs them adds them.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
                             fp_dtype: Optional[torch.dtype] = None,
                             zero_point: bool = True, fused: bool = False,
                             device=None) -> Dict[str, Any]:
-    """Random packed int4 llama params on ``device`` (None: the card, or
+    """Random packed int4 params on ``device`` (None: the card, or
     RuntimeError without one; ``device="cpu"`` for the plain path). The
     draws are numpy's on the host whatever the device, so one seed gives
     the same values everywhere. ``fp_dtype`` (default float32) types the
@@ -68,7 +74,10 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     hq = cfg.num_attention_heads * cfg.head_dim_
 
     def norm_p() -> Dict[str, torch.Tensor]:
-        return {"weight": fp(np.ones((h,)))}
+        p = {"weight": fp(np.ones((h,)))}
+        if cfg.norm_kind == "ln":
+            p["bias"] = fp(np.zeros((h,)))
+        return p
 
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": fp(
@@ -88,7 +97,15 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
                                "k_proj": qlin(h, "self_attn.k_proj"),
                                "v_proj": qlin(h, "self_attn.v_proj"),
                                "o_proj": qlin(hq, "self_attn.o_proj")}
-        lp["post_attention_layernorm"] = norm_p()
+        if not (cfg.parallel_residual and cfg.shared_input_norm):
+            lp["post_attention_layernorm"] = norm_p()
+        if cfg.post_norms:
+            lp["pre_feedforward_layernorm"] = norm_p()
+            lp["post_feedforward_layernorm"] = norm_p()
+        if cfg.qk_norm:
+            hd = cfg.head_dim_
+            lp["self_attn"]["q_norm"] = {"weight": fp(np.ones((hd,)))}
+            lp["self_attn"]["k_norm"] = {"weight": fp(np.ones((hd,)))}
         if cfg.is_moe:  # Mixtral: a float router and unfused experts
             lp["mlp"] = {
                 "gate": {"kernel": fp(
@@ -99,6 +116,9 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
                      "down_proj": qlin(cfg.moe_intermediate_size or inter,
                                        "mlp.experts.down_proj")}
                     for _ in range(cfg.num_experts)]}
+        elif not cfg.gated_mlp:
+            lp["mlp"] = {"fc1": qlin(h, "mlp.fc1"),
+                         "fc2": qlin(inter, "mlp.fc2")}
         elif fused:
             lp["mlp"] = {"gate_up_proj": qlin(h, "mlp.gate_up_proj"),
                          "down_proj": qlin(inter, "mlp.down_proj")}

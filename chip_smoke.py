@@ -44,8 +44,8 @@ Phases, each printing JSON lines:
               the facade's default ``from_quantized`` keeps) through
               ``AwqCausalLM.generate``, decode tok/s by A's method, and
               its kernel path against the plain path as A's.
-              Then Mistral-7B at full width (32 layers, seed-0 synthetic
-              weights). Traffic C: bs8, eight 64-token prompts, 64 new
+              Then Mistral-7B at full width (32 layers, seed-0 weights
+              drawn on the card, fused). Traffic C: bs8, eight 64-token prompts, 64 new
               tokens, bf16 cache of capacity 128. Traffic D: bs8, eight
               2048-token prompts, 64 new tokens, int8 cache of capacity
               2112. Each: decode tok/s (B times the difference quotient of
@@ -73,8 +73,9 @@ Phases, each printing JSON lines:
               new tokens: throughput, TTFT p50 / p95, prefix hits and
               reused pages held exactly, then ``run(burst=16)`` against
               ``run(burst=1)`` on the same 8 requests.
-              Then Mixtral-8x7B at full width (32 layers, 8 experts, top-2,
-              seed-0 weights drawn on the card, experts stacked). Traffic
+              Then Mixtral-8x7B at full width, depth cut to
+              ``MIXTRAL_DEPTH`` of 32 layers (8 experts, top-2, seed-0
+              weights drawn on the card, experts stacked). Traffic
               E: bs1, one 64-token prompt, bf16 cache of capacity 128.
               Traffic F: bs8, eight 512-token prompts, bf16 cache of
               capacity 576. Each as C, plus F's prefill profile, a
@@ -106,7 +107,26 @@ Phases, each printing JSON lines:
               perplexity of AWQ and of round-to-nearest against it; AWQ's
               mean KL must be below RTN's. Then Mistral-7B at full width,
               cut to 2 of 32 layers: seconds a layer and peak memory.
-7. a ``kernels`` line: every ported kernel with launches, error and times.
+7. zoo      — the decoder zoo at published widths (seeded W4 g128 weights
+              with zero points, drawn on the card, bf16). MPT-7B at full
+              width and depth (``MPT7B``): kernel rows at its shapes (K1
+              at its four linears, K2 at fc1 prefill, K7 with ALiBi at N's
+              shape), then traffic L: bs1, 64-token prompt, greedy decode
+              through ``generate``, tok/s by the difference quotient of
+              512 and 32 new tokens (min of 2), launches per step held
+              exactly (K1 128), device ms a step and busy share; traffic
+              M: prefill 2 x 384 (K2 at M = 768, ALiBi attention in plain
+              ops), seconds and device ms; traffic N: the paged engine in
+              H's configuration, 16 requests of 64 seeded tokens, 128 new
+              each: steady tok/s, launches per step held exactly (K1 128,
+              K7 32 with ALiBi slopes, K9 0); teacher-forced checks of L,
+              M and N's paged step. Then Gemma-2-9B, Qwen3-8B and
+              GPT-J-6B at published width, depth cut to ``ZOO_DEPTH``:
+              kernel rows (K3 gelu-tanh at Gemma-2's MLP, K7 softcap at hd
+              256, K4 at Qwen3's and GPT-J's heads), one prefill of
+              2 x 384, 16 teacher-forced decode steps at bs1 and one paged
+              step at bs8, each held as above with its launches.
+8. a ``kernels`` line: every ported kernel with launches, error and times.
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -142,7 +162,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "load", "quantize")
+PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo")
 EXTRA_PHASES = ("prefill", "paged", "linears",
                 "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -166,6 +186,36 @@ MIXTRAL = dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
                num_experts=8, num_experts_per_tok=2, rope_theta=1e6,
                rms_norm_eps=1e-5, max_position_embeddings=32768,
                sliding_window=None)
+# the decoder zoo's published config.json values (HF keys, read by
+# ModelConfig.from_hf_dict). mosaicml/mpt-7b: ALiBi, LayerNorm without
+# bias, gelu, tied embeddings
+MPT7B = dict(model_type="mpt", d_model=4096, n_layers=32, n_heads=32,
+             expansion_ratio=4, vocab_size=50432, max_seq_len=2048,
+             no_bias=True, attn_config={"alibi": True})
+# google/gemma-2-9b
+GEMMA2_9B = dict(model_type="gemma2", hidden_size=3584,
+                 intermediate_size=14336, num_hidden_layers=42,
+                 num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+                 vocab_size=256000, query_pre_attn_scalar=256,
+                 attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                 sliding_window=4096, hidden_activation="gelu_pytorch_tanh",
+                 rms_norm_eps=1e-6, max_position_embeddings=8192,
+                 tie_word_embeddings=True)
+# Qwen/Qwen3-8B
+QWEN3_8B = dict(model_type="qwen3", hidden_size=4096, intermediate_size=12288,
+                num_hidden_layers=36, num_attention_heads=32,
+                num_key_value_heads=8, head_dim=128, vocab_size=151936,
+                rope_theta=1e6, rms_norm_eps=1e-6,
+                max_position_embeddings=40960, tie_word_embeddings=False)
+# EleutherAI/gpt-j-6b (n_inner null: 4 x n_embd)
+GPTJ_6B = dict(model_type="gptj", n_embd=4096, n_layer=28, n_head=16,
+               rotary_dim=64, n_inner=None, vocab_size=50400,
+               n_positions=2048, activation_function="gelu_new",
+               layer_norm_epsilon=1e-5, tie_word_embeddings=False)
+ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
+# Mixtral's traffics E and F at published width, depth cut to half: with
+# the zoo phase the script would otherwise run too near its time limit
+MIXTRAL_DEPTH = 16
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
@@ -1422,15 +1472,13 @@ def _mistral_traffics(dev):
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
-    from autoawq_tpu_torch.nn.fuse import fuse_model
     from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
 
     cfg = ModelConfig(**MISTRAL)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = fuse_model(cfg, random_quantized_params(
-        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    # drawn on the card (the host's numpy draw took ~65 s of the script)
+    params = synth_zoo_on_card(cfg, 0, dev)
     torch.cuda.synchronize()
     emit({"phase": "e2e", "model": "mistral-7b", "step": "synth",
           "layers": cfg.num_hidden_layers,
@@ -1801,13 +1849,16 @@ def _mixtral_traffics(dev):
     """Mixtral-8x7B at full width: traffics E (bs1) and F (bs8), each with
     K6's launches per decode step held at two per layer, then the
     teacher-forced check with routing record and replay."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.serve import generate as gen
 
-    cfg = ModelConfig(**MIXTRAL)
+    cfg = dataclasses.replace(ModelConfig(**MIXTRAL),
+                              num_hidden_layers=MIXTRAL_DEPTH)
     layers = cfg.num_hidden_layers
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1815,7 +1866,10 @@ def _mixtral_traffics(dev):
     torch.cuda.synchronize()
     nbytes = torch.cuda.memory_allocated()
     emit({"phase": "e2e", "model": "mixtral-8x7b", "step": "synth",
-          "layers": layers, "seconds": time.perf_counter() - t0,
+          "layers": layers, "published_layers": MIXTRAL["num_hidden_layers"],
+          "cut": f"depth {layers} of {MIXTRAL['num_hidden_layers']} layers, "
+          "published width (the script's time limit)",
+          "seconds": time.perf_counter() - t0,
           "allocated_bytes_after_synth": nbytes})
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(4)
@@ -2671,6 +2725,333 @@ def phase_quantize(dev):
     return counts
 
 
+def synth_zoo_on_card(cfg, seed, dev):
+    """Seeded random W4 g128 weights with zero points for a model of the
+    decoder zoo, drawn on the card by a torch.Generator in the port's
+    fused layout (qkv_proj; gate_up_proj or fc1 / fc2): bf16 embedding,
+    head and biases (std 0.02, as the JAX synthesiser's), norms of ones
+    (LayerNorms with a zero bias, except MPT's, which have none), q/k
+    norms and gemma2's four norms where the config has them. Not the JAX
+    synthesiser's numpy draw, which takes minutes on the host at these
+    widths."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+    h, v, inter = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+
+    def normal(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(bf)
+
+    def norm(n=h):
+        p = {"weight": torch.ones(n, dtype=bf, device=dev)}
+        if cfg.norm_kind == "ln" and cfg.model_type != "mpt":
+            p["bias"] = torch.zeros(n, dtype=bf, device=dev)
+        return p
+
+    def qlin(k, n, bias):
+        p = qlin_on_card(gen, k, n)
+        if bias:
+            p["bias"] = normal(n)
+        return p
+
+    head = None
+    if not cfg.tie_word_embeddings:
+        head = {"kernel": normal(h, v)}
+        if cfg.lm_head_bias:
+            head["bias"] = normal(v)
+    params = {"embed_tokens": {"weight": normal(v, h)}, "norm": norm(),
+              "lm_head": head, "layers": []}
+    for _ in range(cfg.num_hidden_layers):
+        lp = {"input_layernorm": norm(),
+              "self_attn": {"qkv_proj": qlin(h, (nh + 2 * nkv) * hd,
+                                             cfg.attention_bias),
+                            "o_proj": qlin(nh * hd, h, False)}}
+        if not (cfg.parallel_residual and cfg.shared_input_norm):
+            lp["post_attention_layernorm"] = norm()
+        if cfg.post_norms:
+            lp["pre_feedforward_layernorm"] = norm()
+            lp["post_feedforward_layernorm"] = norm()
+        if cfg.qk_norm:
+            lp["self_attn"]["q_norm"] = norm(hd)
+            lp["self_attn"]["k_norm"] = norm(hd)
+        if cfg.gated_mlp:
+            lp["mlp"] = {"gate_up_proj": qlin(h, 2 * inter, cfg.mlp_bias),
+                         "down_proj": qlin(inter, h, cfg.mlp_bias)}
+        else:
+            lp["mlp"] = {"fc1": qlin(h, inter, cfg.mlp_bias),
+                         "fc2": qlin(inter, h, cfg.mlp_bias)}
+        params["layers"].append(lp)
+    return params
+
+
+def _zoo_model(hf_dict, dev, depth=None):
+    """ModelConfig of a published config (depth cut to ``depth`` layers
+    where given) and its weights on the card."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_dict(hf_dict)
+    full = cfg.num_hidden_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=depth)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = synth_zoo_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "zoo", "model": cfg.model_type, "step": "synth",
+          "layers": cfg.num_hidden_layers, "published_layers": full,
+          "cut": None if depth is None else
+          f"depth {depth} of {full} layers, published width",
+          "seconds": time.perf_counter() - t0,
+          "allocated_bytes": torch.cuda.memory_allocated()})
+    torch.cuda.reset_peak_memory_stats()
+    return cfg, params
+
+
+def _timed_prefill(cfg, params, prompt, cap, runs=2):
+    """Seconds of ``runs`` prefills (after a warm-up), the launches of one,
+    and a device profile of two."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    caches = gen.init_kv_cache(cfg, prompt.shape[0], cap, torch.bfloat16,
+                               prompt.device)
+    gen.prefill(cfg, params, prompt, caches)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    gen.prefill(cfg, params, prompt, caches)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        gen.prefill(cfg, params, prompt, caches)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    prof = device_profile(lambda i: gen.prefill(cfg, params, prompt, caches),
+                          2)
+    del caches
+    return times, launches, prof
+
+
+def _check_launches(name, got, expect):
+    for kernel, n in expect.items():
+        check(got.get(kernel, 0) == n,
+              f"traffic {name}: {got.get(kernel, 0)} {kernel} launches, "
+              f"expected {n}")
+
+
+def _mpt_traffics(dev, gen_t, rng):
+    """MPT-7B at full width and depth: kernel rows at its shapes, traffics
+    L (bs1 decode), M (prefill 2 x 384) and N (the paged engine), each with
+    its launches held exactly and its teacher-forced check. Returns the
+    launch counts of L, M and N and L's and N's launches per decode
+    step."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg, params = _zoo_model(MPT7B, dev)
+    layers, h = cfg.num_hidden_layers, cfg.hidden_size
+    heads = {"num_attention_heads": cfg.num_attention_heads,
+             "num_key_value_heads": cfg.num_key_value_heads,
+             "head_dim": cfg.head_dim_}
+    for case, k, n in (("MPT-7B qkv", h, 3 * h), ("MPT-7B out_proj", h, h),
+                       ("MPT-7B fc1", h, cfg.intermediate_size),
+                       ("MPT-7B fc2", cfg.intermediate_size, h)):
+        _gemm_case(rng, "w4a16_gemv", case, 1, k, n, 128, True, dev)
+    _gemm_case(rng, "w4a16_gemm", "MPT-7B fc1 M", 768, h,
+               cfg.intermediate_size, 128, True, dev, iters=20)
+    _paged_case(gen_t, "paged_attn", "MPT-7B N alibi", heads, dev,
+                alibi=True)
+    counts, per_step = {}, {}
+
+    prompt_l = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, 64))).to(dev)
+
+    def run_l(n):
+        t = time.perf_counter()
+        out = gen.generate(cfg, params, prompt_l, n).cpu()
+        return time.perf_counter() - t, out
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    tok_s, t_small, t_big, per_step["L"], out = _quotient(run_l, 32, 512, 2,
+                                                          warm=(32,))
+    counts["L"] = dict(_build.LAUNCHES)
+    check(out.shape == (1, 64 + 512) and bool((out < cfg.vocab_size).all()),
+          "traffic L output")
+    _check_launches("L (a decode step)", per_step["L"],
+                    {"w4a16_gemv": 4 * layers, "fused_mlp": 0,
+                     "fused_attn_step": 0, "paged_attn": 0})
+    emit({"phase": "zoo", "traffic": "L", "model": "mpt-7b", "card": card(),
+          "batch": 1, "prompt": 64,
+          "method": "A's: 512- and 32-token quotient, min of 2",
+          "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
+          "launches": counts["L"], "launches_per_decode_step": per_step["L"],
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "zoo", "step": "profile", "traffic": "L", "card": card(),
+          "what": "decode_step", **profile_decode(cfg, params, prompt_l, 16)})
+    rows = _teacher_forced(cfg, params, prompt_l, 8)
+    _check_teacher_forced("L", rows)
+    emit({"phase": "zoo", "step": "kernel_vs_plain", "traffic": "L",
+          "layers": layers, "rows": rows})
+
+    prompt_m = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 384))).to(dev)
+    times, counts["M"], prof = _timed_prefill(cfg, params, prompt_m, 416)
+    _check_launches("M (a prefill)", counts["M"],
+                    {"w4a16_gemm": 4 * layers, "prefill_attention": 0,
+                     "w4a16_gemv": 0})
+    emit({"phase": "zoo", "traffic": "M", "model": "mpt-7b", "card": card(),
+          "batch": 2, "prompt": 384, "prefill_s": min(times),
+          "prefill_runs_s": times, "prefill_tok_s": 768 / min(times),
+          "launches": counts["M"]})
+    emit({"phase": "zoo", "step": "profile", "traffic": "M", "card": card(),
+          "what": "prefill", **prof})
+    rows = _teacher_forced(cfg, params, prompt_m, 1)
+    _check_teacher_forced("M", rows)
+    emit({"phase": "zoo", "step": "kernel_vs_plain", "traffic": "M",
+          "layers": layers, "rows": rows})
+
+    prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(16)]
+    t0 = time.perf_counter()
+    counts["N"], per_step["N"] = _paged_traffic(
+        cfg, params, "N", prompts, 3,
+        {"paged_attn": layers, "paged_attn_stock": 0,
+         "w4a16_gemv": 4 * layers, "fused_mlp": 0, "fused_attn_step": 0},
+        True)
+    rows = _teacher_forced_paged(cfg, params, prompts, 3)
+    _check_teacher_forced("N", rows)
+    emit({"phase": "zoo", "step": "kernel_vs_plain", "traffic": "N",
+          "layers": layers, "rows": rows,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "zoo", "model": "mpt-7b", "card": card(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del params
+    return counts, per_step
+
+
+def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
+                expect_paged):
+    """One family at published width, depth ``ZOO_DEPTH``: one prefill of
+    2 x 384, 16 teacher-forced decode steps at bs1 and one paged step at
+    bs8, each held with its launches. Returns the launch counts of the
+    three, summed."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg, params = _zoo_model(hf_dict, dev, ZOO_DEPTH)
+    counts = {}
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, 384))).to(dev)
+    times, counts["prefill"], prof = _timed_prefill(cfg, params, prompt,
+                                                    416, runs=1)
+    _check_launches(f"{name} prefill", counts["prefill"], expect_prefill)
+    rows = _teacher_forced(cfg, params, prompt, 1)
+    _check_teacher_forced(f"{name} prefill", rows)
+    emit({"phase": "zoo", "model": name, "what": "prefill 2 x 384",
+          "card": card(), "prefill_s": min(times),
+          "device_ms": prof["device_ms_per_call"],
+          "launches": counts["prefill"], "kernel_vs_plain": rows})
+
+    prompt1 = prompt[:1, :64].contiguous()
+    rows = _teacher_forced(cfg, params, prompt1, 16)
+    _check_teacher_forced(f"{name} decode", rows)
+    caches = gen.init_kv_cache(cfg, 1, 80, torch.bfloat16, dev)
+    logits, _ = gen.prefill(cfg, params, prompt1, caches)
+    _build.reset_launches()
+    gen.decode_step(cfg, params, logits.argmax(-1)[:, None], caches, 64)
+    torch.cuda.synchronize()
+    counts["decode"] = dict(_build.LAUNCHES)
+    del caches
+    _check_launches(f"{name} decode step", counts["decode"], expect_decode)
+    emit({"phase": "zoo", "model": name, "what": "bs1 decode, 16 steps "
+          "teacher-forced", "card": card(), "launches_per_decode_step":
+          counts["decode"], "kernel_vs_plain": rows})
+
+    prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(8)]
+    busy = _busy_engine(cfg, params, prompts)
+    _build.reset_launches()
+    busy.step()
+    torch.cuda.synchronize()
+    counts["paged"] = dict(_build.LAUNCHES)
+    del busy
+    _check_launches(f"{name} paged step", counts["paged"], expect_paged)
+    rows = _teacher_forced_paged(cfg, params, prompts, 1)
+    _check_teacher_forced(f"{name} paged", rows)
+    emit({"phase": "zoo", "model": name, "what": "paged step, 8 slots",
+          "card": card(), "launches_per_step": counts["paged"],
+          "kernel_vs_plain": rows})
+    del params
+    return {k: sum(c.get(k, 0) for c in counts.values())
+            for k in counts["paged"]}
+
+
+def phase_zoo(dev):
+    """The decoder zoo on the card: MPT-7B's traffics L, M and N at full
+    width and depth, then Gemma-2-9B, Qwen3-8B and GPT-J-6B at published
+    width, depth ``ZOO_DEPTH``, with kernel rows at their new shapes.
+    Returns (launch counts summed over the phase, launches per decode step
+    of L and N)."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    rng = np.random.default_rng(10)
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(10)
+    counts, per_step = _mpt_traffics(dev, gen_t, rng)
+
+    g = ModelConfig.from_hf_dict(GEMMA2_9B)
+    _mlp_case(rng, 1, "gelu_pytorch_tanh", dev, h=g.hidden_size,
+              inter=g.intermediate_size, case="Gemma-2-9B")
+    _paged_case(gen_t, "paged_attn", "Gemma-2-9B softcap",
+                {"num_attention_heads": g.num_attention_heads,
+                 "num_key_value_heads": g.num_key_value_heads,
+                 "head_dim": g.head_dim_}, dev, softcap=50.0, window=4096)
+    _attn_case(2, 384, 32, 8, 128, dev, case="Qwen3-8B prefill")
+    _attn_case(2, 384, 16, 16, 256, dev, case="GPT-J-6B prefill")
+    d = ZOO_DEPTH
+    counts["gemma2"] = _zoo_family(
+        "gemma-2-9b", GEMMA2_9B, dev, rng,
+        {"w4a16_gemv": 2 * d, "fused_mlp": d, "fused_attn_step": 0},
+        {"w4a16_gemm": 4 * d, "prefill_attention": 0},
+        {"w4a16_gemv": 2 * d, "fused_mlp": d, "paged_attn": d,
+         "paged_attn_stock": 0})
+    counts["qwen3"] = _zoo_family(
+        "qwen3-8b", QWEN3_8B, dev, rng,
+        {"w4a16_gemv": 2 * d, "fused_mlp": d, "fused_attn_step": 0},
+        {"w4a16_gemm": 4 * d, "prefill_attention": d},
+        {"w4a16_gemv": 2 * d, "fused_mlp": d, "paged_attn": d,
+         "paged_attn_stock": 0})
+    counts["gptj"] = _zoo_family(
+        "gpt-j-6b", GPTJ_6B, dev, rng,
+        {"w4a16_gemv": 4 * d, "fused_mlp": 0, "fused_attn_step": 0},
+        {"w4a16_gemm": 4 * d, "prefill_attention": d},
+        {"w4a16_gemv": 4 * d, "paged_attn": d, "paged_attn_stock": 0})
+    total = {k: sum(c.get(k, 0) for c in counts.values())
+             for k in counts["L"]}
+    for name in ("w4a16_gemv", "w4a16_gemm", "fused_mlp",
+                 "prefill_attention", "paged_attn"):
+        check(total.get(name, 0) > 0,
+              f"kernel {name} never launched on the zoo's path")
+    return total, per_step
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2727,6 +3108,11 @@ def main(argv=None) -> int:
     if "quantize" in phases:
         counts = timed("quantize", phase_quantize, dev)
         if total is not None:  # the served checkpoint's launches count too
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "zoo" in phases:
+        counts, per_step = timed("zoo", phase_zoo, dev)
+        per_token.update(per_step)
+        if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)

@@ -8,6 +8,8 @@ Tolerances: f32, 2e-5 absolute on unit-scale inputs (summation order);
 bf16, 2e-2 of the output scale (the reference keeps probabilities in f32,
 the twin rounds them to bf16 as nn/modules.attention does)."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,11 +109,15 @@ def test_attention_prefill_then_decode_matches_jax(rng, b, nh, nkv, hd):
 
 
 def test_flash_gate_mirrors_jax(rng):
+    cfg = ModelConfig()
     q = torch.zeros(1, 200, 4, 64)
-    assert pm._flash_ok("auto", q, q)
-    assert not pm._flash_ok("plain", q, q)
-    assert not pm._flash_ok("auto", q[:, :64], q[:, :64])  # s < 128
-    assert not pm._flash_ok("auto", q[:, :1], q)  # decode
+    assert pm._flash_ok(cfg, "auto", q, q)
+    assert not pm._flash_ok(cfg, "plain", q, q)
+    assert not pm._flash_ok(cfg, "auto", q[:, :64], q[:, :64])  # s < 128
+    assert not pm._flash_ok(cfg, "auto", q[:, :1], q)  # decode
+    # a softcap keeps prefill on the plain path, as in JAX
+    assert not pm._flash_ok(dataclasses.replace(cfg, attn_softcap=50.0),
+                            "auto", q, q)
     # any head dim: the K4 wrapper pads it, as _flash_prefill does
-    assert pm._flash_ok("auto", torch.zeros(1, 200, 4, 80),
+    assert pm._flash_ok(cfg, "auto", torch.zeros(1, 200, 4, 80),
                         torch.zeros(1, 200, 4, 80))

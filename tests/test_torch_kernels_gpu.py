@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from autoawq_tpu_torch.core.packing import pack_port, pad_cols
+from autoawq_tpu_torch.nn.modules import alibi_slopes
 from autoawq_tpu_torch.ops import (_build, attention, fused_attn_step,
                                    fused_mlp, gemm, moe_gemm, paged_attn,
                                    sharded_mlp)
@@ -72,7 +73,9 @@ def rel(a, b):
 @pytest.mark.parametrize("m,k,n,gs,zp", [
     (1, 64, 40, 32, True), (3, 256, 300, 64, False), (8, 2048, 2560, 128, True),
     (1, 5632, 2048, 128, True), (64, 2048, 11264, 128, True),
-    (255, 2048, 2048, 32, False)])
+    (255, 2048, 2048, 32, False),
+    # falcon-7b's qkv at g64: K 4544 = 71 groups, unpadded
+    (1, 4544, 4672, 64, True)])
 def test_w4a16_gemv(cuda, rng, m, k, n, gs, zp):
     w = lin(rng, k, n, gs, zp, cuda)
     x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
@@ -93,7 +96,8 @@ def test_w4a16_gemv(cuda, rng, m, k, n, gs, zp):
     (4096, 4096, 28672, 128, True), (256, 64, 4096, 64, False),
     (512, 2080, 1024, 32, True), (384, 4096, 6144, 64, True),
     (300, 2048, 2500, 128, True), (257, 2048, 2048, 128, True),
-    (256, 512, 2502, 32, True)])
+    (256, 512, 2502, 32, True),
+    (256, 4544, 4672, 64, True)])  # falcon-7b's qkv at g64, K unpadded
 def test_w4a16_gemm(cuda, rng, m, k, n, gs, zp):
     w = pad_cols(*lin(rng, k, n, gs, zp, cuda))
     x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
@@ -160,7 +164,10 @@ def test_dispatcher_routes_by_m(cuda, rng):
 
 @pytest.mark.parametrize("m,h,inter,act", [
     (1, 256, 512, "silu"), (5, 256, 768, "gelu_pytorch_tanh"),
-    (8, 2048, 5632, "silu"), (32, 2048, 5632, "gelu")])
+    (8, 2048, 5632, "silu"), (32, 2048, 5632, "gelu"),
+    # Gemma-2-9B's MLP (gelu-tanh, h 3584, inter 14336) at decode
+    (1, 3584, 14336, "gelu_pytorch_tanh"),
+    (8, 3584, 14336, "gelu_pytorch_tanh")])
 def test_fused_mlp(cuda, rng, m, h, inter, act):
     gu = lin(rng, h, 2 * inter, 128, True, cuda)
     dn = lin(rng, inter, h, 128, True, cuda)
@@ -182,7 +189,9 @@ def row_rel(a, b, hd):
     # traffic D's prefill (Mistral-7B, 8 x 2048); S = 129 and 1000 (a
     # ragged last q and key tile); hd 96 (zero-padded to 128) and 256
     (8, 2048, 32, 8, 128), (2, 129, 32, 8, 128), (1, 1000, 8, 2, 128),
-    (2, 1000, 8, 4, 96), (1, 1000, 4, 2, 256), (1, 64, 2, 1, 64)])
+    (2, 1000, 8, 4, 96), (1, 1000, 4, 2, 256), (1, 64, 2, 1, 64),
+    # GPT-J-6B's prefill (16 heads of 256, MHA) and Qwen3-8B's, 2 x 384
+    (2, 384, 16, 16, 256), (2, 384, 32, 8, 128)])
 def test_prefill_attention(cuda, b, s, nh, nkv, hd):
     q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
     kv = torch.randn(b, s, 2 * nkv, hd, device=cuda).to(torch.bfloat16)
@@ -424,6 +433,7 @@ def test_moe_mlp(cuda, t):
     (1, 4096, 14336, "silu", (True, True, True)),    # a Mixtral expert
     (3, 256, 768, "gelu_pytorch_tanh", (False, False, False)),
     (32, 512, 1024, "gelu", (True, False, True)),    # mixed zeros
+    (1, 3584, 14336, "gelu_pytorch_tanh", (True, True, True)),  # Gemma-2
 ])
 def test_fused_mlp3(cuda, rng, m, h, inter, act, zp):
     g = lin(rng, h, inter, 128, zp[0], cuda)
@@ -535,7 +545,8 @@ def paged_pool(gen, b, nh, nkv, hd, ps, n_pool, pps, lengths, dev,
 @pytest.mark.parametrize("case", [
     "bf16", "f32", "int8", "window", "softcap", "alibi", "tinyllama",
     "mha_odd_hd", "group16", "split_edges", "all_length_1",
-    "window_cuts_a_split", "int8_softcap_alibi", "odd_hd_f32"])
+    "window_cuts_a_split", "int8_softcap_alibi", "odd_hd_f32", "mpt_alibi",
+    "gemma2_softcap"])
 def test_paged_attn_k7(cuda, case):
     """K7 against its twin: Mistral's decode shape (B 8, 32/8 heads, hd 128,
     ps 64, 8 pages a slot, ragged lengths with 1 and 512 and a trash-page
@@ -544,7 +555,9 @@ def test_paged_attn_k7(cuda, case):
     edges (splits of one 64-row page): lengths 63, 64, 65, 4095 and 4096
     over 64-page tables, every slot of length 1, a window of 70 that starts
     inside a split, int8 with softcap and ALiBi across splits, and hd 36 on
-    f32 pools (element loads, no 16-byte vectors)."""
+    f32 pools (element loads, no 16-byte vectors). Then the zoo's widths:
+    MPT-7B (32/32 heads, hd 128) with its own ALiBi slopes, and Gemma-2-9B
+    (16/8 heads, hd 256) with its softcap 50 and window 4096."""
     g = torch.Generator(device=cuda).manual_seed(3)
     shape = dict(b=8, nh=32, nkv=8, hd=128, ps=64, n_pool=80, pps=8,
                  lengths=[1, 512, 77, 128, 300, 1, 64, 65])
@@ -563,6 +576,10 @@ def test_paged_attn_k7(cuda, case):
     if case == "odd_hd_f32":
         shape.update(b=3, nh=8, nkv=2, hd=36, ps=16, n_pool=40,
                      lengths=[1, 128, 45])
+    if case == "mpt_alibi":
+        shape.update(nh=32, nkv=32, hd=128)
+    if case == "gemma2_softcap":
+        shape.update(nh=16, nkv=8, hd=256)
     q, k, v, table, lengths, ks, vs = paged_pool(
         g, dev=cuda,
         dtype=torch.float32 if case in ("f32", "odd_hd_f32")
@@ -575,6 +592,10 @@ def test_paged_attn_k7(cuda, case):
         kw["window"] = 70  # slot 300 keeps rows 230-299: from inside a page
     if case in ("softcap", "int8_softcap_alibi"):
         kw["softcap"] = 30.0
+    if case == "gemma2_softcap":
+        kw.update(softcap=50.0, window=4096)
+    if case == "mpt_alibi":
+        kw["alibi_slopes"] = alibi_slopes(shape["nh"], cuda)
     if case in ("alibi", "int8_softcap_alibi"):
         kw["alibi_slopes"] = torch.rand(shape["nh"], device=cuda,
                                         generator=g) * 0.1

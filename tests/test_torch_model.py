@@ -170,11 +170,16 @@ def test_sampled_generation_is_seeded(rng):
     assert runs[0].shape == (1, 11)
 
 
+_MOE = {"model_type": "mixtral", "num_experts": 4, "num_experts_per_tok": 2}
+
+
 @pytest.mark.parametrize("change", [
-    {"num_experts": 4, "num_experts_per_tok": 2, "scoring_func": "sigmoid"},
-    {"pos_embed": "alibi"}, {"rope_scaling": (("factor", 2.0),
-                                              ("rope_type", "yarn"))},
-    {"kv_lora_rank": 16}, {"norm_kind": "ln"}, {"qk_norm": True},
+    dict(_MOE, scoring_func="sigmoid"),
+    dict(_MOE, topk_method="group_limited_greedy"),
+    dict(_MOE, n_shared_experts=1),
+    dict(_MOE, shared_expert_intermediate_size=128),
+    dict(_MOE, first_k_dense_replace=1),
+    {"kv_lora_rank": 16},
 ])
 def test_features_outside_the_slice_raise(change):
     cfg = dataclasses.replace(ModelConfig(**KW), **change)
