@@ -1,11 +1,11 @@
 """autoawq_tpu_torch — the PyTorch / CUDA port of ``autoawq_tpu`` for NVIDIA
 Hopper (H100).
 
-W4A16 inference of AWQ checkpoints of the decoder zoo (every architecture
-of the JAX package but MLA and MoE beyond Mixtral) and AWQ quantization of
-the llama family and Mixtral: plain PyTorch for the tensor code,
-hand-written CUDA kernels (``csrc/``) for the nine TPU kernels. The JAX package stays the reference; the port imports
-nothing of it, nor jax.
+W4A16 inference and AWQ quantization of the decoder zoo (every architecture
+of the JAX package but MLA and MoE beyond Mixtral): plain PyTorch for the
+tensor code, hand-written CUDA kernels (``csrc/``) for the nine TPU
+kernels. The JAX package stays the reference; the port imports nothing of
+it, nor jax.
 """
 
 __version__ = "0.1.0"

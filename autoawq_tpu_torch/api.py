@@ -65,9 +65,8 @@ class AwqCausalLM:
     @classmethod
     def from_pretrained(cls, path: str, device=None) -> "AwqCausalLM":
         """Load a float checkpoint of the decoder zoo in float32 on the
-        card, unless ``device`` names another, for :meth:`quantize` (the
-        llama family and Mixtral quantize; the other types' plugins raise,
-        naming ROADMAP item 10)."""
+        card, unless ``device`` names another, for :meth:`quantize` (every
+        type the port runs quantizes)."""
         dev = resolve_device(device)
         cfg, params = serialize.from_pretrained(path, dev)
         m = cls(cfg, params, None, dev)

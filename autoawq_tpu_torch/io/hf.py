@@ -14,7 +14,10 @@ column permutations ``_perm_head_interleaved`` :36 (bloom, gpt_neox) and
 to logical nibbles and repack into the port's layout (core/packing.py),
 bit-exact, and back. The port packs along K, so a fused qkv's column
 permutation is an index on N of the unpacked nibbles, scales, zeros and
-bias (int4 quantization per output column commutes with it).
+bias (int4 quantization per output column commutes with it). An MLP's
+``act_scale`` (the AWQ scale of a GELU-family activation) is written as
+AutoAWQ's ``<layer>.<ArchLayout.act>.scales`` in fp16 and read back, where
+the JAX package's writer drops it (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -68,6 +71,9 @@ class ArchLayout:
     linears: Dict[str, str] = field(default_factory=dict)
     # permutation of a fused qkv projection's output columns
     qkv_perm: Optional[Callable[[ModelConfig], Optional[np.ndarray]]] = None
+    # AutoAWQ's name (relative to the layer prefix) of the ScaledActivation
+    # that holds ``mlp.act_scale``: ``<name>.scales``
+    act: Optional[str] = None
 
 
 LLAMA_LAYOUT = ArchLayout(
@@ -132,30 +138,31 @@ ARCH_LAYOUTS: Dict[str, ArchLayout] = {
         embed="transformer.word_embeddings",
         embed_ln="transformer.word_embeddings_layernorm",
         final_norm="transformer.ln_f", norms=_TWO_NORMS,
-        qkv_perm=_perm_head_interleaved),
+        qkv_perm=_perm_head_interleaved, act="mlp.gelu_impl"),
     "gptj": _split_layout(
         "transformer.h.{i}.", "attn.", "attn.out_proj",
         {"fc1": "mlp.fc_in", "fc2": "mlp.fc_out"}, embed="transformer.wte",
-        final_norm="transformer.ln_f", norms={"input_layernorm": "ln_1"}),
+        final_norm="transformer.ln_f", norms={"input_layernorm": "ln_1"},
+        act="mlp.act"),
     "gpt_neox": _qkv_layout(
         "gpt_neox.layers.{i}.", "attention.query_key_value",
         "attention.dense", "mlp.dense_h_to_4h", "mlp.dense_4h_to_h",
         embed="gpt_neox.embed_in", final_norm="gpt_neox.final_layer_norm",
         lm_head="embed_out", norms=_TWO_NORMS,
-        qkv_perm=_perm_head_interleaved),
+        qkv_perm=_perm_head_interleaved, act="mlp.act"),
     "gpt_bigcode": _qkv_layout(
         "transformer.h.{i}.", "attn.c_attn", "attn.c_proj", "mlp.c_fc",
         "mlp.c_proj", embed="transformer.wte", pos_embed="transformer.wpe",
-        final_norm="transformer.ln_f",
+        final_norm="transformer.ln_f", act="mlp.act",
         norms={"input_layernorm": "ln_1", "post_attention_layernorm": "ln_2"}),
     "starcoder2": _split_layout(
         "model.layers.{i}.", "self_attn.", "self_attn.o_proj",
         {"fc1": "mlp.c_fc", "fc2": "mlp.c_proj"}, embed="model.embed_tokens",
-        final_norm="model.norm", norms=_TWO_NORMS),
+        final_norm="model.norm", norms=_TWO_NORMS, act="mlp.act"),
     "mpt": _qkv_layout(
         "transformer.blocks.{i}.", "attn.Wqkv", "attn.out_proj",
         "ffn.up_proj", "ffn.down_proj", embed="transformer.wte",
-        final_norm="transformer.norm_f",
+        final_norm="transformer.norm_f", act="ffn.act",
         norms={"input_layernorm": "norm_1",
                "post_attention_layernorm": "norm_2"}),
     "falcon": _qkv_layout(
@@ -165,7 +172,7 @@ ARCH_LAYOUTS: Dict[str, ArchLayout] = {
         # falcon-7b: one input_layernorm; 40b+: ln_attn / ln_mlp
         norms={"input_layernorm": "input_layernorm",
                "post_attention_layernorm": "ln_mlp"},
-        qkv_perm=_perm_falcon),
+        qkv_perm=_perm_falcon, act="mlp.act"),
     "cohere": _split_layout(
         "model.layers.{i}.", "self_attn.", "self_attn.o_proj", _GATED,
         embed="model.embed_tokens", final_norm="model.norm",
@@ -348,21 +355,13 @@ def params_from_state_dict(cfg: ModelConfig, sd: Dict[str, torch.Tensor],
             lin = _lin_from_sd(sd, base + hf, device, perm)
             if lin is not None:
                 _set_nested(lp, internal, lin)
+        act = sd.get(f"{base}{layout.act}.scales") if layout.act else None
+        if act is not None:
+            lp["mlp"]["act_scale"] = act.float().to(device)
         if cfg.is_moe and _gate_key(cfg, i) + ".weight" in sd:
             lp["mlp"] = _moe_from_sd(cfg, sd, i, base, device)
         params["layers"].append(lp)
     return params
-
-
-def load_state_dict_from_dir(path: str) -> Dict[str, torch.Tensor]:
-    """Read all *.safetensors shards of a checkpoint directory."""
-    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no .safetensors files in {path}")
-    sd: Dict[str, torch.Tensor] = {}
-    for f in files:
-        sd.update(load_file(os.path.join(path, f)))
-    return sd
 
 
 # --------------------------------------------------------------------------
@@ -474,6 +473,12 @@ def state_dict_from_params(cfg: ModelConfig, params: Dict,
                 _lin_to_sd(sd, base + hf, p, out_features_map[internal],
                            dtype, in_features=in_map.get(internal),
                            perm=perm)
+        act = lp.get("mlp", {}).get("act_scale")
+        if act is not None:
+            if layout.act is None:
+                raise ValueError(f"{cfg.model_type} has no AutoAWQ name for "
+                                 "mlp.act_scale")
+            sd[base + layout.act + ".scales"] = _cpu(act).to(torch.float16)
         if cfg.is_moe and "experts" in lp.get("mlp", {}):
             _lin_to_sd(sd, _gate_key(cfg, i), lp["mlp"]["gate"],
                        out_features_map["mlp.gate"], dtype,

@@ -1,16 +1,21 @@
 """Per-architecture quantization plugins.
 
-The port's copy of ``autoawq_tpu/models/plugins.py`` for the models the
+The port's copy of ``autoawq_tpu/models/plugins.py`` for every model the
 port runs: ``ScaleGroup`` :32, ``CLIP_AVOID`` :42, ``LlamaFamilyPlugin``
-:45 (the llama-family types; the rest of the zoo runs but does not
-quantize yet),
-``MoEFamilyPlugin`` :148 (Mixtral), ``get_plugin`` :591 and
+:45, ``FusedQkvLlamaPlugin`` :114, ``MoEFamilyPlugin`` :148 (Mixtral),
+``Phi3Plugin`` :201, ``OptPlugin`` :237, ``BloomPlugin`` :263,
+``GptjPlugin`` :287, ``GptNeoxPlugin`` :311, ``GptBigcodePlugin`` :334,
+``Starcoder2Plugin`` :355, ``MptPlugin`` :387, ``FalconPlugin`` :412,
+``CoherePlugin`` :440, ``QwenV1Plugin`` :472, ``get_plugin`` :591 and
 ``make_inspect_fn`` :600. A plugin says which linears scale against which
-preceding op (``scale_groups``), which linears to quantize
+preceding op (``scale_groups``: a norm, a linear, or the MLP's activation,
+whose scale is stored as ``mlp.act_scale``), which linears to quantize
 (``quantizable``), and the module whose output each scale search holds
-against the float one (``ScaleGroup.inspect``). The inspect functions run
-the port's modules with ``method="plain"`` (JAX's ``"jnp"``). The other
-architectures' plugins raise, naming their ROADMAP item.
+against the float one (``ScaleGroup.inspect``: the attention, the MLP, the
+MoE block, the whole decoder block, or one linear). The inspect functions
+run the port's modules with ``method="plain"`` (JAX's ``"jnp"``). The types
+the port cannot run yet (MoE beyond Mixtral, MLA, the multimodal models)
+raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,46 +34,87 @@ class ScaleGroup:
     prev_kind: str  # "norm" | "fc" | "act"
     layers: tuple  # paths of target linears
     inp: str  # tap name carrying the input features
-    inspect: str  # "attn" | "mlp" | "moe" | single-layer path
+    inspect: str  # "attn" | "mlp" | "moe" | "block" | single-layer path
 
 
 # q/k projections are left out of the clip search because of the q @ k
 # product (AutoAWQ's avoid-list)
 CLIP_AVOID = ("q_", "k_", "query", "key", "Wqkv")
 
+_QKV = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
+_GATED = ["mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"]
+_FC = ["mlp.fc1", "mlp.fc2"]
+_V_TO_O = ScaleGroup("self_attn.v_proj", "fc", ("self_attn.o_proj",),
+                     "self_attn.o_proj", "self_attn.o_proj")
+
+
+def _v_to_o(layer_params: Dict) -> List[ScaleGroup]:
+    """v -> o, only when the shapes match (the GQA guard)."""
+    v = get_by_path(layer_params, "self_attn.v_proj")["kernel"]
+    o = get_by_path(layer_params, "self_attn.o_proj")["kernel"]
+    return [_V_TO_O] if v.shape == o.shape else []
+
+
+# a fused qkv -> o: the fold divides qkv's trailing o_in columns, which are
+# v (``io/hf`` keeps the port's qkv in q|k|v order)
+_QKV_TO_O = ScaleGroup("self_attn.qkv_proj", "fc", ("self_attn.o_proj",),
+                       "self_attn.o_proj", "self_attn.o_proj")
+
+
+def _gated_mlp(norm: str = "post_attention_layernorm") -> List[ScaleGroup]:
+    """gate / up against ``norm`` on the MLP, down against up."""
+    return [ScaleGroup(norm, "norm", ("mlp.gate_proj", "mlp.up_proj"),
+                       "mlp.gate_proj", "mlp"),
+            ScaleGroup("mlp.up_proj", "fc", ("mlp.down_proj",),
+                       "mlp.down_proj", "mlp.down_proj")]
+
+
+def _fc1_fc2(inspect: str) -> List[ScaleGroup]:
+    """A non-gated MLP: fc1 against the post-attention norm on ``inspect``,
+    fc2 against the activation (``mlp.act_scale``)."""
+    return [ScaleGroup("post_attention_layernorm", "norm", ("mlp.fc1",),
+                       "mlp.fc1", inspect),
+            ScaleGroup("mlp", "act", ("mlp.fc2",), "mlp.fc2", "mlp.fc2")]
+
+
+def _qkv_group(inspect: str) -> ScaleGroup:
+    """A fused qkv against the input norm."""
+    return ScaleGroup("input_layernorm", "norm", ("self_attn.qkv_proj",),
+                      "self_attn.qkv_proj", inspect)
+
 
 class LlamaFamilyPlugin:
-    model_types = ("llama", "mistral", "qwen2", "yi", "aquila")
+    model_types = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2",
+                   "yi", "aquila", "stablelm", "exaone", "minicpm")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
-        groups = [ScaleGroup(
-            prev_op="input_layernorm", prev_kind="norm",
-            layers=("self_attn.q_proj", "self_attn.k_proj",
-                    "self_attn.v_proj"),
-            inp="self_attn.q_proj", inspect="attn")]
-        # v -> o only when the shapes match (the GQA guard)
-        v = get_by_path(layer_params, "self_attn.v_proj")["kernel"]
-        o = get_by_path(layer_params, "self_attn.o_proj")["kernel"]
-        if v.shape == o.shape:
-            groups.append(ScaleGroup(
-                prev_op="self_attn.v_proj", prev_kind="fc",
-                layers=("self_attn.o_proj",), inp="self_attn.o_proj",
-                inspect="self_attn.o_proj"))
-        groups.append(ScaleGroup(
-            prev_op="post_attention_layernorm", prev_kind="norm",
-            layers=("mlp.gate_proj", "mlp.up_proj"), inp="mlp.gate_proj",
-            inspect="mlp"))
-        groups.append(ScaleGroup(
-            prev_op="mlp.up_proj", prev_kind="fc", layers=("mlp.down_proj",),
-            inp="mlp.down_proj", inspect="mlp.down_proj"))
-        return groups
+        # gemma2 scales the MLP against its pre-feedforward norm
+        return [ScaleGroup("input_layernorm", "norm", _QKV,
+                           "self_attn.q_proj", "attn"),
+                *_v_to_o(layer_params),
+                *_gated_mlp("pre_feedforward_layernorm" if cfg.post_norms
+                            else "post_attention_layernorm")]
 
     @staticmethod
     def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
-        return ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
-                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
-                "mlp.down_proj"]
+        return [*_QKV, "self_attn.o_proj", *_GATED]
+
+
+class FusedQkvLlamaPlugin:
+    """baichuan and internlm2: llama math with a natively fused qkv (the
+    qkv -> o fold lands on v, under GQA too: see ``_QKV_TO_O``)."""
+
+    model_types = ("baichuan", "internlm2")
+    extra_clip_avoid = ("qkv",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("attn"), _QKV_TO_O, *_gated_mlp()]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_GATED]
 
 
 class MoEFamilyPlugin:
@@ -99,29 +145,224 @@ class MoEFamilyPlugin:
 
     @staticmethod
     def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
-        paths = ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
-                 "self_attn.o_proj"]
+        paths = [*_QKV, "self_attn.o_proj"]
         for e in range(cfg.num_experts):
             paths += [f"mlp.experts.{e}.gate_proj", f"mlp.experts.{e}.up_proj",
                       f"mlp.experts.{e}.down_proj"]
         return paths
 
 
-PLUGINS: Dict[str, type] = {mt: plugin
-                            for plugin in (LlamaFamilyPlugin, MoEFamilyPlugin)
-                            for mt in plugin.model_types}
+class Phi3Plugin:
+    """phi3: natively fused qkv_proj and gate_up_proj. The fc folds divide
+    the trailing columns of the previous linear: v of qkv (MHA only: under
+    GQA they would be part of k, so the group is skipped), up of
+    gate_up."""
+
+    model_types = ("phi3",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        mha = cfg.num_attention_heads == cfg.num_key_value_heads
+        return [_qkv_group("attn"), *([_QKV_TO_O] if mha else []),
+                ScaleGroup("post_attention_layernorm", "norm",
+                           ("mlp.gate_up_proj",), "mlp.gate_up_proj", "mlp"),
+                ScaleGroup("mlp.gate_up_proj", "fc", ("mlp.down_proj",),
+                           "mlp.down_proj", "mlp.down_proj")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj",
+                "mlp.down_proj"]
+
+
+class OptPlugin:
+    """OPT: separate q/k/v, a relu fc1 / fc2 MLP scaled linear by linear
+    (no activation group), LayerNorms."""
+
+    model_types = ("opt",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [ScaleGroup("input_layernorm", "norm", _QKV,
+                           "self_attn.q_proj", "attn"),
+                _V_TO_O,
+                ScaleGroup("post_attention_layernorm", "norm", ("mlp.fc1",),
+                           "mlp.fc1", "mlp.fc1"),
+                ScaleGroup("mlp.fc1", "fc", ("mlp.fc2",), "mlp.fc2",
+                           "mlp.fc2")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return [*_QKV, "self_attn.o_proj", *_FC]
+
+
+class BloomPlugin:
+    """bloom: qkv and fc1 against their norms with the whole block
+    inspected, fc2 against the GELU; no attention-out group (as
+    AutoAWQ's)."""
+
+    model_types = ("bloom",)
+    extra_clip_avoid = ("qkv",)  # HF's query_key_value matches "query"
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("block"), *_fc1_fc2("block")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_FC]
+
+
+class GptjPlugin:
+    """gptj: one shared norm for the parallel attention and MLP, so q/k/v
+    and fc1 scale together against it with the whole block inspected."""
+
+    model_types = ("gptj",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [ScaleGroup("input_layernorm", "norm", (*_QKV, "mlp.fc1"),
+                           "self_attn.q_proj", "block"),
+                _V_TO_O,
+                ScaleGroup("mlp", "act", ("mlp.fc2",), "mlp.fc2", "mlp.fc2")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return [*_QKV, "self_attn.o_proj", *_FC]
+
+
+class GptNeoxPlugin:
+    """gpt_neox: each linear inspected alone; no attention-out group."""
+
+    model_types = ("gpt_neox",)
+    extra_clip_avoid = ("qkv",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("self_attn.qkv_proj"), *_fc1_fc2("mlp.fc1")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_FC]
+
+
+class GptBigcodePlugin:
+    """gpt_bigcode (starcoder)."""
+
+    model_types = ("gpt_bigcode",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("attn"), *_fc1_fc2("mlp")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_FC]
+
+
+class Starcoder2Plugin:
+    """starcoder2."""
+
+    model_types = ("starcoder2",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [ScaleGroup("input_layernorm", "norm", _QKV,
+                           "self_attn.q_proj", "attn"),
+                *_v_to_o(layer_params), *_fc1_fc2("mlp")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return [*_QKV, "self_attn.o_proj", *_FC]
+
+
+class MptPlugin:
+    """mpt: fused Wqkv with the qkv -> out fold, GELU group on fc2."""
+
+    model_types = ("mpt",)
+    extra_clip_avoid = ("qkv",)  # HF's Wqkv is in AutoAWQ's avoid-list
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("attn"), _QKV_TO_O, *_fc1_fc2("mlp")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_FC]
+
+
+class FalconPlugin:
+    """falcon: the 7B's shared norm scales fc1 and qkv together; the new
+    decoder architecture scales each against its own norm; the whole block
+    inspected either way."""
+
+    model_types = ("falcon",)
+    extra_clip_avoid = ("qkv",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        if cfg.shared_input_norm:
+            return [ScaleGroup("input_layernorm", "norm",
+                               ("mlp.fc1", "self_attn.qkv_proj"),
+                               "self_attn.qkv_proj", "block")]
+        return [_qkv_group("block"),
+                ScaleGroup("post_attention_layernorm", "norm", ("mlp.fc1",),
+                           "mlp.fc1", "block")]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_FC]
+
+
+class CoherePlugin:
+    """cohere: one shared norm for the parallel attention and gated MLP:
+    q/k/v, gate and up scale together against it with the whole block
+    inspected."""
+
+    model_types = ("cohere",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [ScaleGroup("input_layernorm", "norm",
+                           (*_QKV, "mlp.gate_proj", "mlp.up_proj"),
+                           "self_attn.q_proj", "block"),
+                *_v_to_o(layer_params), _gated_mlp()[1]]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return [*_QKV, "self_attn.o_proj", *_GATED]
+
+
+class QwenV1Plugin:
+    """qwen (v1): fused c_attn, a gated MLP (w2 the gate, w1 up); no
+    attention-out group."""
+
+    model_types = ("qwen",)
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        return [_qkv_group("attn"), *_gated_mlp()]
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        return ["self_attn.qkv_proj", "self_attn.o_proj", *_GATED]
+
+
+PLUGINS: Dict[str, type] = {
+    mt: plugin
+    for plugin in (LlamaFamilyPlugin, FusedQkvLlamaPlugin, MoEFamilyPlugin,
+                   Phi3Plugin, OptPlugin, BloomPlugin, GptjPlugin,
+                   GptNeoxPlugin, GptBigcodePlugin, Starcoder2Plugin,
+                   MptPlugin, FalconPlugin, CoherePlugin, QwenV1Plugin)
+    for mt in plugin.model_types}
 
 # the JAX package's other plugin types, by the ROADMAP item that ports them
 _LATER = {
-    **{mt: "the decoder zoo's quantization plugins, ROADMAP queue 1 item 10"
-       for mt in ("qwen3", "gemma", "gemma2", "stablelm", "exaone", "minicpm",
-                  "baichuan", "internlm2", "phi3", "phi3_v", "phimoe", "opt",
-                  "bloom", "gptj", "gpt_neox", "gpt_bigcode", "starcoder2",
-                  "mpt", "falcon", "cohere", "qwen")},
     **{mt: "MoE beyond Mixtral and MLA, ROADMAP queue 1 item 12"
-       for mt in ("qwen3_moe", "deepseek_v2", "deepseek_v3", "minicpm3")},
+       for mt in ("qwen3_moe", "deepseek_v2", "deepseek_v3", "minicpm3",
+                  "phimoe")},
     **{mt: "multimodal models, ROADMAP queue 1 item 17"
-       for mt in ("qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
+       for mt in ("phi3_v", "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
                   "qwen2_5_omni_thinker", "qwen2_5_omni_text")},
 }
 
@@ -146,6 +387,14 @@ def make_inspect_fn(cfg: ModelConfig, group: ScaleGroup,
         def f(lp, x, cos, sin, mask):
             return modules.attention(cfg, lp["self_attn"], x, cos, sin, mask,
                                      method="plain")[0]
+        return f
+    if group.inspect == "block":
+        # the whole decoder block (AutoAWQ's module2inspect=module), fed
+        # the post-norm features as JAX and AutoAWQ feed it: the block
+        # applies its norm to them again (ROADMAP §3)
+        def f(lp, x, cos, sin, mask):
+            return modules.block(cfg, lp, x, cos, sin, mask,
+                                 method="plain")[0]
         return f
     if group.inspect == "mlp":
         def f(lp, x, cos, sin, mask):

@@ -42,8 +42,10 @@ def supported(cfg, p: Dict[str, Any], x: torch.Tensor,
               k_cache: torch.Tensor) -> bool:
     """The model-level gates of the JAX ``supported``: fused quantized qkv
     and o, no LoRA, neox full rotary, no qk-norm / softcap / MLA, GQA or
-    MHA, decode rows up to ``B_MAX``, ``hd % 8 == 0``. The gates that exist
-    for the TPU's VMEM and lanes (``SLAB_MAX``, ``b * nh <= 256``,
+    MHA, decode rows up to ``B_MAX``, ``hd % 8 == 0``, and ``hd`` up to
+    ``HEAD_DIM_MAX`` (JAX's 512 is the TPU's; a wider head falls to the
+    grouped or repeat path, as JAX's plain path takes it). The gates that
+    exist for the TPU's VMEM and lanes (``SLAB_MAX``, ``b * nh <= 256``,
     ``rep <= REP_PAD``, ``_lanes``/``PAIRS`` alignment, ``t % 8``) are not
     kept: K5 is split-KV and holds no whole-cache slab. The GEMV core's
     gate is: qkv and o as ``gemm.core_ok`` takes them."""
@@ -62,7 +64,7 @@ def supported(cfg, p: Dict[str, Any], x: torch.Tensor,
     b = k_cache.shape[0]
     if x.shape[0] * x.shape[1] != b or b > B_MAX:
         return False
-    if hd % 8 or hd > 512:
+    if hd % 8 or hd > HEAD_DIM_MAX:
         return False
     return (8 * qkv["qweight"].shape[0] == x.shape[-1]
             and qkv["qweight"].shape[1] >= (nh + 2 * nkv) * hd

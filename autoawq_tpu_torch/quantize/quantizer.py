@@ -201,13 +201,21 @@ class AwqQuantizer:
                 "use quantize(export_compatible=True) and pack externally")
         cfg, dev = self.cfg, self.device
         tokens = torch.from_numpy(self.calib_tokens).to(dev)
-        emb = {"embed_tokens": _to(self.params["embed_tokens"], dev)}
-        x = modules.embed(cfg, emb, tokens, dtype=self.compute_dtype)
+        # the calibration inputs of JAX's quantize(): learned positions and
+        # bloom's embedding LayerNorm, rope tables keyed on the length, and
+        # the ALiBi bias in the mask
+        emb = {k: _to(self.params[k], dev)
+               for k in ("embed_tokens", "embed_positions", "embed_ln")
+               if k in self.params}
         s = tokens.shape[1]
-        cos, sin = modules.rope_tables(
-            cfg, torch.arange(s, device=dev)[None, :])
+        ar = torch.arange(s, device=dev)
+        x = modules.embed(cfg, emb, tokens, dtype=self.compute_dtype,
+                          positions=ar[None, :])
+        cos, sin = modules.rope_tables(cfg, ar[None, :], seq_len=s)
         mask = modules.causal_mask(s, device=dev,
                                    sliding_window=cfg.sliding_window)
+        if cfg.pos_embed == "alibi":
+            mask = mask + modules.alibi_bias(cfg.num_attention_heads, ar, ar)
 
         new_layers = []
         iterator = range(cfg.num_hidden_layers)

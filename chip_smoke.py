@@ -107,6 +107,20 @@ Phases, each printing JSON lines:
               perplexity of AWQ and of round-to-nearest against it; AWQ's
               mean KL must be below RTN's. Then Mistral-7B at full width,
               cut to 2 of 32 layers: seconds a layer and peak memory.
+              Then MPT-7B at full width, cut to ``QUANT_MPT_LAYERS`` of 32
+              layers (f32 float weights drawn on the card, hot embedding
+              columns): quantized through the facade as TinyLlama (its
+              GELU's ``act`` scale group), saved (every layer's
+              ``ffn.act.scales`` in the files), reloaded (nibbles, scales,
+              zeros and ``act_scale`` equal to the in-memory model's) and
+              served: one prefill of 2 x 384 (K2 4 a layer, K4 0), 16
+              teacher-forced bs1 decode steps (K1 4 a layer a step) and
+              one paged step at bs8 (K1 4 and K7 1 with ALiBi slopes a
+              layer), launches held exactly; AWQ's mean KL below RTN's as
+              TinyLlama's. Then GPT-J-6B at full width, cut to
+              ``QUANT_GPTJ_LAYERS`` of 28 layers, quantized alone: the
+              whole-block inspect and the ``act`` group, seconds a layer,
+              peak memory, layer 0's chosen ratio indices.
 7. zoo      — the decoder zoo at published widths (seeded W4 g128 weights
               with zero points, drawn on the card, bf16). MPT-7B at full
               width and depth (``MPT7B``): kernel rows at its shapes (K1
@@ -222,6 +236,10 @@ MIXTRAL_DEPTH = 16
 QUANT_CALIB = (128, 512)
 QUANT_EVAL = (8, 512)
 QUANT_MISTRAL_LAYERS = 2  # Mistral-7B at full width, depth cut to 2 of 32
+# MPT-7B at full width, depth cut to 2 of 32 (at 4, the whole script took
+# 1,040 s of its 1,200 s limit on an H100)
+QUANT_MPT_LAYERS = 2
+QUANT_GPTJ_LAYERS = 2  # GPT-J-6B at full width, depth cut to 2 of 28
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
 # Mistral-7B's four linears (fused qkv and gate_up) at traffic D's prefill,
@@ -2569,8 +2587,10 @@ def phase_quantize(dev):
     """AWQ on the card: TinyLlama at full width and depth quantized, saved,
     reloaded and served through K1-K4; AWQ against round-to-nearest on
     held-out tokens sampled from the float model; Mistral-7B at full width,
-    depth cut, for the seconds a layer. Returns the launch counts of the
-    served checkpoint's run."""
+    depth cut, for the seconds a layer; MPT-7B, depth cut, quantized,
+    saved, reloaded and served through K1, K2 and K7, with its quality
+    gate; GPT-J-6B, depth cut, for the seconds a layer. Returns the launch
+    counts of the served checkpoints' runs."""
     import dataclasses
 
     import numpy as np
@@ -2578,15 +2598,10 @@ def phase_quantize(dev):
 
     from autoawq_tpu_torch import AwqCausalLM
     from autoawq_tpu_torch.config import AwqConfig
-    from autoawq_tpu_torch.eval.perplexity import (kl_divergence_report,
-                                                   perplexity)
     from autoawq_tpu_torch.io import serialize
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.ops._build import BUILD_DIR
-    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
-    from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.tree import get_by_path, iter_linears
 
     qcfg = AwqConfig(q_group_size=128, zero_point=True)
     cfg = ModelConfig(**TINYLLAMA)
@@ -2613,9 +2628,7 @@ def phase_quantize(dev):
           "recipe": "g128, zero point, scale and clip search, f32",
           "seconds": seconds, "seconds_by_part": _quant_timings(q, seconds),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-          "layer0_ratio_index": {
-              f"{c['group'].prev_op}->{','.join(c['group'].layers)}":
-              c["best"] for c in q.scale_choices[0]}})
+          "layer0_ratio_index": _ratio_indices(q)})
     check(all(math.isfinite(v) for v in q.timings.values()),
           "quantize: timings")
 
@@ -2627,18 +2640,7 @@ def phase_quantize(dev):
         model.save_quantized(path)
         t_save = time.perf_counter() - t
         _, _, loaded = serialize.from_quantized(path, dev)
-        mismatched = []
-        for lm, ll in zip(model.params["layers"], loaded["layers"]):
-            for lin_path, p in iter_linears(lm):
-                lq = get_by_path(ll, lin_path)
-                if "qweight" not in p:
-                    continue
-                same = (torch.equal(lq["qweight"], p["qweight"])
-                        and torch.equal(lq["qzeros"], p["qzeros"])
-                        and torch.equal(lq["scales"],
-                                        p["scales"].half().float()))
-                if not same:
-                    mismatched.append(lin_path)
+        mismatched = _reload_mismatches(model.params, loaded)
         check(not mismatched, f"quantize: reloaded tensors differ at "
               f"{mismatched[:4]}")
         del loaded
@@ -2674,8 +2676,79 @@ def phase_quantize(dev):
               "traffic": name, "rows": rows})
     del served
 
-    # [3] quality: AWQ against round-to-nearest, against the float model, on
-    # held-out tokens sampled from it at temperature 1 (scripts/quality.py)
+    # [3] quality: AWQ against round-to-nearest, against the float model
+    _quality("tinyllama", cfg, fp, model.params, qcfg, dev)
+    del model, fp, q
+
+    # [4] Mistral-7B at full width, depth cut: seconds a layer
+    mcfg = dataclasses.replace(ModelConfig(**MISTRAL),
+                               num_hidden_layers=QUANT_MISTRAL_LAYERS)
+    _quantize_cut("mistral-7b", mcfg, MISTRAL["num_hidden_layers"],
+                  _outlier_fp(mcfg, dev), calib, qcfg, dev)
+
+    # [5] MPT-7B at full width, depth cut: quantized, saved, reloaded, served
+    mpt_counts = _quantize_mpt(qcfg, dev)
+    counts = {k: n + mpt_counts.get(k, 0) for k, n in counts.items()}
+
+    # [6] GPT-J-6B at full width, depth cut: the whole-block inspect
+    published = ModelConfig.from_hf_dict(GPTJ_6B)
+    gcfg = dataclasses.replace(published,
+                               num_hidden_layers=QUANT_GPTJ_LAYERS)
+    torch.cuda.empty_cache()
+    gfp = synth_float_on_card(gcfg, 0, dev)
+    out = _quantize_cut("gpt-j-6b", gcfg, published.num_hidden_layers, gfp,
+                        np.random.default_rng(1).integers(
+                            0, gcfg.vocab_size, QUANT_CALIB), qcfg, dev)
+    check(all("act_scale" in lp["mlp"] for lp in out["layers"]),
+          "quantize: GPT-J's fc2 scaled against no activation")
+    return counts
+
+
+def _ratio_indices(q):
+    """Layer 0's chosen grid index for each scale group."""
+    return {f"{c['group'].prev_op}->{','.join(c['group'].layers)}": c["best"]
+            for c in q.scale_choices[0]}
+
+
+def _reload_mismatches(mem, loaded):
+    """Paths where a reloaded tree's nibbles, zeros, scales or
+    ``act_scale`` differ from the in-memory quantized tree's (its scales
+    rounded to fp16, as the checkpoint holds them)."""
+    import torch
+
+    from autoawq_tpu_torch.utils.tree import get_by_path, iter_linears
+
+    bad = []
+    for i, (lm, ll) in enumerate(zip(mem["layers"], loaded["layers"])):
+        for lin_path, p in iter_linears(lm):
+            lq = get_by_path(ll, lin_path)
+            if "qweight" not in p:
+                continue
+            same = (torch.equal(lq["qweight"], p["qweight"])
+                    and torch.equal(lq["qzeros"], p["qzeros"])
+                    and torch.equal(lq["scales"],
+                                    p["scales"].half().float()))
+            if not same:
+                bad.append(f"{i}.{lin_path}")
+        act = lm["mlp"].get("act_scale")
+        if (act is None) != ("act_scale" not in ll["mlp"]) or (
+                act is not None and not torch.equal(
+                    ll["mlp"]["act_scale"], act.half().float())):
+            bad.append(f"{i}.mlp.act_scale")
+    return bad
+
+
+def _quality(name, cfg, fp, params, qcfg, dev):
+    """AWQ against round-to-nearest, against the float model, on
+    ``QUANT_EVAL`` held-out tokens sampled from it at temperature 1
+    (scripts/quality.py): KL report and perplexity of each; AWQ's mean KL
+    must be below RTN's."""
+    import torch
+
+    from autoawq_tpu_torch.eval.perplexity import (kl_divergence_report,
+                                                   perplexity)
+    from autoawq_tpu_torch.serve import generate as gen
+
     t = time.perf_counter()
     bos = torch.zeros((QUANT_EVAL[0], 1), dtype=torch.long, device=dev)
     held = gen.generate(cfg, fp, bos, QUANT_EVAL[1], temperature=1.0,
@@ -2686,43 +2759,215 @@ def phase_quantize(dev):
     ppl_fp = perplexity(cfg, fp, stream, **kw)
     quality = {"sample_s": t_sample, "eval_tokens": list(QUANT_EVAL),
                "fp_ppl": ppl_fp}
-    for name, params in (("awq", model.params), ("rtn", _rtn(fp, qcfg))):
-        rep = kl_divergence_report(cfg, fp, cfg, params, held.cpu().numpy(),
+    for method, q in (("awq", params), ("rtn", _rtn(fp, qcfg))):
+        rep = kl_divergence_report(cfg, fp, cfg, q, held.cpu().numpy(),
                                    method="plain")
-        ppl = perplexity(cfg, params, stream, **kw)
-        quality[name] = {"ppl": ppl, "delta_ppl": ppl - ppl_fp, **rep}
+        ppl = perplexity(cfg, q, stream, **kw)
+        quality[method] = {"ppl": ppl, "delta_ppl": ppl - ppl_fp, **rep}
     check(quality["awq"]["kl_mean"] < quality["rtn"]["kl_mean"],
-          f"quantize: AWQ's mean KL {quality['awq']['kl_mean']:.4g} is not "
-          f"below RTN's {quality['rtn']['kl_mean']:.4g}")
+          f"quantize: {name}: AWQ's mean KL {quality['awq']['kl_mean']:.4g} "
+          f"is not below RTN's {quality['rtn']['kl_mean']:.4g}")
     check(all(math.isfinite(quality[k]["ppl"]) for k in ("awq", "rtn"))
-          and math.isfinite(ppl_fp), "quantize: non-finite perplexity")
-    emit({"phase": "quantize", "step": "quality", "model": "tinyllama",
-          **quality})
-    del model, fp, q
+          and math.isfinite(ppl_fp), f"quantize: {name}: non-finite "
+          "perplexity")
+    emit({"phase": "quantize", "step": "quality", "model": name, **quality})
 
-    # [4] Mistral-7B at full width, depth cut: seconds a layer
-    mcfg = dataclasses.replace(ModelConfig(**MISTRAL),
-                               num_hidden_layers=QUANT_MISTRAL_LAYERS)
-    mfp = _outlier_fp(mcfg, dev)
+
+def _quantize_cut(name, cfg, published_layers, fp, calib, qcfg, dev):
+    """The quantizer alone on a model cut in depth: seconds a layer, by
+    part, peak memory, layer 0's chosen ratio indices. Returns the
+    quantized tree (on the card)."""
+    import torch
+
+    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
+    from autoawq_tpu_torch.utils.tree import iter_linears
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mq = AwqQuantizer(mcfg, qcfg, mfp, calib, progress=False,
-                      keep_on_device=True, device=dev)
+    q = AwqQuantizer(cfg, qcfg, fp, calib, progress=False,
+                     keep_on_device=True, device=dev)
     t = time.perf_counter()
-    out = mq.quantize()
+    out = q.quantize()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     check(all("qweight" in p for lp in out["layers"]
-              for _, p in iter_linears(lp)), "quantize: Mistral not packed")
-    emit({"phase": "quantize", "step": "quantize", "model": "mistral-7b",
-          "layers": mcfg.num_hidden_layers,
-          "depth_cut": f"{QUANT_MISTRAL_LAYERS} of 32 layers",
+              for _, p in iter_linears(lp)), f"quantize: {name} not packed")
+    emit({"phase": "quantize", "step": "quantize", "model": name,
+          "layers": cfg.num_hidden_layers, "card": card(),
+          "depth_cut": f"{cfg.num_hidden_layers} of {published_layers} "
+                       "layers, published width",
           "calib": list(QUANT_CALIB), "seconds": seconds,
-          "seconds_per_layer": seconds / mcfg.num_hidden_layers,
-          "seconds_by_part": _quant_timings(mq, seconds),
+          "seconds_per_layer": seconds / cfg.num_hidden_layers,
+          "seconds_by_part": _quant_timings(q, seconds),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-          "layer0_ratio_index": [c["best"] for c in mq.scale_choices[0]]})
+          "layer0_ratio_index": _ratio_indices(q)})
+    return out
+
+
+def _saved_keys(path):
+    """The tensor names of a checkpoint directory, from the safetensors
+    headers alone (an 8-byte little-endian length, then JSON)."""
+    keys = set()
+    for name in os.listdir(path):
+        if name.endswith(".safetensors"):
+            with open(os.path.join(path, name), "rb") as f:
+                n = int.from_bytes(f.read(8), "little")
+                keys.update(json.loads(f.read(n)))
+    keys.discard("__metadata__")
+    return keys
+
+
+def _quantize_mpt(qcfg, dev):
+    """MPT-7B at full width, depth ``QUANT_MPT_LAYERS``: float weights drawn
+    on the card, quantized through the facade, saved (every layer's
+    ``ffn.act.scales`` in the files), reloaded exactly, served through K1,
+    K2 and K7 with its launches held, and gated on AWQ's KL below RTN's.
+    Returns the launch counts of the served model's checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.api import cast_params
+    from autoawq_tpu_torch.io.hf import get_layout
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+
+    published = ModelConfig.from_hf_dict(MPT7B)
+    cfg = dataclasses.replace(published, num_hidden_layers=QUANT_MPT_LAYERS)
+    layers = cfg.num_hidden_layers
+    cut = (f"{layers} of {published.num_hidden_layers} layers, published "
+           "width")
+    calib = np.random.default_rng(1).integers(0, cfg.vocab_size, QUANT_CALIB)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fp = synth_float_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "quantize", "step": "synth", "model": "mpt-7b",
+          "layers": layers, "depth_cut": cut,
+          "seconds": time.perf_counter() - t})
+
+    torch.cuda.reset_peak_memory_stats()
+    model = AwqCausalLM(cfg, fp, device=dev)
+    t = time.perf_counter()
+    model.quantize(calib_data=calib, quant_config=qcfg,
+                   max_calib_samples=QUANT_CALIB[0],
+                   max_calib_seq_len=QUANT_CALIB[1], progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    q = model._quantizer
+    emit({"phase": "quantize", "step": "quantize", "model": "mpt-7b",
+          "layers": layers, "depth_cut": cut, "card": card(),
+          "calib": list(QUANT_CALIB),
+          "recipe": "g128, zero point, scale and clip search, f32",
+          "seconds": seconds, "seconds_per_layer": seconds / layers,
+          "seconds_by_part": _quant_timings(q, seconds),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "layer0_ratio_index": _ratio_indices(q)})
+    check(all("act_scale" in lp["mlp"] for lp in model.params["layers"]),
+          "quantize: MPT's fc2 scaled against no activation")
+
+    path = os.path.join(BUILD_DIR, "quant_mpt")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        model.save_quantized(path)
+        t_save = time.perf_counter() - t
+        keys = _saved_keys(path)
+        act = get_layout(cfg.model_type).act
+        missing = [i for i in range(layers)
+                   if f"transformer.blocks.{i}.{act}.scales" not in keys]
+        check(not missing, f"quantize: MPT's saved files lack the act "
+              f"scales of layers {missing}")
+        # loaded once, in the checkpoint's dtypes (fusing leaves MPT's
+        # layout as it is), held exactly, then cast to bf16 to serve, as
+        # the default dtype would have cast it
+        t = time.perf_counter()
+        served = AwqCausalLM.from_quantized(path, fuse_layers=True,
+                                            device=dev, dtype=None)
+        t_load = time.perf_counter() - t
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    mismatched = _reload_mismatches(model.params, served.params)
+    check(not mismatched, f"quantize: MPT's reloaded tensors differ at "
+          f"{mismatched[:4]}")
+    served.params = cast_params(served.params, torch.bfloat16)
+    emit({"phase": "quantize", "step": "save_load", "model": "mpt-7b",
+          "save_s": t_save, "load_s": t_load,
+          "act_scales_saved": layers - len(missing),
+          "reloaded_equal": not mismatched})
+    counts = _served_checks(
+        "quantize", "mpt-7b quantized", cfg, served.params, dev,
+        np.random.default_rng(11),
+        {"w4a16_gemv": 4 * layers, "fused_mlp": 0, "fused_attn_step": 0},
+        {"w4a16_gemm": 4 * layers, "prefill_attention": 0,
+         "w4a16_gemv": 0},
+        {"w4a16_gemv": 4 * layers, "paged_attn": layers,
+         "paged_attn_stock": 0})
+    del served
+    _quality("mpt-7b", cfg, fp, model.params, qcfg, dev)
     return counts
+
+
+def synth_float_on_card(cfg, seed, dev, scale=0.05):
+    """Seeded f32 float weights of a decoder-zoo model, drawn on the card
+    by a torch.Generator (std ``scale`` and norms of ones, as
+    ``io/hf.init_random_params``) in the layout ``io/hf`` loads its
+    checkpoint into: a fused ``qkv_proj`` where the checkpoint stores one
+    (MPT), q / k / v otherwise (GPT-J); fc1 / fc2 or gate / up / down;
+    zero biases where the config has them; LayerNorms with a zero bias,
+    except MPT's. Embedding columns 0-5 are multiplied by 8, as in
+    ``_outlier_fp``. JAX's ``init_random_params`` draws llama shapes only,
+    and a numpy draw on the host takes minutes at these widths."""
+    import torch
+
+    from autoawq_tpu_torch.io.hf import get_layout
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+
+    def norm(n=h):
+        p = {"weight": torch.ones(n, device=dev)}
+        if cfg.norm_kind == "ln" and cfg.model_type != "mpt":
+            p["bias"] = torch.zeros(n, device=dev)
+        return p
+
+    def lin(k, n, bias=False):
+        p = {"kernel": torch.randn(k, n, device=dev, generator=gen) * scale}
+        if bias:
+            p["bias"] = torch.zeros(n, device=dev)
+        return p
+
+    emb = torch.randn(cfg.vocab_size, h, device=dev, generator=gen) * scale
+    emb[:, :6] *= 8.0
+    params = {"embed_tokens": {"weight": emb}, "norm": norm(),
+              "lm_head": None if cfg.tie_word_embeddings else lin(
+                  h, cfg.vocab_size, cfg.lm_head_bias), "layers": []}
+    fused = "self_attn.qkv_proj" in get_layout(cfg.model_type).linears
+    for _ in range(cfg.num_hidden_layers):
+        if fused:
+            attn = {"qkv_proj": lin(h, (nh + 2 * nkv) * hd,
+                                    cfg.attention_bias)}
+        else:
+            attn = {f"{n}_proj": lin(h, heads * hd, cfg.attention_bias)
+                    for n, heads in (("q", nh), ("k", nkv), ("v", nkv))}
+        attn["o_proj"] = lin(nh * hd, h)
+        lp = {"input_layernorm": norm(), "self_attn": attn}
+        if not (cfg.parallel_residual and cfg.shared_input_norm):
+            lp["post_attention_layernorm"] = norm()
+        if cfg.gated_mlp:
+            lp["mlp"] = {"gate_proj": lin(h, inter, cfg.mlp_bias),
+                         "up_proj": lin(h, inter, cfg.mlp_bias),
+                         "down_proj": lin(inter, h, cfg.mlp_bias)}
+        else:
+            lp["mlp"] = {"fc1": lin(h, inter, cfg.mlp_bias),
+                         "fc2": lin(inter, h, cfg.mlp_bias)}
+        params["layers"].append(lp)
+    return params
 
 
 def synth_zoo_on_card(cfg, seed, dev):
@@ -2944,16 +3189,25 @@ def _mpt_traffics(dev, gen_t, rng):
 
 def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
                 expect_paged):
-    """One family at published width, depth ``ZOO_DEPTH``: one prefill of
-    2 x 384, 16 teacher-forced decode steps at bs1 and one paged step at
-    bs8, each held with its launches. Returns the launch counts of the
-    three, summed."""
+    """One family at published width, depth ``ZOO_DEPTH``, through
+    ``_served_checks``. Returns its launch counts."""
+    cfg, params = _zoo_model(hf_dict, dev, ZOO_DEPTH)
+    counts = _served_checks("zoo", name, cfg, params, dev, rng,
+                            expect_decode, expect_prefill, expect_paged)
+    del params
+    return counts
+
+
+def _served_checks(phase, name, cfg, params, dev, rng, expect_decode,
+                   expect_prefill, expect_paged):
+    """One prefill of 2 x 384, 16 teacher-forced decode steps at bs1 and
+    one paged step at bs8, each held with its launches and its
+    teacher-forced check. Returns the launch counts of the three, summed."""
     import torch
 
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
 
-    cfg, params = _zoo_model(hf_dict, dev, ZOO_DEPTH)
     counts = {}
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (2, 384))).to(dev)
@@ -2962,7 +3216,7 @@ def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
     _check_launches(f"{name} prefill", counts["prefill"], expect_prefill)
     rows = _teacher_forced(cfg, params, prompt, 1)
     _check_teacher_forced(f"{name} prefill", rows)
-    emit({"phase": "zoo", "model": name, "what": "prefill 2 x 384",
+    emit({"phase": phase, "model": name, "what": "prefill 2 x 384",
           "card": card(), "prefill_s": min(times),
           "device_ms": prof["device_ms_per_call"],
           "launches": counts["prefill"], "kernel_vs_plain": rows})
@@ -2978,7 +3232,7 @@ def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
     counts["decode"] = dict(_build.LAUNCHES)
     del caches
     _check_launches(f"{name} decode step", counts["decode"], expect_decode)
-    emit({"phase": "zoo", "model": name, "what": "bs1 decode, 16 steps "
+    emit({"phase": phase, "model": name, "what": "bs1 decode, 16 steps "
           "teacher-forced", "card": card(), "launches_per_decode_step":
           counts["decode"], "kernel_vs_plain": rows})
 
@@ -2992,10 +3246,9 @@ def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
     _check_launches(f"{name} paged step", counts["paged"], expect_paged)
     rows = _teacher_forced_paged(cfg, params, prompts, 1)
     _check_teacher_forced(f"{name} paged", rows)
-    emit({"phase": "zoo", "model": name, "what": "paged step, 8 slots",
+    emit({"phase": phase, "model": name, "what": "paged step, 8 slots",
           "card": card(), "launches_per_step": counts["paged"],
           "kernel_vs_plain": rows})
-    del params
     return {k: sum(c.get(k, 0) for c in counts.values())
             for k in counts["paged"]}
 

@@ -207,6 +207,33 @@ def test_supported_keeps_model_gates_drops_vmem_gates(rng):
                                                         HD))
 
 
+# ROADMAP §3's case: a llama with head_dim 320, which K5's split kernel
+# cannot take (HEAD_DIM_MAX 256), and the same model at 256, which it can
+HD_WIDE = dict(model_type="llama", vocab_size=64, hidden_size=1280,
+               intermediate_size=512, num_hidden_layers=1,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=320)
+
+
+@pytest.mark.parametrize("hd,taken", [(320, False), (256, True)])
+def test_supported_refuses_head_dims_k5_cannot_take(hd, taken):
+    """A bf16 decode at B = 8 with hd 320 never reaches K5 (whose wrapper
+    raises above ``HEAD_DIM_MAX``): it falls to the grouped or repeat
+    path, as JAX's plain path takes it. At hd 256 the gate still admits
+    the step."""
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(**dict(HD_WIDE, head_dim=hd,
+                             hidden_size=4 * hd))
+    params = fuse_model(cfg, random_quantized_params(cfg, seed=0,
+                                                     device="cpu"))
+    pa = params["layers"][0]["self_attn"]
+    x = torch.zeros(8, 1, cfg.hidden_size, dtype=torch.bfloat16)
+    kc = torch.zeros(8, 2, 64, hd, dtype=torch.bfloat16)
+    assert fas.supported(cfg, pa, x, kc) is taken
+    assert modules._fused_attn_ok(cfg, pa, x, "auto", {"k": kc}) is taken
+
+
 def test_dispatch_rule_mirrors_jax_auto(rng):
     """bf16 cache: B >= 8 or B * T >= 2048; int8: capacity T >= 2048; never
     for method="plain" (JAX "jnp")."""

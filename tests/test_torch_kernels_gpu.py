@@ -916,6 +916,46 @@ def test_fused_attn_step_raises_on_groups_the_core_does_not_take(cuda, rng):
                                              nh=4, nkv=2, hd=64, scale=0.125)
 
 
+def test_bs8_decode_at_head_dim_320_takes_the_plain_attention(cuda):
+    """hd 320 is above K5's ``HEAD_DIM_MAX``: a bf16 decode at B = 8 (which
+    K5's rule would take) runs K1 and the plain attention, launches no K5,
+    and its logits sit within twice the bf16 twin's distance from f32
+    (+1e-3) of the f32 plain path, the limit of ``chip_smoke.py``'s
+    teacher-forced rows."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(model_type="llama", vocab_size=256, hidden_size=1280,
+                      intermediate_size=512, num_hidden_layers=1,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      head_dim=320)
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=cuda))
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (8, 16))).to(cuda)
+    runs = {"kernel": ("auto", torch.bfloat16),
+            "plain": ("plain", torch.bfloat16),
+            "f32": ("plain", torch.float32)}
+    logits, launches, token = {}, {}, None
+    for name, (method, dt) in runs.items():  # the kernel path first
+        caches = gen.init_kv_cache(cfg, 8, 64, dt, cuda)
+        first, _ = gen.prefill(cfg, params, prompt, caches, method, dt)
+        if token is None:
+            token = first.argmax(-1)[:, None]
+        _build.reset_launches()
+        logits[name], _ = gen.decode_step(cfg, params, token, caches, 16,
+                                          method, dt)
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.LAUNCHES)
+    assert launches["kernel"]["fused_attn_step"] == 0
+    assert launches["kernel"]["w4a16_gemv"] == 2  # qkv and o
+    assert bool(torch.isfinite(logits["kernel"]).all())
+    limit = 2 * rel(logits["plain"], logits["f32"]) + 1e-3
+    assert rel(logits["kernel"], logits["f32"]) <= limit
+
+
 QUANT_TINY = dict(model_type="llama", vocab_size=256, hidden_size=128,
                   intermediate_size=256, num_hidden_layers=2,
                   num_attention_heads=4, num_key_value_heads=4, head_dim=32,

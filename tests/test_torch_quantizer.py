@@ -346,8 +346,8 @@ def test_options_outside_the_port_raise(kw, item):
 def test_plugins_outside_the_port_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         get_plugin("qwen3_moe")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_plugin("gemma")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        get_plugin("phi3_v")
     with pytest.raises(KeyError):
         get_plugin("not_a_model")
     assert get_plugin("mistral") is get_plugin("llama")
