@@ -36,15 +36,16 @@ from autoawq_tpu_torch.utils.device import resolve_device
 
 
 def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
-    """Cast float leaves other than quantization scales to ``dtype``
-    (scales stay f32, the kernels' contract)."""
+    """Cast float leaves other than quantization scales and MLA's dense
+    kv_b weight to ``dtype`` (both stay f32: the kernels' contract, and
+    the absorbed decode's, as in JAX)."""
     def walk(node, key=None):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
         if isinstance(node, torch.Tensor) and node.is_floating_point() \
-                and key != "scales":
+                and key not in ("scales", "dense"):
             return node.to(dtype)
         return node
     return walk(params)
@@ -84,16 +85,18 @@ class AwqCausalLM:
         for qkv, the fused decode MLP K3) and stacks MoE experts for the
         grouped kernel K6; the default keeps the checkpoint's layout, whose
         decode MLP is K8 (an expert list takes the dense route, K8 per
-        expert). ``dtype`` types the float weights (embedding, norms,
-        router, lm_head); None keeps the checkpoint's."""
+        expert). Either way MLA's kv_b gains its dense f32 weight for the
+        absorbed decode (``nn/fuse.attach_kv_b_dense``). ``dtype`` types
+        the float weights (embedding, norms, router, lm_head); None keeps
+        the checkpoint's."""
+        from autoawq_tpu_torch.nn import fuse
+
         dev = resolve_device(device)
         cfg, qcfg, params = serialize.from_quantized(path, dev)
         if dtype is not None:
             params = cast_params(params, dtype)
-        if fuse_layers:
-            from autoawq_tpu_torch.nn.fuse import fuse_model
-
-            params = fuse_model(cfg, params)
+        params = (fuse.fuse_model(cfg, params) if fuse_layers
+                  else fuse.attach_kv_b_dense(cfg, params))
         m = cls(cfg, params, qcfg, dev)
         m._src_path = path
         return m

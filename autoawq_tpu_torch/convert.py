@@ -60,14 +60,27 @@ def stacked_from_planar(p: Dict[str, Any], n: int,
     return {k: torch.stack([q[k] for q in per]) for k in per[0]}
 
 
-def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
-                  device) -> Dict[str, Any]:
+def shared_widths(cfg: ModelConfig) -> Dict[str, int]:
+    """Intermediate width of each shared-expert style, as ``moe_block``
+    runs it: deepseek's ``shared_experts`` at the expert width times
+    ``n_shared_experts``, qwen2-moe's ``shared_expert`` at its own."""
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    return {"shared_experts": inter * max(1, cfg.n_shared_experts),
+            "shared_expert": cfg.shared_expert_intermediate_size or 0}
+
+
+def _mlp_from_jax(cfg: ModelConfig, mlp: Dict[str, Any],
+                  outs: Dict[str, int], device) -> Dict[str, Any]:
     if "experts" not in mlp and "experts_stacked" not in mlp:
         return {name: (to_tensor(lin, device) if name == "act_scale" else
                        lin_from_planar(lin, outs["mlp." + name], device))
                 for name, lin in mlp.items()}
-    port: Dict[str, Any] = {"gate": lin_from_planar(mlp["gate"],
-                                                    outs["mlp.gate"], device)}
+    gate = dict(mlp["gate"])
+    bias = gate.pop("e_score_correction_bias", None)
+    port: Dict[str, Any] = {"gate": lin_from_planar(gate, outs["mlp.gate"],
+                                                    device)}
+    if bias is not None:
+        port["gate"]["e_score_correction_bias"] = to_tensor(bias, device)
     if "experts_stacked" in mlp:
         port["experts_stacked"] = {
             name: stacked_from_planar(lin, outs["mlp.experts." + name], device)
@@ -76,12 +89,25 @@ def _mlp_from_jax(mlp: Dict[str, Any], outs: Dict[str, int],
         port["experts"] = [
             {name: lin_from_planar(lin, outs["mlp.experts." + name], device)
              for name, lin in ep.items()} for ep in mlp["experts"]]
+    for shared, si in shared_widths(cfg).items():
+        if shared in mlp:
+            port[shared] = {
+                name: lin_from_planar(
+                    lin, cfg.hidden_size if name == "down_proj" else si,
+                    device)
+                for name, lin in mlp[shared].items()}
+    if "shared_expert_gate" in mlp:
+        port["shared_expert_gate"] = lin_from_planar(
+            mlp["shared_expert_gate"], 1, device)
     return port
+
+
+_ATTN_NORMS = ("q_norm", "k_norm", "q_a_layernorm", "kv_a_layernorm")
 
 
 def _attn_from_jax(attn: Dict[str, Any], outs: Dict[str, int],
                    device) -> Dict[str, Any]:
-    return {name: (_norm(p, device) if name in ("q_norm", "k_norm") else
+    return {name: (_norm(p, device) if name in _ATTN_NORMS else
                    lin_from_planar(p, outs["self_attn." + name], device))
             for name, p in attn.items()}
 
@@ -90,9 +116,12 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """The JAX package's param tree of any architecture the port runs
     (numpy leaves) -> port params: every layer's norms (LayerNorm biases,
-    gemma2's feed-forward norms), attention (q/k norms), MLP (gated,
-    ``fc1`` / ``fc2``, ``act_scale``, experts), the learned positions,
-    bloom's ``embed_ln`` and an lm_head with its bias."""
+    gemma2's feed-forward norms), attention (q/k norms; MLA's linears and
+    its ``q_a_layernorm`` / ``kv_a_layernorm``), MLP (gated, ``fc1`` /
+    ``fc2``, ``act_scale``, experts, the router's
+    ``e_score_correction_bias``, shared experts and their gate), the
+    learned positions, bloom's ``embed_ln`` and an lm_head with its
+    bias."""
     outs = role_out_features(cfg)
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": to_tensor(tree["embed_tokens"]["weight"],
@@ -111,7 +140,7 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
             if name == "self_attn":
                 port[name] = _attn_from_jax(sub, outs, device)
             elif name == "mlp":
-                port[name] = _mlp_from_jax(sub, outs, device)
+                port[name] = _mlp_from_jax(cfg, sub, outs, device)
             else:
                 port[name] = _norm(sub, device)
         params["layers"].append(port)

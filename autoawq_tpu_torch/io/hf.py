@@ -6,10 +6,14 @@ Counterpart of ``autoawq_tpu/io/hf.py``: ``ArchLayout`` :58 and
 column permutations ``_perm_head_interleaved`` :36 (bloom, gpt_neox) and
 ``_perm_falcon`` :45 (falcon with nkv > 1, internlm2), ``_falcon_norm_fix``
 :353, ``_lin_from_sd`` / ``_lin_to_sd`` :366-452 (biases included),
-``_norm_from_sd`` :454, the MoE helpers :470-495, ``params_from_state_dict``
-:500, ``state_dict_from_params`` :587, ``role_in_features`` :655,
+``_norm_from_sd`` :454, the MoE helpers :470-495 (Mixtral's, Qwen3-MoE's
+and deepseek's prefixes; the router's ``e_score_correction_bias``; shared
+experts), ``params_from_state_dict`` :500 (an MoE layer is one whose router
+is in the state dict, so deepseek's dense first layers load as dense),
+``state_dict_from_params`` :587, ``role_in_features`` :655,
 ``role_out_features`` :692, ``load_state_dict_from_dir`` :728 and
-``init_random_params`` :743. AutoAWQ GEMM tensors (``qweight`` int32
+``init_random_params`` :743; ``DEEPSEEK_LAYOUT`` :97 names MLA's norms and
+linears. AutoAWQ GEMM tensors (``qweight`` int32
 [K, N/8] in AWQ order, ``qzeros`` likewise, ``scales`` fp16 [G, N]) unpack
 to logical nibbles and repack into the port's layout (core/packing.py),
 bit-exact, and back. The port packs along K, so a fused qkv's column
@@ -119,12 +123,34 @@ def _split_layout(prefix: str, attn: str, o: str, mlp: Dict[str, str],
     return ArchLayout(layer_prefix=prefix, linears=linears, **kw)
 
 
+# deepseek_v2 / v3 and minicpm3: MLA's norms and linears, the dense MLP of
+# the first layers (MoE layers are read by ``_moe_from_sd``)
+DEEPSEEK_LAYOUT = ArchLayout(
+    layer_prefix="model.layers.{i}.",
+    embed="model.embed_tokens",
+    final_norm="model.norm",
+    norms={
+        "input_layernorm": "input_layernorm",
+        "post_attention_layernorm": "post_attention_layernorm",
+        "self_attn.q_a_layernorm": "self_attn.q_a_layernorm",
+        "self_attn.kv_a_layernorm": "self_attn.kv_a_layernorm",
+    },
+    linears={name: name for name in (
+        "self_attn.q_proj", "self_attn.q_a_proj", "self_attn.q_b_proj",
+        "self_attn.kv_a_proj_with_mqa", "self_attn.kv_b_proj",
+        "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+        "mlp.down_proj")},
+)
+
 _GATED = {"gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
           "down_proj": "mlp.down_proj"}
 _TWO_NORMS = {"input_layernorm": "input_layernorm",
               "post_attention_layernorm": "post_attention_layernorm"}
 
 ARCH_LAYOUTS: Dict[str, ArchLayout] = {
+    "deepseek_v2": DEEPSEEK_LAYOUT,
+    "deepseek_v3": DEEPSEEK_LAYOUT,
+    "minicpm3": DEEPSEEK_LAYOUT,
     "opt": _split_layout(
         "model.decoder.layers.{i}.", "self_attn.", "self_attn.out_proj",
         {"fc1": "fc1", "fc2": "fc2"}, embed="model.decoder.embed_tokens",
@@ -294,11 +320,15 @@ def _expert_hf_name(cfg: ModelConfig, name: str) -> str:
 def _moe_from_sd(cfg: ModelConfig, sd: Dict[str, torch.Tensor], i: int,
                  base: str, device) -> Dict[str, Any]:
     """Layer i's MoE block: the float router (AutoAWQ leaves it unquantized,
-    ``modules_to_not_convert=["gate"]``), the experts as a list of MLP
-    LINs, and shared experts where the checkpoint has them (JAX
-    ``params_from_state_dict`` :539-562)."""
+    ``modules_to_not_convert=["gate"]``) with deepseek_v3's
+    ``e_score_correction_bias`` where the checkpoint has one, the experts as
+    a list of MLP LINs, and deepseek's shared experts where the checkpoint
+    has them (JAX ``params_from_state_dict`` :538-563)."""
     mlp: Dict[str, Any] = {"gate": _lin_from_sd(sd, _gate_key(cfg, i),
                                                 device)}
+    bias = sd.get(_gate_key(cfg, i) + ".e_score_correction_bias")
+    if bias is not None:
+        mlp["gate"]["e_score_correction_bias"] = bias.to(device)
     experts = []
     for e in range(cfg.num_experts):
         ep = {}
@@ -480,9 +510,14 @@ def state_dict_from_params(cfg: ModelConfig, params: Dict,
                                  "mlp.act_scale")
             sd[base + layout.act + ".scales"] = _cpu(act).to(torch.float16)
         if cfg.is_moe and "experts" in lp.get("mlp", {}):
-            _lin_to_sd(sd, _gate_key(cfg, i), lp["mlp"]["gate"],
+            gate = dict(lp["mlp"]["gate"])
+            bias = gate.pop("e_score_correction_bias", None)
+            _lin_to_sd(sd, _gate_key(cfg, i), gate,
                        out_features_map["mlp.gate"], dtype,
                        in_features=in_map["mlp.gate"])
+            if bias is not None:  # an f32 buffer, whatever ``dtype``
+                sd[_gate_key(cfg, i) + ".e_score_correction_bias"] = \
+                    _cpu(bias).float()
             for e, ep in enumerate(lp["mlp"]["experts"]):
                 for name in _MLP_EXPERT_NAMES:
                     if name in ep:
@@ -491,38 +526,60 @@ def state_dict_from_params(cfg: ModelConfig, params: Dict,
                             + _expert_hf_name(cfg, name), ep[name],
                             out_features_map["mlp.experts." + name], dtype,
                             in_features=in_map["mlp.experts." + name])
+            for name, p in lp["mlp"].get("shared_experts", {}).items():
+                role = "mlp.shared_experts." + name
+                _lin_to_sd(sd, base + role, p, out_features_map[role], dtype,
+                           in_features=in_map[role])
     return sd
 
 
 def role_in_features(cfg: ModelConfig) -> Dict[str, int]:
-    """Logical in_features (K) by layer role (the non-MLA subset of JAX's),
-    so the writer strips a K pad a LIN came with."""
+    """Logical in_features (K) by layer role (JAX's map), so the writer
+    strips a K pad a LIN came with."""
     h = cfg.hidden_size
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    shared_inter = (cfg.moe_intermediate_size or 0) * max(
+        1, cfg.n_shared_experts)
+    o_in = cfg.num_attention_heads * (cfg.v_head_dim if cfg.is_mla
+                                      else cfg.head_dim_)
     return {
         "self_attn.qkv_proj": h, "self_attn.q_proj": h,
         "self_attn.k_proj": h, "self_attn.v_proj": h,
-        "self_attn.o_proj": cfg.num_attention_heads * cfg.head_dim_,
+        "self_attn.o_proj": o_in, "self_attn.q_a_proj": h,
+        "self_attn.q_b_proj": cfg.q_lora_rank or 0,
+        "self_attn.kv_a_proj_with_mqa": h,
+        "self_attn.kv_b_proj": cfg.kv_lora_rank or 0,
         "mlp.gate_up_proj": h, "mlp.gate_proj": h, "mlp.up_proj": h,
         "mlp.down_proj": cfg.intermediate_size, "mlp.fc1": h,
         "mlp.fc2": cfg.intermediate_size, "mlp.gate": h,
         "mlp.experts.gate_proj": h, "mlp.experts.up_proj": h,
-        "mlp.experts.down_proj": inter, "lm_head": h,
+        "mlp.experts.down_proj": inter,
+        "mlp.shared_experts.gate_proj": h, "mlp.shared_experts.up_proj": h,
+        "mlp.shared_experts.down_proj": shared_inter, "lm_head": h,
     }
 
 
 def role_out_features(cfg: ModelConfig) -> Dict[str, int]:
     """Logical out_features by layer role, under the JAX package's names
-    (its non-MLA subset, plus the stacked experts' fused
+    (its map, plus the stacked experts' fused
     ``mlp.experts.gate_up_proj``)."""
     hd, nh = cfg.head_dim_, cfg.num_attention_heads
     nkv = cfg.num_key_value_heads
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    shared_inter = (cfg.moe_intermediate_size or 0) * max(
+        1, cfg.n_shared_experts)
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     return {
         "self_attn.qkv_proj": (nh + 2 * nkv) * hd,
         "mlp.gate_up_proj": 2 * cfg.intermediate_size,
-        "self_attn.q_proj": nh * hd, "self_attn.k_proj": nkv * hd,
+        "self_attn.q_proj": nh * dq if cfg.is_mla else nh * hd,
+        "self_attn.k_proj": nkv * hd,
         "self_attn.v_proj": nkv * hd, "self_attn.o_proj": cfg.hidden_size,
+        "self_attn.q_a_proj": cfg.q_lora_rank or 0,
+        "self_attn.q_b_proj": nh * dq,
+        "self_attn.kv_a_proj_with_mqa": ((cfg.kv_lora_rank or 0)
+                                         + cfg.qk_rope_head_dim),
+        "self_attn.kv_b_proj": nh * (cfg.qk_nope_head_dim + cfg.v_head_dim),
         "mlp.gate_proj": cfg.intermediate_size,
         "mlp.up_proj": cfg.intermediate_size,
         "mlp.down_proj": cfg.hidden_size,
@@ -530,7 +587,11 @@ def role_out_features(cfg: ModelConfig) -> Dict[str, int]:
         "mlp.gate": cfg.num_experts,
         "mlp.experts.gate_proj": inter, "mlp.experts.up_proj": inter,
         "mlp.experts.gate_up_proj": 2 * inter,
-        "mlp.experts.down_proj": cfg.hidden_size, "lm_head": cfg.vocab_size,
+        "mlp.experts.down_proj": cfg.hidden_size,
+        "mlp.shared_experts.gate_proj": shared_inter,
+        "mlp.shared_experts.up_proj": shared_inter,
+        "mlp.shared_experts.down_proj": cfg.hidden_size,
+        "lm_head": cfg.vocab_size,
     }
 
 
@@ -548,8 +609,9 @@ def load_state_dict_from_dir(path: str) -> Dict[str, torch.Tensor]:
 def init_random_params(cfg: ModelConfig, seed: int = 0,
                        dtype: torch.dtype = torch.float32,
                        scale: float = 0.05, device=None) -> Dict[str, Any]:
-    """Random float params of JAX's llama shapes for tests and smoke runs
-    (q/k norms and gemma2's feed-forward norms where the config has them),
+    """Random float params of JAX's llama and MLA shapes for tests and
+    smoke runs (q/k norms and gemma2's feed-forward norms where the config
+    has them; every layer of an MoE config MoE, as in JAX),
     on ``device`` (None: the card, RuntimeError without one). The draws are
     the JAX package's, call for call (numpy's ``standard_normal`` in
     float32 times ``scale``, on the host), so one seed gives both packages
@@ -581,12 +643,29 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
         "layers": [],
     }
     for _ in range(cfg.num_hidden_layers):
-        attn = {
-            "q_proj": lin(h, nh * hd, cfg.attention_bias),
-            "k_proj": lin(h, nkv * hd, cfg.attention_bias),
-            "v_proj": lin(h, nkv * hd, cfg.attention_bias),
-            "o_proj": lin(nh * hd, h),
-        }
+        if cfg.is_mla:
+            dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            attn = {
+                "kv_a_proj_with_mqa": lin(
+                    h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "kv_a_layernorm": ones(cfg.kv_lora_rank),
+                "kv_b_proj": lin(cfg.kv_lora_rank, nh * (
+                    cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "o_proj": lin(nh * cfg.v_head_dim, h),
+            }
+            if cfg.q_lora_rank:
+                attn["q_a_proj"] = lin(h, cfg.q_lora_rank)
+                attn["q_a_layernorm"] = ones(cfg.q_lora_rank)
+                attn["q_b_proj"] = lin(cfg.q_lora_rank, nh * dq)
+            else:
+                attn["q_proj"] = lin(h, nh * dq)
+        else:
+            attn = {
+                "q_proj": lin(h, nh * hd, cfg.attention_bias),
+                "k_proj": lin(h, nkv * hd, cfg.attention_bias),
+                "v_proj": lin(h, nkv * hd, cfg.attention_bias),
+                "o_proj": lin(nh * hd, h),
+            }
         if cfg.qk_norm:
             attn["q_norm"] = ones(hd)
             attn["k_norm"] = ones(hd)

@@ -1,5 +1,6 @@
 """Load-time fusion of q/k/v into qkv_proj and gate/up into gate_up_proj,
-and stacking of quantized MoE experts into ``experts_stacked``.
+stacking of quantized MoE experts into ``experts_stacked``, and MLA's
+dense f32 kv_b weight for the absorbed decode.
 
 Counterpart of ``autoawq_tpu/nn/fuse.fuse_model``. The planar layout pads
 every tensor's columns, so the JAX package unpacks, concatenates and
@@ -17,6 +18,7 @@ import torch
 
 from autoawq_tpu_torch.core.packing import pack_port, pad_cols
 from autoawq_tpu_torch.models.config import ModelConfig
+from autoawq_tpu_torch.ops.gemm import dequantize
 
 
 def _const8_zeros(scales: torch.Tensor) -> torch.Tensor:
@@ -75,14 +77,16 @@ def fuse_model(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     and each expert's), and a layer's experts into ``experts_stacked`` for
     the grouped kernel K6 when every expert's gate_up and down are
     quantized. A natively fused qkv (mpt, bloom, neox, falcon, phi3, qwen
-    v1, baichuan, internlm2) stays as it is, and so does a non-gated
-    ``fc1`` / ``fc2`` MLP."""
+    v1, baichuan, internlm2) stays as it is, and so do a non-gated
+    ``fc1`` / ``fc2`` MLP, MLA's projections and an MoE layer's shared
+    experts (at decode they take K8). MLA's kv_b gains its dense weight
+    (``attach_kv_b_dense``)."""
     hd, nh, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
     inter = cfg.intermediate_size
     expert_inter = cfg.moe_intermediate_size or inter
     for lp in params["layers"]:
         attn = lp["self_attn"]
-        if "q_proj" in attn:
+        if "q_proj" in attn and not cfg.is_mla:
             attn["qkv_proj"] = _fuse(
                 [attn.pop("q_proj"), attn.pop("k_proj"), attn.pop("v_proj")],
                 [nh * hd, nkv * hd, nkv * hd])
@@ -103,4 +107,23 @@ def fuse_model(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
                 name: _stack_expert_lins([e[name] for e in experts])
                 for name in ("gate_up_proj", "down_proj")}
             del m["experts"]
+    return attach_kv_b_dense(cfg, params)
+
+
+def attach_kv_b_dense(cfg: ModelConfig,
+                      params: Dict[str, Any]) -> Dict[str, Any]:
+    """In place: each quantized MLA ``kv_b_proj`` gains a ``dense`` leaf,
+    its f32 weight [kv_lora_rank, nh * (qk_nope + v)], which the absorbed
+    latent decode folds into q and the output (``nn/modules._dense_weight``).
+    The same dequantization JAX runs every step, so the same values, built
+    once instead (V2-Lite: 8 MB f32 a layer against 1.1 MB packed at g64)."""
+    if not cfg.is_mla:
+        return params
+    n = cfg.num_attention_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    for lp in params["layers"]:
+        kv_b = lp["self_attn"].get("kv_b_proj")
+        if kv_b is not None and "qweight" in kv_b:
+            kv_b["dense"] = dequantize(
+                kv_b["qweight"], kv_b["scales"], kv_b.get("qzeros"),
+                dtype=torch.float32)[:, :n].contiguous()
     return params

@@ -1,25 +1,35 @@
 """The decoder zoo as plain functions over a parameter dict.
 
-Counterpart of ``autoawq_tpu/nn/modules.py`` (all but MLA and MoE beyond
-Mixtral): RMS and LayerNorms, RoPE in six scaling flavours (neox or gptj
-style, partial rotary), ALiBi, learned positions, q/k norms, softcaps,
-parallel residual, gemma2's post norms, gated and non-gated MLPs. The
-parameter tree keeps the JAX package's names and [in, out] orientation:
+Counterpart of ``autoawq_tpu/nn/modules.py``: RMS and LayerNorms, RoPE in
+six scaling flavours (neox or gptj style, partial rotary), ALiBi, learned
+positions, q/k norms, softcaps, parallel residual, gemma2's post norms,
+gated and non-gated MLPs, multi-head latent attention (MLA) with its
+latent caches, and MoE with every router of the JAX package and shared
+experts. The parameter tree keeps the JAX package's names and [in, out]
+orientation:
 
   params = {"embed_tokens": {"weight": [V, H]},
             "embed_positions"?: {"weight"}, "embed_ln"?: {"weight", "bias"?},
             "layers": [{"input_layernorm": {"weight", "bias"?},
                         "self_attn": {"qkv_proj" | "q_proj"/"k_proj"/"v_proj",
-                                      "o_proj", "q_norm"?, "k_norm"?},
+                                      "o_proj", "q_norm"?, "k_norm"?}
+                                     | {"q_proj" | "q_a_proj"/"q_a_layernorm"
+                                        /"q_b_proj", "kv_a_proj_with_mqa",
+                                        "kv_a_layernorm", "kv_b_proj",
+                                        "o_proj"},
                         "post_attention_layernorm"?: {...},
                         "pre_feedforward_layernorm"?, "post_feedforward_layernorm"?,
                         "mlp": {"gate_up_proj" | "gate_proj"/"up_proj",
                                 "down_proj", "act_scale"?}
                                | {"fc1", "fc2", "act_scale"?}
-                               | {"gate": {"kernel": [H, E]},
+                               | {"gate": {"kernel": [H, E],
+                                           "e_score_correction_bias"?: [E]},
                                   "experts": [mlp dicts]
                                   | "experts_stacked": {"gate_up_proj",
-                                                        "down_proj"}}}],
+                                                        "down_proj"},
+                                  "shared_experts"?: mlp dict,
+                                  "shared_expert"?: mlp dict,
+                                  "shared_expert_gate"?: {"kernel"}}}],
             "norm": {"weight", "bias"?},
             "lm_head": {"kernel": [H, V], "bias"?} | None}
 
@@ -57,34 +67,24 @@ from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
 from autoawq_tpu_torch.ops import moe_gemm as moe_ops
 from autoawq_tpu_torch.ops import paged_attn as paged_ops
 from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
-from autoawq_tpu_torch.ops.gemm import awq_matmul
+from autoawq_tpu_torch.ops.gemm import awq_matmul, dequantize
 
-_ROADMAP_MOE = "MoE beyond Mixtral's routing, ROADMAP queue 1 item 12"
+# MoE model types with a loader in the JAX package (its ``ARCHITECTURES``);
+# phimoe has none there, so its config parses as a dense llama
+MOE_TYPES = ("mixtral", "qwen3_moe", "deepseek_v2", "deepseek_v3",
+             "minicpm3")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config the port cannot run exactly
-    (it never computes something different without saying so): MLA, and
-    MoE beyond Mixtral's softmax / greedy routing."""
-    moe = cfg.is_moe
-    unsupported = [
-        (cfg.is_mla, "MLA attention (ROADMAP queue 1 item 12)"),
-        (moe and cfg.scoring_func != "softmax",
-         f"sigmoid expert scoring ({_ROADMAP_MOE})"),
-        (moe and cfg.topk_method != "greedy",
-         f"{cfg.topk_method} expert routing ({_ROADMAP_MOE})"),
-        (moe and bool(cfg.n_shared_experts
-                      or cfg.shared_expert_intermediate_size),
-         f"shared experts ({_ROADMAP_MOE})"),
-        (moe and cfg.first_k_dense_replace > 0,
-         f"dense first layers in an MoE model ({_ROADMAP_MOE})"),
-        (moe and cfg.model_type != "mixtral",
-         f"{cfg.model_type} experts ({_ROADMAP_MOE})"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.model_type}: {what} is not in the port yet")
+    (it never computes something different without saying so): MoE types
+    the JAX package has no loader for, phimoe among them."""
+    if cfg.model_type == "phimoe" or (cfg.is_moe
+                                      and cfg.model_type not in MOE_TYPES):
+        raise NotImplementedError(
+            f"{cfg.model_type}: its experts have no loader in the JAX "
+            "package, so they are not in the port yet (ROADMAP queue 1 "
+            "item 12)")
 
 
 def is_quantized(p: Dict[str, Any]) -> bool:
@@ -588,6 +588,190 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
 
 
+def _dense_weight(lin: Dict[str, Any], out_features: int) -> torch.Tensor:
+    """Dense f32 weight [K, out_features] of a LIN (JAX ``_dense_weight``),
+    for the absorbed MLA decode, which reassociates kv_b's matmul. A
+    quantized kv_b carries it as its ``dense`` leaf, built once at load
+    (``nn/fuse.attach_kv_b_dense``: the dequantization JAX runs every step,
+    so the same values); without the leaf it is dequantized on every call,
+    as in JAX. A float kernel is always read as it stands, since
+    calibration may rescale it in place."""
+    if "dense" in lin:
+        return lin["dense"][:, :out_features]
+    if not is_quantized(lin):
+        return lin["kernel"].float()[:, :out_features]
+    return dequantize(lin["qweight"], lin["scales"], lin.get("qzeros"),
+                      dtype=torch.float32)[:, :out_features]
+
+
+def _mla_scores(q_nope, q_pe, w3, c_cache, pe_cache, dn, sb=None):
+    """Absorbed MLA scores [B, nh, S, T] (before the scale): kv_b's key
+    half folded into q, contracted with the latent rows, plus the rope
+    part; an int8 cache's per-token part scales ``sb`` [B, T, 2] fold into
+    each part."""
+    q_abs = torch.einsum("bshd,chd->bshc", q_nope.float(), w3[..., :dn])
+    s_c = torch.einsum("bshc,btc->bhst", q_abs, c_cache)
+    s_pe = torch.einsum("bshr,btr->bhst", q_pe.float(), pe_cache)
+    if sb is not None:
+        s_c = s_c * sb[..., 0][:, None, None, :]
+        s_pe = s_pe * sb[..., 1][:, None, None, :]
+    return s_c + s_pe
+
+
+def _mla_out(probs, w3, c_cache, dn, dtype, sb=None):
+    """Absorbed MLA output [B, S, nh * dv]: probabilities (times the int8
+    cache's latent scales) over the latent rows, then kv_b's value half."""
+    if sb is not None:
+        probs = probs * sb[..., 0][:, None, None, :]
+    ov = torch.einsum("bhst,btc->bshc", probs, c_cache)
+    out = torch.einsum("bshc,chd->bshd", ov, w3[..., dn:])
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1).to(dtype)
+
+
+def _latent_row(c: torch.Tensor, pe: torch.Tensor, quant: bool):
+    """One latent row a token, [compressed kv | rope head] (c [B, S, dc],
+    pe [B, S, dr]); int8 with separate absmax scales [B, S, 2] for the two
+    parts where ``quant`` (their magnitudes differ), else (row, None)."""
+    if not quant:
+        return torch.cat([c, pe], dim=-1), None
+    c8, sc8 = _kv_quantize(c)
+    p8, sp8 = _kv_quantize(pe)
+    return torch.cat([c8, p8], dim=-1), torch.stack([sc8, sp8], dim=-1)
+
+
+def mla_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                  cos: torch.Tensor, sin: torch.Tensor,
+                  mask: Optional[torch.Tensor],
+                  kv_cache: Optional[Dict[str, Any]] = None,
+                  method: str = "auto", causal_prefill: bool = False,
+                  taps: Optional[Dict] = None):
+    """Multi-head latent attention (deepseek_v2 / v3, minicpm3; JAX
+    ``mla_attention`` :766-991). Low-rank q (``q_proj`` on lite models, or
+    ``q_a_proj``, its RMSNorm and ``q_b_proj``), the compressed kv with a
+    rope head shared by every head (``kv_a_proj_with_mqa``, RMSNorm on the
+    compressed part), gptj-style rotary on the rope dims only, softmax
+    scale ``dq ** -0.5`` unless ``cfg.attn_scale``. Caches:
+
+    * none, or a prefill (``causal_prefill``): per-head K/V materialized
+      through ``kv_b_proj`` and attended in plain einsums (qk dim != v dim,
+      so not K4);
+    * ``"c"`` [B, 1, T, dc + dr], the latent cache (``"c_s"`` [B, 1, T, 2]
+      f32 beside an int8 one): this token's row is written in place at
+      ``pos`` (an int, or [B] per-slot offsets), and decode runs the
+      absorbed formulation: kv_b's dense f32 weight folded into q and into
+      the output, scores against the latent rows, int8 scales folded into
+      the scores and probabilities;
+    * ``"c_pages"`` [1, P, ps, dc + dr] (``"c_page_s"`` [1, P, ps, 2]), the
+      paged latent pool with ``page_table`` [B, PPS] and ``pos`` [B]: the
+      same absorbed decode over the table's gathered rows, s == 1;
+    * ``"k"`` / ``"v"`` [B, nh, T, dq | dv], materialized per-head K/V
+      (``init_kv_cache(mla_latent=False)``).
+
+    Returns (y [B, S, H], the cache with ``pos`` advanced)."""
+    b, s, _ = x.shape
+    nh = cfg.num_attention_heads
+    dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    dq, dc = dn + dr, cfg.kv_lora_rank
+    if "q_proj" in p:  # lite models
+        _tap(taps, "self_attn.q_proj", x)
+        q = linear(p["q_proj"], x, nh * dq, method)
+    else:
+        _tap(taps, "self_attn.q_a_proj", x)
+        qa = linear(p["q_a_proj"], x, cfg.q_lora_rank, method)
+        qa = rms_norm(qa, p["q_a_layernorm"]["weight"], cfg.rms_norm_eps)
+        _tap(taps, "self_attn.q_b_proj", qa)
+        q = linear(p["q_b_proj"], qa, nh * dq, method)
+    q = q.reshape(b, s, nh, dq)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    _tap(taps, "self_attn.kv_a_proj_with_mqa", x)
+    ckv = linear(p["kv_a_proj_with_mqa"], x, dc + dr, method)
+    c, k_pe = ckv[..., :dc], ckv[..., dc:]
+    c = rms_norm(c, p["kv_a_layernorm"]["weight"], cfg.rms_norm_eps)
+    q_pe = apply_rope(q_pe, cos, sin, dr, style="gptj")
+    k_pe = apply_rope(k_pe[:, :, None, :], cos, sin, dr, style="gptj")
+    scale = cfg.attn_scale if cfg.attn_scale is not None else dq ** -0.5
+
+    latent_decode = (kv_cache is not None
+                     and ("c" in kv_cache or "c_pages" in kv_cache)
+                     and not causal_prefill)
+    if not latent_decode:
+        _tap(taps, "self_attn.kv_b_proj", c)
+        kv = linear(p["kv_b_proj"], c, nh * (dn + dv), method).reshape(
+            b, s, nh, dn + dv)
+        v = kv[..., dn:]
+        k = torch.cat([kv[..., :dn], k_pe.expand(b, s, nh, dr)], dim=-1)
+
+    if kv_cache is not None and "c_pages" in kv_cache:
+        pos, table = kv_cache["pos"], kv_cache["page_table"]
+        ps = kv_cache["c_pages"].shape[2]
+        lengths = pos + 1
+        quant = "c_page_s" in kv_cache
+        row, row_s = _latent_row(c, k_pe[:, :, 0], quant)  # [B, 1, dcr]
+        cp = _paged_write(kv_cache["c_pages"], row, table, pos, ps)
+        new_cache = {**kv_cache, "pos": lengths}
+        sb = None
+        if quant:
+            cps = _paged_write(kv_cache["c_page_s"], row_s, table, pos, ps)
+            sb = paged_ops.gather_slab(cps, table)[:, 0]  # [B, T, 2]
+        cb = paged_ops.gather_slab(cp, table)[:, 0].float()  # [B, T, dcr]
+        w3 = _dense_weight(p["kv_b_proj"], nh * (dn + dv)).reshape(
+            dc, nh, dn + dv)
+        c_cache, pe_cache = cb[..., :dc], cb[..., dc:]
+        scores = _mla_scores(q_nope, q_pe, w3, c_cache, pe_cache, dn,
+                             sb) * scale
+        valid = torch.arange(cb.shape[1], device=x.device)[None, :] \
+            < lengths[:, None]
+        scores = torch.where(valid[:, None, None, :], scores, -1e30)
+        out = _mla_out(torch.softmax(scores, dim=-1), w3, c_cache, dn,
+                       x.dtype, sb)
+        _tap(taps, "self_attn.o_proj", out)
+        return linear(p["o_proj"], out, cfg.hidden_size, method), new_cache
+    if kv_cache is not None and "c" in kv_cache:
+        pos = kv_cache["pos"]
+        quant = "c_s" in kv_cache
+        row, row_s = _latent_row(c, k_pe[:, :, 0], quant)  # [B, S, dcr]
+        _cache_write(kv_cache["c"], row[:, None], pos)
+        if quant:
+            _cache_write(kv_cache["c_s"], row_s[:, None], pos)
+        kv_cache = {**kv_cache, "pos": pos + s}
+        if not causal_prefill:
+            cc = kv_cache["c"][:, 0].float()  # [B, T, dcr]
+            sb = kv_cache["c_s"][:, 0] if quant else None
+            w3 = _dense_weight(p["kv_b_proj"], nh * (dn + dv)).reshape(
+                dc, nh, dn + dv)
+            c_cache, pe_cache = cc[..., :dc], cc[..., dc:]
+            scores = _mla_scores(q_nope, q_pe, w3, c_cache, pe_cache, dn,
+                                 sb) * scale
+            if mask is not None:
+                scores = scores + mask
+            out = _mla_out(torch.softmax(scores, dim=-1), w3, c_cache, dn,
+                           x.dtype, sb)
+            _tap(taps, "self_attn.o_proj", out)
+            return linear(p["o_proj"], out, cfg.hidden_size, method), \
+                kv_cache
+    elif kv_cache is not None:  # materialized per-head K/V
+        pos = kv_cache["pos"]
+        _cache_write(kv_cache["k"], k.transpose(1, 2), pos)
+        _cache_write(kv_cache["v"], v.transpose(1, 2), pos)
+        kv_cache = {**kv_cache, "pos": pos + s}
+        if not causal_prefill:
+            k = kv_cache["k"].transpose(1, 2).to(x.dtype)
+            v = kv_cache["v"].transpose(1, 2).to(x.dtype)
+
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope.to(x.dtype).float(),
+                           k[..., :dn].float())
+              + torch.einsum("bshd,bthd->bhst", q_pe.to(x.dtype).float(),
+                             k[..., dn:].float())) * scale
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(
+        x.dtype).reshape(b, s, nh * dv)
+    _tap(taps, "self_attn.o_proj", out)
+    return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
+
+
 def _fused_attn_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                    method: str, kv_cache: Dict[str, Any]) -> bool:
     """K5 eligibility (JAX ``_fused_attn_ok`` on "auto"): a bf16 cache with
@@ -716,42 +900,86 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return linear(p["down_proj"], h, cfg.hidden_size, method)
 
 
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` on the last axis: the k largest, ties to the lower
+    index (a stable descending sort; ``torch.topk`` leaves tie order
+    open)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
 def moe_route(cfg: ModelConfig, p: Dict[str, Any], xt: torch.Tensor,
               method: str = "auto", topi: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The router of ``moe_block`` (JAX :1226-1259, the softmax / greedy
-    subset): f32 logits through the float ``gate`` kernel, softmax, top-k,
-    renormalised for Mixtral or ``norm_topk_prob``, times
-    ``routed_scaling_factor``. Returns (topw f32 [T, k], topi int64
-    [T, k]). A given ``topi`` replaces the top-k choice, and the weights
-    are read at those experts (replaying a recorded choice)."""
-    logits = linear(p["gate"], xt.float(), cfg.num_experts, method).float()
-    probs = torch.softmax(logits, dim=-1)
-    if topi is None:
-        topw, topi = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    """The router of ``moe_block`` (JAX :1226-1259): f32 logits through the
+    float ``gate`` kernel; softmax or sigmoid scores; for ``noaux_tc`` the
+    router's ``e_score_correction_bias`` added to the choice only;
+    group-limited top-k (a group scored by its max expert for
+    ``group_limited_greedy``, by its top-2 sum for ``noaux_tc``; experts
+    outside the ``topk_group`` best groups chosen as 0.0); top-k; the
+    weights read from the choice, or from the unbiased scores for
+    ``noaux_tc``; renormalised for Mixtral or ``norm_topk_prob`` (with a
+    1e-20 eps on sigmoid scores); times ``routed_scaling_factor``. Ties go
+    to the lower index, as ``jax.lax.top_k``'s. Returns (topw f32 [T, k],
+    topi int64 [T, k]). A given ``topi`` replaces the top-k choice, and the
+    weights are read at those experts (replaying a recorded choice)."""
+    gate = p["gate"]
+    logits = linear(gate, xt.float(), cfg.num_experts, method).float()
+    if cfg.scoring_func == "sigmoid":
+        probs = torch.sigmoid(logits)
     else:
-        topw = torch.gather(probs, -1, topi)
+        probs = torch.softmax(logits, dim=-1)
+    choice = probs
+    if (cfg.topk_method == "noaux_tc"
+            and "e_score_correction_bias" in gate):
+        choice = probs + gate["e_score_correction_bias"].float()
+    if (cfg.topk_method in ("group_limited_greedy", "noaux_tc")
+            and cfg.n_group > 1):
+        gsz = cfg.num_experts // cfg.n_group
+        grouped = choice.reshape(-1, cfg.n_group, gsz)
+        if cfg.topk_method == "noaux_tc":
+            gscore = _top_k(grouped, 2)[0].sum(-1)
+        else:
+            gscore = grouped.amax(-1)
+        gidx = _top_k(gscore, cfg.topk_group)[1]
+        gmask = torch.zeros_like(gscore).scatter_(-1, gidx, 1.0)  # [T, G]
+        emask = gmask.repeat_interleave(gsz, dim=-1)
+        choice = torch.where(emask > 0, choice, 0.0)
+    if topi is None:
+        topi = _top_k(choice, cfg.num_experts_per_tok)[1]
+    topw = torch.gather(
+        probs if cfg.topk_method == "noaux_tc" else choice, -1, topi)
     if cfg.model_type == "mixtral" or cfg.norm_topk_prob:
-        topw = topw / topw.sum(-1, keepdim=True)
+        eps = 1e-20 if cfg.scoring_func == "sigmoid" else 0.0
+        topw = topw / (topw.sum(-1, keepdim=True) + eps)
     return topw * cfg.routed_scaling_factor, topi
 
 
 def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               method: str = "auto", taps: Optional[Dict] = None
               ) -> torch.Tensor:
-    """Sparse MoE block (Mixtral). Stacked experts (``fuse_model``) go
-    through the grouped kernel K6 (``moe_mlp``, JAX's single-chip lowering
-    of ``sharded_moe``); an ``experts`` list takes JAX's dense route, every
-    expert's ``mlp`` on every token weighted by the routing, which at
-    decode runs K8 once per expert. Calibration (``taps``) takes the dense
-    route, so ``mlp.experts.{e}.*`` hold every token's row in token order,
-    as in JAX."""
+    """Sparse MoE block (Mixtral, Qwen3-MoE, DeepSeek, MiniCPM3). Stacked
+    experts (``fuse_model``) go through the grouped kernel K6
+    (``moe_mlp``, JAX's single-chip lowering of ``sharded_moe``); an
+    ``experts`` list takes JAX's dense route, every expert's ``mlp`` on
+    every token weighted by the routing, which at decode runs K8 once per
+    expert. Calibration (``taps``) takes the dense route, so
+    ``mlp.experts.{e}.*`` hold every token's row in token order, as in JAX.
+    Shared experts are added after the routed ones in f32, in JAX's order:
+    qwen2-moe's ``shared_expert`` (times the sigmoid of its
+    ``shared_expert_gate``), then deepseek's ungated ``shared_experts`` at
+    ``moe_intermediate_size * n_shared_experts``; both are unfused MLPs, so
+    at decode they take K8. Expert-parallel stacks (``tp_ep``) raise."""
     b, s, h = x.shape
     xt = x.reshape(-1, h)
     _tap(taps, "mlp.gate", x)
     topw, topi = moe_route(cfg, p, xt, method)
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
     if "experts_stacked" in p:
+        if "tp_ep" in p["experts_stacked"]:
+            raise NotImplementedError(
+                "expert-parallel MoE stacks are not in the port yet "
+                "(parallelism, ROADMAP queue 1 item 15)")
         out = moe_ops.moe_mlp(p["experts_stacked"], xt, topw, topi,
                               cfg.hidden_act, inter, method).float()
     else:
@@ -764,6 +992,19 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             ye = mlp(cfg, ep, xt[None], method, intermediate=inter,
                      taps=taps, tap_prefix=f"mlp.experts.{e}.")[0]
             out = out + weights[:, e: e + 1] * ye.float()
+    if "shared_expert" in p:
+        se = mlp(cfg, p["shared_expert"], xt[None], method,
+                 intermediate=cfg.shared_expert_intermediate_size,
+                 taps=taps, tap_prefix="mlp.shared_expert.")[0]
+        if "shared_expert_gate" in p:
+            se = se * torch.sigmoid(
+                linear(p["shared_expert_gate"], xt, 1, method).float())
+        out = out + se.float()
+    if "shared_experts" in p:
+        se = mlp(cfg, p["shared_experts"], xt[None], method,
+                 intermediate=inter * max(1, cfg.n_shared_experts),
+                 taps=taps, tap_prefix="mlp.shared_experts.")[0]
+        out = out + se.float()
     return out.to(x.dtype).reshape(b, s, h)
 
 
@@ -778,9 +1019,14 @@ def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     gemma2's post-attention and pre/post-feedforward norms. An MLP with
     experts is an MoE block."""
     h = norm(cfg, p["input_layernorm"], x)
-    attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin, mask,
-                                   kv_cache, method, causal_prefill,
-                                   paged_attn, taps)
+    if cfg.is_mla:
+        attn_out, kv_cache = mla_attention(cfg, p["self_attn"], h, cos, sin,
+                                           mask, kv_cache, method,
+                                           causal_prefill, taps)
+    else:
+        attn_out, kv_cache = attention(cfg, p["self_attn"], h, cos, sin,
+                                       mask, kv_cache, method,
+                                       causal_prefill, paged_attn, taps)
     if cfg.parallel_residual:
         mlp_in = h if cfg.shared_input_norm else norm(
             cfg, p["post_attention_layernorm"], x)

@@ -3,10 +3,11 @@
 Counterpart of ``autoawq_tpu/serve/generate.py``. The cache is a list of
 per-layer ``{"k", "v"}`` buffers [B, nkv, T, hd] written in place (the JAX
 package donates and rewrites them); an int8 cache (``kv_quant=True``) adds
-``{"k_s", "v_s"}`` f32 absmax scales [B, nkv, T]. PyTorch runs eagerly, so
-``generate_compiled`` is the same Python loop as ``generate``; capturing the
-decode step in a CUDA graph, the analogue of its ``lax.scan``, is the next
-ROADMAP item.
+``{"k_s", "v_s"}`` f32 absmax scales [B, nkv, T]. MLA models cache one
+latent row a token (``{"c"}``, and ``{"c_s"}`` when int8). PyTorch runs
+eagerly, so ``generate_compiled`` is the same Python loop as ``generate``;
+capturing the decode step in a CUDA graph, the analogue of its
+``lax.scan``, is the next ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,10 +23,38 @@ from autoawq_tpu_torch.utils.device import resolve_device
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
                   dtype: torch.dtype = torch.bfloat16, device=None,
-                  kv_quant: bool = False) -> List[Dict[str, torch.Tensor]]:
+                  kv_quant: bool = False, mla_latent: bool = True
+                  ) -> List[Dict[str, torch.Tensor]]:
     """Zeroed per-layer caches on ``device`` (None: the card, or
-    RuntimeError without one; ``device="cpu"`` for the plain path)."""
+    RuntimeError without one; ``device="cpu"`` for the plain path). An MLA
+    model gets the latent cache by default: one [compressed kv | rope head]
+    row a token, ``{"c": [B, 1, T, dc + dr]}``, shared by every head
+    (int8 with ``{"c_s": [B, 1, T, 2]}`` f32 scales of its two parts where
+    ``kv_quant``); ``mla_latent=False`` keeps materialized per-head
+    ``{"k": [B, nh, T, dq], "v": [B, nh, T, dv]}``, which ``kv_quant``
+    leaves in ``dtype`` (JAX ``init_kv_cache``)."""
     device = resolve_device(device)
+    n = cfg.num_hidden_layers
+    if cfg.is_mla:
+        if mla_latent:
+            shape = (batch, 1, max_seq_len,
+                     cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+            if kv_quant:
+                return [{"c": torch.zeros(shape, dtype=torch.int8,
+                                          device=device),
+                         "c_s": torch.zeros(shape[:3] + (2,),
+                                            dtype=torch.float32,
+                                            device=device)}
+                        for _ in range(n)]
+            return [{"c": torch.zeros(shape, dtype=dtype, device=device)}
+                    for _ in range(n)]
+        nh = cfg.num_attention_heads
+        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return [{"k": torch.zeros((batch, nh, max_seq_len, dq), dtype=dtype,
+                                  device=device),
+                 "v": torch.zeros((batch, nh, max_seq_len, cfg.v_head_dim),
+                                  dtype=dtype, device=device)}
+                for _ in range(n)]
     shape = (batch, cfg.num_key_value_heads, max_seq_len, cfg.head_dim_)
     if kv_quant:
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -34,15 +63,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
                                     device=device),
                  "v_s": torch.zeros(shape[:3], dtype=torch.float32,
                                     device=device)}
-                for _ in range(cfg.num_hidden_layers)]
+                for _ in range(n)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_hidden_layers)]
+            for _ in range(n)]
 
 
 def _cache_len(caches: List[Dict[str, torch.Tensor]]) -> int:
-    """Capacity (T) of a cache list ([B, H, T, D] K/V, or an int8 cache's
-    [B, H, T] scales beside them)."""
+    """Capacity (T) of a cache list ([B, H, T, D] K/V, an MLA latent
+    cache's [B, 1, T, dc + dr], or the scales beside an int8 one)."""
     return next(iter(caches[0].values())).shape[2]
 
 

@@ -26,9 +26,16 @@ per-slot retirement, one decode step for the pool). Specifics:
   unless the need can be met).
 * Chunked admission (``prefill_chunk_size``, a multiple of the page size).
 * Sliding-window models recycle pages wholly behind the window mid-flight.
+* MLA models page the latent cache: one [compressed kv | rope head] row a
+  token shared by every head (``c_pages`` [1, P, ps, dc + dr]), decoded by
+  the absorbed formulation over the table's gathered rows
+  (``nn/modules.mla_attention``). Prefill rows stay in the float dtype; an
+  int8 pool (``kv_quant=True``) quantizes them on install with separate
+  scales for the two parts (``c_page_s`` [1, P, ps, 2]) and dequantizes
+  cached prefix pages on gather.
 
-MLA latent pools and multimodal ``prompt_embeds`` raise
-``NotImplementedError`` (ROADMAP queue 1 items 12 and 17).
+Multimodal ``prompt_embeds`` raise ``NotImplementedError`` (ROADMAP queue 1
+item 17).
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ def paged_decode_step(cfg: ModelConfig, params: Dict[str, Any],
     """One decode token for every slot against the page pool: tokens
     [B, 1], table [B, PPS], pos [B] on the device; returns ([B, V] f32
     logits, page_caches written in place)."""
-    cap = table.shape[1] * page_caches[0]["k_pages"].shape[2]
+    cap = table.shape[1] * next(iter(page_caches[0].values())).shape[2]
     x = modules.embed(cfg, params, tokens, dtype, pos[:, None])
     cos, sin = modules.rope_tables(cfg, pos[:, None], seq_len=cap)
     for lp, pc in zip(params["layers"], page_caches):
@@ -97,39 +104,56 @@ def paged_decode_burst(cfg: ModelConfig, params: Dict[str, Any],
 
 
 # pool key <-> contiguous-row key; the scale entries exist only in int8
-# pools / rows
+# pools / rows; c_pages is the MLA latent pool
 _PAGE_KEYS = (("k_pages", "k"), ("v_pages", "v"),
-              ("k_page_s", "k_s"), ("v_page_s", "v_s"))
+              ("k_page_s", "k_s"), ("v_page_s", "v_s"), ("c_pages", "c"))
 
 
 def _install_pages(page_caches, row_caches, page_ids: torch.Tensor,
-                   n_pages: int, start_page: int = 0):
+                   n_pages: int, start_page: int = 0, mla_dc: int = 0):
     """Copy row positions [start_page * ps, (start_page + n_pages) * ps) of
     a contiguous single-request prefill cache into pool pages ``page_ids``
-    (K/V and, for int8 pools, their scales), in place."""
+    (K/V and, for int8 pools, their scales), in place. An int8 MLA pool
+    quantizes the float latent rows here, its compressed-kv part (the
+    first ``mla_dc`` = kv_lora_rank values) and rope part scaled
+    apart."""
     for pc, row in zip(page_caches, row_caches):
-        ps = pc["k_pages"].shape[2]
+        ps = next(iter(pc.values())).shape[2]
         lo, hi = start_page * ps, (start_page + n_pages) * ps
         for pk, rk in _PAGE_KEYS:
-            if pk in pc:
-                dst = pc[pk]
-                src = row[rk][0, :, lo:hi]  # [nkv, n * ps(, hd)]
-                dst[:, page_ids] = src.reshape(
-                    dst.shape[0], n_pages, ps, *src.shape[2:]).to(dst.dtype)
+            if pk not in pc:
+                continue
+            dst = pc[pk]
+            src = row[rk][0, :, lo:hi]  # [nkv, n * ps(, hd)]
+            if pk == "c_pages" and "c_page_s" in pc:
+                q, s2 = modules._latent_row(src[..., :mla_dc],
+                                            src[..., mla_dc:], True)
+                dst[:, page_ids] = q.reshape(1, n_pages, ps, -1)
+                pc["c_page_s"][:, page_ids] = s2.reshape(1, n_pages, ps, 2)
+                continue
+            dst[:, page_ids] = src.reshape(
+                dst.shape[0], n_pages, ps, *src.shape[2:]).to(dst.dtype)
     return page_caches
 
 
 def _gather_pages(page_caches, row_caches, page_ids: torch.Tensor,
-                  n_pages: int):
+                  n_pages: int, mla_dc: int = 0):
     """Inverse of ``_install_pages``: pool pages into row positions
-    [0, n_pages * ps), in place (the prefix-cache hit path)."""
+    [0, n_pages * ps), in place (the prefix-cache hit path); an int8 MLA
+    pool's pages dequantize into the float row."""
     for pc, row in zip(page_caches, row_caches):
-        ps = pc["k_pages"].shape[2]
+        ps = next(iter(pc.values())).shape[2]
         for pk, rk in _PAGE_KEYS:
-            if pk in pc:
-                g = pc[pk][:, page_ids]  # [nkv, n, ps(, hd)]
-                row[rk][0, :, : n_pages * ps] = g.reshape(
-                    g.shape[0], n_pages * ps, *g.shape[3:])
+            if pk not in pc:
+                continue
+            g = pc[pk][:, page_ids]  # [nkv, n, ps(, hd)]
+            g = g.reshape(g.shape[0], n_pages * ps, *g.shape[3:])
+            if pk == "c_pages" and "c_page_s" in pc:
+                s2 = pc["c_page_s"][:, page_ids].reshape(1, n_pages * ps, 2)
+                g = g.float()
+                g = torch.cat([g[..., :mla_dc] * s2[..., :1],
+                               g[..., mla_dc:] * s2[..., 1:]], dim=-1)
+            row[rk][0, :, : n_pages * ps] = g.to(row[rk].dtype)
     return row_caches
 
 
@@ -146,7 +170,7 @@ class PagedBatchingEngine(SamplingSlots):
                  return_logprobs: bool = False, top_logprobs: int = 0,
                  kv_quant: bool = False, device=None,
                  paged_attn: str = "bespoke"):
-        modules.check_supported(cfg)  # MLA pools: item 12
+        modules.check_supported(cfg)
         if paged_attn not in ROUTES:
             raise ValueError(f"paged_attn {paged_attn!r} is not one of "
                              f"{ROUTES}")
@@ -165,11 +189,24 @@ class PagedBatchingEngine(SamplingSlots):
         self.device = resolve_device(device)
         gen._check_rope_capacity(cfg, pages_per_seq * page_size)
         self.kv_quant = kv_quant
+        # int8 MLA pools quantize and dequantize at the pool's boundary,
+        # splitting each latent row after its compressed-kv part
+        self._mla_dc = cfg.kv_lora_rank if (cfg.is_mla and kv_quant) else 0
         shape = (cfg.num_key_value_heads, total_pages, page_size,
                  cfg.head_dim_)
         dev = self.device
 
         def pool():
+            if cfg.is_mla:  # one latent row a token, shared by every head
+                lshape = (1, total_pages, page_size,
+                          cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+                if not kv_quant:
+                    return {"c_pages": torch.zeros(lshape, dtype=dtype,
+                                                   device=dev)}
+                return {"c_pages": torch.zeros(lshape, dtype=torch.int8,
+                                               device=dev),
+                        "c_page_s": torch.zeros(lshape[:3] + (2,),
+                                                device=dev)}
             if kv_quant:  # int8 pages + per-(head, page, line) scales
                 return {"k_pages": torch.zeros(shape, dtype=torch.int8,
                                                device=dev),
@@ -330,7 +367,7 @@ class PagedBatchingEngine(SamplingSlots):
                 row = self._row(t_row)
                 if n_shared:
                     row = _gather_pages(self.pages, row, self._ids(shared),
-                                        n_shared)
+                                        n_shared, self._mla_dc)
                 self.inflight[slot] = {
                     "req": req, "row": row, "done": lo0, "pages": pages,
                     "chain": chain, "n_shared": n_shared,
@@ -343,7 +380,7 @@ class PagedBatchingEngine(SamplingSlots):
             row = self._row(n_prompt_pages * self.ps)
             if n_shared:
                 row = _gather_pages(self.pages, row, self._ids(shared),
-                                    n_shared)
+                                    n_shared, self._mla_dc)
                 suffix = req.prompt[n_shared * self.ps:]
                 real = len(suffix)
                 # padded to a page multiple; the padded rows are dead
@@ -367,8 +404,11 @@ class PagedBatchingEngine(SamplingSlots):
                                    n_shared)
 
     def _row(self, t_row: int):
+        """A prefill row: int8 where the pool is, but an MLA row stays in
+        the float dtype (its pool quantizes on install)."""
         return gen.init_kv_cache(self.cfg, 1, t_row, self.dtype, self.device,
-                                 kv_quant=self.kv_quant)
+                                 kv_quant=self.kv_quant
+                                 and not self.cfg.is_mla)
 
     def _advance_prefill(self):
         """One chunk for every in-flight admission."""
@@ -393,7 +433,8 @@ class PagedBatchingEngine(SamplingSlots):
         if n_prompt_pages > n_shared:
             self.pages = _install_pages(
                 self.pages, row, self._ids(pages[n_shared:n_prompt_pages]),
-                n_prompt_pages - n_shared, start_page=n_shared)
+                n_prompt_pages - n_shared, start_page=n_shared,
+                mla_dc=self._mla_dc)
         if self.prefix_enabled:
             prev_h = None
             for h, pid in zip(chain, pages):

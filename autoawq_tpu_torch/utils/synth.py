@@ -7,12 +7,14 @@ numpy draws are the JAX synthesiser's, call for call and shape for shape
 linear is then carried into the port's layout (``convert.lin_from_planar``).
 As in JAX: LayerNorms carry a zero bias; a parallel block with one shared
 input norm gets no post-attention norm; q/k norms are ones; a non-gated MLP
-is ``fc1`` / ``fc2``; MoE layers get a float router ``gate`` and a list of
-unfused experts (its shared-expert branches belong to configs the port
-refuses). Unlike JAX's, it emits gemma2's pre/post feed-forward norms
-(ones, no draws), without which a post-norm model cannot run. Like JAX's,
-it emits no learned-position table and no bloom ``embed_ln``; a caller that
-needs them adds them.
+is ``fc1`` / ``fc2``; MLA models get MLA's projections and norms; MoE
+layers get a float router ``gate``, a list of unfused experts and, where
+the config has them, deepseek's ``shared_experts`` or qwen2-moe's gated
+``shared_expert``. As JAX's, every layer of an MoE config is MoE, whatever
+``first_k_dense_replace`` says. Unlike JAX's, it emits gemma2's pre/post
+feed-forward norms (ones, no draws), without which a post-norm model cannot
+run. Like JAX's, it emits no learned-position table and no bloom
+``embed_ln``; a caller that needs them adds them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from autoawq_tpu_torch.convert import lin_from_planar
+from autoawq_tpu_torch.convert import lin_from_planar, shared_widths
 from autoawq_tpu_torch.core.packing import (padded_in_features,
                                             padded_out_features)
 from autoawq_tpu_torch.io.hf import role_out_features
@@ -54,8 +56,10 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
         # synthesiser's ml_dtypes cast
         return torch.from_numpy(a.astype(np.float32)).to(fp_dtype).to(device)
 
-    def qlin(k: int, name: str) -> Dict[str, Any]:
-        n = outs[name]
+    def qlin(k: int, name) -> Dict[str, Any]:
+        """A packed LIN of JAX's draws; ``name`` its role, whose logical
+        width ``role_out_features`` gives, or the width itself."""
+        n = outs[name] if isinstance(name, str) else name
         n_pad = padded_out_features(n)
         kp = padded_in_features(k, g)
         p = {
@@ -73,11 +77,32 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     h, inter = cfg.hidden_size, cfg.intermediate_size
     hq = cfg.num_attention_heads * cfg.head_dim_
 
-    def norm_p() -> Dict[str, torch.Tensor]:
-        p = {"weight": fp(np.ones((h,)))}
+    def norm_p(n: int = h) -> Dict[str, torch.Tensor]:
+        p = {"weight": fp(np.ones((n,)))}
         if cfg.norm_kind == "ln":
-            p["bias"] = fp(np.zeros((h,)))
+            p["bias"] = fp(np.zeros((n,)))
         return p
+
+    def mla_attn() -> Dict[str, Any]:  # JAX's draw order
+        attn = {
+            "kv_a_proj_with_mqa": qlin(h, "self_attn.kv_a_proj_with_mqa"),
+            "kv_a_layernorm": {"weight": fp(np.ones((cfg.kv_lora_rank,)))},
+            "kv_b_proj": qlin(cfg.kv_lora_rank, "self_attn.kv_b_proj"),
+            "o_proj": qlin(cfg.num_attention_heads * cfg.v_head_dim,
+                           "self_attn.o_proj"),
+        }
+        if cfg.q_lora_rank:
+            attn["q_a_proj"] = qlin(h, "self_attn.q_a_proj")
+            attn["q_a_layernorm"] = {
+                "weight": fp(np.ones((cfg.q_lora_rank,)))}
+            attn["q_b_proj"] = qlin(cfg.q_lora_rank, "self_attn.q_b_proj")
+        else:
+            attn["q_proj"] = qlin(h, "self_attn.q_proj")
+        return attn
+
+    def shared_mlp(si: int) -> Dict[str, Any]:
+        return {"gate_proj": qlin(h, si), "up_proj": qlin(h, si),
+                "down_proj": qlin(si, h)}
 
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": fp(
@@ -89,7 +114,9 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
     }
     for _ in range(cfg.num_hidden_layers):
         lp: Dict[str, Any] = {"input_layernorm": norm_p()}
-        if fused:
+        if cfg.is_mla:
+            lp["self_attn"] = mla_attn()
+        elif fused:
             lp["self_attn"] = {"qkv_proj": qlin(h, "self_attn.qkv_proj"),
                                "o_proj": qlin(hq, "self_attn.o_proj")}
         else:
@@ -106,16 +133,25 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
             hd = cfg.head_dim_
             lp["self_attn"]["q_norm"] = {"weight": fp(np.ones((hd,)))}
             lp["self_attn"]["k_norm"] = {"weight": fp(np.ones((hd,)))}
-        if cfg.is_moe:  # Mixtral: a float router and unfused experts
+        if cfg.is_moe:  # a float router and unfused experts
+            ie = cfg.moe_intermediate_size or inter
             lp["mlp"] = {
                 "gate": {"kernel": fp(
                     rng.standard_normal((h, cfg.num_experts)) * 0.02)},
                 "experts": [
                     {"gate_proj": qlin(h, "mlp.experts.gate_proj"),
                      "up_proj": qlin(h, "mlp.experts.up_proj"),
-                     "down_proj": qlin(cfg.moe_intermediate_size or inter,
-                                       "mlp.experts.down_proj")}
+                     "down_proj": qlin(ie, "mlp.experts.down_proj")}
                     for _ in range(cfg.num_experts)]}
+            widths = shared_widths(cfg)
+            if cfg.n_shared_experts:  # deepseek: always-on shared MLP
+                lp["mlp"]["shared_experts"] = shared_mlp(
+                    widths["shared_experts"])
+            if cfg.shared_expert_intermediate_size:  # qwen2-moe, gated
+                lp["mlp"]["shared_expert"] = shared_mlp(
+                    widths["shared_expert"])
+                lp["mlp"]["shared_expert_gate"] = {"kernel": fp(
+                    rng.standard_normal((h, 1)) * 0.02)}
         elif not cfg.gated_mlp:
             lp["mlp"] = {"fc1": qlin(h, "mlp.fc1"),
                          "fc2": qlin(inter, "mlp.fc2")}

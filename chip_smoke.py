@@ -140,7 +140,34 @@ Phases, each printing JSON lines:
               256, K4 at Qwen3's and GPT-J's heads), one prefill of
               2 x 384, 16 teacher-forced decode steps at bs1 and one paged
               step at bs8, each held as above with its launches.
-8. a ``kernels`` line: every ported kernel with launches, error and times.
+8. mla_moe  — MLA and DeepSeek / Qwen3 MoE (seeded W4 weights with zero
+              points drawn on the card, bf16). K6 against its twin at
+              DeepSeek-V2-Lite's decode and prefill shapes (64 experts,
+              top-6), at 128 (Qwen3-30B-A3B) and 256 experts (DeepSeek-V3)
+              top-8, and K8 at V2-Lite's shared experts. DeepSeek-V2-Lite
+              at full width and depth (27 layers, g64: its dense MLP of
+              10,944 is no whole number of 128-row groups), latent cache
+              bytes a token against materialized K/V. Traffic O: bs1,
+              64-token prompt, greedy through ``generate``, tok/s by the
+              difference quotient of a 64- and a 16-token generation (min
+              of 2), device ms a step, busy share and the step's byte
+              bound, launches per step held exactly (K1 81, K6 52, K8 26,
+              K3 1); teacher-forced with the f32 run's expert choice
+              replayed (bf16 and int8 latent caches), routing flips held,
+              and the MoE block per layer against a dense f32 reference
+              with the shared experts. Traffic P: prefill 2 x 384 (K2 188,
+              K6 52, K4 0 a prefill), seconds and device ms. Traffic R:
+              H's paged configuration and requests on a latent pool,
+              steady tok/s, launches as O; the paged
+              step teacher-forced (bf16 and int8 pools) and against the
+              contiguous latent path on the same rows. Then DeepSeek-V3
+              (1 dense + 1 MoE layer: ``first_k_dense_replace`` cut from 3
+              to 1) and Qwen3-30B-A3B at published width, depth cut to
+              ``MLA_MOE_CUT_DEPTH``: one prefill of 2 x 384, 16
+              teacher-forced bs1 steps and one paged step, each held with
+              its launches.
+9. a ``kernels`` line: every ported kernel with launches, error and times
+   (the mla_moe phase's K6 and K8 rows after the nine).
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -166,6 +193,7 @@ repo, the script exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -176,7 +204,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo")
+PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
+          "mla_moe")
 EXTRA_PHASES = ("prefill", "paged", "linears",
                 "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -226,6 +255,55 @@ GPTJ_6B = dict(model_type="gptj", n_embd=4096, n_layer=28, n_head=16,
                rotary_dim=64, n_inner=None, vocab_size=50400,
                n_positions=2048, activation_function="gelu_new",
                layer_norm_epsilon=1e-5, tie_word_embeddings=False)
+# deepseek-ai/DeepSeek-V2-Lite: MLA (q_lora_rank null), 64 routed experts
+# top-6 and 2 shared, layer 0 dense, yarn rope
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+    intermediate_size=10944, moe_intermediate_size=1408,
+    num_hidden_layers=27, num_attention_heads=16, num_key_value_heads=16,
+    n_routed_experts=64, n_shared_experts=2, num_experts_per_tok=6,
+    first_k_dense_replace=1, moe_layer_freq=1, n_group=1, topk_group=1,
+    topk_method="greedy", scoring_func="softmax", norm_topk_prob=False,
+    routed_scaling_factor=1.0, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    hidden_act="silu", rms_norm_eps=1e-6, rope_theta=10000,
+    max_position_embeddings=163840, tie_word_embeddings=False,
+    rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                  "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707,
+                  "original_max_position_embeddings": 4096})
+# deepseek-ai/DeepSeek-V3: sigmoid scores, noaux_tc over 8 groups (top 4)
+# with the router's e_score_correction_bias, q_lora, 256 experts top-8
+DEEPSEEK_V3 = dict(
+    model_type="deepseek_v3", vocab_size=129280, hidden_size=7168,
+    intermediate_size=18432, moe_intermediate_size=2048,
+    num_hidden_layers=61, num_attention_heads=128, num_key_value_heads=128,
+    n_routed_experts=256, n_shared_experts=1, num_experts_per_tok=8,
+    first_k_dense_replace=3, moe_layer_freq=1, n_group=8, topk_group=4,
+    topk_method="noaux_tc", scoring_func="sigmoid", norm_topk_prob=True,
+    routed_scaling_factor=2.5, q_lora_rank=1536, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    hidden_act="silu", rms_norm_eps=1e-6, rope_theta=10000,
+    max_position_embeddings=163840, tie_word_embeddings=False,
+    rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                  "beta_slow": 1, "mscale": 1.0, "mscale_all_dim": 1.0,
+                  "original_max_position_embeddings": 4096})
+# Qwen/Qwen3-30B-A3B: 128 experts top-8, norm_topk_prob, q/k norms, GQA
+QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+    intermediate_size=6144, moe_intermediate_size=768, num_hidden_layers=48,
+    num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+    decoder_sparse_step=1, mlp_only_layers=[], hidden_act="silu",
+    rms_norm_eps=1e-6, rope_theta=1e6, max_position_embeddings=40960,
+    tie_word_embeddings=False)
+# V2-Lite's dense MLP is 10,944 wide, 85.5 groups of 128: a g128 AutoAWQ
+# checkpoint cannot hold it unpadded, and the port's loader and K3 take no
+# K pad, so the model is drawn at g64 (AutoAWQ quantizes a model at one
+# group size); V3 and Qwen3-MoE at g128
+MLA_MOE_GS = 64
+# DeepSeek-V3 and Qwen3-30B-A3B at published width, depth cut to 2 (V3:
+# first_k_dense_replace cut from 3 to 1, so one dense and one MoE layer)
+MLA_MOE_CUT_DEPTH = 2
 ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
 # Mixtral's traffics E and F at published width, depth cut to half: with
 # the zoo phase the script would otherwise run too near its time limit
@@ -479,16 +557,18 @@ def phase_build():
 
 
 def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
-               iters=200, yardsticks=True, plain=True):
+               iters=200, yardsticks=True, plain=True, gen=None):
     """One K1 / K2 call against its twin; with ``timing``, its time over
     ``iters`` calls and (with ``yardsticks``) the library call's (and, with
-    ``plain``, the twin's) and the bound."""
+    ``plain``, the twin's) and the bound. The weight is drawn by ``rng`` on
+    the host, or on the card by the torch.Generator ``gen`` where given."""
     import torch
 
     from autoawq_tpu_torch.ops import gemm
 
     fn = getattr(gemm, kernel)
-    lin = make_lin(rng, k, n, gs, zp, dev)
+    lin = (make_lin(rng, k, n, gs, zp, dev) if gen is None
+           else qlin_on_card(gen, k, n, gs, zp))
     x = (torch.randn(m, k, device=dev) * 0.5).to(torch.bfloat16)
     args = [x, lin["qweight"], lin["scales"], lin["qzeros"]]
     got = fn(*args)
@@ -539,16 +619,21 @@ def _unfused_chain(inter, act, lins):
 
 
 def _mlp_case(rng, m, act, dev, timing=True, h=2048, inter=5632,
-              case="TinyLlama"):
-    """K3 against its twin; with ``timing``, the times of K3, the twin and
-    the unfused chain on K1 (``_unfused_chain``) on the same weights, and
-    the byte bound."""
+              case="TinyLlama", gs=128, gen=None):
+    """K3 against its twin at group size ``gs``; with ``timing``, the times
+    of K3, the twin and the unfused chain on K1 (``_unfused_chain``) on the
+    same weights, and the byte bound. The weights are drawn by ``rng`` on
+    the host, or on the card by the torch.Generator ``gen`` where given."""
     import torch
 
     from autoawq_tpu_torch.ops import fused_mlp as fm
 
-    gu = make_lin(rng, h, 2 * inter, 128, True, dev)
-    dn = make_lin(rng, inter, h, 128, True, dev)
+    if gen is None:
+        gu = make_lin(rng, h, 2 * inter, gs, True, dev)
+        dn = make_lin(rng, inter, h, gs, True, dev)
+    else:
+        gu = qlin_on_card(gen, h, 2 * inter, gs)
+        dn = qlin_on_card(gen, inter, h, gs)
     x = (torch.randn(m, h, device=dev) * 0.5).to(torch.bfloat16)
     args = [x, gu["qweight"], gu["scales"], dn["qweight"], dn["scales"],
             gu["qzeros"], dn["qzeros"]]
@@ -564,7 +649,7 @@ def _mlp_case(rng, m, act, dev, timing=True, h=2048, inter=5632,
     err, rel = rel_err(got, ref)
     row = {"phase": "kernel", "kernel": "fused_mlp",
            "case": f"{case} mlp_{act}", "card": card(), "M": m, "H": h,
-           "inter": inter, "max_abs_err": err, "max_rel_err": rel,
+           "inter": inter, "gs": gs, "max_abs_err": err, "max_rel_err": rel,
            "tol": TOL["fused_mlp"]}
     check(rel <= TOL["fused_mlp"],
           f"fused_mlp {case} M={m} {act}: rel err {rel:.3g}")
@@ -742,9 +827,10 @@ def qlin_on_card(gen, k: int, n: int, gs: int = 128, zp: bool = True,
 
 
 def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
-              yardsticks=True, time_plain=True):
-    """K6 against its twin: ``t`` tokens routed to 2 of the stack's experts
-    each (distinct, as top-k picks them), the tables from ``moe_align``.
+              yardsticks=True, time_plain=True, k=2):
+    """K6 against its twin: ``t`` tokens routed to ``k`` of the stack's
+    experts each (distinct, as top-k picks them), the tables from
+    ``moe_align``.
     With ``timing``: K6 (graph replay and eager), the twin (eager: it reads
     the table on the host), bf16 ``torch.matmul`` per owned expert over its
     pre-dequantized weight, summed, and the bound for the experts and rows
@@ -756,7 +842,7 @@ def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
     from autoawq_tpu_torch.ops import moe_gemm as mg
 
     e, k8, n = w["qweight"].shape
-    kdim, k = 8 * k8, 2
+    kdim = 8 * k8
     topi = torch.rand(t, e, device=dev, generator=gen).topk(k, -1).indices
     bm = mg.pick_block_m(t * k, e)
     gather_idx, be, live, _ = mg.moe_align(topi, e, bm)
@@ -781,7 +867,8 @@ def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
     dead_zero = not bool(got[nlive * bm:].any())
     owned = sorted(set(topi.flatten().tolist()))
     row = {"phase": "kernel", "kernel": "moe_gemm", "case": case,
-           "card": card(), "experts": e, "entries": t * k, "block_m": bm,
+           "card": card(), "experts": e, "top_k": k, "entries": t * k,
+           "block_m": bm,
            "blocks": be.numel(), "live_blocks": nlive,
            "owned_experts": len(owned), "K": kdim, "N": n,
            "gs": kdim // w["scales"].shape[1],
@@ -1627,7 +1714,9 @@ def _teacher_forced_paged(cfg, params, prompts, steps, **kw):
     against f32, as ``_teacher_forced`` gives them. The kernel engine admits
     the eight prompts; the plain engines start from copies of its page
     pool, table and positions (f32 copies for the f32 run's K/V), so the
-    three differ only by the decode steps under test."""
+    three differ only by the decode steps under test. In an MoE model each
+    step runs the f32 path first and both bf16 paths replay its expert
+    choice (``_RouteTape``), as ``_teacher_forced_moe``'s logit rows do."""
     import torch
 
     from autoawq_tpu_torch.serve.paged import paged_decode_step
@@ -1652,11 +1741,18 @@ def _teacher_forced_paged(cfg, params, prompts, steps, **kw):
         pos = kern._h2d(kern.pos)
         route = kern.paged_attn
         rows = []
+        tape = _RouteTape(1) if cfg.is_moe else None
         for step in range(steps):
-            logits = {key: paged_decode_step(cfg, params, tok, pages[key],
-                                             table, pos, method, dtype,
-                                             route)[0]
-                      for key, (method, dtype) in runs.items()}
+            logits, rec = {}, []
+            for key in ("plain_f32", "kernel", "plain"):
+                method, dtype = runs[key]
+                if tape is not None:
+                    tape.reset(**({"record": rec} if key == "plain_f32"
+                                  else {"replay": rec}))
+                with tape or contextlib.nullcontext():
+                    logits[key] = paged_decode_step(
+                        cfg, params, tok, pages[key], table, pos, method,
+                        dtype, route)[0]
             ref = logits["plain_f32"]
             agree = (logits["kernel"].argmax(-1) == ref.argmax(-1)).float()
             rows.append({"position": int(kern.pos[0]) + step,
@@ -1666,9 +1762,46 @@ def _teacher_forced_paged(cfg, params, prompts, steps, **kw):
                          "kernel_vs_plain": rel_err(logits["kernel"],
                                                     logits["plain"])[1],
                          "argmax_agree_f32": agree.mean().item()})
+            if tape is not None:
+                rows[-1]["routing"] = "the f32 run's, replayed"
             tok = logits["kernel"].argmax(-1)[:, None]
             pos = pos + 1
     return rows
+
+
+def _paged_vs_contiguous(cfg, params, prompts):
+    """One decode step of the paged engine's latent pool against the
+    contiguous latent cache on the same rows: the engine admits the eight
+    prompts (all of one length) on the kernel path, the table's pages are
+    gathered into a contiguous ``{"c"}`` cache of the table's capacity, and
+    ``generate.decode_step`` runs the same tokens at the same position,
+    replaying the paged step's expert choice. Returns max |paged -
+    contiguous| / max |contiguous|."""
+    import torch
+
+    from autoawq_tpu_torch.ops.paged_attn import gather_slab
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.paged import paged_decode_step
+
+    with torch.inference_mode():
+        eng = _paged_engine(cfg, params)
+        for i, p in enumerate(prompts[:8]):
+            eng.add_request(i, p, max_new_tokens=4)
+        eng._admit()
+        table = eng._h2d(eng.table)
+        pos = int(eng.pos[0])
+        assert (eng.pos == pos).all()
+        caches = [{"c": gather_slab(pc["c_pages"], table).clone()}
+                  for pc in eng.pages]
+        tok = eng._h2d(eng.last_token[:, None])
+        rec = []
+        with _RouteTape(1) as tape:
+            tape.reset(record=rec)
+            paged = paged_decode_step(cfg, params, tok, eng.pages, table,
+                                      eng._h2d(eng.pos))[0]
+            tape.reset(replay=rec)
+            contiguous = gen.decode_step(cfg, params, tok, caches, pos)[0]
+    return rel_err(paged, contiguous)[1]
 
 
 def _paged_traffics(cfg, params, dev):
@@ -1910,12 +2043,7 @@ def _mixtral_traffics(dev):
         rows, routing, taps = _teacher_forced_moe(cfg, params, prompt,
                                                   tf_steps)
         _check_teacher_forced(name, rows)
-        share_k = routing["kernel_flip_share"]
-        share_p = routing["plain_bf16_flip_share"]
-        check(share_k <= 2 * share_p + 0.01,
-              f"traffic {name}: kernel path flips {share_k:.4f} of the "
-              f"(token, layer) expert sets of the f32 run, the bf16 twin "
-              f"{share_p:.4f}")
+        _check_routing(name, routing)
         emit({"phase": "e2e", "step": "kernel_vs_plain", "traffic": name,
               "layers": layers, "cache": "bf16", "routing": routing,
               "rows": rows, "seconds": time.perf_counter() - t0})
@@ -1928,45 +2056,82 @@ def _mixtral_traffics(dev):
     return counts, per_step
 
 
-def _teacher_forced_moe(cfg, params, prompt, steps):
-    """Mixtral's teacher-forced check. Routing near-ties flip between runs
-    that differ only by rounding, and one flipped expert moves a token's
-    output far more than rounding does, so this holds two things, with
-    ``modules.moe_route`` wrapped to record each call's expert choice:
-    (a) the share of (token, layer) top-k sets that differ from the f32
-    plain run's, for the kernel path and the bf16 plain run, all three on
-    the kernel path's greedy tokens; (b) ``_check_teacher_forced``'s logit
-    criterion with both bf16 runs replaying the f32 run's choice. Returns
-    (per-position rows, routing summary, taps): the taps are the kernel
-    path's MoE inputs (layer, [T, H]) at the first and last layer of the
-    prefill and of the first decode step, for ``_moe_layer_check``."""
+class _RouteTape:
+    """While entered, ``modules.moe_route`` records each call's expert
+    choice (``record``), or replays a recorded one call by call
+    (``replay``), and keeps the router's input at the calls ``tap_calls``
+    (``taps``: (layer, xt))."""
+
+    def __init__(self, layers):
+        self.layers = layers
+        self.reset()
+
+    def reset(self, record=None, replay=None, taps=None, tap_calls=()):
+        self.record, self.replay, self.taps = record, replay, taps
+        self.tap_calls, self.i = tap_calls, 0
+        return self
+
+    def __enter__(self):
+        from autoawq_tpu_torch.nn import modules
+
+        self.route = modules.moe_route
+        modules.moe_route = self
+        return self
+
+    def __exit__(self, *exc):
+        from autoawq_tpu_torch.nn import modules
+
+        modules.moe_route = self.route
+
+    def __call__(self, cfg_, p, xt, method="auto", topi=None):
+        if self.taps is not None and self.i in self.tap_calls:
+            self.taps.append((self.i % self.layers, xt.clone()))
+        if self.replay is not None:
+            topi = self.replay[self.i]
+        topw, topi = self.route(cfg_, p, xt, method, topi)
+        if self.record is not None:
+            self.record.append(topi)
+        self.i += 1
+        return topw, topi
+
+
+def _flip_share(runs, ref):
+    """Share of (token, layer) top-k sets of ``runs`` that differ from
+    ``ref``'s."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(runs, ref))
+    return diff / max(sum(x.shape[0] for x in ref), 1)
+
+
+def _teacher_forced_moe(cfg, params, prompt, steps, kv_quant=False):
+    """The teacher-forced check of an MoE model. Routing near-ties flip
+    between runs that differ only by rounding, and one flipped expert moves
+    a token's output far more than rounding does, so this holds two things,
+    with ``modules.moe_route`` taped (``_RouteTape``): (a) the share of
+    (token, MoE layer) top-k sets that differ from the f32 plain run's, for
+    the kernel path and the bf16 plain run, all three on the kernel path's
+    greedy tokens; (b) ``_check_teacher_forced``'s logit criterion with
+    both bf16 runs replaying the f32 run's choice. ``kv_quant`` gives all
+    runs an int8 cache. Returns (per-position rows, routing summary, taps):
+    the taps are the kernel path's MoE inputs (layer, [T, H]) at the first
+    and last MoE layer of the prefill and of the first decode step, for
+    ``_moe_layer_check``."""
     import torch
 
-    from autoawq_tpu_torch.nn import modules
     from autoawq_tpu_torch.serve import generate as gen
 
     b, s = prompt.shape
-    route = modules.moe_route
-    layers = cfg.num_hidden_layers
-    tape = {"record": None, "replay": None, "i": 0, "taps": None}
-    tap_calls = (0, layers - 1, layers, 2 * layers - 1)
+    moe_layers = [i for i, lp in enumerate(params["layers"])
+                  if "experts_stacked" in lp["mlp"]]
+    n = len(moe_layers)
+    tape = _RouteTape(n)
+    tap_calls = (0, n - 1, n, 2 * n - 1)
 
-    def taped(cfg_, p, xt, method="auto", topi=None):
-        if tape["taps"] is not None and tape["i"] in tap_calls:
-            tape["taps"].append((tape["i"] % layers, xt.clone()))
-        if tape["replay"] is not None:
-            topi = tape["replay"][tape["i"]]
-        topw, topi = route(cfg_, p, xt, method, topi)
-        if tape["record"] is not None:
-            tape["record"].append(topi)
-        tape["i"] += 1
-        return topw, topi
-
-    def run(method, dtype, tokens, record=None, replay=None, taps=None):
+    def run(method, dtype, tokens):
         """prefill, then ``steps`` decode steps on ``tokens`` (extended
         with its own greedy tokens when it comes empty)."""
-        tape.update(record=record, replay=replay, i=0, taps=taps)
-        cache = gen.init_kv_cache(cfg, b, s + steps, dtype, prompt.device)
+        cache = gen.init_kv_cache(cfg, b, s + steps, dtype, prompt.device,
+                                  kv_quant=kv_quant)
         logits = [gen.prefill(cfg, params, prompt, cache, method, dtype)[0]]
         greedy = not tokens
         for step in range(steps):
@@ -1979,25 +2144,24 @@ def _teacher_forced_moe(cfg, params, prompt, steps):
     bf, f32 = torch.bfloat16, torch.float32
     rec = {"kernel": [], "plain": [], "plain_f32": []}
     tokens, taps = [], []
-    modules.moe_route = taped
-    try:
-        free_k = run("auto", bf, tokens, record=rec["kernel"], taps=taps)
-        run("plain", bf, tokens, record=rec["plain"])
-        ref = run("plain", f32, tokens, record=rec["plain_f32"])
-        kern = run("auto", bf, tokens, replay=rec["plain_f32"])
-        plain = run("plain", bf, tokens, replay=rec["plain_f32"])
-    finally:
-        modules.moe_route = route
-
-    def flip_share(runs):
-        diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
-                   for x, y in zip(runs, rec["plain_f32"]))
-        return diff / sum(x.shape[0] for x in runs)
-
+    with tape:
+        tape.reset(record=rec["kernel"], taps=taps, tap_calls=tap_calls)
+        free_k = run("auto", bf, tokens)
+        tape.reset(record=rec["plain"])
+        run("plain", bf, tokens)
+        tape.reset(record=rec["plain_f32"])
+        ref = run("plain", f32, tokens)
+        tape.reset(replay=rec["plain_f32"])
+        kern = run("auto", bf, tokens)
+        tape.reset(replay=rec["plain_f32"])
+        plain = run("plain", bf, tokens)
+    taps = [(moe_layers[i], xt) for i, xt in taps]
     routing = {"route_calls": len(rec["plain_f32"]),
                "token_layer_sets": sum(x.shape[0] for x in rec["plain_f32"]),
-               "kernel_flip_share": flip_share(rec["kernel"]),
-               "plain_bf16_flip_share": flip_share(rec["plain"])}
+               "kernel_flip_share": _flip_share(rec["kernel"],
+                                                rec["plain_f32"]),
+               "plain_bf16_flip_share": _flip_share(rec["plain"],
+                                                    rec["plain_f32"])}
     rows = []
     for i in range(steps + 1):
         agree = (kern[i].argmax(-1) == ref[i].argmax(-1)).float().mean()
@@ -2011,8 +2175,17 @@ def _teacher_forced_moe(cfg, params, prompt, steps):
     return rows, routing, taps
 
 
+def _check_routing(name, routing):
+    share_k = routing["kernel_flip_share"]
+    share_p = routing["plain_bf16_flip_share"]
+    check(share_k <= 2 * share_p + 0.01,
+          f"traffic {name}: kernel path flips {share_k:.4f} of the "
+          f"(token, layer) expert sets of the f32 run, the bf16 twin "
+          f"{share_p:.4f}")
+
+
 def _moe_layer_check(cfg, params, name, taps):
-    """Mixtral's MoE block held per layer on the hidden states the kernel
+    """An MoE block held per layer on the hidden states the kernel
     path fed it (``taps``: (layer, xt [T, H])). For each: ``moe_align``'s
     tables on the card equal the CPU's bit for bit (the CPU's are held
     against JAX's by the tests); ``moe_block`` on the card (router,
@@ -2020,8 +2193,10 @@ def _moe_layer_check(cfg, params, name, taps):
     within ``TOL["moe_block"]`` of a dense f32 reference with the same
     expert choice that shares no routing table, gather or combine with the
     routed path: each chosen expert's MLP in f32 from dequantized weights on
-    the tokens that chose it, weighted and summed per token. The bf16
-    twin's distance from the same reference is printed beside it."""
+    the tokens that chose it, weighted and summed per token, plus the shared
+    experts' MLP in f32 where the layer has them (K8 once at decode-size
+    T, held). The bf16 twin's distance from the same reference is printed
+    beside it."""
     import torch
 
     from autoawq_tpu_torch.nn import modules
@@ -2049,13 +2224,14 @@ def _moe_layer_check(cfg, params, name, taps):
             seen.append(route(*a, **kw))
             return seen[-1]
 
-        before = _build.LAUNCHES["moe_gemm"]
+        before = dict(_build.LAUNCHES)
         modules.moe_route = recorded
         try:
             got = modules.moe_block(cfg, p, xt[None]).reshape(xt.shape)
         finally:
             modules.moe_route = route
-        launches = _build.LAUNCHES["moe_gemm"] - before
+        launches = _build.LAUNCHES["moe_gemm"] - before["moe_gemm"]
+        k8 = _build.LAUNCHES["fused_mlp3"] - before["fused_mlp3"]
         (topw, topi), = seen
         bm = mg.pick_block_m(topi.numel(), ne)
         tables = ("gather_idx", "block_expert", "live_blocks", "entry_rows")
@@ -2064,7 +2240,12 @@ def _moe_layer_check(cfg, params, name, taps):
         align_equal = {t: torch.equal(a.cpu(), b)
                        for t, a, b in zip(tables, on_card, on_cpu)}
         twin = mg.moe_mlp(st, xt, topw, topi, cfg.hidden_act, inter,
-                          method="plain")
+                          method="plain").float()
+        sh = p.get("shared_experts")
+        if sh is not None:
+            twin = twin + modules.mlp(
+                cfg, sh, xt[None], "plain",
+                intermediate=inter * cfg.n_shared_experts)[0].float()
         x32 = xt.float()
         ref = torch.zeros_like(x32)
         for e in range(ne):
@@ -2076,11 +2257,21 @@ def _moe_layer_check(cfg, params, name, taps):
             hmid = act_fn(cfg.hidden_act, g2[:, :inter]) * g2[:, inter:]
             y = hmid @ expert(st["down_proj"], e)
             ref[tok] += (topw * hit).sum(-1)[tok, None] * y
+        if sh is not None:
+            def dense(lin):
+                return dequantize(lin["qweight"], lin["scales"],
+                                  lin.get("qzeros"))
+            hmid = act_fn(cfg.hidden_act, x32 @ dense(sh["gate_proj"])) \
+                * (x32 @ dense(sh["up_proj"]))
+            ref += hmid @ dense(sh["down_proj"])
         err = rel_err(got, ref)[1]
         twin_err = rel_err(twin, ref)[1]
         where = f"traffic {name} layer {layer} ({xt.shape[0]} tokens)"
         check(launches == 2, f"{where}: {launches} moe_gemm launches in "
               "moe_block, expected 2")
+        want_k8 = int(sh is not None and xt.shape[0] <= 32)
+        check(k8 == want_k8, f"{where}: {k8} fused_mlp3 launches for the "
+              f"shared experts, expected {want_k8}")
         check(all(align_equal.values()), f"{where}: moe_align on the card "
               f"differs from the CPU's: {align_equal}")
         check(err <= TOL["moe_block"], f"{where}: moe_block {err:.4g} of "
@@ -2089,7 +2280,8 @@ def _moe_layer_check(cfg, params, name, taps):
                      "live_blocks": int(on_card[2]),
                      "align_equal_cpu": all(align_equal.values()),
                      "kernel_vs_f32": err, "plain_bf16_vs_f32": twin_err,
-                     "moe_gemm_launches": launches})
+                     "moe_gemm_launches": launches,
+                     "fused_mlp3_launches": k8})
     return rows
 
 
@@ -2970,15 +3162,21 @@ def synth_float_on_card(cfg, seed, dev, scale=0.05):
     return params
 
 
-def synth_zoo_on_card(cfg, seed, dev):
-    """Seeded random W4 g128 weights with zero points for a model of the
-    decoder zoo, drawn on the card by a torch.Generator in the port's
-    fused layout (qkv_proj; gate_up_proj or fc1 / fc2): bf16 embedding,
-    head and biases (std 0.02, as the JAX synthesiser's), norms of ones
-    (LayerNorms with a zero bias, except MPT's, which have none), q/k
-    norms and gemma2's four norms where the config has them. Not the JAX
-    synthesiser's numpy draw, which takes minutes on the host at these
-    widths."""
+def synth_zoo_on_card(cfg, seed, dev, gs=128):
+    """Seeded random W4 weights at group size ``gs`` with zero points for
+    a model of the decoder zoo, drawn on the card by a torch.Generator in
+    the port's fused layout (qkv_proj; gate_up_proj or fc1 / fc2): bf16
+    embedding, head and biases (std 0.02, as the JAX synthesiser's), norms
+    of ones (LayerNorms with a zero bias, except MPT's, which have none),
+    q/k norms and gemma2's four norms where the config has them. MLA models
+    get MLA's projections and norms (q_proj, or q_a_proj / q_a_layernorm /
+    q_b_proj; kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj, o_proj). MoE
+    layers get a bf16 router (std 0.02; for ``noaux_tc`` an f32
+    ``e_score_correction_bias``, std 0.02), stacked experts and, where the
+    config has them, deepseek's shared experts, unfused; layers below
+    ``first_k_dense_replace`` are dense, as the published checkpoints
+    store them. Not the JAX synthesiser's numpy draw, which takes minutes
+    on the host at these widths (and makes every layer MoE)."""
     import torch
 
     gen = torch.Generator(device=dev)
@@ -2997,11 +3195,42 @@ def synth_zoo_on_card(cfg, seed, dev):
             p["bias"] = torch.zeros(n, dtype=bf, device=dev)
         return p
 
-    def qlin(k, n, bias):
-        p = qlin_on_card(gen, k, n)
+    def qlin(k, n, bias=False, experts=None):
+        p = qlin_on_card(gen, k, n, gs, experts=experts)
         if bias:
             p["bias"] = normal(n)
         return p
+
+    def mla():
+        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        attn = {"kv_a_proj_with_mqa": qlin(
+                    h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "kv_a_layernorm": norm(cfg.kv_lora_rank),
+                "kv_b_proj": qlin(cfg.kv_lora_rank, nh * (
+                    cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "o_proj": qlin(nh * cfg.v_head_dim, h)}
+        if cfg.q_lora_rank:
+            attn["q_a_proj"] = qlin(h, cfg.q_lora_rank)
+            attn["q_a_layernorm"] = norm(cfg.q_lora_rank)
+            attn["q_b_proj"] = qlin(cfg.q_lora_rank, nh * dq)
+        else:
+            attn["q_proj"] = qlin(h, nh * dq)
+        return attn
+
+    def moe():
+        ie, ne = cfg.moe_intermediate_size or inter, cfg.num_experts
+        gate = {"kernel": normal(h, ne)}
+        if cfg.topk_method == "noaux_tc":
+            gate["e_score_correction_bias"] = normal(ne).float()
+        m = {"gate": gate, "experts_stacked": {
+            "gate_up_proj": qlin(h, 2 * ie, experts=ne),
+            "down_proj": qlin(ie, h, experts=ne)}}
+        if cfg.n_shared_experts:
+            si = ie * cfg.n_shared_experts
+            m["shared_experts"] = {"gate_proj": qlin(h, si),
+                                   "up_proj": qlin(h, si),
+                                   "down_proj": qlin(si, h)}
+        return m
 
     head = None
     if not cfg.tie_word_embeddings:
@@ -3010,11 +3239,11 @@ def synth_zoo_on_card(cfg, seed, dev):
             head["bias"] = normal(v)
     params = {"embed_tokens": {"weight": normal(v, h)}, "norm": norm(),
               "lm_head": head, "layers": []}
-    for _ in range(cfg.num_hidden_layers):
-        lp = {"input_layernorm": norm(),
-              "self_attn": {"qkv_proj": qlin(h, (nh + 2 * nkv) * hd,
-                                             cfg.attention_bias),
-                            "o_proj": qlin(nh * hd, h, False)}}
+    for i in range(cfg.num_hidden_layers):
+        lp = {"input_layernorm": norm(), "self_attn": mla() if cfg.is_mla
+              else {"qkv_proj": qlin(h, (nh + 2 * nkv) * hd,
+                                     cfg.attention_bias),
+                    "o_proj": qlin(nh * hd, h)}}
         if not (cfg.parallel_residual and cfg.shared_input_norm):
             lp["post_attention_layernorm"] = norm()
         if cfg.post_norms:
@@ -3023,7 +3252,9 @@ def synth_zoo_on_card(cfg, seed, dev):
         if cfg.qk_norm:
             lp["self_attn"]["q_norm"] = norm(hd)
             lp["self_attn"]["k_norm"] = norm(hd)
-        if cfg.gated_mlp:
+        if cfg.is_moe and i >= cfg.first_k_dense_replace:
+            lp["mlp"] = moe()
+        elif cfg.gated_mlp:
             lp["mlp"] = {"gate_up_proj": qlin(h, 2 * inter, cfg.mlp_bias),
                          "down_proj": qlin(inter, h, cfg.mlp_bias)}
         else:
@@ -3033,28 +3264,34 @@ def synth_zoo_on_card(cfg, seed, dev):
     return params
 
 
-def _zoo_model(hf_dict, dev, depth=None):
+def _zoo_model(hf_dict, dev, depth=None, phase="zoo", gs=128, **cut):
     """ModelConfig of a published config (depth cut to ``depth`` layers
-    where given) and its weights on the card."""
+    where given, and other fields replaced by ``cut``, printed) and its
+    weights on the card at group size ``gs``."""
     import dataclasses
 
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import attach_kv_b_dense
 
     cfg = ModelConfig.from_hf_dict(hf_dict)
     full = cfg.num_hidden_layers
+    published = {k: getattr(cfg, k) for k in cut}
     if depth is not None:
         cfg = dataclasses.replace(cfg, num_hidden_layers=depth)
+    cfg = dataclasses.replace(cfg, **cut)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = attach_kv_b_dense(cfg, synth_zoo_on_card(cfg, 0, dev, gs))
     torch.cuda.synchronize()
-    emit({"phase": "zoo", "model": cfg.model_type, "step": "synth",
+    emit({"phase": phase, "model": cfg.model_type, "step": "synth",
           "layers": cfg.num_hidden_layers, "published_layers": full,
           "cut": None if depth is None else
           f"depth {depth} of {full} layers, published width",
-          "seconds": time.perf_counter() - t0,
+          "fields_cut": {k: {"published": published[k], "run": cut[k]}
+                         for k in cut},
+          "group_size": gs, "seconds": time.perf_counter() - t0,
           "allocated_bytes": torch.cuda.memory_allocated()})
     torch.cuda.reset_peak_memory_stats()
     return cfg, params
@@ -3198,6 +3435,22 @@ def _zoo_family(name, hf_dict, dev, rng, expect_decode, expect_prefill,
     return counts
 
 
+def _checked_teacher_forced(name, cfg, params, prompt, steps,
+                            kv_quant=False):
+    """``_teacher_forced`` (``_teacher_forced_moe`` for an MoE model, with
+    its routing held too), checked. Returns (rows, routing summary or
+    None)."""
+    if not cfg.is_moe:
+        rows = _teacher_forced(cfg, params, prompt, steps, kv_quant)
+        _check_teacher_forced(name, rows)
+        return rows, None
+    rows, routing, _ = _teacher_forced_moe(cfg, params, prompt, steps,
+                                           kv_quant)
+    _check_teacher_forced(name, rows)
+    _check_routing(name, routing)
+    return rows, routing
+
+
 def _served_checks(phase, name, cfg, params, dev, rng, expect_decode,
                    expect_prefill, expect_paged):
     """One prefill of 2 x 384, 16 teacher-forced decode steps at bs1 and
@@ -3214,16 +3467,17 @@ def _served_checks(phase, name, cfg, params, dev, rng, expect_decode,
     times, counts["prefill"], prof = _timed_prefill(cfg, params, prompt,
                                                     416, runs=1)
     _check_launches(f"{name} prefill", counts["prefill"], expect_prefill)
-    rows = _teacher_forced(cfg, params, prompt, 1)
-    _check_teacher_forced(f"{name} prefill", rows)
+    rows, routing = _checked_teacher_forced(f"{name} prefill", cfg, params,
+                                            prompt, 1)
     emit({"phase": phase, "model": name, "what": "prefill 2 x 384",
           "card": card(), "prefill_s": min(times),
           "device_ms": prof["device_ms_per_call"],
-          "launches": counts["prefill"], "kernel_vs_plain": rows})
+          "launches": counts["prefill"], "kernel_vs_plain": rows,
+          "routing": routing})
 
     prompt1 = prompt[:1, :64].contiguous()
-    rows = _teacher_forced(cfg, params, prompt1, 16)
-    _check_teacher_forced(f"{name} decode", rows)
+    rows, routing = _checked_teacher_forced(f"{name} decode", cfg, params,
+                                            prompt1, 16)
     caches = gen.init_kv_cache(cfg, 1, 80, torch.bfloat16, dev)
     logits, _ = gen.prefill(cfg, params, prompt1, caches)
     _build.reset_launches()
@@ -3234,7 +3488,7 @@ def _served_checks(phase, name, cfg, params, dev, rng, expect_decode,
     _check_launches(f"{name} decode step", counts["decode"], expect_decode)
     emit({"phase": phase, "model": name, "what": "bs1 decode, 16 steps "
           "teacher-forced", "card": card(), "launches_per_decode_step":
-          counts["decode"], "kernel_vs_plain": rows})
+          counts["decode"], "kernel_vs_plain": rows, "routing": routing})
 
     prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(8)]
     busy = _busy_engine(cfg, params, prompts)
@@ -3305,6 +3559,281 @@ def phase_zoo(dev):
     return total, per_step
 
 
+def _mla_moe_kernel_rows(dev, rng, gen_t):
+    """K6 against its twin at DeepSeek-V2-Lite's decode and prefill shapes
+    (64 experts, top-6), at Qwen3-30B-A3B's (128, top-8) and DeepSeek-V3's
+    (256, top-8; its down_proj's widths), K8 at V2-Lite's shared experts,
+    and, at V2-Lite's g64, K1 at O's and R's decode linears, K2 at P's
+    prefill linears and K3 at the dense layer 0. Returns the timed rows for
+    the ``kernels`` line."""
+    import torch
+
+    v2 = DEEPSEEK_V2_LITE
+    h, ie, ne, k = (v2["hidden_size"], v2["moe_intermediate_size"],
+                    v2["n_routed_experts"], v2["num_experts_per_tok"])
+    rows = []
+    gu = qlin_on_card(gen_t, h, 2 * ie, MLA_MOE_GS, experts=ne)
+    dn = qlin_on_card(gen_t, ie, h, MLA_MOE_GS, experts=ne)
+    rows.append(_moe_case(gen_t, "V2-Lite O decode, gate_up (6 of 64)", gu,
+                          1, dev, k=k))
+    _moe_case(gen_t, "V2-Lite O decode, down (6 of 64)", dn, 1, dev, k=k,
+              yardsticks=False)
+    _moe_case(gen_t, "V2-Lite R decode, gate_up (8 slots)", gu, 8, dev,
+              k=k, yardsticks=False)
+    rows.append(_moe_case(gen_t, "V2-Lite P prefill, gate_up (bm 16)", gu,
+                          768, dev, iters=10, k=k))
+    rows.append(_moe_case(gen_t, "V2-Lite P prefill, down (bm 16)", dn, 768,
+                          dev, iters=10, k=k))
+    del gu, dn
+    q = QWEN3_30B_A3B
+    gu = qlin_on_card(gen_t, q["hidden_size"], 2 * q["moe_intermediate_size"],
+                      experts=q["num_experts"])
+    for t in (1, 768):
+        _moe_case(gen_t, f"Qwen3-30B-A3B gate_up T={t} (8 of 128)", gu, t,
+                  dev, timing=False, k=8)
+    del gu
+    v3 = DEEPSEEK_V3
+    dn = qlin_on_card(gen_t, v3["moe_intermediate_size"], v3["hidden_size"],
+                      experts=v3["n_routed_experts"])
+    for t in (1, 768):
+        _moe_case(gen_t, f"DeepSeek-V3 down T={t} (8 of 256)", dn, t, dev,
+                  timing=False, k=8)
+    del dn
+    torch.cuda.empty_cache()
+    si = ie * v2["n_shared_experts"]
+    rows.append(_mlp3_case(rng, "V2-Lite shared experts M=1", 1, h, si,
+                           "silu", dev))
+    _mlp3_case(rng, "V2-Lite shared experts M=8", 8, h, si, "silu", dev,
+               timing=False)
+    # V2-Lite's linears as its traffics call them, at g64: K1 at O's and
+    # R's decode (M = 1, 8; kv_a's 576 is no multiple of 128), K2 at P's
+    # prefill (M = 768; also kv_b, the shared experts and the dense layer
+    # 0's 10,944, 171 groups of 64), K3 at the dense layer 0's decode
+    nh, dn = v2["num_attention_heads"], v2["qk_nope_head_dim"]
+    dense = v2["intermediate_size"]
+    decode = {"q_proj": (h, nh * (dn + v2["qk_rope_head_dim"])),
+              "kv_a_proj_with_mqa": (h, v2["kv_lora_rank"]
+                                     + v2["qk_rope_head_dim"]),
+              "o_proj": (nh * v2["v_head_dim"], h)}
+    prefill = {**decode,
+               "kv_b_proj": (v2["kv_lora_rank"], nh * (dn + v2["v_head_dim"])),
+               "shared gate / up": (h, si), "shared down": (si, h),
+               "dense gate_up": (h, 2 * dense), "dense down": (dense, h)}
+    for name, (kk, n) in decode.items():
+        for m in (1, 8):
+            _gemm_case(rng, "w4a16_gemv", f"V2-Lite {name}", m, kk, n,
+                       MLA_MOE_GS, True, dev, timing=False, gen=gen_t)
+    for name, (kk, n) in prefill.items():
+        _gemm_case(rng, "w4a16_gemm", f"V2-Lite P {name}", 768, kk, n,
+                   MLA_MOE_GS, True, dev, timing=False, gen=gen_t)
+    for m in (1, 8):
+        _mlp_case(rng, m, "silu", dev, timing=False, h=h, inter=dense,
+                  case="V2-Lite dense layer 0", gs=MLA_MOE_GS, gen=gen_t)
+    return rows
+
+
+def _decode_step_bytes(cfg, params, experts_read):
+    """Bytes one bs1 decode step must read, and what the port reads beyond
+    them: every linear's packed weights (kv_b's too), the router,
+    ``experts_read`` routed experts of each MoE layer, the shared experts,
+    the head and one embedding row; beyond them, kv_b's f32 dense weight,
+    which the port's absorbed MLA decode reads in place of the packed one
+    (``nn/fuse.attach_kv_b_dense``), less that packed weight."""
+    def nbytes(node):
+        if isinstance(node, dict):
+            return sum(nbytes(v) for k, v in node.items() if k != "dense")
+        return node.numel() * node.element_size() if node is not None else 0
+
+    total = nbytes(params["lm_head"]) + nbytes(params["norm"])
+    total += params["embed_tokens"]["weight"][0].numel() * 2
+    extra = 0
+    for lp in params["layers"]:
+        total += nbytes(lp["self_attn"])
+        kv_b = lp["self_attn"].get("kv_b_proj")
+        if kv_b is not None and "dense" in kv_b:
+            extra += kv_b["dense"].numel() * 4 - nbytes(kv_b)
+        m = dict(lp["mlp"])
+        st = m.pop("experts_stacked", None)
+        total += nbytes(m)
+        if st is not None:
+            total += nbytes(st) * experts_read // cfg.num_experts
+    return total, extra
+
+
+def _v2_lite_traffics(dev, rng):
+    """DeepSeek-V2-Lite at full width and depth: traffics O (bs1 decode),
+    P (prefill 2 x 384) and R (the paged engine on a latent pool), each
+    with its launches held exactly and its teacher-forced check, the int8
+    latent cache, the paged step against the contiguous latent path, and
+    the MoE block held per layer. Returns the launch counts of O, P and R
+    and O's and R's launches per decode step."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg, params = _zoo_model(DEEPSEEK_V2_LITE, dev, phase="mla_moe",
+                             gs=MLA_MOE_GS)
+    layers = cfg.num_hidden_layers
+    moe = layers - cfg.first_k_dense_replace
+    dense = cfg.first_k_dense_replace
+    latent = gen.init_kv_cache(cfg, 1, 64, device=dev)
+    full = gen.init_kv_cache(cfg, 1, 64, device=dev, mla_latent=False)
+
+    def per_token(caches):
+        return sum(t.numel() * t.element_size() for c in caches
+                   for t in c.values()) / 64
+    emit({"phase": "mla_moe", "model": "deepseek-v2-lite", "card": card(),
+          "group_size": MLA_MOE_GS, "why_g64": "10944 = 85.5 x 128",
+          "latent_cache_bytes_per_token": per_token(latent),
+          "materialized_kv_bytes_per_token": per_token(full),
+          "ratio": per_token(full) / per_token(latent)})
+    del latent, full
+    counts, per_step = {}, {}
+    expect_o = {"w4a16_gemv": 3 * layers, "moe_gemm": 2 * moe,
+                "fused_mlp3": moe, "fused_mlp": dense, "fused_attn_step": 0,
+                "paged_attn": 0, "w4a16_gemm": 0}
+
+    prompt_o = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (1, 64))).to(dev)
+
+    def run_o(n):
+        t = time.perf_counter()
+        out = gen.generate(cfg, params, prompt_o, n).cpu()
+        return time.perf_counter() - t, out
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    tok_s, t_small, t_big, per_step["O"], out = _quotient(run_o, 16, 64, 2,
+                                                          warm=(16,))
+    counts["O"] = dict(_build.LAUNCHES)
+    check(out.shape == (1, 64 + 64) and bool((out < cfg.vocab_size).all()),
+          "traffic O output")
+    _check_launches("O (a decode step)", per_step["O"], expect_o)
+    prof = profile_decode(cfg, params, prompt_o, 16)
+    step_bytes, dense_extra = _decode_step_bytes(cfg, params,
+                                                 cfg.num_experts_per_tok)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "mla_moe", "traffic": "O", "model": "deepseek-v2-lite",
+          "card": card(), "batch": 1, "prompt": 64,
+          "method": "64- and 16-token quotient, min of 2",
+          "decode_tok_s": tok_s, "t_16_s": t_small, "t_64_s": t_big,
+          "device_ms_per_step": prof["device_ms_per_call"],
+          "device_busy_share": prof["device_busy_share"],
+          "step_bytes": step_bytes, "step_bound_ms": bound_ms,
+          "kv_b_dense_extra_bytes": dense_extra,
+          "kv_b_dense_extra_ms": dense_extra / HBM_BYTES_PER_S * 1e3,
+          "device_ms_over_bound": prof["device_ms_per_call"] / bound_ms,
+          "launches": counts["O"], "launches_per_decode_step": per_step["O"],
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "mla_moe", "step": "profile", "traffic": "O",
+          "card": card(), "what": "decode_step", **prof})
+    for kv_quant in (False, True):
+        name = "O int8 latent" if kv_quant else "O"
+        rows, routing, taps = _teacher_forced_moe(cfg, params, prompt_o, 4,
+                                                  kv_quant)
+        _check_teacher_forced(name, rows)
+        _check_routing(name, routing)
+        emit({"phase": "mla_moe", "step": "kernel_vs_plain",
+              "traffic": name, "cache": "int8" if kv_quant else "bf16",
+              "routing": routing, "rows": rows})
+        if not kv_quant:
+            emit({"phase": "mla_moe", "step": "moe_block_per_layer",
+                  "traffic": name, "card": card(),
+                  "limit": TOL["moe_block"],
+                  "rows": _moe_layer_check(cfg, params, name, taps)})
+        del taps
+
+    prompt_p = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 384))).to(dev)
+    times, counts["P"], prof = _timed_prefill(cfg, params, prompt_p, 416)
+    _check_launches("P (a prefill)", counts["P"], {
+        "w4a16_gemm": 4 * layers + 2 * dense + 3 * moe, "moe_gemm": 2 * moe,
+        "prefill_attention": 0, "w4a16_gemv": 0, "fused_mlp3": 0})
+    emit({"phase": "mla_moe", "traffic": "P", "model": "deepseek-v2-lite",
+          "card": card(), "batch": 2, "prompt": 384, "prefill_s": min(times),
+          "prefill_runs_s": times, "prefill_tok_s": 768 / min(times),
+          "device_ms": prof["device_ms_per_call"], "launches": counts["P"]})
+    emit({"phase": "mla_moe", "step": "profile", "traffic": "P",
+          "card": card(), "what": "prefill", **prof})
+    rows, routing, _ = _teacher_forced_moe(cfg, params, prompt_p, 0)
+    _check_teacher_forced("P", rows)
+    _check_routing("P", routing)
+    emit({"phase": "mla_moe", "step": "kernel_vs_plain", "traffic": "P",
+          "routing": routing, "rows": rows})
+
+    prompts = [rng.integers(0, cfg.vocab_size, (64,)) for _ in range(16)]
+    t0 = time.perf_counter()
+    counts["R"], per_step["R"] = _paged_traffic(
+        cfg, params, "R", prompts, 2, {**expect_o, "paged_attn_stock": 0},
+        False)
+    rows = _teacher_forced_paged(cfg, params, prompts, 2)
+    _check_teacher_forced("R", rows)
+    rows8 = _teacher_forced_paged(cfg, params, prompts, 1, kv_quant=True)
+    _check_teacher_forced("R int8 pool", rows8)
+    versus = _paged_vs_contiguous(cfg, params, prompts)
+    limit = 2 * rows[0]["plain_bf16_vs_f32"] + 1e-3
+    check(versus <= limit, f"traffic R: the paged latent step is {versus:.4g}"
+          f" from the contiguous latent path, limit {limit:.4g}")
+    emit({"phase": "mla_moe", "step": "kernel_vs_plain", "traffic": "R",
+          "layers": layers, "rows": rows, "int8_pool_rows": rows8,
+          "paged_vs_contiguous": versus, "paged_vs_contiguous_limit": limit,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "mla_moe", "model": "deepseek-v2-lite", "card": card(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del params
+    return counts, per_step
+
+
+def phase_mla_moe(dev):
+    """MLA and DeepSeek / Qwen3 MoE on the card: kernel rows at their
+    shapes, DeepSeek-V2-Lite's traffics O, P and R at full width and depth
+    (``_v2_lite_traffics``), then DeepSeek-V3 and Qwen3-30B-A3B at
+    published width, depth ``MLA_MOE_CUT_DEPTH``, through
+    ``_served_checks``. Returns (launch counts summed over the phase,
+    launches per decode step of O and R, the kernel rows)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(12)
+    krows = _mla_moe_kernel_rows(dev, rng, gen_t)
+    counts, per_step = _v2_lite_traffics(dev, rng)
+    d = MLA_MOE_CUT_DEPTH
+    cfg, params = _zoo_model(DEEPSEEK_V3, dev, d, phase="mla_moe",
+                             first_k_dense_replace=1)
+    # 1 dense + 1 MoE layer: q_a, q_b, kv_a, o on K1 at decode (kv_b in the
+    # absorbed decode), and kv_b on K2 at prefill; K3 the dense MLP, K8 the
+    # shared expert
+    counts["v3"] = _served_checks(
+        "mla_moe", "deepseek-v3", cfg, params, dev, rng,
+        {"w4a16_gemv": 4 * d, "fused_mlp": 1, "moe_gemm": 2,
+         "fused_mlp3": 1, "fused_attn_step": 0},
+        {"w4a16_gemm": 5 * d + 2 + 3, "moe_gemm": 2,
+         "prefill_attention": 0},
+        {"w4a16_gemv": 4 * d, "fused_mlp": 1, "moe_gemm": 2,
+         "fused_mlp3": 1, "paged_attn": 0, "paged_attn_stock": 0})
+    del params
+    cfg, params = _zoo_model(QWEN3_30B_A3B, dev, d, phase="mla_moe")
+    counts["qwen3_moe"] = _served_checks(
+        "mla_moe", "qwen3-30b-a3b", cfg, params, dev, rng,
+        {"w4a16_gemv": 2 * d, "moe_gemm": 2 * d, "fused_mlp": 0,
+         "fused_attn_step": 0},
+        {"w4a16_gemm": 2 * d, "moe_gemm": 2 * d, "prefill_attention": d},
+        {"w4a16_gemv": 2 * d, "moe_gemm": 2 * d, "paged_attn": d,
+         "paged_attn_stock": 0})
+    del params
+    torch.cuda.empty_cache()
+    total = {k: sum(c.get(k, 0) for c in counts.values())
+             for k in counts["O"]}
+    for name in ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "moe_gemm",
+                 "fused_mlp3", "prefill_attention", "paged_attn"):
+        check(total.get(name, 0) > 0,
+              f"kernel {name} never launched on the mla_moe phase's path")
+    return total, per_step, krows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3367,6 +3896,12 @@ def main(argv=None) -> int:
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    extra_rows = []
+    if "mla_moe" in phases:
+        counts, per_step, extra_rows = timed("mla_moe", phase_mla_moe, dev)
+        per_token.update(per_step)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:
@@ -3377,10 +3912,14 @@ def main(argv=None) -> int:
         timed("decode_mlp_attn", phase_decode_mlp_attn, dev)
     if rep:
         kernels = []
-        for name, (source, replaces) in KERNEL_META.items():
-            r = rep[name]
+        # the nine kernels' representative rows, then the mla_moe phase's
+        # K6 and K8 rows at their own shapes
+        for name, r in [(n, rep[n]) for n in KERNEL_META] + [
+                (r["kernel"], r) for r in extra_rows]:
+            source, replaces = KERNEL_META[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
+                "case": r.get("case"),
                 # counts only from the main path's run; null without it
                 "replaces": replaces,
                 "launches": None if total is None else total.get(name, 0),
@@ -3388,14 +3927,17 @@ def main(argv=None) -> int:
                     t: per[name] for t, per in per_token.items()},
                 "shape": {k: r[k] for k in ("M", "K", "N", "B", "S", "H",
                                             "inter", "T", "vl", "cache",
-                                            "experts", "entries", "block_m",
-                                            "nh", "nkv", "hd", "ps", "PPS",
-                                            "pool", "live_rows")
+                                            "experts", "top_k", "entries",
+                                            "block_m", "nh", "nkv", "hd",
+                                            "ps", "PPS", "pool",
+                                            "live_rows")
                           if k in r},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "eager_ms": r["eager_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **({"matmul_per_expert_ms": r["matmul_per_expert_ms"]}
+                   if "matmul_per_expert_ms" in r else {})})
         emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "failures": failures})

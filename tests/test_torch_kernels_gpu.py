@@ -1032,3 +1032,156 @@ def _map_floats(tree, fn):
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return fn(tree)
     return tree
+
+
+# ---- MLA and DeepSeek / Qwen3 MoE at published widths
+
+@pytest.mark.parametrize("t,e,k,k_dim,n,gs", [
+    (1, 64, 6, 2048, 2816, 64),     # DeepSeek-V2-Lite decode, gate_up
+    (768, 64, 6, 1408, 2048, 64),   # V2-Lite's prefill 2 x 384, down (bm 16)
+    (1, 128, 8, 2048, 1536, 128),   # Qwen3-30B-A3B decode, gate_up
+    (768, 128, 8, 768, 2048, 128),  # Qwen3-30B-A3B prefill, down
+])
+def test_moe_gemm_at_published_expert_counts(cuda, t, e, k, k_dim, n, gs):
+    """K6 against its twin at 64 experts top-6 and 128 top-8: one launch,
+    1e-2 of max |twin|, the trailing dead blocks zero."""
+    gen = torch.Generator(device=cuda).manual_seed(t + e)
+    w = stack(gen, e, k_dim, n, gs, True, cuda)
+    topi = routed(gen, t, e, k, cuda)
+    bm = moe_gemm.pick_block_m(t * k, e)
+    gather_idx, block_expert, live, _ = moe_gemm.moe_align(topi, e, bm)
+    x = (torch.randn(t, k_dim, device=cuda, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    xs = torch.cat([x, x.new_zeros((1, k_dim))])[
+        torch.clamp(gather_idx.long() // k, max=t)]
+    args = (xs, block_expert, w["qweight"], w["scales"], w["qzeros"])
+    before = _build.LAUNCHES["moe_gemm"]
+    got = moe_gemm.grouped_awq_matmul(*args, block_m=bm, live_blocks=live,
+                                      max_live=t * k)
+    assert _build.LAUNCHES["moe_gemm"] == before + 1
+    ref = moe_gemm.grouped_awq_matmul_plain(*args, block_m=bm,
+                                            live_blocks=live)
+    assert rel(got, ref) <= 1e-2
+    assert not got[int(live) * bm:].any()
+
+
+def v2_lite_layer(gen, dev):
+    """One DeepSeek-V2-Lite MoE layer at published width (MLA with lite q,
+    64 experts top-6 stacked, 2 shared experts unfused) at g64, random int4
+    weights on the card, and its 1-layer config."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(model_type="deepseek_v2", vocab_size=256,
+                      hidden_size=2048, intermediate_size=10944,
+                      moe_intermediate_size=1408, num_hidden_layers=1,
+                      num_attention_heads=16, num_key_value_heads=16,
+                      num_experts=64, n_shared_experts=2,
+                      num_experts_per_tok=6, kv_lora_rank=512,
+                      qk_rope_head_dim=64, qk_nope_head_dim=128,
+                      v_head_dim=128, rms_norm_eps=1e-6)
+    bf = torch.bfloat16
+
+    def qlin(k, n):
+        return dict(zip(("qweight", "scales", "qzeros"),
+                        card_lin(gen, k, n, 64, True)))
+
+    def ones(n=2048):
+        return {"weight": torch.ones(n, dtype=bf, device=dev)}
+    layer = {
+        "input_layernorm": ones(), "post_attention_layernorm": ones(),
+        "self_attn": {"q_proj": qlin(2048, 16 * 192),
+                      "kv_a_proj_with_mqa": qlin(2048, 576),
+                      "kv_a_layernorm": ones(512),
+                      "kv_b_proj": qlin(512, 16 * 256),
+                      "o_proj": qlin(16 * 128, 2048)},
+        "mlp": {"gate": {"kernel": (torch.randn(2048, 64, device=dev,
+                                                generator=gen) * 0.02).to(bf)},
+                "experts_stacked": {
+                    "gate_up_proj": stack(gen, 64, 2048, 2816, 64, True, dev),
+                    "down_proj": stack(gen, 64, 1408, 2048, 64, True, dev)},
+                "shared_experts": {"gate_proj": qlin(2048, 2816),
+                                   "up_proj": qlin(2048, 2816),
+                                   "down_proj": qlin(2816, 2048)}}}
+    return cfg, layer
+
+
+def _block_step(cfg, layer, x, cache, pos, method, topi_tape=None):
+    """One layer's decode step (latent cache, int ``pos``); with
+    ``topi_tape`` the router's choice is recorded (an empty list) or
+    replayed (a filled one)."""
+    from autoawq_tpu_torch.nn import modules
+
+    pos_t = torch.full((1, x.shape[1]), pos, device=x.device)
+    cos, sin = modules.rope_tables(cfg, pos_t)
+    t = cache["c"].shape[2]
+    mask = torch.where(torch.arange(t, device=x.device) <= pos, 0.0,
+                       -1e30).float()[None, None, None]
+    route = modules.moe_route
+
+    def taped(cfg_, p, xt, method="auto", topi=None):
+        if topi_tape:
+            return route(cfg_, p, xt, method, topi_tape[0])
+        out = route(cfg_, p, xt, method, topi)
+        topi_tape.append(out[1])
+        return out
+    if topi_tape is not None:
+        modules.moe_route = taped
+    try:
+        return modules.block(cfg, layer, x, cos, sin, mask,
+                             {**cache, "pos": pos}, method)[0]
+    finally:
+        modules.moe_route = route
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_v2_lite_layer_latent_decode_step_matches_plain(cuda, kv_quant):
+    """One V2-Lite layer's bs1 decode step over a latent cache of 64 rows
+    (absorbed MLA decode around K1; router, K6 x 2 and K8 for the shared
+    experts) against the plain path on the same cache and the same expert
+    choice: within 2e-2 of the output's scale (bf16 products in other
+    orders, as ``moe_mlp``'s limit), and the step's launches exact."""
+    from autoawq_tpu_torch.serve import generate as gen
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    cfg, layer = v2_lite_layer(g, cuda)
+    cache = gen.init_kv_cache(cfg, 1, 80, device=cuda, kv_quant=kv_quant)[0]
+    rows = torch.randn(1, 1, 64, 576, device=cuda, generator=g)
+    if kv_quant:
+        from autoawq_tpu_torch.nn.modules import _latent_row
+        r, s = _latent_row(rows[..., :512], rows[..., 512:], True)
+        cache["c"][:, :, :64], cache["c_s"][:, :, :64] = r, s
+    else:
+        cache["c"][:, :, :64] = rows.to(torch.bfloat16)
+    x = torch.randn(1, 1, 2048, device=cuda, generator=g).to(torch.bfloat16)
+    tape = []
+    ref = _block_step(cfg, layer, x, {k: v.clone() for k, v in
+                                      cache.items()}, 64, "plain", tape)
+    _build.reset_launches()
+    got = _block_step(cfg, layer, x, cache, 64, "auto", tape)
+    assert rel(got, ref) <= 2e-2
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launches == {"w4a16_gemv": 3, "moe_gemm": 2, "fused_mlp3": 1}
+
+
+def test_v2_lite_moe_layer_prefill_launches(cuda):
+    """The same layer's prefill of 384 tokens into the latent cache: K2 for
+    q_proj, kv_a, kv_b and o and the three shared-expert linears, K6
+    twice, no K1, K4 or K8 (MLA prefill attends in plain ops)."""
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.serve import generate as gen
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    cfg, layer = v2_lite_layer(g, cuda)
+    cache = gen.init_kv_cache(cfg, 1, 400, device=cuda)[0]
+    x = torch.randn(1, 384, 2048, device=cuda, generator=g).to(
+        torch.bfloat16)
+    pos = torch.arange(384, device=cuda)[None]
+    cos, sin = modules.rope_tables(cfg, pos)
+    mask = modules.causal_mask(384, device=cuda)
+    _build.reset_launches()
+    y, _ = modules.block(cfg, layer, x, cos, sin, mask,
+                         {**cache, "pos": 0}, causal_prefill=True)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launches == {"w4a16_gemm": 7, "moe_gemm": 2}
+    assert bool(torch.isfinite(y).all())
+    assert cache["c"][:, :, :384].abs().sum() > 0

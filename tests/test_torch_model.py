@@ -25,6 +25,7 @@ from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import fuse, modules
 from autoawq_tpu_torch.serve import generate as gen
 from autoawq_tpu_torch.utils.synth import random_quantized_params
+from test_torch_moe_routing import feature_forward_parity
 
 KW = dict(model_type="llama", vocab_size=256, hidden_size=256,
           intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
@@ -175,16 +176,25 @@ _MOE = {"model_type": "mixtral", "num_experts": 4, "num_experts_per_tok": 2}
 
 @pytest.mark.parametrize("change", [
     dict(_MOE, scoring_func="sigmoid"),
-    dict(_MOE, topk_method="group_limited_greedy"),
+    dict(_MOE, topk_method="group_limited_greedy", n_group=2, topk_group=1),
     dict(_MOE, n_shared_experts=1),
     dict(_MOE, shared_expert_intermediate_size=128),
     dict(_MOE, first_k_dense_replace=1),
-    {"kv_lora_rank": 16},
+    {"model_type": "deepseek_v2", "kv_lora_rank": 64,
+     "qk_rope_head_dim": 16, "qk_nope_head_dim": 32, "v_head_dim": 32},
+    {"model_type": "phimoe"},
 ])
 def test_features_outside_the_slice_raise(change):
-    cfg = dataclasses.replace(ModelConfig(**KW), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        modules.check_supported(cfg)
+    """The MoE and MLA features this test once saw refused run now, each
+    with JAX's f32 logits within 1e-4 of their scale on a 2-layer model
+    (``test_torch_moe_routing.feature_forward_parity``); phimoe, which has
+    no loader in the JAX package, raises naming its ROADMAP item."""
+    if change.get("model_type") == "phimoe":
+        cfg = dataclasses.replace(ModelConfig(**KW), **change)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            modules.check_supported(cfg)
+        return
+    feature_forward_parity(KW, change)
 
 
 @pytest.mark.parametrize("window", [None, 6])

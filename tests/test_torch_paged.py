@@ -208,7 +208,9 @@ def test_stock_route_and_refusals(model):
     """K9's route (its twin on the CPU) on bf16 pools: one decode step's
     logits within 2e-2 of the logit scale of K7's route on the same state
     (K9 rounds q, the running output and its result to bf16). It refuses
-    int8 pools; MLA pools and prompt embeds raise."""
+    int8 pools; prompt embeds raise. An MLA model's pools build now, as
+    JAX's do: one latent page pool a layer, int8 with its part scales
+    where ``kv_quant`` (its streams: ``tests/test_torch_mla.py``)."""
     _, _, cfg, pp = model
     logits = {}
     for route in ("bespoke", "stock"):
@@ -235,5 +237,18 @@ def test_stock_route_and_refusals(model):
     mla = dataclasses.replace(cfg, model_type="deepseek_v2", q_lora_rank=32,
                               kv_lora_rank=16, qk_rope_head_dim=8,
                               qk_nope_head_dim=16, v_head_dim=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        paged.PagedBatchingEngine(mla, pp, device="cpu")
+    jmla = dataclasses.replace(JaxConfig(**dataclasses.asdict(cfg)),
+                               model_type="deepseek_v2", q_lora_rank=32,
+                               kv_lora_rank=16, qk_rope_head_dim=8,
+                               qk_nope_head_dim=16, v_head_dim=16)
+    for kv_quant in (False, True):
+        pe = paged.PagedBatchingEngine(mla, pp, device="cpu",
+                                       kv_quant=kv_quant, **POOL)
+        je = jpaged.PagedBatchingEngine(jmla, {}, kv_quant=kv_quant, **POOL)
+        assert len(pe.pages) == len(je.pages)
+        for got, ref in zip(pe.pages, je.pages):
+            assert set(got) == set(ref)
+            for k in got:
+                assert tuple(got[k].shape) == ref[k].shape
+                assert str(got[k].dtype).split(".")[-1] == str(
+                    ref[k].dtype)
