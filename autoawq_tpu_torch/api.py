@@ -23,6 +23,7 @@ import json
 import os
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from autoawq_tpu_torch.config import AwqConfig
@@ -116,7 +117,8 @@ class AwqCausalLM:
         knobs (``n_parallel_calib_samples``, ``offload_taps`` and, through
         ``quantizer_kw``, ``max_chunk_memory``, ``weight_dtype``, ...) are
         :class:`AwqQuantizer`'s. ``resume_dir``, ``mesh`` and
-        ``quantize_lm_head`` raise, naming their ROADMAP item."""
+        ``quantize_lm_head`` raise, naming their ROADMAP item. A packed MLA
+        model's kv_b gains its dense f32 weight, as at load."""
         if isinstance(quant_config, dict) or quant_config is None:
             quant_config = AwqConfig.from_dict(quant_config)
         calib = get_calib_dataset(calib_data, tokenizer,
@@ -132,13 +134,24 @@ class AwqCausalLM:
             device=self.device, **quantizer_kw)
         self.params = self._quantizer.quantize(
             export_compatible=export_compatible)
+        if not export_compatible:
+            self._attach_dense()
         self.quant_config = quant_config
+
+    def _attach_dense(self) -> None:
+        """kv_b's dense f32 weight for the absorbed MLA decode, built once
+        (``nn/fuse.attach_kv_b_dense``), so the model in memory decodes as
+        its reload does instead of dequantizing kv_b every step."""
+        from autoawq_tpu_torch.nn import fuse
+
+        fuse.attach_kv_b_dense(self.cfg, self.params)
 
     def pack(self) -> None:
         """Pack after ``quantize(export_compatible=True)``."""
         if self._quantizer is None:
             raise RuntimeError("call quantize(export_compatible=True) first")
         self.params = self._quantizer.pack(self.params)
+        self._attach_dense()
 
     def save_quantized(self, path: str,
                        shard_bytes: int = serialize.SHARD_BYTES) -> None:
@@ -168,14 +181,44 @@ class AwqCausalLM:
                  eos_token_id: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16, method: str = "auto",
                  kv_quant: bool = False, num_beams: int = 1,
+                 length_penalty: float = 1.0, early_stopping=False,
+                 num_return_sequences: int = 1,
                  stream_callback=None) -> torch.Tensor:
         """Greedy or sampled generation; returns [B, S + new] ids. The
         default activation dtype is bf16 (the JAX facade's is f32): the
-        kernels take bf16."""
+        kernels take bf16. ``num_beams > 1`` runs beam search
+        (``serve/beam.py``; stochastic beams at ``temperature > 0``) and
+        returns transformers' layout, [B · num_return_sequences, L] rows
+        padded on the right with the EOS id (0 without one)."""
+        if num_return_sequences > 1 and num_beams <= 1:
+            raise ValueError("num_return_sequences > 1 needs num_beams > 1")
         if num_beams > 1:
-            raise NotImplementedError(
-                "beam search is not in the port yet (serving, ROADMAP queue "
-                "1 item 13)")
+            if kv_quant or stream_callback is not None:
+                raise NotImplementedError(
+                    "num_beams > 1 does not support kv_quant or "
+                    "stream_callback")
+            if repetition_penalty != 1.0:
+                raise NotImplementedError(
+                    "repetition_penalty under beam search is not "
+                    "implemented (it would part from transformers' beam "
+                    "surface)")
+            from autoawq_tpu_torch.serve.beam import generate_beam_batched
+
+            results = generate_beam_batched(
+                self.cfg, self.params, list(self._ids(input_ids)),
+                max_new_tokens, num_beams=num_beams,
+                length_penalty=length_penalty, early_stopping=early_stopping,
+                eos_token_id=eos_token_id, method=method, dtype=dtype,
+                num_return_sequences=num_return_sequences,
+                do_sample=bool(temperature and temperature > 0.0),
+                temperature=temperature or 1.0, top_k=top_k, top_p=top_p,
+                seed=seed, device=self.device)
+            rows = [r for seqs, _ in results for r in seqs]
+            ln = max(len(r) for r in rows)
+            pad = eos_token_id if eos_token_id is not None else 0
+            return torch.from_numpy(np.stack([
+                np.pad(r, (0, ln - len(r)), constant_values=pad)
+                for r in rows])).to(self.device)
         return gen.generate(
             self.cfg, self.params, self._ids(input_ids), max_new_tokens,
             temperature=temperature, top_k=top_k, top_p=top_p,

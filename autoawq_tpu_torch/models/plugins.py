@@ -2,20 +2,20 @@
 
 The port's copy of ``autoawq_tpu/models/plugins.py`` for every model the
 port runs: ``ScaleGroup`` :32, ``CLIP_AVOID`` :42, ``LlamaFamilyPlugin``
-:45, ``FusedQkvLlamaPlugin`` :114, ``MoEFamilyPlugin`` :148 (Mixtral),
-``Phi3Plugin`` :201, ``OptPlugin`` :237, ``BloomPlugin`` :263,
+:45, ``FusedQkvLlamaPlugin`` :114, ``MoEFamilyPlugin`` :148 (Mixtral,
+Qwen3-MoE), ``Phi3Plugin`` :201, ``OptPlugin`` :237, ``BloomPlugin`` :263,
 ``GptjPlugin`` :287, ``GptNeoxPlugin`` :311, ``GptBigcodePlugin`` :334,
 ``Starcoder2Plugin`` :355, ``MptPlugin`` :387, ``FalconPlugin`` :412,
-``CoherePlugin`` :440, ``QwenV1Plugin`` :472, ``get_plugin`` :591 and
-``make_inspect_fn`` :600. A plugin says which linears scale against which
-preceding op (``scale_groups``: a norm, a linear, or the MLP's activation,
-whose scale is stored as ``mlp.act_scale``), which linears to quantize
-(``quantizable``), and the module whose output each scale search holds
-against the float one (``ScaleGroup.inspect``: the attention, the MLP, the
+``CoherePlugin`` :440, ``QwenV1Plugin`` :472, ``DeepseekPlugin`` :496,
+``get_plugin`` :591 and ``make_inspect_fn`` :600. A plugin says which
+linears scale against which preceding op (``scale_groups``: a norm, a
+linear, or the MLP's activation, whose scale is stored as
+``mlp.act_scale``), which linears to quantize (``quantizable``), and the
+module whose output each scale search holds against the float one (``ScaleGroup.inspect``: the attention, the MLP, the
 MoE block, the whole decoder block, or one linear). The inspect functions
-run the port's modules with ``method="plain"`` (JAX's ``"jnp"``). The types
-the port cannot run yet (MoE beyond Mixtral, MLA, the multimodal models)
-raise, naming their ROADMAP item.
+run the port's modules with ``method="plain"`` (JAX's ``"jnp"``); an MLA
+model's attention inspect is ``mla_attention``. The multimodal types raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -118,12 +118,12 @@ class FusedQkvLlamaPlugin:
 
 
 class MoEFamilyPlugin:
-    """Mixtral: the experts' w1/w3 scale against the post-attention norm on
-    the router's input features; each expert's w2 against its w3; the
-    router itself is never quantized (``modules_to_not_convert=["gate"]``
-    in AutoAWQ's Mixtral)."""
+    """Mixtral and Qwen3-MoE: the experts' w1/w3 scale against the
+    post-attention norm on the router's input features; each expert's w2
+    against its w3; the router itself is never quantized
+    (``modules_to_not_convert=["gate"]`` in AutoAWQ's Mixtral)."""
 
-    model_types = ("mixtral",)
+    model_types = ("mixtral", "qwen3_moe")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
@@ -153,12 +153,13 @@ class MoEFamilyPlugin:
 
 
 class Phi3Plugin:
-    """phi3: natively fused qkv_proj and gate_up_proj. The fc folds divide
-    the trailing columns of the previous linear: v of qkv (MHA only: under
-    GQA they would be part of k, so the group is skipped), up of
-    gate_up."""
+    """phi3 and phimoe (as JAX registers it; no loader reads phimoe in
+    either package): natively fused qkv_proj and gate_up_proj. The fc
+    folds divide the trailing columns of the previous linear: v of qkv
+    (MHA only: under GQA they would be part of k, so the group is skipped),
+    up of gate_up."""
 
-    model_types = ("phi3",)
+    model_types = ("phi3", "phimoe")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
@@ -348,23 +349,81 @@ class QwenV1Plugin:
         return ["self_attn.qkv_proj", "self_attn.o_proj", *_GATED]
 
 
+class DeepseekPlugin:
+    """deepseek_v2 / v3 and minicpm3, MLA attention: q (lite) or q_a, with
+    kv_a, against the input norm on the attention; q_b against
+    q_a_layernorm and kv_b against kv_a_layernorm, each inspected alone.
+    An MoE layer scales every routed expert's gate / up and the shared
+    experts' against the post-attention norm on the router's input features
+    (the whole MoE block inspected), each down against its up; a
+    ``first_k_dense_replace`` layer takes the gated MLP's groups. The
+    router is never quantized."""
+
+    model_types = ("deepseek_v2", "deepseek_v3", "minicpm3")
+
+    @staticmethod
+    def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
+        mlp = layer_params["mlp"]
+        if "q_proj" in layer_params["self_attn"]:  # lite
+            groups = [ScaleGroup("input_layernorm", "norm",
+                                 ("self_attn.q_proj",
+                                  "self_attn.kv_a_proj_with_mqa"),
+                                 "self_attn.q_proj", "attn")]
+        else:
+            groups = [ScaleGroup("input_layernorm", "norm",
+                                 ("self_attn.q_a_proj",
+                                  "self_attn.kv_a_proj_with_mqa"),
+                                 "self_attn.q_a_proj", "attn"),
+                      ScaleGroup("self_attn.q_a_layernorm", "norm",
+                                 ("self_attn.q_b_proj",),
+                                 "self_attn.q_b_proj", "self_attn.q_b_proj")]
+        groups.append(ScaleGroup("self_attn.kv_a_layernorm", "norm",
+                                 ("self_attn.kv_b_proj",),
+                                 "self_attn.kv_b_proj",
+                                 "self_attn.kv_b_proj"))
+        if "experts" not in mlp:  # a first_k_dense layer
+            return groups + _gated_mlp()
+        experts = [f"mlp.experts.{e}" for e in range(cfg.num_experts)]
+        if "shared_experts" in mlp:
+            experts.append("mlp.shared_experts")
+        groups.append(ScaleGroup(
+            "post_attention_layernorm", "norm",
+            tuple(f"{e}.{n}" for e in experts
+                  for n in ("gate_proj", "up_proj")), "mlp.gate", "moe"))
+        groups += [ScaleGroup(f"{e}.up_proj", "fc", (f"{e}.down_proj",),
+                              f"{e}.down_proj", f"{e}.down_proj")
+                   for e in experts]
+        return groups
+
+    @staticmethod
+    def quantizable(cfg: ModelConfig, layer_params: Dict) -> List[str]:
+        attn, mlp = layer_params["self_attn"], layer_params["mlp"]
+        paths = ["self_attn." + n
+                 for n in ("q_proj", "q_a_proj", "q_b_proj",
+                           "kv_a_proj_with_mqa", "kv_b_proj", "o_proj")
+                 if n in attn]
+        if "experts" not in mlp:
+            return paths + _GATED
+        experts = [f"mlp.experts.{e}" for e in range(cfg.num_experts)]
+        if "shared_experts" in mlp:
+            experts.append("mlp.shared_experts")
+        return paths + [f"{e}.{n}" for e in experts
+                        for n in ("gate_proj", "up_proj", "down_proj")]
+
+
 PLUGINS: Dict[str, type] = {
     mt: plugin
     for plugin in (LlamaFamilyPlugin, FusedQkvLlamaPlugin, MoEFamilyPlugin,
                    Phi3Plugin, OptPlugin, BloomPlugin, GptjPlugin,
                    GptNeoxPlugin, GptBigcodePlugin, Starcoder2Plugin,
-                   MptPlugin, FalconPlugin, CoherePlugin, QwenV1Plugin)
+                   MptPlugin, FalconPlugin, CoherePlugin, QwenV1Plugin,
+                   DeepseekPlugin)
     for mt in plugin.model_types}
 
 # the JAX package's other plugin types, by the ROADMAP item that ports them
-_LATER = {
-    **{mt: "MoE beyond Mixtral and MLA, ROADMAP queue 1 item 12"
-       for mt in ("qwen3_moe", "deepseek_v2", "deepseek_v3", "minicpm3",
-                  "phimoe")},
-    **{mt: "multimodal models, ROADMAP queue 1 item 17"
-       for mt in ("phi3_v", "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
-                  "qwen2_5_omni_thinker", "qwen2_5_omni_text")},
-}
+_LATER = {mt: "multimodal models, ROADMAP queue 1 item 17"
+          for mt in ("phi3_v", "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
+                     "qwen2_5_omni_thinker", "qwen2_5_omni_text")}
 
 
 def get_plugin(model_type: str):
@@ -384,9 +443,11 @@ def make_inspect_fn(cfg: ModelConfig, group: ScaleGroup,
     """The module a scale group's search holds against the float output:
     f(layer_params, inp, cos, sin, mask) -> output, on plain ops."""
     if group.inspect == "attn":
+        attn = modules.mla_attention if cfg.is_mla else modules.attention
+
         def f(lp, x, cos, sin, mask):
-            return modules.attention(cfg, lp["self_attn"], x, cos, sin, mask,
-                                     method="plain")[0]
+            return attn(cfg, lp["self_attn"], x, cos, sin, mask,
+                        method="plain")[0]
         return f
     if group.inspect == "block":
         # the whole decoder block (AutoAWQ's module2inspect=module), fed

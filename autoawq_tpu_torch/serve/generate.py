@@ -4,7 +4,8 @@ Counterpart of ``autoawq_tpu/serve/generate.py``. The cache is a list of
 per-layer ``{"k", "v"}`` buffers [B, nkv, T, hd] written in place (the JAX
 package donates and rewrites them); an int8 cache (``kv_quant=True``) adds
 ``{"k_s", "v_s"}`` f32 absmax scales [B, nkv, T]. MLA models cache one
-latent row a token (``{"c"}``, and ``{"c_s"}`` when int8). PyTorch runs
+latent row a token (``{"c"}``, and ``{"c_s"}`` when int8). A generation
+longer than its cache evicts the oldest rows (``roll_kv``). PyTorch runs
 eagerly, so ``generate_compiled`` is the same Python loop as ``generate``;
 capturing the decode step in a CUDA graph, the analogue of its
 ``lax.scan``, is the next ROADMAP item.
@@ -162,6 +163,22 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     return logits[:, 0, :], caches
 
 
+def roll_kv(caches: List[Dict[str, torch.Tensor]],
+            n: int) -> List[Dict[str, torch.Tensor]]:
+    """Evict the oldest ``n`` positions of every cache leaf in place by
+    shifting the rows left along T (axis 2 in every layout: K/V, their
+    int8 scales, the latent rows and theirs); the rolled-off rows wrap to
+    the end, where the position mask hides them until they are
+    overwritten (JAX ``roll_kv``)."""
+    for c in caches:
+        for leaf in c.values():
+            leaf.copy_(torch.roll(leaf, -n, 2))
+    return caches
+
+
+ROLL_STEP = 128  # eviction granularity on overflow, as in JAX
+
+
 def _mask_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
     return logits.masked_fill(logits < kth, float("-inf"))
@@ -216,13 +233,19 @@ def generate(cfg: ModelConfig, params: Dict[str, Any], prompt: torch.Tensor,
              max_seq_len: Optional[int] = None, method: str = "auto",
              dtype: torch.dtype = torch.bfloat16, kv_quant: bool = False,
              stream_callback=None) -> torch.Tensor:
-    """Python-loop generation; returns [B, S + new] token ids."""
+    """Python-loop generation; returns [B, S + new] token ids. A
+    ``max_seq_len`` below S + new evicts the oldest ``ROLL_STEP`` cached
+    rows whenever the cache is full (``roll_kv``); the rope positions
+    restart from the rolled offset, as in JAX."""
     b, s = prompt.shape
     total = max_seq_len or (s + max_new_tokens)
-    if total < s + max_new_tokens - 1:
-        raise NotImplementedError(
-            "windowed cache eviction (roll_kv) is not in the port yet "
-            "(serving, ROADMAP queue 1 item 13)")
+    if total < s:
+        raise ValueError(f"max_seq_len {total} is shorter than the prompt")
+    if total < s + max_new_tokens - 1 and total <= ROLL_STEP:
+        # JAX rolls by 128 whatever the capacity, which leaves a cache of
+        # at most 128 rows at a negative position (ROADMAP §3)
+        raise ValueError(f"windowed eviction needs max_seq_len > "
+                         f"{ROLL_STEP}, got {total}")
     dev = prompt.device
     caches = init_kv_cache(cfg, b, total, dtype, dev, kv_quant=kv_quant)
     logits, caches = prefill(cfg, params, prompt, caches, method, dtype)
@@ -251,6 +274,9 @@ def generate(cfg: ModelConfig, params: Dict[str, Any], prompt: torch.Tensor,
         if eos_token_id is not None and bool(finished.all()):
             break
         if i + 1 < max_new_tokens:
+            if pos >= total:  # windowed eviction: drop the oldest rows
+                caches = roll_kv(caches, ROLL_STEP)
+                pos -= ROLL_STEP
             logits, caches = decode_step(cfg, params, token, caches, pos,
                                          method, dtype)
             pos += 1

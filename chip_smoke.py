@@ -32,7 +32,7 @@ Phases, each printing JSON lines:
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
-              of 512 and 32 new tokens (min of 3 each). Traffic B: bs2, two
+              of 512 and 32 new tokens (min of 2 each). Traffic B: bs2, two
               384-token prompts, 32 new tokens, prefill seconds. Launch
               counts are zeroed before each traffic and read after it.
               torch.profiler windows over 16 decode steps of traffic A and
@@ -74,7 +74,7 @@ Phases, each printing JSON lines:
               reused pages held exactly, then ``run(burst=16)`` against
               ``run(burst=1)`` on the same 8 requests.
               Then Mixtral-8x7B at full width, depth cut to
-              ``MIXTRAL_DEPTH`` of 32 layers (8 experts, top-2, seed-0
+              ``MIXTRAL_DEPTH`` (8) of 32 layers (8 experts, top-2, seed-0
               weights drawn on the card, experts stacked). Traffic
               E: bs1, one 64-token prompt, bf16 cache of capacity 128.
               Traffic F: bs8, eight 512-token prompts, bf16 cache of
@@ -106,8 +106,9 @@ Phases, each printing JSON lines:
               from the float model at temperature 1; KL report and
               perplexity of AWQ and of round-to-nearest against it; AWQ's
               mean KL must be below RTN's. Then Mistral-7B at full width,
-              cut to 2 of 32 layers: seconds a layer and peak memory.
-              Then MPT-7B at full width, cut to ``QUANT_MPT_LAYERS`` of 32
+              cut to ``QUANT_MISTRAL_LAYERS`` (1) of 32 layers: seconds a
+              layer and peak memory.
+              Then MPT-7B at full width, cut to ``QUANT_MPT_LAYERS`` (1) of 32
               layers (f32 float weights drawn on the card, hot embedding
               columns): quantized through the facade as TinyLlama (its
               GELU's ``act`` scale group), saved (every layer's
@@ -118,9 +119,21 @@ Phases, each printing JSON lines:
               one paged step at bs8 (K1 4 and K7 1 with ALiBi slopes a
               layer), launches held exactly; AWQ's mean KL below RTN's as
               TinyLlama's. Then GPT-J-6B at full width, cut to
-              ``QUANT_GPTJ_LAYERS`` of 28 layers, quantized alone: the
+              ``QUANT_GPTJ_LAYERS`` (1) of 28 layers, quantized alone: the
               whole-block inspect and the ``act`` group, seconds a layer,
-              peak memory, layer 0's chosen ratio indices.
+              peak memory, layer 0's chosen ratio indices. Then
+              DeepSeek-V2-Lite at full width, cut to 2 of 27 layers (layer
+              0 dense at 10,944, layer 1 MoE with 64 routed experts top-6
+              and 2 shared; f32 float weights drawn on the card, hot
+              embedding columns), quantized through the facade at g64 on
+              ``V2_LITE_CALIB`` (32 x 512) seeded ids (MLA's groups, the
+              dense ``moe`` inspect over all 64 experts, the router left
+              float): seconds by part, peak memory, AWQ's mean KL below
+              RTN's on 8 x 512; saved and reloaded (nibbles, zeros and
+              scales equal, kv_b's dense leaf built in memory and at load,
+              never written) and served fused: one decode step's launches
+              held exactly (K1 6, K3 1, K6 2, K8 1) and 16 teacher-forced
+              bs1 steps with the f32 expert choice replayed.
 7. zoo      — the decoder zoo at published widths (seeded W4 g128 weights
               with zero points, drawn on the card, bf16). MPT-7B at full
               width and depth (``MPT7B``): kernel rows at its shapes (K1
@@ -166,7 +179,44 @@ Phases, each printing JSON lines:
               ``MLA_MOE_CUT_DEPTH``: one prefill of 2 x 384, 16
               teacher-forced bs1 steps and one paged step, each held with
               its launches.
-9. a ``kernels`` line: every ported kernel with launches, error and times
+9. serve    — the rest of serving. Mistral-7B at full width and depth
+              (seed-0 W4 weights drawn on the card, fused). Traffic S:
+              bs1 speculative decoding (``serve/speculative``), a 64-token
+              prompt, 128 new tokens, k = 4, with a self-draft of the first
+              8 layers, with draft = target (all proposals accepted, the
+              bonus token), both greedy, and the self-draft at temperature
+              0.8 twice under one seed (the streams equal): rounds, accept
+              rate, tok/s, launches held exactly from the rounds and draft
+              steps, and a profile of a 4-token run (device ms a round).
+              Traffic T: the speculative slot pool
+              (``serve/spec_batch``), 8 slots, 16 requests of 64 seeded
+              tokens, 64 new each, greedy, the 8-layer self-draft: steady
+              tok/s over up to 16 rounds with all slots busy and no
+              admission, launches held exactly each round (K1 208, K3 40),
+              host and device ms a round, accept rate, capacity fallbacks.
+              Every verify row S's and T's greedy runs used, and every row
+              of their verify passes teacher-forced over their streams, is
+              held against the plain twins' forward (bf16 and f32) by the
+              teacher-forced rule. Their streams are held against the
+              plain greedy ``generate`` and ``BatchingEngine`` streams:
+              equal, or parting first at a bf16 near tie, judged on the
+              rows both paths recorded (each within the rule of the f32
+              row, each path's margin between the two tokens within the
+              distance between them). One self-draft run of each, in f32
+              on the plain path, must equal the plain f32 streams.
+              Traffic U: beam search through ``AwqCausalLM.generate``, bs2
+              x 64-token prompts, 4 beams, 64 new tokens, all beams
+              returned, run once: tok/s, K5 and K3 32 a step held exactly,
+              each beam's score against its teacher-forced sum of log-probs
+              on the same decode route (within 1e-3 of the sum), that
+              route's rows, and those of 8 random continuations, against
+              the twins by the rule; the beam search again in f32 on the
+              plain path, its scores against the f32 forward's sums
+              (within 1e-3). Traffic V: TinyLlama bs1 with
+              ``max_seq_len`` 256, a 64-token prompt and 384 new tokens, so
+              the cache rolls twice: roll count, tok/s, launches held (K1
+              44, K3 22 a step), the step after a roll against the twins.
+10. a ``kernels`` line: every ported kernel with launches, error and times
    (the mla_moe phase's K6 and K8 rows after the nine).
 
 Asked for by name only, each for an A/B of two checkouts in one call
@@ -205,7 +255,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe")
+          "mla_moe", "serve")
 EXTRA_PHASES = ("prefill", "paged", "linears",
                 "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -305,19 +355,30 @@ MLA_MOE_GS = 64
 # first_k_dense_replace cut from 3 to 1, so one dense and one MoE layer)
 MLA_MOE_CUT_DEPTH = 2
 ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
-# Mixtral's traffics E and F at published width, depth cut to half: with
-# the zoo phase the script would otherwise run too near its time limit
-MIXTRAL_DEPTH = 16
+# Mixtral's traffics E and F at published width, depth cut to a quarter:
+# with the zoo, mla_moe and serve phases the script would otherwise run past
+# its time limit (16 layers took ~63 s more than 8)
+MIXTRAL_DEPTH = 8
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
 QUANT_CALIB = (128, 512)
 QUANT_EVAL = (8, 512)
-QUANT_MISTRAL_LAYERS = 2  # Mistral-7B at full width, depth cut to 2 of 32
-# MPT-7B at full width, depth cut to 2 of 32 (at 4, the whole script took
-# 1,040 s of its 1,200 s limit on an H100)
-QUANT_MPT_LAYERS = 2
-QUANT_GPTJ_LAYERS = 2  # GPT-J-6B at full width, depth cut to 2 of 28
+QUANT_MISTRAL_LAYERS = 1  # Mistral-7B at full width, depth cut to 1 of 32
+# MPT-7B at full width, depth cut to 1 of 32 (at 2, with the serve phase,
+# the whole script ran past its 1,200 s limit on an H100)
+QUANT_MPT_LAYERS = 1
+QUANT_GPTJ_LAYERS = 1  # GPT-J-6B at full width, depth cut to 1 of 28
+# DeepSeek-V2-Lite quantized at full width, depth cut to 2 of 27 (layer 0
+# dense, layer 1 MoE), calibrated on 32 x 512 of AutoAWQ's 128 x 512: the
+# dense moe inspect runs all 64 experts on every token, ~18 TFLOP of f32 a
+# grid point at 16k tokens (~72 at 65k)
+V2_LITE_QUANT_LAYERS = 2
+V2_LITE_CALIB = (32, 512)
+# speculative decoding of the serve phase: k proposals a round, and the
+# self-draft's depth (the target's first 8 of 32 layers)
+SPEC_K = 4
+SPEC_DRAFT_LAYERS = 8
 LINEARS = {"qkv": (2048, 2560), "o": (2048, 2048), "gate_up": (2048, 11264),
            "down": (5632, 2048)}
 # Mistral-7B's four linears (fused qkv and gate_up) at traffic D's prefill,
@@ -1384,7 +1445,7 @@ def phase_e2e(dev):
     # traffic A: bs1 ctx64 greedy decode (bench.py's shape)
     _build.reset_launches()
     tok_s, t_small, t_big, per_token, out_a = _quotient(
-        lambda n: run_gen(prompt_a, n), 32, 512, 3, warm=(32, 512))
+        lambda n: run_gen(prompt_a, n), 32, 512, 2, warm=(32,))
     counts["A"] = dict(_build.LAUNCHES)
     check(out_a.shape == (1, 64 + 512), "traffic A output shape")
     emit({"phase": "e2e", "traffic": "A", "batch": 1, "prompt": 64,
@@ -1468,7 +1529,7 @@ def _traffic_g(cfg, prompt, dev):
     """Traffic G: TinyLlama unfused (seed 0, the JAX synthesiser's draw) as
     the facade's default ``from_quantized`` leaves a checkpoint, driven
     through ``AwqCausalLM.generate``: K1 for q, k, v and o, K8 for the MLP.
-    Decode tok/s by A's method (512- and 32-token quotient, min of 3)."""
+    Decode tok/s by A's method (512- and 32-token quotient, min of 2)."""
     import torch
 
     from autoawq_tpu_torch import AwqCausalLM
@@ -1485,8 +1546,8 @@ def _traffic_g(cfg, prompt, dev):
         return time.perf_counter() - t, out
 
     _build.reset_launches()
-    tok_s, t_small, t_big, per_token, out = _quotient(run, 32, 512, 3,
-                                                      warm=(32, 512))
+    tok_s, t_small, t_big, per_token, out = _quotient(run, 32, 512, 2,
+                                                      warm=(32,))
     counts = dict(_build.LAUNCHES)
     layers = cfg.num_hidden_layers
     check(out.shape == (1, prompt.shape[1] + 512), "traffic G output shape")
@@ -1495,7 +1556,7 @@ def _traffic_g(cfg, prompt, dev):
           f"decode step, expected {layers}")
     emit({"phase": "e2e", "traffic": "G", "card": card(), "batch": 1,
           "prompt": prompt.shape[1], "layout": "unfused",
-          "method": "A's: 512- and 32-token quotient, min of 3",
+          "method": "A's: 512- and 32-token quotient, min of 2",
           "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
           "launches": counts, "launches_per_decode_token": per_token})
     emit({"phase": "e2e", "step": "profile", "traffic": "G", "card": card(),
@@ -2754,17 +2815,21 @@ def _outlier_fp(cfg, dev):
     return params
 
 
-def _rtn(params, qcfg):
-    """Round-to-nearest of every linear (no search), AWQ's baseline."""
-    from autoawq_tpu_torch.quantize.quantizer import quantize_linear_params
-    from autoawq_tpu_torch.utils.tree import iter_linears, set_by_path
+def _rtn(cfg, params, qcfg):
+    """Round-to-nearest (no search) of every linear AWQ quantizes (the
+    plugin's ``quantizable``: an MoE router stays float), AWQ's
+    baseline."""
+    from autoawq_tpu_torch.models.plugins import get_plugin
+    from autoawq_tpu_torch.quantize.quantizer import (_clone,
+                                                      quantize_linear_params)
+    from autoawq_tpu_torch.utils.tree import get_by_path, set_by_path
 
     out = {**params, "layers": []}
     for lp in params["layers"]:
-        lq = {k: (dict(v) if isinstance(v, dict) else v)
-              for k, v in lp.items()}
-        for path, p in list(iter_linears(lq)):
-            set_by_path(lq, path, quantize_linear_params(p, qcfg))
+        lq = _clone(lp)
+        for path in get_plugin(cfg.model_type).quantizable(cfg, lq):
+            set_by_path(lq, path, quantize_linear_params(
+                get_by_path(lq, path), qcfg))
         out["layers"].append(lq)
     return out
 
@@ -2893,7 +2958,12 @@ def phase_quantize(dev):
                             0, gcfg.vocab_size, QUANT_CALIB), qcfg, dev)
     check(all("act_scale" in lp["mlp"] for lp in out["layers"]),
           "quantize: GPT-J's fc2 scaled against no activation")
-    return counts
+    del out, gfp
+
+    # [7] DeepSeek-V2-Lite at full width, depth cut: MLA and MoE quantized,
+    # saved, reloaded, served
+    v2_counts = _quantize_v2_lite(dev)
+    return {k: n + v2_counts.get(k, 0) for k, n in counts.items()}
 
 
 def _ratio_indices(q):
@@ -2951,7 +3021,7 @@ def _quality(name, cfg, fp, params, qcfg, dev):
     ppl_fp = perplexity(cfg, fp, stream, **kw)
     quality = {"sample_s": t_sample, "eval_tokens": list(QUANT_EVAL),
                "fp_ppl": ppl_fp}
-    for method, q in (("awq", params), ("rtn", _rtn(fp, qcfg))):
+    for method, q in (("awq", params), ("rtn", _rtn(cfg, fp, qcfg))):
         rep = kl_divergence_report(cfg, fp, cfg, q, held.cpu().numpy(),
                                    method="plain")
         ppl = perplexity(cfg, q, stream, **kw)
@@ -3102,6 +3172,132 @@ def _quantize_mpt(qcfg, dev):
     return counts
 
 
+def _quantize_v2_lite(dev):
+    """DeepSeek-V2-Lite at full width, depth ``V2_LITE_QUANT_LAYERS`` (layer
+    0 dense at 10,944, then one MoE layer of 64 routed experts top-6 and 2
+    shared): float weights drawn on the card with hot embedding columns,
+    quantized at g64 through the facade on ``V2_LITE_CALIB`` seeded ids
+    (the dense ``moe`` inspect runs all 64 experts on every token), gated
+    on AWQ's KL below RTN's, saved, reloaded exactly with kv_b's dense leaf
+    on both sides, and served fused: one decode step with its launches held
+    exactly (K1 3 a layer, K3 for layer 0, K6 2 and K8 1 for the MoE
+    layer), 16 teacher-forced bs1 steps with the f32 expert choice
+    replayed. Returns the served model's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.api import cast_params
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+    from autoawq_tpu_torch.serve import generate as gen
+
+    published = ModelConfig.from_hf_dict(DEEPSEEK_V2_LITE)
+    cfg = dataclasses.replace(published,
+                              num_hidden_layers=V2_LITE_QUANT_LAYERS)
+    layers = cfg.num_hidden_layers
+    cut = (f"{layers} of {published.num_hidden_layers} layers (1 dense, "
+           f"{layers - 1} MoE), published width; calibration "
+           f"{V2_LITE_CALIB[0]} x {V2_LITE_CALIB[1]} of {QUANT_CALIB[0]} x "
+           f"{QUANT_CALIB[1]}")
+    qcfg = AwqConfig(q_group_size=MLA_MOE_GS, zero_point=True)
+    calib = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                              V2_LITE_CALIB)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fp = synth_float_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "quantize", "step": "synth", "model": "deepseek-v2-lite",
+          "layers": layers, "depth_cut": cut,
+          "seconds": time.perf_counter() - t})
+
+    torch.cuda.reset_peak_memory_stats()
+    model = AwqCausalLM(cfg, fp, device=dev)
+    t = time.perf_counter()
+    model.quantize(calib_data=calib, quant_config=qcfg,
+                   max_calib_samples=V2_LITE_CALIB[0],
+                   max_calib_seq_len=V2_LITE_CALIB[1], progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    q = model._quantizer
+    dense_mem = all("dense" in lp["self_attn"]["kv_b_proj"]
+                    for lp in model.params["layers"])
+    router_float = "kernel" in model.params["layers"][1]["mlp"]["gate"]
+    emit({"phase": "quantize", "step": "quantize",
+          "model": "deepseek-v2-lite", "layers": layers, "depth_cut": cut,
+          "card": card(), "calib": list(V2_LITE_CALIB),
+          "recipe": f"g{MLA_MOE_GS}, zero point, scale and clip search, f32",
+          "seconds": seconds, "seconds_by_part": _quant_timings(q, seconds),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "scale_groups": [len(c) for c in q.scale_choices],
+          "layer0_ratio_index": _ratio_indices(q),
+          "dense_leaf_in_memory": dense_mem, "router_float": router_float})
+    check(dense_mem, "quantize: V2-Lite's kv_b has no dense leaf after "
+          "quantize()")
+    check(router_float, "quantize: V2-Lite's router was quantized")
+    _quality("deepseek-v2-lite", cfg, fp, model.params, qcfg, dev)
+    del fp
+
+    path = os.path.join(BUILD_DIR, "quant_v2_lite")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        model.save_quantized(path)
+        t_save = time.perf_counter() - t
+        dense_saved = any("dense" in k for k in _saved_keys(path))
+        # loaded once, unfused in the checkpoint's dtypes, held exactly,
+        # then cast and fused to serve
+        t = time.perf_counter()
+        loaded = AwqCausalLM.from_quantized(path, device=dev, dtype=None)
+        t_load = time.perf_counter() - t
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    mismatched = _reload_mismatches(model.params, loaded.params)
+    dense_loaded = all("dense" in lp["self_attn"]["kv_b_proj"]
+                       for lp in loaded.params["layers"])
+    params = fuse_model(cfg, cast_params(loaded.params, torch.bfloat16))
+    del loaded
+    check(not mismatched, f"quantize: V2-Lite's reloaded tensors differ at "
+          f"{mismatched[:4]}")
+    check(dense_loaded and not dense_saved, "quantize: V2-Lite's dense "
+          f"leaf: reloaded {dense_loaded}, written {dense_saved}")
+    emit({"phase": "quantize", "step": "save_load",
+          "model": "deepseek-v2-lite", "save_s": t_save, "load_s": t_load,
+          "reload_mismatches": len(mismatched),
+          "dense_leaf_reloaded": dense_loaded,
+          "dense_leaf_written": dense_saved})
+    del model, q
+
+    rng = np.random.default_rng(21)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, 64))).to(dev)
+    caches = gen.init_kv_cache(cfg, 1, 80, torch.bfloat16, dev)
+    logits, _ = gen.prefill(cfg, params, prompt, caches)
+    _build.reset_launches()
+    gen.decode_step(cfg, params, logits.argmax(-1)[:, None], caches, 64)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    del caches
+    _check_launches("V2-Lite quantized decode step", counts,
+                    {"w4a16_gemv": 3 * layers, "fused_mlp": 1,
+                     "moe_gemm": 2 * (layers - 1),
+                     "fused_mlp3": layers - 1, "fused_attn_step": 0,
+                     "w4a16_gemm": 0})
+    rows, routing = _checked_teacher_forced("V2-Lite quantized", cfg,
+                                            params, prompt, 16)
+    emit({"phase": "quantize", "step": "serve", "model": "deepseek-v2-lite",
+          "card": card(), "launches_per_decode_step": counts,
+          "kernel_vs_plain": rows, "routing": routing})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def synth_float_on_card(cfg, seed, dev, scale=0.05):
     """Seeded f32 float weights of a decoder-zoo model, drawn on the card
     by a torch.Generator (std ``scale`` and norms of ones, as
@@ -3109,7 +3305,11 @@ def synth_float_on_card(cfg, seed, dev, scale=0.05):
     checkpoint into: a fused ``qkv_proj`` where the checkpoint stores one
     (MPT), q / k / v otherwise (GPT-J); fc1 / fc2 or gate / up / down;
     zero biases where the config has them; LayerNorms with a zero bias,
-    except MPT's. Embedding columns 0-5 are multiplied by 8, as in
+    except MPT's. MLA models get MLA's projections and norms; MoE layers
+    (from ``first_k_dense_replace`` on) a float router (for ``noaux_tc``
+    with an ``e_score_correction_bias``), a list of float experts and,
+    where the config has them, deepseek's shared experts, the layout the
+    quantizer calibrates. Embedding columns 0-5 are multiplied by 8, as in
     ``_outlier_fp``. JAX's ``init_random_params`` draws llama shapes only,
     and a numpy draw on the host takes minutes at these widths."""
     import torch
@@ -3139,22 +3339,55 @@ def synth_float_on_card(cfg, seed, dev, scale=0.05):
     params = {"embed_tokens": {"weight": emb}, "norm": norm(),
               "lm_head": None if cfg.tie_word_embeddings else lin(
                   h, cfg.vocab_size, cfg.lm_head_bias), "layers": []}
+    def gated(n, bias=False):
+        return {"gate_proj": lin(h, n, bias), "up_proj": lin(h, n, bias),
+                "down_proj": lin(n, h, bias)}
+
+    def mla():
+        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        attn = {"kv_a_proj_with_mqa": lin(
+                    h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "kv_a_layernorm": norm(cfg.kv_lora_rank),
+                "kv_b_proj": lin(cfg.kv_lora_rank, nh * (
+                    cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "o_proj": lin(nh * cfg.v_head_dim, h)}
+        if cfg.q_lora_rank:
+            attn.update(q_a_proj=lin(h, cfg.q_lora_rank),
+                        q_a_layernorm=norm(cfg.q_lora_rank),
+                        q_b_proj=lin(cfg.q_lora_rank, nh * dq))
+        else:
+            attn["q_proj"] = lin(h, nh * dq)
+        return attn
+
+    def moe():
+        ie, ne = cfg.moe_intermediate_size or inter, cfg.num_experts
+        m = {"gate": lin(h, ne), "experts": [gated(ie) for _ in range(ne)]}
+        if cfg.topk_method == "noaux_tc":
+            m["gate"]["e_score_correction_bias"] = torch.randn(
+                ne, device=dev, generator=gen) * scale
+        if cfg.n_shared_experts:
+            m["shared_experts"] = gated(ie * cfg.n_shared_experts)
+        return m
+
     fused = "self_attn.qkv_proj" in get_layout(cfg.model_type).linears
-    for _ in range(cfg.num_hidden_layers):
-        if fused:
+    for i in range(cfg.num_hidden_layers):
+        if cfg.is_mla:
+            attn = mla()
+        elif fused:
             attn = {"qkv_proj": lin(h, (nh + 2 * nkv) * hd,
                                     cfg.attention_bias)}
         else:
             attn = {f"{n}_proj": lin(h, heads * hd, cfg.attention_bias)
                     for n, heads in (("q", nh), ("k", nkv), ("v", nkv))}
-        attn["o_proj"] = lin(nh * hd, h)
+        if not cfg.is_mla:
+            attn["o_proj"] = lin(nh * hd, h)
         lp = {"input_layernorm": norm(), "self_attn": attn}
         if not (cfg.parallel_residual and cfg.shared_input_norm):
             lp["post_attention_layernorm"] = norm()
-        if cfg.gated_mlp:
-            lp["mlp"] = {"gate_proj": lin(h, inter, cfg.mlp_bias),
-                         "up_proj": lin(h, inter, cfg.mlp_bias),
-                         "down_proj": lin(inter, h, cfg.mlp_bias)}
+        if cfg.is_moe and i >= cfg.first_k_dense_replace:
+            lp["mlp"] = moe()
+        elif cfg.gated_mlp:
+            lp["mlp"] = gated(inter, cfg.mlp_bias)
         else:
             lp["mlp"] = {"fc1": lin(h, inter, cfg.mlp_bias),
                          "fc2": lin(inter, h, cfg.mlp_bias)}
@@ -3834,6 +4067,753 @@ def phase_mla_moe(dev):
     return total, per_step, krows
 
 
+@contextlib.contextmanager
+def _recorded(module, attr, note=None):
+    """Within the block ``module.attr`` is wrapped: each call appends (its
+    positional arguments, its result, ``note()`` taken before the call) to
+    the list the block receives. Results are kept, not copied: each
+    recorded function returns fresh logits."""
+    fn, log = getattr(module, attr), []
+
+    def wrapper(*a, **kw):
+        seen = note() if note else None
+        out = fn(*a, **kw)
+        log.append((a, out, seen))
+        return out
+    setattr(module, attr, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(module, attr, fn)
+
+
+def _float_twin(params):
+    """``params`` with every quantized linear dequantized once to an f32
+    ``kernel``: the values ``awq_matmul_plain`` dequantizes on every call
+    (Mistral's linears have no padded rows or columns), so the plain path
+    in f32 on it is the plain f32 twin at the cost of an f32 matmul. Other
+    leaves are shared."""
+    import torch
+
+    from autoawq_tpu_torch.ops.gemm import dequantize
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "qweight" in node:
+                out = {"kernel": dequantize(node["qweight"], node["scales"],
+                                            node.get("qzeros"),
+                                            torch.float32)}
+                if node.get("bias") is not None:
+                    out["bias"] = node["bias"]
+                return out
+            return {kk: walk(v) for kk, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+    return walk(params)
+
+
+def _twins(cfg, params, seqs):
+    """The plain twins' whole-sequence forwards over seqs [B, T], bf16 and
+    f32: [B, T, V] f32 logits each, row t scoring the token after t."""
+    import torch
+
+    from autoawq_tpu_torch.nn import modules
+
+    return (modules.forward(cfg, params, seqs, "plain",
+                            torch.bfloat16).float(),
+            modules.forward(cfg, params, seqs, "plain",
+                            torch.float32).float())
+
+
+def _rows_vs_twins(name, rows, twins):
+    """Rows (b, t, logits [V]) of a path under test, each held against the
+    twins' row t of sequence b by the teacher-forced rule (within twice
+    the bf16 twin's distance from f32, plus 1e-3, of the f32 row's
+    scale). Returns a summary: rows held, the largest errors, and the row
+    nearest its limit."""
+    import torch
+
+    b16, f32 = twins
+    recs = []
+    for lo in range(0, len(rows), 256):
+        part = rows[lo: lo + 256]
+        bi = torch.tensor([r[0] for r in part], device=f32.device)
+        ti = torch.tensor([r[1] for r in part], device=f32.device)
+        x = torch.stack([r[2] for r in part]).float()
+        f, p = f32[bi, ti], b16[bi, ti]
+        scale = f.abs().amax(-1).clamp_min(1e-30)
+        k_rel = ((x - f).abs().amax(-1) / scale).tolist()
+        p_rel = ((p - f).abs().amax(-1) / scale).tolist()
+        recs += [{"sequence": r[0], "position": r[1], "kernel_vs_f32": kr,
+                  "plain_bf16_vs_f32": pr}
+                 for r, kr, pr in zip(part, k_rel, p_rel)]
+    check(len(recs) > 0, f"{name}: no rows to hold")
+    if not recs:
+        return {"rows": 0}
+    _check_teacher_forced(name, recs)
+    return {"rows": len(recs),
+            "max_kernel_vs_f32": max(r["kernel_vs_f32"] for r in recs),
+            "max_plain_bf16_vs_f32": max(r["plain_bf16_vs_f32"]
+                                         for r in recs),
+            "nearest_limit": max(recs, key=lambda r: r["kernel_vs_f32"] / (
+                2 * r["plain_bf16_vs_f32"] + 1e-3))}
+
+
+def _used_rows(seqs, calls):
+    """The verify rows an engine used, from its recorded chunks: calls[b]
+    lists (position P, chunk tokens, chunk logits [C, V]) for sequence b
+    (prompt and generated tokens, ``seqs[b]``); row j lies on the stream
+    while the chunk's tokens 0..j are the stream's at P..P+j, and those
+    are exactly the rows the engine accepted from (a rejected draft leaves
+    the stream). Returns {b: {position: (offset in its chunk, logits
+    row)}}."""
+    out = {}
+    for b, seq in enumerate(seqs):
+        rows = out.setdefault(b, {})
+        for pos, toks, lg in calls[b]:
+            for j, t in enumerate(toks):
+                if pos + j + 1 >= len(seq) or seq[pos + j] != t:
+                    break
+                rows[pos + j] = (j, lg[j])
+    return out
+
+
+def _teacher_forced_chunks(cfg, params, seqs, s, k, cap):
+    """The verify pass on the kernel route, teacher-forced over seqs [B, T]
+    (prompts of s tokens and their streams): the prompts prefilled, then
+    chunks of k + 1 stream tokens from position s (``prefill_chunk`` at
+    B = 1, ``batched_chunk_step`` at every slot's offset otherwise), every
+    row of every chunk kept. Returns rows (b, position, logits [V])."""
+    import torch
+
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.batching import prefill_chunk
+    from autoawq_tpu_torch.serve.spec_batch import batched_chunk_step
+
+    b, t = seqs.shape
+    cache = gen.init_kv_cache(cfg, b, cap, torch.bfloat16, seqs.device)
+    gen.prefill(cfg, params, seqs[:, :s], cache)
+    rows = []
+    for lo in range(s, t - 1, k + 1):
+        toks = seqs[:, lo: min(lo + k + 1, t - 1)]
+        if b == 1:
+            lg, _ = prefill_chunk(cfg, params, toks, cache, lo)
+        else:
+            lg, _ = batched_chunk_step(
+                cfg, params, toks, cache,
+                torch.full((b,), lo, device=seqs.device))
+        rows += [(i, lo + j, lg[i, j]) for i in range(b)
+                 for j in range(toks.shape[1])]
+    return rows
+
+
+def _near_ties(name, s, gots, wants, used, steps, twins):
+    """Greedy speculative streams against the plain ones, row by row:
+    equal, or parting first at generated token p >= 1 at a bf16 near tie.
+    At the row that chose token p (position s + p - 1, the same prefix on
+    both paths) the engine's own verify row e and the plain path's own
+    decode-step row d each hold the teacher-forced rule against the f32
+    twin's row, each took its own argmax, and each path's margin between
+    the two tokens is within |e - d|, which the rule caps at twice its
+    allowance. Returns per-stream records."""
+    b16, f32 = twins
+    recs = []
+    for b, (got, want) in enumerate(zip(gots, wants)):
+        diff = [j for j, (x, y) in enumerate(zip(got, want)) if x != y]
+        check(len(got) == len(want), f"{name} {b}: {len(got)} tokens, "
+              f"expected {len(want)}")
+        check(not diff or diff[0] >= 1, f"{name} {b}: the first token, "
+              "from the prefill, differs")
+        rec = {"equal": not diff}
+        recs.append(rec)
+        if not diff or diff[0] < 1:
+            continue
+        p = diff[0]
+        t, g, w = s + p - 1, got[p], want[p]
+        e, d = used[b].get(t, (0, None))[1], steps[b].get(t)
+        check(e is not None and d is not None, f"{name} {b}: no recorded "
+              f"row at position {t}")
+        if e is None or d is None:
+            continue
+        e, d, f = e.float(), d.float(), f32[b, t]
+        scale = float(f.abs().max())
+        allow = (2 * float((b16[b, t] - f).abs().max()) / scale
+                 + 1e-3) * scale
+        dist = float((e - d).abs().max())
+        rec.update(
+            first_difference=p, engine_token=g, plain_token=w,
+            engine_margin=float(e[g] - e[w]), plain_margin=float(d[w] - d[g]),
+            f32_margin=float(f[w] - f[g]), distance=dist,
+            distance_cap=2 * allow,
+            engine_vs_f32=float((e - f).abs().max()) / scale,
+            plain_step_vs_f32=float((d - f).abs().max()) / scale,
+            plain_bf16_vs_f32=(allow / scale - 1e-3) / 2)
+        ok = (int(e.argmax()) == g and int(d.argmax()) == w
+              and rec["engine_margin"] <= dist
+              and rec["plain_margin"] <= dist and dist <= 2 * allow
+              and float((e - f).abs().max()) <= allow
+              and float((d - f).abs().max()) <= allow)
+        check(ok, f"{name} {b}: greedy stream parts from the plain one at "
+              f"generated token {p} without a bf16 near tie: {rec}")
+    return recs
+
+
+def _spec_traffic_s(cfg, params, fparams, dev, rng):
+    """Traffic S: bs1 speculative decoding on Mistral-7B, a 64-token prompt,
+    128 new tokens, k = 4: a self-draft of the first ``SPEC_DRAFT_LAYERS``
+    layers, then draft = target (every proposal accepted but at bf16 near
+    ties, and the bonus token), both greedy; then the self-draft at
+    temperature 0.8, twice with one seed (the two streams equal). Launches
+    held exactly from the run's rounds and draft steps. The greedy runs:
+    every verify row they used, and every row of the verify chunks
+    teacher-forced over the first run's stream, held against the plain
+    twins' forward (``_rows_vs_twins``); the streams against the plain
+    greedy ``generate`` (``_near_ties``, on the rows both recorded). Then
+    the self-draft greedy run in f32 on the plain path (``fparams``, the
+    weights dequantized once), 64 tokens, equal to the plain f32
+    ``generate``'s. Returns the launch counts."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve import speculative
+    from autoawq_tpu_torch.serve.speculative import (generate_speculative,
+                                                     self_draft)
+
+    k, n, s = SPEC_K, 128, 64
+    lt = cfg.num_hidden_layers
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, s))).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _recorded(gen, "decode_step") as log:
+        plain = gen.generate(cfg, params, prompt, n)[0, s:].tolist()
+    t_plain = time.perf_counter() - t
+    steps = {int(a[4]): out[0][0] for a, out, _ in log}
+    dcfg, dparams = self_draft(cfg, params, SPEC_DRAFT_LAYERS)
+    counts = {}
+    # the sampled run repeats its first 32 tokens under the same seed
+    runs = (("self-draft", dcfg, dparams, 0.0, n),
+            ("draft=target", cfg, params, 0.0, n),
+            ("sampled", dcfg, dparams, 0.8, n),
+            ("sampled, again", dcfg, dparams, 0.8, 32))
+    sampled, greedy = [], {}
+    for name, dc, dp, temp, n_run in runs:
+        ld = dc.num_hidden_layers
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _recorded(speculative, "prefill_chunk") as log:
+            out, stats = generate_speculative(cfg, params, dc, dp, prompt,
+                                              n_run, k=k, temperature=temp,
+                                              seed=7)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = dict(_build.LAUNCHES)
+        r, d = stats["rounds"], stats["draft_steps"]
+        # prefills at M = 64 take K1 four times a layer (the MLP as the
+        # unfused chain); a verify chunk at M = k + 1 and a draft step take
+        # K1 for qkv and o and K3 for the MLP
+        expect = {"w4a16_gemv": 4 * (lt + ld) + 2 * lt * r + 2 * ld * d,
+                  "fused_mlp": lt * r + ld * d, "fused_attn_step": 0,
+                  "w4a16_gemm": 0, "prefill_attention": 0}
+        _check_launches(f"S {name}", got, expect)
+        for kname, v in got.items():
+            counts[kname] = counts.get(kname, 0) + v
+        toks = out[0, s:].tolist()
+        rec = {"phase": "serve", "traffic": "S", "run": name,
+               "card": card(), "draft_layers": ld, "k": k,
+               "temperature": temp, "rounds": r, "draft_steps": d,
+               "accept_rate": stats["accept_rate"],
+               "tokens_per_round": stats["tokens_per_round"],
+               "new_tokens": n_run, "tok_s": n_run / secs, "seconds": secs,
+               "plain_greedy_tok_s": n / t_plain,
+               "launches": got, "launches_per_round": {
+                   kname: (v - (4 * (lt + ld) if kname == "w4a16_gemv"
+                                else 0)) / r for kname, v in got.items()
+                   if v}}
+        if temp == 0.0:
+            greedy[name] = (toks, [(int(a[4]), a[2][0].tolist(), res[0][0])
+                                   for a, res, _ in log])
+        else:
+            sampled.append(toks)
+            check(len(toks) == n_run and all(0 <= x < cfg.vocab_size
+                                             for x in toks),
+                  "S sampled output")
+        if name == "draft=target":  # some rounds took every proposal
+            check(d > k * r, f"S draft=target: no round accepted all "
+                  f"{k} proposals ({d} draft steps in {r} rounds)")
+        emit(rec)
+    check(sampled[0][:32] == sampled[1], "S: the sampled stream does not "
+          "repeat under its seed")
+    # the greedy runs' verify rows against the plain twins, and their
+    # streams against the plain one
+    twins_of = {}
+    for name, (toks, calls) in greedy.items():
+        seq = torch.tensor([prompt[0].tolist() + toks], device=dev)
+        if tuple(toks) not in twins_of:
+            twins_of[tuple(toks)] = _twins(cfg, params, seq)
+        twins = twins_of[tuple(toks)]
+        used = _used_rows(seq.tolist(), [calls])
+        rows = [(0, t, row) for t, (_, row) in sorted(used[0].items())]
+        if name == "self-draft":  # every chunk offset, teacher-forced
+            rows += _teacher_forced_chunks(cfg, params, seq, s, k,
+                                           s + n + k + 1)
+        emit({"phase": "serve", "traffic": "S", "run": name,
+              "step": "verify rows", "card": card(),
+              "used_rows_by_chunk_offset": [
+                  sum(1 for j, _ in used[0].values() if j == jj)
+                  for jj in range(k + 1)],
+              "vs_twins": _rows_vs_twins(f"S {name} verify", rows, twins),
+              "vs_plain_greedy": _near_ties(f"S {name}", s, [toks], [plain],
+                                            used, [steps], twins)[0]})
+    del twins_of, twins
+    # greedy speculation is exact in f32
+    n32 = 64
+    fcfg, fdparams = self_draft(cfg, fparams, SPEC_DRAFT_LAYERS)
+    t = time.perf_counter()
+    want = gen.generate(cfg, fparams, prompt, n32, method="plain",
+                        dtype=torch.float32)[0, s:].tolist()
+    t_plain32 = time.perf_counter() - t
+    t = time.perf_counter()
+    out, stats = generate_speculative(cfg, fparams, fcfg, fdparams, prompt,
+                                      n32, k=k, method="plain",
+                                      dtype=torch.float32)
+    secs = time.perf_counter() - t
+    got32 = out[0, s:].tolist()
+    diff = [j for j, (x, y) in enumerate(zip(got32, want)) if x != y]
+    emit({"phase": "serve", "traffic": "S", "run": "self-draft, f32 plain",
+          "card": card(), "new_tokens": n32, "rounds": stats["rounds"],
+          "accept_rate": stats["accept_rate"], "seconds": secs,
+          "plain_seconds": t_plain32, "equal": got32 == want,
+          "first_difference": diff[0] if diff else None})
+    check(got32 == want, f"S f32: the speculative stream parts from plain "
+          f"generate's at token {diff[0] if diff else len(want)}")
+    # the greedy self-draft run again for 4 new tokens (the two prefills
+    # and 3 rounds), profiled
+    runs_ = []
+    prof = device_profile(lambda i: runs_.append(generate_speculative(
+        cfg, params, dcfg, dparams, prompt, 4, k=k)[1]["rounds"]), 1)
+    emit({"phase": "serve", "step": "profile", "traffic": "S",
+          "card": card(), "run": "self-draft, greedy, 4 new tokens",
+          "rounds": runs_[0],
+          "device_ms_per_round": prof["device_ms_per_call"] / runs_[0],
+          "wall_ms_per_round": prof["wall_ms_per_call"] / runs_[0], **prof})
+    return counts
+
+
+def _spec_traffic_t(cfg, params, fparams, dev, rng):
+    """Traffic T: the speculative slot pool on Mistral-7B, 8 slots, 16
+    requests of 64 seeded tokens, 64 new each, k = 4, the self-draft,
+    greedy: steady tok/s over up to 16 rounds with all 8 slots busy and no
+    admission (launches held exactly each round: the draft's k + 1 pool
+    steps at M = 8, K1 for qkv and o and K3; the verify pass at M = 40,
+    the unfused chain on K1), host and device ms a round, the accept rate,
+    capacity fallbacks. Every verify row the pool used, and every row of
+    ``batched_chunk_step`` teacher-forced over each wave's streams, held
+    against the plain twins' forward; every stream against the plain
+    ``BatchingEngine``'s on the rows both recorded (``_near_ties``). Then
+    the first 8 requests, 32 new tokens each, through both engines in f32
+    on the plain path (``fparams``): equal streams. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import batching, spec_batch
+    from autoawq_tpu_torch.serve.batching import BatchingEngine
+    from autoawq_tpu_torch.serve.spec_batch import SpeculativeBatchingEngine
+    from autoawq_tpu_torch.serve.speculative import self_draft
+
+    k, lt, ld, s = SPEC_K, cfg.num_hidden_layers, SPEC_DRAFT_LAYERS, 64
+    prompts = [rng.integers(0, cfg.vocab_size, (s,)) for _ in range(16)]
+    dcfg, dparams = self_draft(cfg, params, ld)
+    eng = SpeculativeBatchingEngine(cfg, params, dcfg, dparams, k=k,
+                                    max_batch=8, max_seq_len=256, device=dev)
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, 64)
+
+    def seen(e):  # each slot's request and position before the call
+        return lambda: ([None if r is None else r.id for r in e.slots],
+                         e.pos.copy())
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with _recorded(spec_batch, "batched_chunk_step", seen(eng)) as log:
+        eng.step()  # admits the first 8
+        per_round = {"w4a16_gemv": 2 * ld * (k + 1) + 4 * lt,
+                     "fused_mlp": ld * (k + 1), "fused_attn_step": 0,
+                     "w4a16_gemm": 0}
+        steady, times, toks = [], [], 0
+        for _ in range(16):
+            if len(eng.queue) != 8 or any(r is None for r in eng.slots):
+                break
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            emitted = eng.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if len(eng.queue) != 8:
+                break  # a slot retired and the next request was admitted
+            toks += len(emitted)
+            steady.append({kk: v - before[kk]
+                           for kk, v in _build.LAUNCHES.items()
+                           if v - before[kk]})
+        for i, got in enumerate(steady):
+            _check_launches(f"T round {i}", got, per_round)
+        check(len(steady) >= 4, f"T: only {len(steady)} steady rounds")
+        prof = device_profile(lambda i: eng.step(), 2)
+        out = eng.run()
+        torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    ref_eng = BatchingEngine(cfg, params, max_batch=8, max_seq_len=256,
+                             device=dev)
+    for i, p in enumerate(prompts):
+        ref_eng.add_request(i, p, 64)
+    t = time.perf_counter()
+    with _recorded(batching, "batched_decode_step", seen(ref_eng)) as rlog:
+        ref = ref_eng.run()
+    t_ref = time.perf_counter() - t
+    calls = {i: [] for i in range(16)}
+    for a, res, (ids, pos) in log:
+        chunk = a[2].tolist()
+        for slot, i in enumerate(ids):
+            if i is not None:
+                calls[i].append((int(pos[slot]), chunk[slot], res[0][slot]))
+    steps = {i: {} for i in range(16)}
+    for _, res, (ids, pos) in rlog:
+        for slot, i in enumerate(ids):
+            if i is not None:
+                steps[i][int(pos[slot])] = res[0][slot]
+    recs, verify = {}, []
+    for wave in (range(8), range(8, 16)):  # as admitted, 8 at a time
+        seqs = torch.from_numpy(np.stack([np.concatenate(
+            [prompts[i], out[i]]) for i in wave])).to(dev)
+        twins = _twins(cfg, params, seqs)
+        used = _used_rows(seqs.tolist(), [calls[i] for i in wave])
+        rows = [(b, t, row) for b in used for t, (_, row) in sorted(
+            used[b].items())]
+        verify.append({"engine": _rows_vs_twins(
+            "T verify", rows, twins), "teacher_forced": _rows_vs_twins(
+            "T teacher-forced chunks",
+            _teacher_forced_chunks(cfg, params, seqs, s, k, 256), twins)})
+        for i, rec in zip(wave, _near_ties(
+                "T request", s, [out[i] for i in wave],
+                [ref[i] for i in wave], used, [steps[i] for i in wave],
+                twins)):
+            if not rec["equal"]:
+                recs[i] = rec
+        del twins, used, rows
+    del log, rlog, calls, steps
+    # greedy speculation is exact in f32
+    fcfg, fdparams = self_draft(cfg, fparams, ld)
+    streams = []
+    for e in (SpeculativeBatchingEngine(cfg, fparams, fcfg, fdparams, k=k,
+                                        max_batch=8, max_seq_len=256,
+                                        method="plain", dtype=torch.float32,
+                                        device=dev),
+              BatchingEngine(cfg, fparams, max_batch=8, max_seq_len=256,
+                             method="plain", dtype=torch.float32,
+                             device=dev)):
+        for i in range(8):
+            e.add_request(i, prompts[i], 32)
+        streams.append(e.run())
+    equal32 = sum(streams[0][i] == streams[1][i] for i in range(8))
+    check(equal32 == 8, f"T f32: {8 - equal32} of 8 speculative streams "
+          "part from the plain engine's")
+    st = steady and sum(times[:len(steady)])
+    emit({"phase": "serve", "traffic": "T", "card": card(), "slots": 8,
+          "requests": 16, "k": k, "draft_layers": ld,
+          "steady_rounds": len(steady),
+          "steady_tok_s": toks / st if st else None,
+          "host_ms_per_round": [x * 1e3 for x in times[:len(steady)]],
+          "device_ms_per_round": prof["device_ms_per_call"],
+          "device_busy_share": prof["device_busy_share"],
+          "accept_rate": eng.accept_rate,
+          "capacity_fallbacks": eng.capacity_fallbacks,
+          "whole_run_tok_s": sum(len(v) for v in out.values()) / whole,
+          "plain_engine_tok_s": sum(len(v) for v in ref.values()) / t_ref,
+          "launches_per_round": steady[0] if steady else None,
+          "launches": counts, "streams_equal_plain": 16 - len(recs),
+          "near_ties": recs, "verify_rows_vs_twins": verify,
+          "f32_plain_streams_equal": equal32})
+    return counts, per_round
+
+
+def _decode_route(cfg, params, prompt, rows, w, n):
+    """Sequences rows [B·W, S + n] teacher-forced on the beam pool's decode
+    route: each prompt of prompt [B, S] prefilled alone, its cache repeated
+    for its W rows, then the B·W rows decoded at one position. Returns the
+    route's logits [n, B·W, V] (the prefill's row first) and the f32 sums
+    of the rows' log-probs, accumulated step by step as the scorer does."""
+    import torch
+
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s = prompt.shape
+    lt = cfg.num_hidden_layers
+    caches, first = [], []
+    for i in range(b):
+        c = gen.init_kv_cache(cfg, 1, s + n, torch.bfloat16, prompt.device)
+        lg, _ = gen.prefill(cfg, params, prompt[i: i + 1], c)
+        caches.append(c)
+        first.append(lg[0].float())
+    owner = [i // w for i in range(b * w)]
+    cache = [{nm: torch.cat([caches[o][li][nm] for o in owner])
+              for nm in caches[0][li]} for li in range(lt)]
+    logits = [torch.stack([first[o] for o in owner])]
+    for step in range(1, n):
+        lg, _ = gen.decode_step(cfg, params, rows[:, s - 1 + step: s + step],
+                                cache, s - 1 + step)
+        logits.append(lg.float())
+    logits = torch.stack(logits)
+    acc = torch.zeros(b * w, device=prompt.device)
+    for step in range(n):
+        acc = acc + torch.log_softmax(logits[step], -1).gather(
+            -1, rows[:, s + step, None])[:, 0]
+    return logits, acc
+
+
+def _beam_traffic_u(cfg, params, fparams, dev, rng):
+    """Traffic U: beam search through ``AwqCausalLM.generate`` on
+    Mistral-7B, bs2 x 64-token prompts, num_beams 4, 64 new tokens, all 4
+    beams returned, run once (its rows and scores read from the
+    ``generate_beam_batched`` call the facade makes): tok/s, K5 and K3
+    launches held exactly (every step after the first decodes the 8 beam
+    rows at one position through K5). Each returned beam's score against
+    its own teacher-forced sum of log-probs on the decode route the pool
+    took (``_decode_route``), within 1e-3 of the sum; every row of that
+    route held against the plain twins' forward by the teacher-forced
+    rule; 8 seeded random continuations through the same route and twins,
+    whose sums against the f32 forward's show whether the beams' own gap
+    is the search's selection. Then the beam search in f32 on the plain
+    path (``fparams``): each score against the plain f32 forward's sum,
+    within 1e-3. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import beam
+    from autoawq_tpu_torch.serve.beam import generate_beam_batched
+
+    w, n, lt, s = 4, 64, cfg.num_hidden_layers, 64
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, s))).to(dev)
+    model = AwqCausalLM(cfg, params, device=dev)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _recorded(beam, "generate_beam_batched") as log:
+        out = model.generate(prompt, max_new_tokens=n, num_beams=w,
+                             num_return_sequences=w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = dict(_build.LAUNCHES)
+    expect = {"fused_attn_step": lt * (n - 1), "fused_mlp": lt * (n - 1),
+              "w4a16_gemv": 2 * 4 * lt, "w4a16_gemm": 0}
+    _check_launches("U", counts, expect)
+    [(_, res, _)] = log
+    rows = torch.from_numpy(np.concatenate([r for r, _ in res])).to(dev)
+    check(torch.equal(rows, out), "U: the facade's rows differ from "
+          "generate_beam_batched's")
+    scores = [sc for _, ss in res for sc in ss]
+    owner = [i // w for i in range(2 * w)]
+    # drawn apart from ``rng``, so the traffics after U keep their inputs
+    rnd = torch.cat([prompt[owner], torch.from_numpy(np.random.default_rng(
+        0).integers(0, cfg.vocab_size, (2 * w, n))).to(dev)], dim=1)
+    route, sums = _decode_route(cfg, params, prompt, rows, w, n)
+    r_route, r_sums = _decode_route(cfg, params, prompt, rnd, w, n)
+    seqs = torch.cat([rows, rnd])
+    twins = _twins(cfg, params, seqs)
+    f32_sums = torch.log_softmax(twins[1][:, s - 1:-1], -1).gather(
+        -1, seqs[:, s:, None])[..., 0].sum(-1).tolist()
+    vs_twins = _rows_vs_twins("U decode route", [
+        (i + off, s - 1 + step, lg[step, i])
+        for off, lg in ((0, route), (2 * w, r_route))
+        for i in range(2 * w) for step in range(n)], twins)
+    del twins, route, r_route
+    checks = []
+    for i, sc in enumerate(scores):
+        beam_sum = sc * n  # length penalty 1.0 over 64 generated tokens
+        ref = float(sums[i])
+        err, lim = abs(beam_sum - ref), 1e-3 * abs(ref)
+        checks.append({"beam_sum": beam_sum, "teacher_forced_sum": ref,
+                       "err": err, "limit": lim,
+                       "f32_forward_sum": f32_sums[i]})
+        check(err <= lim, f"U beam {i}: score sum {beam_sum:.4f} is "
+              f"{err:.4g} from its teacher-forced sum {ref:.4f}, limit "
+              f"{lim:.4g}")
+    # beams in f32 on the plain path: scores against the f32 forward
+    t = time.perf_counter()
+    res32 = generate_beam_batched(cfg, fparams, list(prompt), n,
+                                  num_beams=w, num_return_sequences=w,
+                                  method="plain", dtype=torch.float32,
+                                  device=dev)
+    secs32 = time.perf_counter() - t
+    rows32 = torch.from_numpy(np.concatenate([r for r, _ in res32])).to(dev)
+    lp32 = torch.log_softmax(modules.forward(
+        cfg, params, rows32, "plain", torch.float32)[:, s - 1:-1].float(), -1)
+    sums32 = lp32.gather(-1, rows32[:, s:, None])[..., 0].sum(-1).tolist()
+    errs32 = [abs(sc * n - ref) for sc, ref in zip(
+        [sc for _, ss in res32 for sc in ss], sums32)]
+    for i, (err, ref) in enumerate(zip(errs32, sums32)):
+        check(err <= 1e-3 * abs(ref), f"U f32 beam {i}: score sum is "
+              f"{err:.4g} from the f32 forward's {ref:.4f}")
+    emit({"phase": "serve", "traffic": "U", "card": card(), "batch": 2,
+          "prompt": s, "num_beams": w, "new_tokens": n,
+          "tok_s": 2 * n / secs, "beam_row_tok_s": 2 * w * n / secs,
+          "seconds": secs, "launches": counts,
+          "launches_per_step": {kk: v / (n - 1) for kk, v in counts.items()
+                                if kk in ("fused_attn_step", "fused_mlp")},
+          "scores": checks, "decode_route_vs_twins": vs_twins,
+          "route_minus_f32_sum": {
+              "beams": [float(sums[i]) - f32_sums[i] for i in range(2 * w)],
+              "random": [float(r_sums[i]) - f32_sums[2 * w + i]
+                         for i in range(2 * w)]},
+          "f32_plain": {"seconds": secs32, "score_errors": errs32,
+                        "sums": sums32}})
+    return counts
+
+
+def _eviction_traffic_v(dev, rng):
+    """Traffic V: TinyLlama bs1 through ``generate`` with ``max_seq_len``
+    256, a 64-token prompt and 384 new tokens, so the cache rolls by 128
+    rows twice: roll count, tok/s, launches held exactly (K1 44 and K3 22 a
+    decode step); then the kernel path teacher-forced for 8 steps after the
+    first roll against the plain twins (bf16 and f32) on copies of the
+    rolled cache the run left. Returns the launch counts."""
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn.fuse import fuse_model
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(**TINYLLAMA)
+    params = fuse_model(cfg, random_quantized_params(
+        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    lt, cap, n = cfg.num_hidden_layers, 256, 384
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, 64))).to(dev)
+    rolls, rolled = [], []
+    roll = gen.roll_kv
+
+    def counted(caches, k):  # counts the rolls, keeps the first one's cache
+        rolls.append(k)
+        caches = roll(caches, k)
+        if not rolled:
+            rolled.extend({nm: c.clone() for nm, c in layer.items()}
+                          for layer in caches)
+        return caches
+
+    gen.roll_kv = counted
+    try:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = gen.generate(cfg, params, prompt, n, max_seq_len=cap)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        gen.roll_kv = roll
+    counts = dict(_build.LAUNCHES)
+    check(len(rolls) == 2 and out.shape == (1, 64 + n),
+          f"V: {len(rolls)} rolls, output {tuple(out.shape)}")
+    _check_launches("V", counts, {"w4a16_gemv": 4 * lt + 2 * lt * (n - 1),
+                                  "fused_mlp": lt * (n - 1),
+                                  "fused_attn_step": 0})
+    # the next steps after the first roll, of the three paths on copies of
+    # the rolled cache the kernel path left
+    cache = rolled
+    runs = {"kernel": ("auto", torch.bfloat16),
+            "plain": ("plain", torch.bfloat16),
+            "plain_f32": ("plain", torch.float32)}
+    caches = {kk: [{nm: (c.float() if dt == torch.float32 else c.clone())
+                    for nm, c in layer.items()} for layer in cache]
+              for kk, (_, dt) in runs.items()}
+    rows = []
+    pos = cap - gen.ROLL_STEP
+    for i in range(8):
+        tok = out[:, cap + i: cap + i + 1]
+        lg = {kk: gen.decode_step(cfg, params, tok, caches[kk], pos + i, m,
+                                  dt)[0] for kk, (m, dt) in runs.items()}
+        ref = lg["plain_f32"]
+        rows.append({"position_after_roll": pos + i,
+                     "kernel_vs_f32": rel_err(lg["kernel"], ref)[1],
+                     "plain_bf16_vs_f32": rel_err(lg["plain"], ref)[1],
+                     "kernel_vs_plain": rel_err(lg["kernel"],
+                                                lg["plain"])[1],
+                     "position": pos + i})
+    _check_teacher_forced("V after a roll", rows)
+    emit({"phase": "serve", "traffic": "V", "card": card(), "batch": 1,
+          "prompt": 64, "new_tokens": n, "max_seq_len": cap,
+          "rolls": len(rolls), "roll_step": gen.ROLL_STEP, "tok_s": n / secs,
+          "seconds": secs, "launches": counts,
+          "launches_per_decode_step": {
+              "w4a16_gemv": (counts["w4a16_gemv"] - 4 * lt) / (n - 1),
+              "fused_mlp": counts["fused_mlp"] / (n - 1)},
+          "kernel_vs_plain_after_roll": rows})
+    del params, cache, caches
+    return counts
+
+
+def phase_serve(dev):
+    """The rest of serving on the card: Mistral-7B at full width and depth
+    (seed-0 W4 g128 weights drawn on the card, fused) through speculative
+    decoding (S), the speculative slot pool (T) and beam search (U); then
+    TinyLlama's windowed eviction (V). Returns (launch counts summed over
+    the phase, launches per decode step or round of S, T, U and V)."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = synth_zoo_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "model": "mistral-7b", "step": "synth",
+          "layers": cfg.num_hidden_layers,
+          "seconds": time.perf_counter() - t})
+    t, mem = time.perf_counter(), torch.cuda.memory_allocated()
+    fparams = _float_twin(params)
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "model": "mistral-7b", "step": "f32 twin",
+          "seconds": time.perf_counter() - t,
+          "bytes": torch.cuda.memory_allocated() - mem})
+    rng = np.random.default_rng(31)
+    counts, per_step = {}, {}
+    for name, fn in (("S", _spec_traffic_s), ("T", _spec_traffic_t),
+                     ("U", _beam_traffic_u)):
+        t = time.perf_counter()
+        got = fn(cfg, params, fparams, dev, rng)
+        if name == "T":
+            got, per_step["T"] = got
+        counts[name] = got
+        emit({"phase": "serve", "traffic": name, "step": "seconds",
+              "seconds": time.perf_counter() - t})
+    del params, fparams
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    counts["V"] = _eviction_traffic_v(dev, rng)
+    emit({"phase": "serve", "traffic": "V", "step": "seconds",
+          "seconds": time.perf_counter() - t})
+    lt = cfg.num_hidden_layers
+    per_step["U"] = {"fused_attn_step": lt, "fused_mlp": lt}
+    per_step["V"] = {"w4a16_gemv": 44, "fused_mlp": 22}
+    names = set().union(*counts.values())
+    total = {kk: sum(c.get(kk, 0) for c in counts.values()) for kk in names}
+    return total, {t: {kk: per.get(kk, 0) for kk in KERNEL_META}
+                   for t, per in per_step.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3899,6 +4879,11 @@ def main(argv=None) -> int:
     extra_rows = []
     if "mla_moe" in phases:
         counts, per_step, extra_rows = timed("mla_moe", phase_mla_moe, dev)
+        per_token.update(per_step)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "serve" in phases:
+        counts, per_step = timed("serve", phase_serve, dev)
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}

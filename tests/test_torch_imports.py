@@ -27,8 +27,8 @@ def test_port_imports_nothing_forbidden():
         "from autoawq_tpu_torch.ops import (_build, attention, "
         "fused_attn_step, fused_mlp, gemm, moe_gemm, paged_attn, "
         "sharded_mlp)\n"
-        "from autoawq_tpu_torch.serve import batching, generate, paged, "
-        "server\n"
+        "from autoawq_tpu_torch.serve import (batching, beam, generate, "
+        "paged, server, spec_batch, speculative)\n"
         "from autoawq_tpu_torch.quantize import calib, quantizer, scale\n"
         "from autoawq_tpu_torch.utils import synth, tree\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

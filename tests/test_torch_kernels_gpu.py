@@ -1185,3 +1185,61 @@ def test_v2_lite_moe_layer_prefill_launches(cuda):
     assert launches == {"w4a16_gemm": 7, "moe_gemm": 2}
     assert bool(torch.isfinite(y).all())
     assert cache["c"][:, :, :384].abs().sum() > 0
+
+
+def test_card_quantized_mla_model_serves_as_its_reload(cuda, tmp_path):
+    """A tiny DeepSeek-V2-Lite-shaped MLA + MoE model quantized on the card
+    and served as ``quantize()`` left it (cast to bf16, nothing attached
+    again): kv_b's dense f32 weight that ``quantize()`` attached holds
+    its own nibbles' dequantization, so the model serves bit for bit as
+    the same tree without the leaf (kv_b dequantized on every call, JAX's
+    route) and, through the same kernels, as its reload: prefill logits
+    within 2e-2 of the logit scale (the checkpoint rounds the scales and
+    float weights to fp16) and equal greedy tokens."""
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.api import cast_params
+    from autoawq_tpu_torch.io.hf import init_random_params
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops.gemm import dequantize
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg = ModelConfig.from_hf_dict(dict(
+        model_type="deepseek_v2", vocab_size=256, hidden_size=64,
+        intermediate_size=128, moe_intermediate_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=4, n_shared_experts=0, num_experts_per_tok=2,
+        first_k_dense_replace=0, q_lora_rank=None, kv_lora_rank=32,
+        qk_rope_head_dim=8, qk_nope_head_dim=16, v_head_dim=16,
+        topk_method="greedy", max_position_embeddings=64))
+    params = init_random_params(cfg, seed=0, device=cuda)
+    params["embed_tokens"]["weight"][:, :6] *= 8.0
+    model = AwqCausalLM(cfg, params)
+    model.quantize(calib_data=np.random.default_rng(1).integers(
+        0, 256, (4, 32)), quant_config={"q_group_size": 32}, progress=False)
+    model.save_quantized(str(tmp_path))
+    loaded = AwqCausalLM.from_quantized(str(tmp_path))
+    mem = cast_params(model.params, torch.bfloat16)
+    n = cfg.num_attention_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    bare = dict(mem, layers=[])
+    for lp in mem["layers"]:
+        kv_b = lp["self_attn"]["kv_b_proj"]
+        assert kv_b["dense"].dtype == torch.float32
+        assert torch.equal(kv_b["dense"], dequantize(
+            kv_b["qweight"], kv_b["scales"], kv_b.get("qzeros"))[:, :n])
+        bare["layers"].append(dict(lp, self_attn=dict(
+            lp["self_attn"], kv_b_proj={
+                k: v for k, v in kv_b.items() if k != "dense"})))
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (1, 16))).to(cuda)
+    logits = []
+    for p in (mem, bare, loaded.params):
+        caches = gen.init_kv_cache(cfg, 1, 32, device=cuda)
+        logits.append(gen.prefill(cfg, p, prompt, caches)[0])
+    assert torch.equal(logits[0], logits[1])
+    scale = float(logits[2].abs().max())
+    assert float((logits[0] - logits[2]).abs().max()) <= 2e-2 * scale
+    before = dict(_build.LAUNCHES)
+    got = gen.generate(cfg, mem, prompt, 8)
+    assert _build.LAUNCHES["w4a16_gemv"] > before["w4a16_gemv"]
+    assert torch.equal(got, gen.generate(cfg, bare, prompt, 8))
+    assert torch.equal(got, loaded.generate(prompt, max_new_tokens=8))
