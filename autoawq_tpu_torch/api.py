@@ -6,7 +6,8 @@
     model.quantize(calib_data=token_id_lists,
                    quant_config={"w_bit": 4, "q_group_size": 128,
                                  "zero_point": True})
-    model.save_quantized("/path/awq-ckpt")  # AutoAWQ GEMM layout
+    model.save_quantized("/path/awq-ckpt")  # AutoAWQ GEMM layout (or the
+                                            # quant config's version)
 
     model = AutoAWQForCausalLM.from_quantized("/path/awq-ckpt",
                                               fuse_layers=True)
@@ -80,8 +81,8 @@ class AwqCausalLM:
                        device=None,
                        dtype: Optional[torch.dtype] = torch.bfloat16
                        ) -> "AwqCausalLM":
-        """Load an AutoAWQ GEMM checkpoint of any architecture the port
-        runs (``nn/modules.check_supported``).
+        """Load an AutoAWQ checkpoint (GEMM, GEMV, GEMVFast or Marlin) of
+        any architecture the port runs (``nn/modules.check_supported``).
         ``fuse_layers=True`` concatenates q/k/v and gate/up (one K1 launch
         for qkv, the fused decode MLP K3) and stacks MoE experts for the
         grouped kernel K6; the default keeps the checkpoint's layout, whose
@@ -116,9 +117,12 @@ class AwqCausalLM:
         on the model's device; the packed weights stay there. The memory
         knobs (``n_parallel_calib_samples``, ``offload_taps`` and, through
         ``quantizer_kw``, ``max_chunk_memory``, ``weight_dtype``, ...) are
-        :class:`AwqQuantizer`'s. ``resume_dir``, ``mesh`` and
-        ``quantize_lm_head`` raise, naming their ROADMAP item. A packed MLA
-        model's kv_b gains its dense f32 weight, as at load."""
+        :class:`AwqQuantizer`'s. ``resume_dir`` writes one file per
+        finished layer (a host copy; the layer itself stays on the device)
+        and a rerun reads them back; ``quantize_lm_head`` clip-searches and
+        packs the head too (not with tied embeddings); ``mesh`` raises,
+        naming its ROADMAP item. A packed MLA model's kv_b gains its dense
+        f32 weight, as at load."""
         if isinstance(quant_config, dict) or quant_config is None:
             quant_config = AwqConfig.from_dict(quant_config)
         calib = get_calib_dataset(calib_data, tokenizer,
@@ -155,8 +159,9 @@ class AwqCausalLM:
 
     def save_quantized(self, path: str,
                        shard_bytes: int = serialize.SHARD_BYTES) -> None:
-        """Write an AutoAWQ GEMM checkpoint directory (with the source
-        checkpoint's tokenizer files)."""
+        """Write an AutoAWQ checkpoint directory in the layout the quant
+        config's ``version`` names (with the source checkpoint's tokenizer
+        files)."""
         if self.quant_config is None:
             raise RuntimeError("model is not quantized")
         serialize.save_quantized(path, self.cfg, self.quant_config,

@@ -26,6 +26,11 @@
 // two stages of K and V: 40, 80 and 160 KB of dynamic shared memory). The
 // wrapper zero-pads any other head dim up to the next instance (exact, as
 // _flash_prefill pads to a multiple of 64).
+//
+// Given an `lse` pointer, the kernel also writes each row's f32
+// log-sum-exp of scale * q.k over its causal keys, [B, nh, S] (natural
+// log), which the backward (csrc/prefill_attention_bwd.cu, K10 and K11)
+// reads to recompute P; `out` is computed the same way with or without it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -91,7 +96,8 @@ __global__ void __launch_bounds__(128)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int S, int NH, int NKV,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int S, int NH, int NKV,
                     long long q_tok, long long k_tok, long long v_tok,
                     float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
@@ -216,6 +222,10 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.0f / l;
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < S)  // m_run is log2
+      lse[((long long)b * NH + h) * S + row] =
+          (m_run[r] + log2f(l)) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -233,9 +243,9 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-           const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S, int NH,
-           int NKV, long long q_tok, long long k_tok, long long v_tok,
-           float scale_log2, cudaStream_t st) {
+           const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+           int S, int NH, int NKV, long long q_tok, long long k_tok,
+           long long v_tok, float scale_log2, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -246,30 +256,32 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   }
   dim3 grid(NH, B, (S + BQ - 1) / BQ);
   prefill_attn_kernel<HD><<<grid, 128, Smem<HD>::BYTES, st>>>(
-      q, k, v, out, S, NH, NKV, q_tok, k_tok, v_tok, scale_log2);
+      q, k, v, out, lse, S, NH, NKV, q_tok, k_tok, v_tok, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
-                                 void* out, int B, int S, int NH, int NKV,
-                                 int HD, long long q_tok, long long k_tok,
-                                 long long v_tok, float scale, void* stream) {
+                                 void* out, void* lse, int B, int S, int NH,
+                                 int NKV, int HD, long long q_tok,
+                                 long long k_tok, long long v_tok,
+                                 float scale, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;  // exp -> exp2
   auto* qb = static_cast<const __nv_bfloat16*>(q);
   auto* kb = static_cast<const __nv_bfloat16*>(k);
   auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* lb = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (HD == 64)
-    return launch<64>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+    return launch<64>(qb, kb, vb, ob, lb, B, S, NH, NKV, q_tok, k_tok, v_tok,
                       scale_log2, st);
   if (HD == 128)
-    return launch<128>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+    return launch<128>(qb, kb, vb, ob, lb, B, S, NH, NKV, q_tok, k_tok, v_tok,
                        scale_log2, st);
   if (HD == 256)
-    return launch<256>(qb, kb, vb, ob, B, S, NH, NKV, q_tok, k_tok, v_tok,
+    return launch<256>(qb, kb, vb, ob, lb, B, S, NH, NKV, q_tok, k_tok, v_tok,
                        scale_log2, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

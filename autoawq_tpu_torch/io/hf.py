@@ -15,7 +15,8 @@ is in the state dict, so deepseek's dense first layers load as dense),
 ``init_random_params`` :743; ``DEEPSEEK_LAYOUT`` :97 names MLA's norms and
 linears. AutoAWQ GEMM tensors (``qweight`` int32
 [K, N/8] in AWQ order, ``qzeros`` likewise, ``scales`` fp16 [G, N]) unpack
-to logical nibbles and repack into the port's layout (core/packing.py),
+to logical nibbles and repack into the port's layout through the host packer
+(core/native.py, whose oracle is core/packing.py),
 bit-exact, and back. The port packs along K, so a fused qkv's column
 permutation is an index on N of the unpacked nibbles, scales, zeros and
 bias (int4 quantization per output column commutes with it). An MLP's
@@ -33,7 +34,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from autoawq_tpu_torch.core import packing
+from autoawq_tpu_torch.core import native
 from autoawq_tpu_torch.io.safetensors import load_file
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn.modules import check_supported
@@ -263,14 +264,14 @@ def _lin_from_sd(sd: Dict[str, torch.Tensor], prefix: str, device,
     if prefix + ".qweight" in sd:
         sc = sd[prefix + ".scales"].float().numpy()
         n = sc.shape[1]
-        q4 = packing.unpack_awq(sd[prefix + ".qweight"].numpy(), n)
-        z4 = packing.unpack_awq(sd[prefix + ".qzeros"].numpy(), n)
+        q4 = native.unpack_awq(sd[prefix + ".qweight"].numpy(), n)
+        z4 = native.unpack_awq(sd[prefix + ".qzeros"].numpy(), n)
         if perm is not None:
             q4, z4, sc = q4[:, perm], z4[:, perm], sc[:, perm]
-        p = {"qweight": packing.pack_port(q4).to(device),
+        p = {"qweight": torch.from_numpy(native.pack_port(q4)).to(device),
              "scales": torch.from_numpy(np.ascontiguousarray(sc)).to(device)}
         if (z4 != 8).any():
-            p["qzeros"] = packing.pack_port(z4).to(device)
+            p["qzeros"] = torch.from_numpy(native.pack_port(z4)).to(device)
     elif prefix + ".weight" in sd:
         w = sd[prefix + ".weight"].t()
         if idx is not None:
@@ -417,8 +418,8 @@ def _lin_to_sd(sd: Dict[str, torch.Tensor], prefix: str,
                perm: Optional[np.ndarray] = None) -> None:
     """Write a LIN in HF / AutoAWQ GEMM layout: the port's nibbles, column
     pad stripped back to ``out_features`` (and a K pad, where the LIN came
-    with one, to ``in_features``), ``perm`` inverted, repacked by
-    ``core/packing.pack_awq``; a symmetric LIN gets the constant zero point
+    with one, to ``in_features``), ``perm`` inverted, repacked by the host
+    packer (``core/native``); a symmetric LIN gets the constant zero point
     8 AutoAWQ expects; scales fp16. A float LIN writes ``weight [N, K]``."""
     if p is None:
         return
@@ -426,7 +427,6 @@ def _lin_to_sd(sd: Dict[str, torch.Tensor], prefix: str,
     if perm is not None:
         inv = np.empty_like(perm)
         inv[perm] = np.arange(perm.size)
-        inv = torch.from_numpy(inv)
     if "qweight" in p:
         qw, scales = _cpu(p["qweight"]), _cpu(p["scales"])
         g = scales.shape[0]
@@ -434,27 +434,27 @@ def _lin_to_sd(sd: Dict[str, torch.Tensor], prefix: str,
         if in_features is not None and rows != in_features:
             g = in_features // (rows // g)
             rows = in_features
-        q4 = packing.unpack_port(qw, rows)[:, :out_features]
+        q4 = native.unpack_port(qw.numpy(), rows, out_features)
         if "qzeros" in p:
-            z4 = packing.unpack_port(_cpu(p["qzeros"]), g)[:, :out_features]
+            z4 = native.unpack_port(_cpu(p["qzeros"]).numpy(), g,
+                                    out_features)
         else:
-            z4 = torch.full((g, out_features), 8, dtype=torch.int32)
+            z4 = np.full((g, out_features), 8, dtype=np.int8)
         sc = scales[:g, :out_features]
         if inv is not None:
-            q4, z4, sc = q4[:, inv], z4[:, inv], sc[:, inv]
-        sd[prefix + ".qweight"] = torch.from_numpy(
-            packing.pack_awq(q4.numpy()))
-        sd[prefix + ".qzeros"] = torch.from_numpy(
-            packing.pack_awq(z4.numpy()))
+            q4, z4, sc = q4[:, inv], z4[:, inv], sc[:, torch.from_numpy(inv)]
+        sd[prefix + ".qweight"] = torch.from_numpy(native.pack_awq(q4))
+        sd[prefix + ".qzeros"] = torch.from_numpy(native.pack_awq(z4))
         sd[prefix + ".scales"] = sc.to(torch.float16).contiguous()
     else:
         w = _cpu(p["kernel"])
         if inv is not None:
-            w = w[:, inv]
+            w = w[:, torch.from_numpy(inv)]
         sd[prefix + ".weight"] = w.t().to(dtype).contiguous()
     if p.get("bias") is not None:
         b = _cpu(p["bias"])
-        sd[prefix + ".bias"] = (b if inv is None else b[inv]).to(dtype)
+        sd[prefix + ".bias"] = (
+            b if inv is None else b[torch.from_numpy(inv)]).to(dtype)
 
 
 def _norm_to_sd(sd: Dict[str, torch.Tensor], prefix: str, p: Dict,

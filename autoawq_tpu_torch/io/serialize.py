@@ -3,8 +3,10 @@ tensors.
 
 Counterpart of ``autoawq_tpu/io/serialize.py`` (``copy_aux_files`` :41,
 ``save_quantized`` :103, ``write_safetensors`` :133, ``load_config``
-:166, ``from_quantized`` :233, ``from_pretrained`` :248), GEMM version
-only, local directories only. Directory layout:
+:166, ``from_quantized`` :233, ``from_pretrained`` :248), local
+directories only. AutoAWQ's ``version`` gemm, gemv, gemv_fast or marlin
+(the last three through ``io/interop``'s pre-pass, as JAX's :121-126 and
+:241-243; marlin symmetric only); 4-bit only. Directory layout:
 
   config.json            HF model config + ``quantization_config``
   model.safetensors      one file, or
@@ -19,10 +21,12 @@ import os
 import shutil
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from autoawq_tpu_torch.config import AwqConfig
 from autoawq_tpu_torch.io import hf as hf_io
+from autoawq_tpu_torch.io import interop
 from autoawq_tpu_torch.io.safetensors import save_file
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.utils.device import resolve_device
@@ -74,15 +78,35 @@ def copy_aux_files(src_path: Optional[str], dst_path: str) -> list:
     return copied
 
 
+def _version(qcfg: AwqConfig) -> str:
+    """The layout on disk: gemv / gemv_fast / marlin, else GEMM (JAX's
+    ``planar`` pseudo-version is written as GEMM, as its config says)."""
+    version = qcfg.version.lower()
+    return version if version in interop._CONVERTIBLE else "gemm"
+
+
+def _convert(fn, sd: Dict[str, torch.Tensor], version: str,
+             group_size: int) -> Dict[str, torch.Tensor]:
+    """Run an ``io/interop`` pre-pass over the state dict's quantized
+    triples (numpy), leaving every other tensor as it is."""
+    names = [base + leaf for key in sd if key.endswith(".qweight")
+             for base in (key[: -len(".qweight")],)
+             for leaf in (".qweight", ".qzeros", ".scales")
+             if base + leaf in sd]
+    out = {k: v for k, v in sd.items() if k not in set(names)}
+    for k, v in fn({k: sd[k].numpy() for k in names}, version,
+                   group_size).items():
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
 def save_quantized(path: str, cfg: ModelConfig, qcfg: AwqConfig,
                    params: Dict[str, Any], shard_bytes: int = SHARD_BYTES,
                    src_path: Optional[str] = None) -> None:
-    """Write ``params`` as an AutoAWQ GEMM checkpoint directory (written
-    through the port's own safetensors codec)."""
-    if qcfg.version.lower() != "gemm":
-        raise NotImplementedError(
-            f"saving AWQ version {qcfg.version!r} is not in the port yet "
-            "(checkpoint breadth, ROADMAP queue 1 item 14)")
+    """Write ``params`` as an AutoAWQ checkpoint directory in the layout
+    ``qcfg.version`` names (written through the port's own safetensors
+    codec). Marlin takes symmetric weights only (ValueError)."""
+    version = _version(qcfg)
     os.makedirs(path, exist_ok=True)
     copy_aux_files(src_path, path)
     hf_cfg = cfg.to_hf_dict()
@@ -91,6 +115,9 @@ def save_quantized(path: str, cfg: ModelConfig, qcfg: AwqConfig,
         json.dump(hf_cfg, f, indent=2)
     sd = hf_io.state_dict_from_params(cfg, params,
                                       hf_io.role_out_features(cfg))
+    if version in interop._CONVERTIBLE:
+        sd = _convert(interop.convert_gemm_state_dict_to, sd, version,
+                      qcfg.q_group_size)
     write_safetensors(path, sd, shard_bytes)
 
 
@@ -144,16 +171,17 @@ def from_quantized(path: str, device=None
     cfg, qcfg = load_config(path)
     if qcfg is None:
         raise ValueError(f"{path} has no quantization_config")
-    if qcfg.version.lower() != "gemm":
-        raise NotImplementedError(
-            f"AWQ version {qcfg.version!r} is not in the port yet (checkpoint "
-            "breadth, ROADMAP queue 1 item 14)")
+    version = _version(qcfg)
     if qcfg.w_bit != 4:
+        # AutoAWQ's packed formats are 4-bit; JAX's loader does not check
+        # (ROADMAP §3)
         raise NotImplementedError(
-            f"{qcfg.w_bit}-bit weights are not in the port yet (ROADMAP "
-            "queue 1 item 14)")
+            f"{qcfg.w_bit}-bit weights: AutoAWQ's packed formats are 4-bit")
     device = resolve_device(device)
     sd = hf_io.load_state_dict_from_dir(path)
+    if version in interop._CONVERTIBLE:
+        sd = _convert(interop.convert_state_dict_to_gemm, sd, version,
+                      qcfg.q_group_size)
     return cfg, qcfg, hf_io.params_from_state_dict(cfg, sd, device)
 
 

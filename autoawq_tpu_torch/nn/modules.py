@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from autoawq_tpu_torch.models.config import ModelConfig
+from autoawq_tpu_torch.ops import _build
 from autoawq_tpu_torch.ops import attention as attn_ops
 from autoawq_tpu_torch.ops import fused_attn_step as fas
 from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
@@ -98,15 +99,39 @@ def _tap(taps: Optional[Dict], name: str, x: torch.Tensor) -> None:
 
 def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
            method: str = "auto") -> torch.Tensor:
-    """A quantized or float linear, x [..., K] -> [..., N]."""
+    """A quantized or float linear, x [..., K] -> [..., N], plus a LoRA
+    adapter's ``(x @ lora_a) @ lora_b`` where the LIN carries one (JAX
+    ``linear``, ``autoawq_tpu/nn/modules.py:75-79``; adapters cast to x's
+    dtype)."""
     bias = p.get("bias")
     if is_quantized(p):
-        return awq_matmul(x, p["qweight"], p["scales"], p.get("qzeros"),
-                          out_features=out_features, bias=bias, method=method)
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
-    if bias is not None:
-        y = y + bias.to(x.dtype)
+        y = awq_matmul(x, p["qweight"], p["scales"], p.get("qzeros"),
+                       out_features=out_features, bias=bias, method=method)
+    else:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
+        if bias is not None:
+            y = y + bias.to(x.dtype)
+    if "lora_a" in p:
+        y = y + torch.matmul(torch.matmul(x, p["lora_a"].to(x.dtype)),
+                             p["lora_b"].to(x.dtype))
     return y
+
+
+def _wants_grad(x: torch.Tensor, p: Dict[str, Any]) -> bool:
+    """Whether autograd records this sub-module: x requires grad, or a
+    tensor of one of its LINs does (an adapter)."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for lin in p.values() if isinstance(lin, dict) for t in lin.values())
+
+
+def _no_training(what: str, x: torch.Tensor, p: Dict[str, Any]) -> None:
+    if _wants_grad(x, p):
+        raise NotImplementedError(
+            f"training through {what} is not in the port yet: its route "
+            "has no backward (ROADMAP queue 1 item 16)")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -669,6 +694,7 @@ def mla_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
       (``init_kv_cache(mla_latent=False)``).
 
     Returns (y [B, S, H], the cache with ``pos`` advanced)."""
+    _no_training("MLA attention (the latent path)", x, p)
     b, s, _ = x.shape
     nh = cfg.num_attention_heads
     dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
@@ -777,8 +803,9 @@ def _fused_attn_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     """K5 eligibility (JAX ``_fused_attn_ok`` on "auto"): a bf16 cache with
     B >= 8 or B * T >= 2048, or an int8 cache of capacity T >= 2048, and the
     model-level gates of ``fused_attn_step.supported``. The thresholds are
-    the TPU's; the H100's own are a later A/B (ROADMAP queue 1 item 11)."""
-    if method == "plain":
+    the TPU's; the H100's own are a later A/B (ROADMAP queue 1 item 11).
+    An input that requires grad is refused (K5 has no backward)."""
+    if method == "plain" or _build.grad_wanted(x):
         return False
     kc = kv_cache["k"]
     b, t = kc.shape[0], kc.shape[2]
@@ -820,8 +847,9 @@ def _fused_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 def _fused_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                   method: str, inter: int) -> bool:
     """K3 eligibility (JAX ``_fused_mlp_ok``): quantized fused gate_up and
-    down, no gate_up bias, decode-size M, a K3 activation."""
-    if method == "plain":
+    down, no gate_up bias, decode-size M, a K3 activation, and no input
+    that requires grad (K3 has no backward)."""
+    if method == "plain" or _build.grad_wanted(x):
         return False
     gu, dn = p["gate_up_proj"], p.get("down_proj")
     if dn is None or not (is_quantized(gu) and is_quantized(dn)):
@@ -838,8 +866,9 @@ def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     ``sharded_mlp.supported``): quantized gate, up and down without LoRA,
     no gate / up bias, no ``act_scale``, M <= 32, a K8 activation. The
     TPU's tiling gates (``_lanes``/``PAIRS``, ``QW_SLAB_MAX``,
-    ``inter % 128``) are not the H100 kernel's (ROADMAP §3)."""
-    if method == "plain" or "act_scale" in p:
+    ``inter % 128``) are not the H100 kernel's (ROADMAP §3). An input that
+    requires grad is refused (K8 has no backward)."""
+    if method == "plain" or "act_scale" in p or _build.grad_wanted(x):
         return False
     gate, up, dn = p["gate_proj"], p["up_proj"], p.get("down_proj")
     if dn is None:
@@ -970,6 +999,7 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     ``shared_expert_gate``), then deepseek's ungated ``shared_experts`` at
     ``moe_intermediate_size * n_shared_experts``; both are unfused MLPs, so
     at decode they take K8. Expert-parallel stacks (``tp_ep``) raise."""
+    _no_training("an MoE block (K6)", x, p)
     b, s, h = x.shape
     xt = x.reshape(-1, h)
     _tap(taps, "mlp.gate", x)

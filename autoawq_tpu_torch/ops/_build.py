@@ -1,12 +1,17 @@
 """Build and load the port's CUDA kernels (``autoawq_tpu_torch/csrc``).
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
+Each ``csrc/<source>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
+so a
 build takes seconds, and the sources compile in parallel (one ``nvcc`` per
 source, all started together). Libraries go to ``autoawq_tpu_torch/_build``
 (listed in ``.gitignore``), named by a hash of the sources and flags, so an
 edited source rebuilds. Nothing here runs at import time: a kernel is built
 on the first call that launches it, or all at once by :func:`build_all`.
+
+A kernel's C entry point has the kernel's name; its source is
+``<name>.cu`` unless ``SOURCE_OF`` names another (K10 and K11, the two
+halves of K4's backward, share ``prefill_attention_bwd.cu``).
 
 Launch counts: every wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else, so a run can show that the main path
@@ -31,7 +36,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 KERNELS = ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "prefill_attention",
            "fused_attn_step", "moe_gemm", "fused_mlp3", "paged_attn",
-           "paged_attn_stock")
+           "paged_attn_stock", "prefill_attention_dkv",
+           "prefill_attention_dq")
+SOURCE_OF = {"prefill_attention_dkv": "prefill_attention_bwd",
+             "prefill_attention_dq": "prefill_attention_bwd"}
+SOURCES = tuple(dict.fromkeys(SOURCE_OF.get(n, n) for n in KERNELS))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,8 +58,9 @@ ARGTYPES = {
     "w4a16_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "w4a16_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_mlp": [_P] * 9 + [_I] * 10 + [_P],
-    "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _F, _P],
+    "prefill_attention": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    "prefill_attention_dkv": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    "prefill_attention_dq": [_P] * 7 + [_I] * 5 + [_L] * 3 + [_F, _P],
     # 21 pointers (inputs, outputs, scratch), 21 ints, scale, stream
     "fused_attn_step": [_P] * 21 + [_I] * 21 + [_F, _P],
     "moe_gemm": [_P] * 7 + [_I] * 10 + [_P],
@@ -115,7 +125,7 @@ def _finish(proc: subprocess.Popen) -> None:
                        "ptxas": log}
 
 
-def build_all(names=KERNELS) -> Dict[str, Dict[str, object]]:
+def build_all(names=SOURCES) -> Dict[str, Dict[str, object]]:
     """Compile every kernel source at once (one nvcc each, in parallel)."""
     with _lock:
         procs = [p for p in (_start(n) for n in names) if p is not None]
@@ -125,15 +135,16 @@ def build_all(names=KERNELS) -> Dict[str, Dict[str, object]]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library that holds kernel ``name``, built on first use."""
     handle = _libs.get(name)
     if handle is not None:
         return handle
+    src = SOURCE_OF.get(name, name)
     with _lock:
         if name not in _libs:
-            if not os.path.exists(_lib_path(name)):
-                _finish(_start(name))
-            handle = ctypes.CDLL(_lib_path(name))
+            if not os.path.exists(_lib_path(src)):
+                _finish(_start(src))
+            handle = ctypes.CDLL(_lib_path(src))
             fn = getattr(handle, name)
             fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
@@ -153,3 +164,21 @@ def launch(name: str, *args) -> None:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def grad_wanted(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise on an input that requires grad: ``name``'s kernel has no
+    backward, and its output (a ``torch.empty`` the kernel fills) would
+    drop the gradient without a word. The same on the CPU, where the twin
+    would give one, so that no route behaves differently by device."""
+    if grad_wanted(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward; training takes the differentiable routes (K1/K2 "
+            "through ops/gemm.awq_matmul, K4 with K10/K11)")

@@ -1,25 +1,36 @@
-"""Causal prefill attention: kernel K4 (``csrc/prefill_attention.cu``) and
-its plain twin.
+"""Causal prefill attention: kernel K4 (``csrc/prefill_attention.cu``), its
+backward K10 / K11 (``csrc/prefill_attention_bwd.cu``) and their plain twin.
 
 Counterpart of ``autoawq_tpu/nn/modules._flash_prefill`` (jax's stock TPU
-flash kernel) for prefill with equal q/k lengths. The twin is the
-einsum/softmax path of ``nn/modules.attention`` (``modules.py:731-742``):
-GQA by repeat, f32 scores, additive causal mask, softmax, probabilities cast
-to the activations' dtype. Shapes follow ``_flash_prefill``: q
-[B, S, nh, hd], k/v [B, S, nkv, hd] -> [B, S, nh * hd]. K4 is built for
-head dims 64, 128 and 256; the wrapper zero-pads any other head dim up to
-the next of these (exact: zero dims add nothing to q·k and give zero output
-columns, which are sliced off), as ``_flash_prefill`` pads to a multiple of
-64.
+flash kernel) for prefill with equal q/k lengths, and of its VJP (the stock
+``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq`` kernels). The
+twin is the einsum/softmax path of ``nn/modules.attention``
+(``modules.py:731-742``): GQA by repeat, f32 scores, additive causal mask,
+softmax, probabilities cast to the activations' dtype; its gradient is
+autograd through it. Shapes follow ``_flash_prefill``: q [B, S, nh, hd],
+k/v [B, S, nkv, hd] -> [B, S, nh * hd]. K4 is built for head dims 64, 128
+and 256; the wrapper zero-pads any other head dim up to the next of these
+(exact: zero dims add nothing to q·k and give zero output columns, which
+are sliced off, and zero gradient columns), as ``_flash_prefill`` pads to a
+multiple of 64.
+
+On a CUDA tensor that requires grad, :func:`prefill_attention` runs
+:class:`PrefillAttentionFn`: K4 also writes each row's log-sum-exp, and the
+backward computes ``D = rowsum(dO * O)`` with a torch op (jax computes
+``di`` with jnp outside its kernels), then K10 (dK, dV, summed over each
+GQA group: the VJP of the ``jnp.repeat`` at ``modules.py:726-728``) and
+K11 (dQ).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from autoawq_tpu_torch.ops import _build
 
-HEAD_DIMS = (64, 128, 256)  # head dims K4 is built for
+HEAD_DIMS = (64, 128, 256)  # head dims K4, K10 and K11 are built for
 
 
 def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -52,11 +63,10 @@ def _token_stride(t: torch.Tensor, name: str) -> int:
     return t.stride(1)
 
 
-def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      scale: float) -> torch.Tensor:
-    """K4: causal attention over equal-length q/k (prefill from position 0)."""
-    if q.device.type == "cpu":
-        return prefill_attention_plain(q, k, v, scale)
+def _prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Check a kernel call and zero-pad the head dim to K4's instance:
+    returns (q, k, v padded, the padded head dim)."""
     b, s, nh, hd = q.shape
     nkv = k.shape[2]
     if k.shape != (b, s, nkv, hd) or v.shape != k.shape:
@@ -76,11 +86,141 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd_pad != hd:
         q, k, v = (torch.nn.functional.pad(t, (0, hd_pad - hd))
                    for t in (q, k, v))
-    strides = [_token_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    return q, k, v, hd_pad
+
+
+def _strides(q, k, v):
+    return [_token_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+
+
+def _k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+        with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K4 on prepared operands: (out [B, S, nh * hd_pad] bf16,
+    the rows' f32 log-sum-exp [B, nh, S] or None)."""
+    b, s, nh, hd_pad = q.shape
+    nkv = k.shape[2]
+    strides = _strides(q, k, v)
     out = torch.empty((b, s, nh * hd_pad), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     _build.launch("prefill_attention", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, s, nh, nkv, hd_pad,
-                  *strides, float(scale))
+                  v.data_ptr(), out.data_ptr(), _build.ptr(lse), b, s, nh,
+                  nkv, hd_pad, *strides, float(scale))
+    return out, lse
+
+
+def _slice_heads(out: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
+    b, s, width = out.shape
+    hd_pad = width // nh
+    if hd_pad == hd:
+        return out
+    return out.view(b, s, nh, hd_pad)[..., :hd].reshape(b, s, nh * hd)
+
+
+def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 with its log-sum-exp output: (out [B, S, nh * hd], lse f32
+    [B, nh, S], the natural log of each row's sum of exp(scale * q·k) over
+    its causal keys). CUDA tensors only."""
+    nh, hd = q.shape[2], q.shape[3]
+    qp, kp, vp, _ = _prepare(q, k, v)
+    out, lse = _k4(qp, kp, vp, scale, with_lse=True)
+    return _slice_heads(out, nh, hd), lse
+
+
+def bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """The operands of K10 and K11, checked and padded: (q, k, v, dO,
+    LSE, D, the padded head dim), with ``D = rowsum(dO * O)`` in f32, the
+    torch op jax's ``_flash_attention_bwd`` computes with jnp."""
+    b, s, nh, hd = q.shape
+    qp, kp, vp, hd_pad = _prepare(q, k, v)
+    if lse.shape != (b, nh, s) or lse.dtype != torch.float32:
+        raise ValueError(f"prefill_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, want ({b}, {nh}, {s}) float32")
+    do = dout.reshape(b, s, nh, hd).to(torch.bfloat16)
+    # over the real head dims (pad columns of dO and O add zero)
+    delta = (do.float() * out.reshape(b, s, nh, hd).float()).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
     if hd_pad != hd:
-        out = out.view(b, s, nh, hd_pad)[..., :hd].reshape(b, s, nh * hd)
-    return out
+        do = torch.nn.functional.pad(do, (0, hd_pad - hd))
+    return qp, kp, vp, do.contiguous(), lse.contiguous(), delta, hd_pad
+
+
+def _common(ops, scale):
+    qp, kp, vp, do, lse, delta, hd_pad = ops
+    b, s, nh, _ = qp.shape
+    return (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr()), (
+                b, s, nh, kp.shape[2], hd_pad, *_strides(qp, kp, vp),
+                float(scale))
+
+
+def launch_dkv(ops, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 on :func:`bwd_inputs`' operands: (dk, dv) [B, S, nkv, hd_pad]."""
+    ptrs, dims = _common(ops, scale)
+    kp = ops[1]
+    dk = torch.empty(kp.shape, dtype=kp.dtype, device=kp.device)
+    dv = torch.empty_like(dk)
+    _build.launch("prefill_attention_dkv", *ptrs, dk.data_ptr(),
+                  dv.data_ptr(), *dims)
+    return dk, dv
+
+
+def launch_dq(ops, scale: float) -> torch.Tensor:
+    """K11 on :func:`bwd_inputs`' operands: dq [B, S, nh, hd_pad]."""
+    ptrs, dims = _common(ops, scale)
+    qp = ops[0]
+    dq = torch.empty(qp.shape, dtype=qp.dtype, device=qp.device)
+    _build.launch("prefill_attention_dq", *ptrs, dq.data_ptr(), *dims)
+    return dq
+
+
+def prefill_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, lse: torch.Tensor,
+                          dout: torch.Tensor, scale: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K10 and K11: (dq, dk, dv) shaped as q, k, v, from the forward's
+    inputs, its output ``out`` [B, S, nh * hd] and ``lse`` [B, nh, S], and
+    the output's gradient ``dout``. CUDA tensors only."""
+    hd = q.shape[3]
+    ops = bwd_inputs(q, k, v, out, lse, dout)
+    dk, dv = launch_dkv(ops, scale)
+    dq = launch_dq(ops, scale)
+    if ops[-1] != hd:
+        dq, dk, dv = (t[..., :hd] for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+class PrefillAttentionFn(torch.autograd.Function):
+    """K4 forward (with its log-sum-exp), K10 and K11 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = prefill_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = prefill_attention_bwd(q, k, v, out, lse, dout,
+                                           ctx.scale)
+        return dq, dk, dv, None
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """K4: causal attention over equal-length q/k (prefill from position 0);
+    differentiable (K10 / K11) when an input requires grad."""
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k, v, scale)
+    if _build.grad_wanted(q, k, v):
+        return PrefillAttentionFn.apply(q, k, v, float(scale))
+    nh, hd = q.shape[2], q.shape[3]
+    qp, kp, vp, _ = _prepare(q, k, v)
+    out, _ = _k4(qp, kp, vp, scale, with_lse=False)
+    return _slice_heads(out, nh, hd)

@@ -164,6 +164,7 @@ def fused_attention_step(
     step with the position on the device replays at any position). Group
     sizes must be multiples of 32, the projections' widths multiples of 4
     and all operands 16-byte aligned, else ValueError."""
+    _build.refuse_grad("fused_attn_step", x, k_cache, v_cache)
     if x.device.type == "cpu":
         return fused_attention_step_plain(
             x, qkv, o, k_cache, v_cache, cos, sin, valid_len, nh=nh, nkv=nkv,

@@ -71,6 +71,7 @@ def fused_mlp(x: torch.Tensor, gu_qweight, gu_scales, dn_qweight, dn_scales,
     """K3: x [..., H] bf16 (M <= 32 rows) -> [..., N2] bf16. Group sizes
     must be multiples of 32, inter and N2 multiples of 4 and the operands
     16-byte aligned, else ValueError."""
+    _build.refuse_grad("fused_mlp", x)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, gu_qweight, gu_scales, dn_qweight,
                                dn_scales, gu_qzeros, dn_qzeros, inter=inter,

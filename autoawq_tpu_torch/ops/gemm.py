@@ -11,7 +11,13 @@ Counterpart of ``autoawq_tpu/ops/gemm.py`` and ``ops/pallas_gemm.py``:
   it takes) for M < 256 and
   :func:`w4a16_gemm` (kernel K2, ``csrc/w4a16_gemm.cu``) for M >= 256: the
   same split the TPU makes at ``WS_MIN_M`` (``pallas_gemm.py:74``).
-* :func:`awq_matmul` — the dispatcher.
+* :func:`awq_matmul` — the dispatcher. With grad enabled and an ``x`` that
+  requires grad, the kernel route runs :class:`AwqMatmulFn`, JAX's
+  ``_awq_matmul_vjp`` (``autoawq_tpu/ops/gemm.py:167``, ``:236-252``): the
+  forward is K1 / K2, the backward ``dx = g @ dequantize(W)[:, :N].T``
+  in g's dtype (f32 accumulation), a plain product outside any kernel as
+  in JAX; nothing flows to the frozen ``qweight`` / ``scales`` /
+  ``qzeros``. The twin is differentiable by autograd.
 
 A wrapper takes the twin only for a tensor on the CPU; a CUDA tensor goes to
 its kernel or raises. ``method="plain"`` asks for the twin explicitly (tests
@@ -179,6 +185,7 @@ def w4a16_gemv(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     above 256 rows it reads the weight once per 256). Group sizes must be
     multiples of 32, N a multiple of 4 and the operands 16-byte aligned,
     else ValueError."""
+    _build.refuse_grad("w4a16_gemv", x)
     if x.device.type == "cpu":
         return awq_matmul_plain(x, qweight, scales, qzeros)
     gs = _check(x, qweight, scales, qzeros, "w4a16_gemv", 32,
@@ -198,6 +205,7 @@ def w4a16_gemm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     """K2: x [M, K] bf16 -> [M, N] bf16 (dispatched for M >= 256; group
     sizes must be multiples of 32; N a multiple of 4 and 16-byte aligned
     operands, else ValueError)."""
+    _build.refuse_grad("w4a16_gemm", x)
     if x.device.type == "cpu":
         return awq_matmul_plain(x, qweight, scales, qzeros)
     gs = _check(x, qweight, scales, qzeros, "w4a16_gemm", 32,
@@ -211,6 +219,48 @@ def w4a16_gemm(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def _kernel_route(x: torch.Tensor, qweight: torch.Tensor,
+                  scales: torch.Tensor,
+                  qzeros: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1 below M = 256 rows, K2 from there (the twin on the CPU)."""
+    lead = x.shape[:-1]
+    x2 = _pad_x_k(x, qweight).reshape(-1, 8 * qweight.shape[0])
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    kernel = w4a16_gemv if x2.shape[0] < WS_MIN_M else w4a16_gemm
+    return kernel(x2, qweight, scales, qzeros).reshape(*lead, -1)
+
+
+def awq_matmul_dx(g: torch.Tensor, qweight: torch.Tensor,
+                  scales: torch.Tensor, qzeros: Optional[torch.Tensor],
+                  k: int) -> torch.Tensor:
+    """JAX's ``_awq_matmul_bwd``: ``g [..., N'] @ dequantize(W)[:, :N'].T``
+    in g's dtype (the matmul accumulates in f32), sliced back to x's ``k``
+    (a K pad's rows dequantize to 0, so its columns of dx are 0)."""
+    w = dequantize(qweight, scales, qzeros, dtype=g.dtype)[:, :g.shape[-1]]
+    return torch.matmul(g, w.t())[..., :k]
+
+
+class AwqMatmulFn(torch.autograd.Function):
+    """K1 / K2 forward, :func:`awq_matmul_dx` backward; the weights are
+    frozen (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, qweight, scales, qzeros, out_features):
+        y = _kernel_route(x, qweight, scales, qzeros)
+        ctx.save_for_backward(qweight, scales, qzeros)
+        ctx.k = x.shape[-1]
+        if out_features is not None and out_features != y.shape[-1]:
+            y = y[..., :out_features]
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        qweight, scales, qzeros = ctx.saved_tensors
+        dx = awq_matmul_dx(g, qweight, scales, qzeros, ctx.k)
+        return dx, None, None, None, None
+
+
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                qzeros: Optional[torch.Tensor] = None, *,
                out_features: Optional[int] = None,
@@ -218,16 +268,17 @@ def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                method: str = "auto") -> torch.Tensor:
     """W4A16 matmul ``x @ dequant(W)[:, :out_features] (+ bias)``.
     ``method``: "auto" (K1 below M = 256, K2 from there; the twin on the
-    CPU) or "plain" (the twin on any device)."""
+    CPU; :class:`AwqMatmulFn` when x requires grad on the card) or "plain"
+    (the twin on any device)."""
     if method == "plain":
         y = awq_matmul_plain(x, qweight, scales, qzeros)
     elif method == "auto":
-        lead = x.shape[:-1]
-        x2 = _pad_x_k(x, qweight).reshape(-1, 8 * qweight.shape[0])
-        if not x2.is_contiguous():
-            x2 = x2.contiguous()
-        kernel = w4a16_gemv if x2.shape[0] < WS_MIN_M else w4a16_gemm
-        y = kernel(x2, qweight, scales, qzeros).reshape(*lead, -1)
+        if x.device.type == "cpu":
+            y = awq_matmul_plain(x, qweight, scales, qzeros)
+        elif _build.grad_wanted(x):
+            y = AwqMatmulFn.apply(x, qweight, scales, qzeros, out_features)
+        else:
+            y = _kernel_route(x, qweight, scales, qzeros)
     else:
         raise ValueError(f"unknown method {method!r} (auto | plain)")
     if out_features is not None and out_features != y.shape[-1]:

@@ -172,6 +172,7 @@ def grouped_awq_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
     K1's tensor-core GEMV core, :func:`gemm.gemv_plan`); larger blocks take
     K2's wgmma body. Group sizes must be multiples of 32, N a multiple of 4
     and the weight operands 16-byte aligned, else ValueError."""
+    _build.refuse_grad("moe_gemm", xs)
     if xs.device.type == "cpu":
         return grouped_awq_matmul_plain(xs, block_expert, qweight, scales,
                                         qzeros, block_m=block_m,

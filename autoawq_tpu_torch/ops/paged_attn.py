@@ -221,6 +221,7 @@ def paged_decode_attention(
     table int [B, PPS], lengths int [B] -> f32 [B, nh * hd]."""
     kw = dict(scale=scale, k_scales=k_scales, v_scales=v_scales,
               softcap=softcap, window=window, alibi_slopes=alibi_slopes)
+    _build.refuse_grad("paged_attn", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, table,
                                             lengths, **kw)
@@ -404,6 +405,7 @@ def stock_paged_attention(
     [nkv, P, ps, hd], q [B, nh, hd] bf16 pre-scaled) -> bf16 [B, nh, hd]."""
     kw = dict(pages_per_compute_block=pages_per_compute_block,
               softcap=softcap)
+    _build.refuse_grad("paged_attn_stock", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return stock_paged_attention_plain(q, k_pages, v_pages, lengths,
                                            table, **kw)

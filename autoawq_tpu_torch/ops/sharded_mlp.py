@@ -64,6 +64,7 @@ def fused_mlp3(x: torch.Tensor, g_qweight, g_scales, u_qweight, u_scales,
     """K8: x [..., H] bf16 (M <= 32 rows) -> [..., N] bf16. Group sizes
     must be multiples of 32 (one for gate and up), inter and N multiples of
     4 and the operands 16-byte aligned, else ValueError."""
+    _build.refuse_grad("fused_mlp3", x)
     if x.device.type == "cpu":
         return fused_mlp3_plain(x, g_qweight, g_scales, u_qweight, u_scales,
                                 d_qweight, d_scales, g_qzeros, u_qzeros,

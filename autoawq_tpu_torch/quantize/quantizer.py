@@ -19,6 +19,7 @@ unless the caller turned it on (``torch.backends.cuda.matmul.allow_tf32``).
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,7 +37,8 @@ from autoawq_tpu_torch.models.plugins import (CLIP_AVOID, ScaleGroup,
 from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.quantize import scale as scale_mod
 from autoawq_tpu_torch.utils.device import resolve_device
-from autoawq_tpu_torch.utils.tree import get_by_path, set_by_path
+from autoawq_tpu_torch.utils.tree import (get_by_path, set_by_path,
+                                          to_device)
 
 
 def _clone(tree):
@@ -45,22 +47,6 @@ def _clone(tree):
         return {k: _clone(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_clone(v) for v in tree]
-    return tree
-
-
-def _to(tree, device, float_dtype: Optional[torch.dtype] = None):
-    """A new tree with every array leaf (tensor or numpy) on ``device``,
-    float leaves cast to ``float_dtype`` where given."""
-    if isinstance(tree, dict):
-        return {k: _to(v, device, float_dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device, float_dtype) for v in tree]
-    if isinstance(tree, np.ndarray):
-        tree = torch.from_numpy(np.ascontiguousarray(tree))
-    if isinstance(tree, torch.Tensor):
-        if float_dtype is not None and tree.is_floating_point():
-            return tree.to(device, float_dtype)
-        return tree.to(device)
     return tree
 
 
@@ -129,10 +115,6 @@ class AwqQuantizer:
         if calib_inputs is not None or calib_rope is not None:
             raise _not_yet("calibration on input embeddings (calib_inputs, "
                            "calib_rope)", "17")
-        if resume_dir is not None:
-            raise _not_yet("per-layer calibration resume (resume_dir)", "14")
-        if quantize_lm_head:
-            raise _not_yet("lm_head quantization (quantize_lm_head)", "14")
         if mesh is not None:
             raise _not_yet("data-parallel calibration (mesh)", "15")
         if calib_tokens is None:
@@ -152,7 +134,12 @@ class AwqQuantizer:
         # weight_dtype=bf16 halves each layer's upload; the statistics and
         # the quantize math stay f32 either way. None keeps the dtype given
         self.weight_dtype = weight_dtype
+        # keep_on_device with resume_dir: each finished layer stays on the
+        # device and its file gets a host copy (JAX refuses the pair,
+        # ROADMAP §3)
         self.keep_on_device = keep_on_device
+        self.resume_dir = resume_dir
+        self.quantize_lm_head = quantize_lm_head
         self.progress = progress
         # memory choreography for a large model on one card: calibration
         # forwards in sample chunks (n_parallel_calib_samples), recorded
@@ -204,7 +191,7 @@ class AwqQuantizer:
         # the calibration inputs of JAX's quantize(): learned positions and
         # bloom's embedding LayerNorm, rope tables keyed on the length, and
         # the ALiBi bias in the mask
-        emb = {k: _to(self.params[k], dev)
+        emb = {k: to_device(self.params[k], dev)
                for k in ("embed_tokens", "embed_positions", "embed_ln")
                if k in self.params}
         s = tokens.shape[1]
@@ -227,7 +214,16 @@ class AwqQuantizer:
             except ImportError:
                 pass
         for i in iterator:
-            lp = _to(self.params["layers"][i], dev, self.weight_dtype)
+            # per-layer resume: a finished layer's file holds its packed
+            # tree and the activation stream after it
+            ck = self._resume_path(i)
+            if ck is not None and os.path.exists(ck):
+                lp, x = load_layer_ckpt(ck)
+                new_layers.append(to_device(lp, dev) if self.keep_on_device
+                                  else lp)
+                x = x.to(dev)
+                continue
+            lp = to_device(self.params["layers"][i], dev, self.weight_dtype)
             # [1] record each linear's input; propagate the float output
             t0 = time.perf_counter()
             taps: Dict[str, torch.Tensor] = {}
@@ -266,14 +262,40 @@ class AwqQuantizer:
                 for path in self._quantizable(lp):
                     set_by_path(lp, path, quantize_linear_params(
                         get_by_path(lp, path), self.qcfg))
-            new_layers.append(lp if self.keep_on_device else _to(lp, "cpu"))
+            new_layers.append(lp if self.keep_on_device
+                              else to_device(lp, "cpu"))
             self._clock("pack", t0)
             x = next_x
+            if ck is not None:
+                save_layer_ckpt(ck, new_layers[-1], x)
 
-        out = _to({k: v for k, v in self.params.items() if k != "layers"},
-                  dev if self.keep_on_device else "cpu")
+        home = dev if self.keep_on_device else "cpu"
+        out = to_device({k: v for k, v in self.params.items()
+                         if k != "layers"}, home)
         out["layers"] = new_layers
+        if (self.quantize_lm_head and not export_compatible
+                and self.params.get("lm_head") is not None):
+            out["lm_head"] = to_device(self._quantize_head(x), home)
         return out
+
+    def _quantize_head(self, x: torch.Tensor) -> Dict[str, Any]:
+        """JAX's ``quantize_lm_head`` (:318-330): the head's calibration
+        input is the final norm of the last layer's stream ``x``; its clip
+        search (no scale search), then int4 packing."""
+        dev = self.device
+        head = {"lm_head": to_device(self.params["lm_head"], dev)}
+        hin = modules.norm(self.cfg, to_device(self.params["norm"], dev), x)
+        if self.do_clip:
+            mv = self._search_best_clip(head["lm_head"]["kernel"], hin)
+            scale_mod.apply_clip(head, "lm_head", mv)
+            self.all_clips.append([("lm_head", mv.cpu())])
+        return quantize_linear_params(head["lm_head"], self.qcfg)
+
+    def _resume_path(self, layer: int) -> Optional[str]:
+        if self.resume_dir is None:
+            return None
+        os.makedirs(self.resume_dir, exist_ok=True)
+        return os.path.join(self.resume_dir, f"layer_{layer:04d}.pt")
 
     def pack(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Pack an ``export_compatible`` result, on the device its weights
@@ -468,3 +490,19 @@ class AwqQuantizer:
         """The plugin's quantizable paths minus ``modules_to_not_convert``."""
         return [path for path in self.plugin.quantizable(self.cfg, lp)
                 if not any(skip in path for skip in self._skip)]
+
+
+def save_layer_ckpt(path: str, lp: Dict[str, Any], x: torch.Tensor) -> None:
+    """One finished layer's resume file: its packed tree and the activation
+    stream after it, as CPU tensors (a host copy of a layer kept on the
+    device), by ``torch.save`` to a temporary name, then ``os.replace`` (a
+    crash leaves no half-written file)."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"layer": to_device(lp, "cpu"), "x": x.detach().cpu()}, tmp)
+    os.replace(tmp, path)
+
+
+def load_layer_ckpt(path: str) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """(layer tree, activation stream) of a resume file, on the CPU."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return data["layer"], data["x"]

@@ -12,8 +12,9 @@ Phases, each printing JSON lines:
 
 1. device   — card name and count, torch / CUDA versions, nvidia-smi's name
               and power limit.
-2. build    — compiles the nine kernels from ``autoawq_tpu_torch/csrc`` (one
-              nvcc per source, in parallel) and prints ptxas' register and
+2. build    — compiles the eleven kernels from ``autoawq_tpu_torch/csrc``
+              (ten sources: K10 and K11 share one; one nvcc per source,
+              in parallel) and prints ptxas' register and
               shared-memory summary for each.
 3. kernels  — each kernel at the main path's shapes against its plain twin
               on the same inputs: max abs / rel error with the tolerance,
@@ -28,7 +29,12 @@ Phases, each printing JSON lines:
               at traffic D's prefill shapes (Mistral's four linears at
               M = 16,384; B=8, S=2048, 32/8 heads, hd 128). K7 and K9 also
               at their splits' edges and on a long table (8 slots of 4096
-              rows, timed with its bound and yardstick).
+              rows, timed with its bound and yardstick). K10 and K11 (K4's
+              backward) against the twin's gradients at traffic W's step
+              (B=4, S=512, 32/8 heads, hd 128; timed, with SDPA's backward
+              as the yardstick), TinyLlama's heads, GPT-J's hd 256, S =
+              300, B = 1 and a padded hd 96; K4's ``out`` bit-equal with
+              and without its log-sum-exp output.
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
@@ -74,7 +80,7 @@ Phases, each printing JSON lines:
               reused pages held exactly, then ``run(burst=16)`` against
               ``run(burst=1)`` on the same 8 requests.
               Then Mixtral-8x7B at full width, depth cut to
-              ``MIXTRAL_DEPTH`` (8) of 32 layers (8 experts, top-2, seed-0
+              ``MIXTRAL_DEPTH`` (4) of 32 layers (8 experts, top-2, seed-0
               weights drawn on the card, experts stacked). Traffic
               E: bs1, one 64-token prompt, bf16 cache of capacity 128.
               Traffic F: bs8, eight 512-token prompts, bf16 cache of
@@ -105,7 +111,18 @@ Phases, each printing JSON lines:
               the plain twins. Quality: 8 x 512 held-out tokens sampled
               from the float model at temperature 1; KL report and
               perplexity of AWQ and of round-to-nearest against it; AWQ's
-              mean KL must be below RTN's. Then Mistral-7B at full width,
+              mean KL must be below RTN's. The run quantizes the lm_head
+              too (``quantize_lm_head``, from the last layer's stream):
+              the checks above use the float head; the quantized head's KL
+              against it on the same held-out tokens, its save / reload
+              and its K1 launch a decode step (45) are held apart. The
+              model saved as gemv and gemv_fast, and a symmetric
+              round-to-nearest one as GEMM and marlin, each reloaded with
+              its greedy stream equal to its GEMM checkpoint's; save /
+              reload seconds through the native host packer. A
+              ``resume_dir`` run (2 layers, 32 x 512 ids) run again over
+              its own files: no layer searched, the tree equal, both
+              runs' seconds. Then Mistral-7B at full width,
               cut to ``QUANT_MISTRAL_LAYERS`` (1) of 32 layers: seconds a
               layer and peak memory.
               Then MPT-7B at full width, cut to ``QUANT_MPT_LAYERS`` (1) of 32
@@ -216,8 +233,20 @@ Phases, each printing JSON lines:
               ``max_seq_len`` 256, a 64-token prompt and 384 new tokens, so
               the cache rolls twice: roll count, tok/s, launches held (K1
               44, K3 22 a step), the step after a roll against the twins.
-10. a ``kernels`` line: every ported kernel with launches, error and times
-   (the mla_moe phase's K6 and K8 rows after the nine).
+10. train   — traffic W: LoRA fine-tuning of a quantized 7B.
+              Mistral-7B-Instruct-v0.2's config at full width and depth
+              (seed-0 W4 g128 weights drawn on the card, unfused), rank-8
+              f32 adapters on q, k, v and o, one batch of 4 x 512 seeded
+              ids, bf16, AdamW (``train/lora``). One step's launches held
+              exactly (K2 224, K4 32, K10 32, K11 32, nothing else), step
+              ms (min of 3), training tokens/s, a profile of one step,
+              peak memory; 16 AdamW steps with the last loss below the
+              first; on the first 2 and the first 16 layers
+              (``TRAIN_CHECK_LAYERS``), one step's loss and adapter
+              gradients (B drawn nonzero) against the plain route in bf16
+              and f32 by the teacher-forced style rule.
+11. a ``kernels`` line: every ported kernel with launches, error and times
+   (the mla_moe phase's K6 and K8 rows after the eleven).
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -255,7 +284,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe", "serve")
+          "mla_moe", "serve", "train")
 EXTRA_PHASES = ("prefill", "paged", "linears",
                 "decode_mlp_attn")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -355,10 +384,11 @@ MLA_MOE_GS = 64
 # first_k_dense_replace cut from 3 to 1, so one dense and one MoE layer)
 MLA_MOE_CUT_DEPTH = 2
 ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
-# Mixtral's traffics E and F at published width, depth cut to a quarter:
-# with the zoo, mla_moe and serve phases the script would otherwise run past
-# its time limit (16 layers took ~63 s more than 8)
-MIXTRAL_DEPTH = 8
+# Mixtral's traffics E and F at published width, depth cut to an eighth:
+# with the zoo, mla_moe, serve and train phases the script would otherwise
+# run past its time limit (16 layers took ~63 s more than 8, and 8 ~50 s
+# more than 4)
+MIXTRAL_DEPTH = 4
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
@@ -387,6 +417,22 @@ D_LINEARS = {"qkv": (4096, 6144), "o": (4096, 4096),
              "gate_up": (4096, 28672), "down": (14336, 4096)}
 D_M = 8 * 2048
 D_ATTN = (8, 2048, 32, 8, 128)
+# traffic W: LoRA fine-tuning of Mistral-7B (W4 g128, unfused, 32 layers),
+# rank-8 f32 adapters on q/k/v/o, 4 x 512 seeded ids a step, bf16; 16
+# AdamW steps on one batch. The gradient check against the plain route
+# runs on the first 2 and the first 16 layers: the f32 plain step keeps
+# every layer's dequantized f32 weights and f32 scores for its backward,
+# ~2.1 GB a layer, and at 16 random layers both bf16 routes' gradients sit
+# ~1 (relative L2) from f32 (bf16 rounding, amplified: the logits of
+# Mistral's random layers move by 0.15-0.74 of their scale), where 2
+# layers leave the rule room to catch a kernel's error
+TRAIN_BATCH = (4, 512)
+TRAIN_RANK = 8
+TRAIN_STEPS = 16
+TRAIN_LR = 1e-3
+TRAIN_CHECK_LAYERS = (2, 16)
+TRAIN_ATTN = (4, 512, 32, 8, 128)  # K4 / K10 / K11 at W's step
+BACKWARD_KERNELS = ("prefill_attention_dkv", "prefill_attention_dq")
 KERNEL_META = {
     "w4a16_gemv": ("autoawq_tpu_torch/csrc/w4a16_gemv.cu",
                    "autoawq_tpu/ops/pallas_gemm.py:98"),
@@ -406,6 +452,14 @@ KERNEL_META = {
                    "autoawq_tpu/ops/paged_attn.py:40"),
     "paged_attn_stock": ("autoawq_tpu_torch/csrc/paged_attn_stock.cu",
                          "autoawq_tpu/nn/modules.py:459"),
+    # jax's stock backward kernels of the flash attention K4 replaces
+    # (jax 0.9.0), which the JAX package runs when it trains
+    "prefill_attention_dkv": (
+        "autoawq_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "prefill_attention_dq": (
+        "autoawq_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
 # tolerances, as max |kernel - twin| / max |twin| on the same inputs:
 # K1 keeps q - z exact and scales each group's f32 sum once, where the twin
@@ -445,11 +499,22 @@ KERNEL_META = {
 # and, with a group of 8 query heads, rounds its running output to bf16
 # after every block of pages as the stock kernel does: two bf16 ulps of the
 # row maximum, 2^-6, as K4's and K5's limit.
+# K10 and K11 are held per gradient tensor (dq; dk and dv), as
+# max |kernel - twin| / max |twin|: both round P and dS (the twin its
+# probabilities and the gradients at its bf16 casts) to bf16 and sum in f32
+# in other orders, and dS = P (dP - D) cancels where dP is near D, so a
+# sound kernel differs by a few bf16 ulps of the tensor's scale (the H100
+# read at most 0.0067 over six shapes in a first run); the limit is 2e-2.
+# Traffic W's gradients are held by the teacher-forced style rule: each
+# adapter gradient's relative L2 distance from an f32 plain step within
+# twice the bf16 plain step's plus a floor of 1e-2 (about 2.5 bf16 ulps of
+# rounding carried through the layers); the same for the loss.
 TOL = {"w4a16_gemv": 1e-2, "w4a16_gemm": 1e-2, "fused_mlp": 2e-2,
        "prefill_attention": 2 ** -6, "fused_attn_step": 2 ** -6,
        "fused_attn_step_kv": 2 ** -7, "moe_gemm": 1e-2, "moe_mlp": 2e-2,
        "moe_block": 2e-2, "fused_mlp3": 2e-2, "paged_attn": 1e-4,
-       "paged_attn_stock": 2 ** -6}
+       "paged_attn_stock": 2 ** -6, "prefill_attention_bwd": 2e-2,
+       "train_grad_floor": 1e-2}
 # the paged pools of traffics H-K (CHIP_AB_R5_PAGED.json's pool for H, I
 # and J; scripts/bench_serve.py's paged configuration for K)
 PAGED_POOL = dict(max_batch=8, page_size=64, pages_per_seq=8,
@@ -774,6 +839,80 @@ def _attn_case(b, s, nh, nkv, hd, dev, timing=True, iters=200,
         row["library"] = "torch scaled_dot_product_attention (causal)"
     emit(row)
     return row
+
+
+def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20):
+    """K10 and K11 against the twin's gradients (autograd through
+    ``prefill_attention_plain``) on the same inputs, each gradient tensor
+    held relative to its max |twin|; K4's ``out`` bit-equal with and
+    without its log-sum-exp output. With ``timing``: each kernel's time,
+    bound (operations: K10 four causal matmuls, K11 three), the twin's
+    whole backward and SDPA's backward at the same shape (the yardstick,
+    never on the path). Returns the two kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from autoawq_tpu_torch.ops import attention as at
+
+    q = torch.randn(b, s, nh, hd, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, nkv, hd, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, s, nkv, hd, device=dev).to(torch.bfloat16)
+    dout = torch.randn(b, s, nh * hd, device=dev).to(torch.bfloat16)
+    scale = hd ** -0.5
+    out, lse = at.prefill_attention_lse(q, k, v, scale)
+    same = torch.equal(out, at.prefill_attention(q, k, v, scale))
+    check(same, f"prefill_attention {case}: out changes with the LSE output")
+    ops = at.bwd_inputs(q, k, v, out, lse, dout)
+    dk, dv = at.launch_dkv(ops, scale)
+    dq = at.launch_dq(ops, scale)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = at.prefill_attention_plain(*leaves, scale)
+    twin = torch.autograd.grad(ref, leaves, dout, retain_graph=timing)
+    torch.cuda.synchronize()
+    rows = {}
+    for name, grads in (("prefill_attention_dkv", ((dk, twin[1]),
+                                                   (dv, twin[2]))),
+                        ("prefill_attention_dq", ((dq, twin[0]),))):
+        errs = [rel_err(g[..., :hd], r) for g, r in grads]
+        worst = max(e[1] for e in errs)
+        rows[name] = {"phase": "kernel", "kernel": name, "case": case,
+                      "B": b, "S": s, "nh": nh, "nkv": nkv, "hd": hd,
+                      "max_abs_err": max(e[0] for e in errs),
+                      "max_rel_err": worst, "out_bits_equal": same,
+                      "tol": TOL["prefill_attention_bwd"]}
+        check(worst <= TOL["prefill_attention_bwd"],
+              f"{name} {case}: rel err {worst:.3g} > "
+              f"{TOL['prefill_attention_bwd']}")
+    if timing:
+        pairs = b * nh * s * (s + 1) / 2  # causal (query, key) pairs
+        tensor = 2 * b * s * hd  # bytes of one [B, S, heads=1, hd] bf16
+        rows_in = tensor * (2 * nh + 2 * nkv) + 8 * b * nh * s  # q dO k v
+        for name, fn, n_mm, written in (
+                ("prefill_attention_dkv", at.launch_dkv, 4, 2 * nkv),
+                ("prefill_attention_dq", at.launch_dq, 3, nh)):
+            r = rows[name]
+            r["ms"], r["eager_ms"] = time_ms(fn, [[ops, scale]], iters)
+            r["bound_ms"], r["bound_by"] = bound(
+                rows_in + tensor * written, n_mm * 2 * hd * pairs)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dsd = dout.view(b, s, nh, hd).transpose(1, 2)
+        library, _ = time_ms(lambda: torch.autograd.grad(
+            sd, (qt, kt, vt), dsd, retain_graph=True), [[]], iters,
+            graph=False)
+        plain, _ = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, dout, retain_graph=True), [[]], min(iters, 5),
+            graph=False)
+        for r in rows.values():
+            r["plain_ms"], r["library_ms"] = plain, library
+            r["plain"] = "the twin's whole backward (dq, dk and dv)"
+            r["library"] = ("torch scaled_dot_product_attention's backward "
+                            "(causal, GQA; dq, dk and dv)")
+    for r in rows.values():
+        emit(r)
+    return rows
 
 
 def _k5_case(rng, case, model, b, t, vl, dev, int8=False, window=None,
@@ -1218,6 +1357,15 @@ def phase_kernels(dev):
     _attn_case(*D_ATTN, dev, iters=10, case="D prefill")
     for hd in (128, 96, 256):  # 96 is zero-padded to K4's 128 instance
         _attn_case(1, 200, 8, 2, hd, dev, timing=False)
+    # K10 and K11 at traffic W's step (Mistral's heads), then TinyLlama's,
+    # GPT-J's hd 256, a length off the 64-row tiles, B = 1 and a padded hd
+    rep.update(_attn_bwd_case("W: Mistral", *TRAIN_ATTN, dev))
+    for case, shape in (("TinyLlama", (2, 384, 32, 4, 64)),
+                        ("GPT-J hd 256", (2, 384, 16, 16, 256)),
+                        ("S = 300", (2, 300, 32, 8, 128)),
+                        ("B = 1", (1, 512, 32, 8, 128)),
+                        ("hd 96, padded", (1, 200, 8, 2, 96))):
+        _attn_bwd_case(case, *shape, dev, timing=False)
     # K5 at traffic C's and D's last decode step, then the edge shapes
     rep["fused_attn_step"] = _k5_case(rng, "C: Mistral bf16", MISTRAL, 8,
                                       128, 127, dev)
@@ -1496,7 +1644,10 @@ def phase_e2e(dev):
     counts.update(counts_ef)
     total = {k: sum(c[k] for c in counts.values()) for k in counts["A"]}
     for name, n in total.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+        # K4's backward launches only in the train phase, which holds its
+        # launches a step exactly
+        if name not in BACKWARD_KERNELS:
+            check(n > 0, f"kernel {name} never launched on the main path")
     return total, {"A": per_token, "G": per_token_g, **per_step_cd,
                    **per_step_ef}
 
@@ -2876,13 +3027,22 @@ def phase_quantize(dev):
     t = time.perf_counter()
     model.quantize(calib_data=calib, quant_config=qcfg,
                    max_calib_samples=QUANT_CALIB[0],
-                   max_calib_seq_len=QUANT_CALIB[1], progress=False)
+                   max_calib_seq_len=QUANT_CALIB[1], progress=False,
+                   quantize_lm_head=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     q = model._quantizer
+    # the head is quantized after every layer, from the last layer's
+    # stream, so the head-float model of [2] and [3] is these layers with
+    # the float head; [3b] serves the quantized head
+    head_q = model.params["lm_head"]
+    model.params["lm_head"] = fp["lm_head"]
+    check("qweight" in head_q, "quantize: lm_head not quantized")
     emit({"phase": "quantize", "step": "quantize", "model": "tinyllama",
           "layers": cfg.num_hidden_layers, "calib": list(QUANT_CALIB),
-          "recipe": "g128, zero point, scale and clip search, f32",
+          "recipe": "g128, zero point, scale and clip search, f32; "
+                    "quantize_lm_head (the head's clip search and packing "
+                    "in the seconds)",
           "seconds": seconds, "seconds_by_part": _quant_timings(q, seconds),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "layer0_ratio_index": _ratio_indices(q)})
@@ -2925,7 +3085,25 @@ def phase_quantize(dev):
               f"launched {name}")
     emit({"phase": "quantize", "step": "serve", "save_s": t_save,
           "load_s": t_load, "bit_equal_linears": not mismatched,
+          "packer": "native (core/native)",
           "launches": counts, "new_tokens": out_a[0, 64:].tolist()})
+    # [2b] the same model saved as gemv and gemv_fast, and a symmetric
+    # (zero_point=False, round-to-nearest) one as GEMM and marlin: each
+    # reload's greedy stream equals its GEMM checkpoint's
+    _version_checks(cfg, model.params, qcfg, out_a, prompt_a,
+                    ("gemv", "gemv_fast"), dev)
+    sym_qcfg = dataclasses.replace(qcfg, zero_point=False)
+    sym = _rtn(cfg, fp, sym_qcfg)
+    path = os.path.join(BUILD_DIR, "quant_ckpt")
+    try:
+        AwqCausalLM(cfg, sym, sym_qcfg, device=dev).save_quantized(path)
+        sym_out = AwqCausalLM.from_quantized(
+            path, fuse_layers=True, device=dev).generate(
+                prompt_a, max_new_tokens=32)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    _version_checks(cfg, sym, sym_qcfg, sym_out, prompt_a, ("marlin",), dev)
+    del sym
     for name, prompt, steps in (("Q-A", prompt_a, 8), ("Q-B", prompt_b, 1)):
         rows = _teacher_forced(cfg, served.params, prompt, steps)
         _check_teacher_forced(name, rows)
@@ -2934,8 +3112,15 @@ def phase_quantize(dev):
     del served
 
     # [3] quality: AWQ against round-to-nearest, against the float model
-    _quality("tinyllama", cfg, fp, model.params, qcfg, dev)
-    del model, fp, q
+    held = _quality("tinyllama", cfg, fp, model.params, qcfg, dev)
+    # [3b] the quantized head: KL against the head-float model, saved and
+    # reloaded, one K1 launch a decode step
+    _head_checks(cfg, model.params, head_q, qcfg, held, prompt_a, dev)
+    del model, fp, q, head_q
+    # [3c] per-layer calibration resume: TinyLlama at full width, 2 layers
+    # on 32 x 512 ids, run, then run again over its own files
+    _resume_check(dataclasses.replace(cfg, num_hidden_layers=2), calib[:32],
+                  qcfg, dev)
 
     # [4] Mistral-7B at full width, depth cut: seconds a layer
     mcfg = dataclasses.replace(ModelConfig(**MISTRAL),
@@ -3033,6 +3218,147 @@ def _quality(name, cfg, fp, params, qcfg, dev):
           and math.isfinite(ppl_fp), f"quantize: {name}: non-finite "
           "perplexity")
     emit({"phase": "quantize", "step": "quality", "model": name, **quality})
+    return held
+
+
+def _version_checks(cfg, params, qcfg, want, prompt, versions, dev):
+    """``params`` saved in each AutoAWQ version and reloaded (fused): the
+    greedy stream of ``prompt`` equals ``want`` (its GEMM checkpoint's),
+    with the save / load seconds."""
+    import dataclasses
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+
+    for version in versions:
+        vq = dataclasses.replace(qcfg, version=version)
+        path = os.path.join(BUILD_DIR, f"quant_ckpt_{version}")
+        shutil.rmtree(path, ignore_errors=True)
+        try:
+            t = time.perf_counter()
+            AwqCausalLM(cfg, params, vq, device=dev).save_quantized(path)
+            t_save = time.perf_counter() - t
+            t = time.perf_counter()
+            served = AwqCausalLM.from_quantized(path, fuse_layers=True,
+                                                device=dev)
+            t_load = time.perf_counter() - t
+            check(served.quant_config.version == version,
+                  f"quantize: {version} checkpoint read as "
+                  f"{served.quant_config.version}")
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        got = served.generate(prompt, max_new_tokens=want.shape[1]
+                              - prompt.shape[1])
+        same = bool(torch_equal(got, want))
+        check(same, f"quantize: the {version} checkpoint's greedy stream "
+              "differs from the GEMM checkpoint's")
+        emit({"phase": "quantize", "step": "version", "version": version,
+              "zero_point": qcfg.zero_point, "save_s": t_save,
+              "load_s": t_load, "stream_equal_gemm": same})
+        del served
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _head_checks(cfg, params, head_q, qcfg, held, prompt, dev):
+    """The quantized lm_head (``quantize_lm_head``): KL of the model with
+    it against the head-float model on the held-out tokens; saved and
+    reloaded with its nibbles, zeros and (fp16) scales; served, with one K1
+    launch a decode step for the head."""
+    import torch
+
+    from autoawq_tpu_torch import AwqCausalLM
+    from autoawq_tpu_torch.eval.perplexity import kl_divergence_report
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+
+    hq = {**params, "lm_head": head_q}
+    rep = kl_divergence_report(cfg, params, cfg, hq, held.cpu().numpy(),
+                               method="plain")
+    path = os.path.join(BUILD_DIR, "quant_ckpt_head")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        AwqCausalLM(cfg, hq, qcfg, device=dev).save_quantized(path)
+        served = AwqCausalLM.from_quantized(path, fuse_layers=True,
+                                            device=dev)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    back = served.params["lm_head"]
+    same = (torch.equal(back["qweight"], head_q["qweight"])
+            and torch.equal(back["qzeros"], head_q["qzeros"])
+            and torch.equal(back["scales"], head_q["scales"].half().float()))
+    check(same, "quantize: the reloaded lm_head differs")
+    launches = []
+    for n in (4, 8):
+        _build.reset_launches()
+        served.generate(prompt, max_new_tokens=n)
+        launches.append(dict(_build.LAUNCHES))
+    per_step = {k: (launches[1][k] - launches[0][k]) / 4
+                for k in launches[0]}
+    expect = 2 * cfg.num_hidden_layers + 1  # qkv and o a layer, the head
+    check(per_step["w4a16_gemv"] == expect,
+          f"quantize: {per_step['w4a16_gemv']} K1 launches a decode step "
+          f"with the quantized head, expected {expect}")
+    check(math.isfinite(rep["kl_mean"]), "quantize: head KL not finite")
+    emit({"phase": "quantize", "step": "lm_head", "model": "tinyllama",
+          "kl_vs_head_float": rep, "reload_equal": same,
+          "launches_per_decode_step": per_step})
+    del served
+
+
+def _resume_check(cfg, calib, qcfg, dev):
+    """A ``resume_dir`` run, then the same run over its own files: every
+    layer read back (no layer searched), the tree exactly equal, and both
+    runs' seconds."""
+    import torch
+
+    from autoawq_tpu_torch.ops._build import BUILD_DIR
+    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
+
+    path = os.path.join(BUILD_DIR, "resume")
+    shutil.rmtree(path, ignore_errors=True)
+    fp = _outlier_fp(cfg, dev)
+    outs, secs, searched = [], [], []
+    try:
+        for _ in range(2):
+            q = AwqQuantizer(cfg, qcfg, fp, calib, progress=False,
+                             keep_on_device=True, resume_dir=path,
+                             device=dev)
+            t = time.perf_counter()
+            outs.append(q.quantize())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            searched.append(len(q.all_scales))
+        files = sorted(os.listdir(path))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    same = _trees_equal(outs[0], outs[1])
+    check(searched == [cfg.num_hidden_layers, 0] and same
+          and len(files) == cfg.num_hidden_layers,
+          f"quantize: resume: layers searched {searched}, files {files}, "
+          f"trees equal {same}")
+    emit({"phase": "quantize", "step": "resume", "model": "tinyllama",
+          "layers": cfg.num_hidden_layers, "calib": list(calib.shape),
+          "first_s": secs[0], "resumed_s": secs[1],
+          "layers_searched": searched, "tree_equal": same})
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_trees_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a, b)))
+    return a == b
 
 
 def _quantize_cut(name, cfg, published_layers, fp, calib, qcfg, dev):
@@ -4814,6 +5140,196 @@ def phase_serve(dev):
                    for t, per in per_step.items()}
 
 
+def _unfused(cfg, params):
+    """A fused tree of ``synth_zoo_on_card`` split back into q/k/v and
+    gate/up (column slices of the port's layout, made contiguous), the
+    layout LoRA trains on (``nn/fuse`` refuses adapters)."""
+    nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim_)
+    inter = cfg.intermediate_size
+
+    def cols(lin, lo, hi):
+        return {k: v[:, lo:hi].contiguous() for k, v in lin.items()}
+
+    for lp in params["layers"]:
+        qkv = lp["self_attn"].pop("qkv_proj")
+        bounds = (0, nh * hd, (nh + nkv) * hd, (nh + 2 * nkv) * hd)
+        for name, lo, hi in zip(("q_proj", "k_proj", "v_proj"), bounds,
+                                bounds[1:]):
+            lp["self_attn"][name] = cols(qkv, lo, hi)
+        gu = lp["mlp"].pop("gate_up_proj")
+        lp["mlp"]["gate_proj"] = cols(gu, 0, inter)
+        lp["mlp"]["up_proj"] = cols(gu, inter, 2 * inter)
+    return params
+
+
+def _own_attn(params, layers):
+    """The first ``layers`` layers of ``params`` with their own attention
+    LIN dicts (sharing the tensors), so adapters added to them leave
+    ``params`` as it is."""
+    return {**params, "layers": [
+        dict(lp, self_attn={n: dict(lin) for n, lin in
+                            lp["self_attn"].items()})
+        for lp in params["layers"][:layers]]}
+
+
+def _grad_rows(got, ref, plain):
+    """Per adapter gradient: relative L2 distances of the kernel route and
+    the bf16 plain route from the f32 plain step, and whether the kernel
+    route keeps within twice the plain route's plus the floor; beside them
+    (not in the rule) the kernel route's distance from the bf16 plain
+    route, relative to the f32 gradient's norm."""
+    rows = []
+    for g, r, p in zip(got, ref, plain):
+        den = max(r.float().norm().item(), 1e-30)
+        k = (g.float() - r.float()).norm().item() / den
+        b = (p.float() - r.float()).norm().item() / den
+        rows.append({"kernel_vs_f32": k, "plain_bf16_vs_f32": b,
+                     "kernel_vs_plain_bf16": (g.float() - p.float()).norm()
+                     .item() / den,
+                     "ok": k <= 2 * b + TOL["train_grad_floor"]})
+    return rows
+
+
+def _train_grad_check(cfg, base_params, tokens, depth, dev):
+    """Check (a) of traffic W on the first ``depth`` layers: one step's
+    loss and adapter gradients (A from ``add_lora``, B drawn nonzero so
+    that A has a gradient) on the kernel route, held against the plain
+    route in bf16 and in f32 by the teacher-forced style rule."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.train import lora
+
+    ccfg = dataclasses.replace(cfg, num_hidden_layers=depth)
+    cut = _own_attn(base_params, depth)
+    lora.add_lora(ccfg, cut, rank=TRAIN_RANK, seed=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for lp in cut["layers"]:
+        for lin in lp["self_attn"].values():
+            lin["lora_b"] = torch.randn(lin["lora_b"].shape, generator=gen,
+                                        device=dev) * 1e-2
+    adapters, base = lora.split_lora(cut)
+    runs = {}
+    for name, method, dt in (("kernel", "auto", torch.bfloat16),
+                             ("plain", "plain", torch.bfloat16),
+                             ("plain_f32", "plain", torch.float32)):
+        t = time.perf_counter()
+        loss, grads = lora.lora_loss_and_grads(ccfg, adapters, base, tokens,
+                                               method, dt)
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), grads, time.perf_counter() - t)
+    rows = _grad_rows(runs["kernel"][1], runs["plain_f32"][1],
+                      runs["plain"][1])
+    lk, lp_, lf = (runs[n][0] for n in ("kernel", "plain", "plain_f32"))
+    loss_ok = abs(lk - lf) <= 2 * abs(lp_ - lf) + TOL[
+        "train_grad_floor"] * abs(lf)
+    check(loss_ok and all(r["ok"] for r in rows),
+          f"train W ({depth} layers): kernel route outside the rule: loss "
+          f"{lk:.6g} (plain {lp_:.6g}, f32 {lf:.6g}), "
+          f"{sum(not r['ok'] for r in rows)} of {len(rows)} gradients")
+    emit({"phase": "train", "step": "kernel_vs_plain", "traffic": "W",
+          "layers": depth, "loss": {"kernel": lk, "plain": lp_,
+                                    "plain_f32": lf},
+          "seconds": {n: r[2] for n, r in runs.items()},
+          "worst_kernel_vs_f32": max(r["kernel_vs_f32"] for r in rows),
+          "worst_plain_bf16_vs_f32": max(r["plain_bf16_vs_f32"]
+                                         for r in rows),
+          "worst_kernel_vs_plain_bf16": max(r["kernel_vs_plain_bf16"]
+                                            for r in rows),
+          "gradients": rows})
+
+
+def phase_train(dev):
+    """Traffic W: LoRA fine-tuning of a quantized 7B on the card.
+    Mistral-7B-Instruct-v0.2's config at full width and depth (seed-0 W4
+    g128 weights drawn on the card, unfused), rank-8 f32 adapters on q, k,
+    v and o (``train/lora.add_lora``), one fixed batch of 4 x 512 seeded
+    ids, bf16 activations, the kernel route (K2 forward, dx by the
+    dequantized product; K4 forward, K10 / K11 backward). (c) exact
+    launches of one step; the step's milliseconds (min of 3), training
+    tokens/s, a profile of one step and the peak memory; (b) 16 AdamW
+    steps, the last loss below the first; (a) on the first 2 and 16
+    layers (``TRAIN_CHECK_LAYERS``), one step's loss and adapter gradients
+    against the plain route in bf16 and in f32. Returns (launch counts of
+    the phase's kernel-route steps, launches a step)."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.train import lora
+
+    cfg = ModelConfig(**MISTRAL)
+    layers = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    base_params = _unfused(cfg, synth_zoo_on_card(cfg, 0, dev))
+    torch.cuda.synchronize()
+    emit({"phase": "train", "model": "mistral-7b", "step": "synth",
+          "layers": layers, "seconds": time.perf_counter() - t})
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, TRAIN_BATCH)).to(dev)
+    bf = torch.bfloat16
+    params = _own_attn(base_params, layers)
+    lora.add_lora(cfg, params, rank=TRAIN_RANK, seed=0)
+    adapters, base = lora.split_lora(params)
+    opt = lora.make_optimizer(adapters, "adamw", lr=TRAIN_LR)
+
+    # (c) one step's launches, then the step's time and profile
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses = [lora.lora_train_step_opt(cfg, adapters, base, opt, tokens,
+                                       dtype=bf).item()]
+    torch.cuda.synchronize()
+    per_step = dict(_build.LAUNCHES)
+    expect = {"w4a16_gemm": 7 * layers, "prefill_attention": layers,
+              "prefill_attention_dkv": layers,
+              "prefill_attention_dq": layers}
+    wrong = {k: n for k, n in per_step.items() if n != expect.get(k, 0)}
+    check(not wrong, f"train W: launches a step {wrong}, expected {expect} "
+          "and no other kernel")
+    counts = dict(per_step)
+    step_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        losses.append(lora.lora_train_step_opt(cfg, adapters, base, opt,
+                                               tokens, dtype=bf).item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    prof = device_profile(
+        lambda i: losses.append(lora.lora_train_step_opt(
+            cfg, adapters, base, opt, tokens, dtype=bf).item()), 1,
+        match=("w4a16_gemm", "prefill_attn", "dkv_kernel", "dq_kernel"))
+    peak = torch.cuda.max_memory_allocated()
+    # (b) the rest of the 16 steps on the same batch
+    while len(losses) < TRAIN_STEPS:
+        losses.append(lora.lora_train_step_opt(cfg, adapters, base, opt,
+                                               tokens, dtype=bf).item())
+    torch.cuda.synchronize()
+    for k_ in counts:
+        counts[k_] = _build.LAUNCHES[k_]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train W: loss {losses[0]:.5g} -> {losses[-1]:.5g} over "
+          f"{TRAIN_STEPS} AdamW steps")
+    tok = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    emit({"phase": "train", "traffic": "W", "card": card(),
+          "layers": layers, "batch": list(TRAIN_BATCH), "rank": TRAIN_RANK,
+          "lr": TRAIN_LR, "step_ms": step_ms, "step_ms_min": min(step_ms),
+          "train_tokens_per_s": tok / (min(step_ms) / 1e3),
+          "launches_per_step": per_step, "losses": losses,
+          "peak_memory_bytes": peak, "profile": prof})
+    del adapters, base, params, opt
+    # (a) gradients against the plain route, on the first layers
+    for depth in TRAIN_CHECK_LAYERS:
+        _train_grad_check(cfg, base_params, tokens, depth, dev)
+    del base_params
+    torch.cuda.empty_cache()
+    return counts, {"W": per_step}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4887,6 +5403,11 @@ def main(argv=None) -> int:
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "train" in phases:
+        counts, per_step = timed("train", phase_train, dev)
+        per_token.update(per_step)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:
@@ -4897,7 +5418,7 @@ def main(argv=None) -> int:
         timed("decode_mlp_attn", phase_decode_mlp_attn, dev)
     if rep:
         kernels = []
-        # the nine kernels' representative rows, then the mla_moe phase's
+        # the eleven kernels' representative rows, then the mla_moe phase's
         # K6 and K8 rows at their own shapes
         for name, r in [(n, rep[n]) for n in KERNEL_META] + [
                 (r["kernel"], r) for r in extra_rows]:

@@ -1243,3 +1243,117 @@ def test_card_quantized_mla_model_serves_as_its_reload(cuda, tmp_path):
     assert _build.LAUNCHES["w4a16_gemv"] > before["w4a16_gemv"]
     assert torch.equal(got, gen.generate(cfg, bare, prompt, 8))
     assert torch.equal(got, loaded.generate(prompt, max_new_tokens=8))
+
+
+# --------------------------------------------------------------- training
+# K10 / K11 (K4's backward) and the W4A16 Function's backward against the
+# twins' autograd gradients, each gradient tensor at 2e-2 of its max |twin|
+# (both round P and dS, or the twin's probabilities and cast gradients, to
+# bf16 and sum in f32 in other orders); dx at 1e-2 (a bf16 product on the
+# same bf16-rounded weights).
+
+@pytest.mark.parametrize("b,s,nh,nkv,hd,strided", [
+    (4, 512, 32, 8, 128, False),  # traffic W's step
+    (2, 384, 32, 4, 64, False), (2, 384, 16, 16, 256, False),
+    (2, 300, 32, 8, 128, True), (1, 512, 32, 8, 128, False),
+    (1, 200, 8, 2, 96, True), (1, 64, 2, 1, 64, False)])
+def test_prefill_attention_backward(cuda, b, s, nh, nkv, hd, strided):
+    q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
+    kv = torch.randn(b, s, 2 * nkv, hd, device=cuda).to(torch.bfloat16)
+    if not strided:
+        kv = kv.contiguous()
+    q.requires_grad_()
+    kv.requires_grad_()
+    dout = torch.randn(b, s, nh * hd, device=cuda).to(torch.bfloat16)
+    scale = hd ** -0.5
+    names = ("prefill_attention", "prefill_attention_dkv",
+             "prefill_attention_dq")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    out = attention.prefill_attention(q, kv[:, :, :nkv], kv[:, :, nkv:],
+                                      scale)
+    got = torch.autograd.grad(out, (q, kv), dout)
+    assert all(_build.LAUNCHES[n] == before[n] + 1 for n in names)
+    ref = attention.prefill_attention_plain(q, kv[:, :, :nkv],
+                                            kv[:, :, nkv:], scale)
+    want = torch.autograd.grad(ref, (q, kv), dout)
+    assert row_rel(out, ref, hd) <= 2 ** -6
+    assert rel(got[0], want[0]) <= 2e-2
+    for half in (slice(0, nkv), slice(nkv, 2 * nkv)):  # dk, dv
+        assert rel(got[1][:, :, half], want[1][:, :, half]) <= 2e-2
+
+
+@pytest.mark.parametrize("b,s,nh,nkv,hd", [
+    (2, 384, 32, 4, 64), (1, 300, 8, 2, 96), (2, 256, 16, 16, 256)])
+def test_prefill_attention_lse_keeps_out(cuda, b, s, nh, nkv, hd):
+    q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(b, s, nkv, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(b, s, nkv, hd, device=cuda).to(torch.bfloat16)
+    scale = hd ** -0.5
+    out, lse = attention.prefill_attention_lse(q, k, v, scale)
+    assert torch.equal(out, attention.prefill_attention(q, k, v, scale))
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.repeat_interleave(
+        nh // nkv, 2).float()) * scale
+    keep = torch.ones(s, s, dtype=torch.bool, device=cuda).tril()
+    want = torch.logsumexp(scores.masked_fill(~keep, float("-inf")), -1)
+    assert (lse - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("m,k,n,gs,zp,out_features", [
+    (300, 2048, 2560, 128, True, 2560), (512, 512, 1000, 64, False, 997),
+    (16, 2048, 2048, 128, True, 2048)])
+def test_awq_matmul_backward(cuda, rng, m, k, n, gs, zp, out_features):
+    w = lin(rng, k, n, gs, zp, cuda)
+    x = (torch.randn(m, k, device=cuda) * 0.5).to(torch.bfloat16)
+    g = torch.randn(m, out_features, device=cuda).to(torch.bfloat16)
+    kernel = "w4a16_gemm" if m >= gemm.WS_MIN_M else "w4a16_gemv"
+    before = _build.LAUNCHES[kernel]
+    xg = x.clone().requires_grad_()
+    y = gemm.awq_matmul(xg, *w, out_features=out_features)
+    (dx,) = torch.autograd.grad(y, xg, g)
+    assert _build.LAUNCHES[kernel] == before + 1
+    xp = x.clone().requires_grad_()
+    ref = gemm.awq_matmul(xp, *w, out_features=out_features, method="plain")
+    (want,) = torch.autograd.grad(ref, xp, g)
+    assert y.shape == ref.shape and dx.shape == x.shape
+    assert rel(y, ref) <= 1e-2
+    assert rel(dx, want) <= 1e-2
+
+
+def test_inference_launches_unchanged_without_grad(cuda):
+    """Grad enabled, but nothing requires grad: the forward takes the
+    inference kernels with the same launches and bits as under
+    ``inference_mode``, and no backward kernel runs; a LoRA step on the
+    same model launches K2 7 times a layer, K4 / K10 / K11 once."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.train import lora
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(model_type="llama", vocab_size=512, hidden_size=512,
+                      intermediate_size=1024, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=2,
+                      head_dim=64, max_position_embeddings=512)
+    params = random_quantized_params(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, 512, (2, 256), device=cuda)
+    runs = []
+    for ctx in (torch.inference_mode, torch.enable_grad):
+        _build.reset_launches()
+        with ctx():
+            logits = modules.forward(cfg, params, tokens,
+                                     dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        runs.append((logits, dict(_build.LAUNCHES)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+    assert runs[1][1]["prefill_attention_dkv"] == 0
+    assert runs[1][1]["w4a16_gemm"] == 7 * 2
+    lora.add_lora(cfg, params, rank=4)
+    adapters, base = lora.split_lora(params)
+    _build.reset_launches()
+    loss, grads = lora.lora_loss_and_grads(cfg, adapters, base, tokens,
+                                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and len(grads) == 16
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == {
+        "w4a16_gemm": 14, "prefill_attention": 2,
+        "prefill_attention_dkv": 2, "prefill_attention_dq": 2}

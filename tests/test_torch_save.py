@@ -32,6 +32,7 @@ from autoawq_tpu_torch.io import hf, serialize
 from autoawq_tpu_torch.io.safetensors import load_file
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
+from autoawq_tpu_torch.utils.synth import random_quantized_params
 from autoawq_tpu_torch.utils.tree import get_by_path, iter_linears
 
 LLAMA = dict(model_type="llama", vocab_size=256, hidden_size=128,
@@ -298,10 +299,17 @@ def test_export_compatible_then_pack_through_the_facade(tmp_path, rng):
 
 
 def test_save_refuses_other_versions(tmp_path):
+    """gemv, gemv_fast and marlin are written now (their parity cases are in
+    tests/test_torch_interop.py); what stays refused is a layout the
+    weights cannot take, marlin with zero points, and an unquantized
+    model."""
     cfg = ModelConfig(**LLAMA)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    params = random_quantized_params(cfg, seed=0, group_size=32,
+                                     device="cpu")
+    with pytest.raises(ValueError, match="symmetric"):
         serialize.save_quantized(str(tmp_path), cfg,
-                                 AwqConfig(version="gemv"), {})
+                                 AwqConfig(q_group_size=32,
+                                           version="marlin"), params)
     with pytest.raises(RuntimeError, match="not quantized"):
         AwqCausalLM(cfg, {}, device="cpu").save_quantized(str(tmp_path))
 
