@@ -307,27 +307,13 @@ __device__ __forceinline__ void gemm_block(const Params& p,
   }
 }
 
-// Host side: the driver's cuTensorMapEncodeTiled, reached through the
-// runtime, and a 2-D tensor map over a row-major [rows, cols] array (cols
+// Host side: a 2-D tensor map over a row-major [rows, cols] array (cols
 // innermost), boxes of [box_rows, box_cols]; out-of-bounds elements read
 // as zeros.
-inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
 inline bool map_2d(CUtensorMap* m, CUtensorMapDataType type, int elem_bytes,
                    const void* base, long long rows, int cols, int box_rows,
                    int box_cols, CUtensorMapSwizzle swizzle) {
-  auto fn = encode_fn();
+  auto fn = hop::tensor_map_encoder();
   if (fn == nullptr) return false;
   cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                         static_cast<cuuint64_t>(rows)};

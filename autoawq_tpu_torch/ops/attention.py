@@ -24,13 +24,14 @@ K11 (dQ).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from autoawq_tpu_torch.ops import _build
 
 HEAD_DIMS = (64, 128, 256)  # head dims K4, K10 and K11 are built for
+BWD_TILE = 64  # rows of K10's and K11's tiles (queries or keys)
 
 
 def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -146,6 +147,31 @@ def bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd_pad != hd:
         do = torch.nn.functional.pad(do, (0, hd_pad - hd))
     return qp, kp, vp, do.contiguous(), lse.contiguous(), delta, hd_pad
+
+
+def bwd_schedule(s: int, hd: int
+                 ) -> Tuple[List[Tuple[int, ...]], List[int],
+                            List[Tuple[int, ...]], List[int]]:
+    """The causal schedules K10 and K11 launch at sequence length ``s`` and
+    (padded) head dim ``hd``, along the tile axis of one (head, batch):
+    (K10's key tiles and steps a query head for each CTA, K11's query tiles
+    and key tiles streamed for each work item). K10's CTA p takes key tile
+    p and its mirror ``nq - 1 - p`` and walks, for each query head of its
+    group, the query tiles at or after each (``nq - kt`` steps). K11's work
+    item p takes query tile p of 128 rows (two warpgroups of 64; 64 rows,
+    one warpgroup, at hd 256) and its mirror, and streams the key tiles up
+    to each one's diagonal; one persistent CTA per SM walks the items of
+    all heads. Pairing a tile with its mirror gives every CTA (K10) or
+    item (K11) the same work (the middle tile of an odd count rides
+    alone)."""
+    nq = -(-s // BWD_TILE)
+    dkv = [tuple(sorted({p, nq - 1 - p})) for p in range((nq + 1) // 2)]
+    rows = BWD_TILE * (2 if hd <= 128 else 1)
+    nr = -(-s // rows)
+    dq = [tuple(sorted({p, nr - 1 - p})) for p in range((nr + 1) // 2)]
+    return (dkv, [sum(nq - kt for kt in c) for c in dkv], dq,
+            [sum(min((t + 1) * rows // BWD_TILE, nq) for t in c)
+             for c in dq])
 
 
 def _common(ops, scale):

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --root DIR --phases device,paged     # A/B
     python3 chip_smoke.py --root DIR --phases device,linears   # A/B
     python3 chip_smoke.py --root DIR --phases device,decode_mlp_attn  # A/B
+    python3 chip_smoke.py --root DIR --phases device,attn_bwd  # A/B
 
 Phases, each printing JSON lines:
 
@@ -31,14 +32,19 @@ Phases, each printing JSON lines:
               at their splits' edges and on a long table (8 slots of 4096
               rows, timed with its bound and yardstick). K10 and K11 (K4's
               backward) against the twin's gradients at traffic W's step
-              (B=4, S=512, 32/8 heads, hd 128; timed, with SDPA's backward
-              as the yardstick), TinyLlama's heads, GPT-J's hd 256, S =
-              300, B = 1 and a padded hd 96; K4's ``out`` bit-equal with
-              and without its log-sum-exp output.
+              (B=4, S=512, 32/8 heads, hd 128; timed, with the port's
+              whole backward beside SDPA's, the yardstick, its backend
+              pinned and named, timed from a CUDA graph as the kernels
+              are), TinyLlama's heads, GPT-J's hd 256, S = 300, B = 1, a
+              padded hd 96, S = 1000 at rep 8 and hd 256 with GQA; a
+              second call bit-equal to the first; K4's ``out`` bit-equal
+              with and without its log-sum-exp output. The build phase
+              fails if K10 or K11 spills at hd 64 or 128.
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
-              of 512 and 32 new tokens (min of 2 each). Traffic B: bs2, two
+              of 256 and 32 new tokens (min of 2 each; ``DECODE_BIG``).
+              Traffic B: bs2, two
               384-token prompts, 32 new tokens, prefill seconds. Launch
               counts are zeroed before each traffic and read after it.
               torch.profiler windows over 16 decode steps of traffic A and
@@ -50,8 +56,9 @@ Phases, each printing JSON lines:
               the facade's default ``from_quantized`` keeps) through
               ``AwqCausalLM.generate``, decode tok/s by A's method, and
               its kernel path against the plain path as A's.
-              Then Mistral-7B at full width (32 layers, seed-0 weights
-              drawn on the card, fused). Traffic C: bs8, eight 64-token prompts, 64 new
+              Then Mistral-7B at full width, ``E2E_MISTRAL_DEPTH`` (16) of
+              its 32 layers (seed-0 weights drawn on the card, fused).
+              Traffic C: bs8, eight 64-token prompts, 64 new
               tokens, bf16 cache of capacity 128. Traffic D: bs8, eight
               2048-token prompts, 64 new tokens, int8 cache of capacity
               2112. Each: decode tok/s (B times the difference quotient of
@@ -65,9 +72,10 @@ Phases, each printing JSON lines:
               seeded tokens, 128 new tokens each, greedy, prefix cache on,
               decode attention through K7: steady-state decode tok/s with
               the 8 slots busy (8 times the difference quotient of 64 and
-              16 ``step()`` calls after an untimed admission, min of 3),
+              16 ``step()`` calls after an untimed admission, min of 2),
               the whole run's tok/s, launches per step held exactly (K7
-              32, K1 64, K3 32, K5 0), a profile of 8 steps and the
+              16, K1 32, K3 16, K5 0 at 16 layers), a profile of 8 steps
+              and the
               teacher-forced check of the paged step against
               ``method="plain"``. Traffic I: H's steady state on an int8
               pool (K7 folds the scales). Traffic J: H's steady state
@@ -157,7 +165,7 @@ Phases, each printing JSON lines:
               at its four linears, K2 at fc1 prefill, K7 with ALiBi at N's
               shape), then traffic L: bs1, 64-token prompt, greedy decode
               through ``generate``, tok/s by the difference quotient of
-              512 and 32 new tokens (min of 2), launches per step held
+              256 and 32 new tokens (min of 2), launches per step held
               exactly (K1 128), device ms a step and busy share; traffic
               M: prefill 2 x 384 (K2 at M = 768, ALiBi attention in plain
               ops), seconds and device ms; traffic N: the paged engine in
@@ -262,7 +270,9 @@ profile rows; ``decode_mlp_attn`` — K3 at TinyLlama's and Mistral's and
 K8 at TinyLlama's and a Mixtral expert's decode MLP (beside the unfused
 chain on K1), K5 at C's and D's last decode step, controls K1, K2, K6, K7
 and K9, and A's, G's, C's, D's and H's device ms a decode step with K3's,
-K5's and K8's profile rows.
+K5's and K8's profile rows; ``attn_bwd`` — K10 and K11 at W's,
+TinyLlama's and GPT-J's hd 256 shapes (held and timed with their bounds)
+and W's step ms on W's weights.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero without it. Without a CUDA device, or outside a checkout of the
@@ -285,8 +295,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
           "mla_moe", "serve", "train")
-EXTRA_PHASES = ("prefill", "paged", "linears",
-                "decode_mlp_attn")  # asked for by name only
+EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
+                "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 1024 * 1024
@@ -389,6 +399,13 @@ ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
 # run past its time limit (16 layers took ~63 s more than 8, and 8 ~50 s
 # more than 4)
 MIXTRAL_DEPTH = 4
+# The long generation of A's, G's and L's decode quotient (new tokens,
+# cut from 512) and the depth of Mistral-7B in the e2e phase's traffics C,
+# D, H, I, J and K (16 of its 32 layers): both cut to keep the script
+# within its time limit on slower hosts, where these host-bound decode
+# loops take most of its time.
+DECODE_BIG = 256
+E2E_MISTRAL_DEPTH = 16
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
@@ -678,6 +695,15 @@ def phase_build():
                  or "Performance Loss" in ln]
         summary[name] = {"seconds": round(float(log["seconds"]), 2),
                          "ptxas": lines}
+    # K10 and K11 must not spill at hd 64 and 128 (entry lines name the
+    # kernel and its head dim; the next line gives its spills)
+    bwd = summary.get("prefill_attention_bwd", {}).get("ptxas", [])
+    for i, ln in enumerate(bwd):
+        if any(f"{k}ILi{hd}E" in ln for k in ("dkv_kernel", "dq_kernel")
+               for hd in (64, 128)):
+            spill = next((x for x in bwd[i + 1:] if "spill" in x), "")
+            check(" 0 bytes spill stores, 0 bytes spill loads" in
+                  " " + spill, f"build: {ln.split()[-3]} spills: {spill}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "kernels": summary})
 
@@ -841,16 +867,90 @@ def _attn_case(b, s, nh, nkv, hd, dev, timing=True, iters=200,
     return row
 
 
-def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20):
-    """K10 and K11 against the twin's gradients (autograd through
-    ``prefill_attention_plain``) on the same inputs, each gradient tensor
-    held relative to its max |twin|; K4's ``out`` bit-equal with and
-    without its log-sum-exp output. With ``timing``: each kernel's time,
-    bound (operations: K10 four causal matmuls, K11 three), the twin's
-    whole backward and SDPA's backward at the same shape (the yardstick,
-    never on the path). Returns the two kernels' rows."""
+def _sdpa_bwd(q, k, v, dout, iters):
+    """SDPA's backward (causal, GQA; dq, dk and dv together) as the
+    yardstick of K10 + K11, never on the path: the backend pinned with
+    ``sdpa_kernel``, flash first, then cuDNN, then memory-efficient, each
+    refusal kept; the forward and the backward run on one side stream, so
+    that the backward can be captured in a CUDA graph and timed as the
+    kernels are (if capture is refused, back-to-back eager calls, which
+    keep the device busy at these sizes). Returns (ms, backend, how, the
+    backends refused with their errors)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, nh, hd = q.shape
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dsd = dout.view(b, s, nh, hd).transpose(1, 2).contiguous()
+    side = torch.cuda.Stream()
+    refused = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        side.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(side), sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                torch.autograd.grad(out, (qt, kt, vt), dsd,
+                                    retain_graph=True)
+            torch.cuda.synchronize()
+            break
+        except RuntimeError as e:
+            refused[backend.name] = str(e).strip().splitlines()[0][:300]
+    else:
+        return None, None, None, refused
+    name = f"{backend.name} ({out.grad_fn.name()})"
+
+    def bwd():
+        torch.autograd.grad(out, (qt, kt, vt), dsd, retain_graph=True)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                bwd()
+        graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / (3 * iters), name, \
+            "CUDA-graph replay", refused
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        why = str(e).strip().splitlines()[0][:200]
+    with torch.cuda.stream(side):
+        bwd()
+        start.record()
+        for _ in range(iters):
+            bwd()
+        end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / iters, name,
+            f"eager back-to-back calls (graph capture refused: {why})",
+            refused)
+
+
+def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20,
+                   yardsticks=True):
+    """K10 and K11 against the twin's gradients (autograd through
+    ``prefill_attention_plain``) on the same inputs, each gradient tensor
+    held relative to its max |twin|; a second call bit-equal to the first;
+    K4's ``out`` bit-equal with and without its log-sum-exp output. With
+    ``timing``: each kernel's time, bound (operations: K10 four causal
+    matmuls, K11 three) and the schedule's longest CTA over the mean; with
+    ``yardsticks`` also the twin's whole backward, the port's whole
+    backward (``bwd_inputs``' D op, K10 and K11, as ``PrefillAttentionFn``
+    runs it) and SDPA's backward (``_sdpa_bwd``) at the same shape.
+    Returns the two kernels' rows."""
+    import torch
 
     from autoawq_tpu_torch.ops import attention as at
 
@@ -865,6 +965,9 @@ def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20):
     ops = at.bwd_inputs(q, k, v, out, lse, dout)
     dk, dv = at.launch_dkv(ops, scale)
     dq = at.launch_dq(ops, scale)
+    again = at.launch_dkv(ops, scale) + (at.launch_dq(ops, scale),)
+    repeat = all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+    check(repeat, f"prefill_attention_bwd {case}: a second call differs")
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref = at.prefill_attention_plain(*leaves, scale)
     twin = torch.autograd.grad(ref, leaves, dout, retain_graph=timing)
@@ -879,6 +982,7 @@ def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20):
                       "B": b, "S": s, "nh": nh, "nkv": nkv, "hd": hd,
                       "max_abs_err": max(e[0] for e in errs),
                       "max_rel_err": worst, "out_bits_equal": same,
+                      "repeat_bits_equal": repeat,
                       "tol": TOL["prefill_attention_bwd"]}
         check(worst <= TOL["prefill_attention_bwd"],
               f"{name} {case}: rel err {worst:.3g} > "
@@ -887,29 +991,37 @@ def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20):
         pairs = b * nh * s * (s + 1) / 2  # causal (query, key) pairs
         tensor = 2 * b * s * hd  # bytes of one [B, S, heads=1, hd] bf16
         rows_in = tensor * (2 * nh + 2 * nkv) + 8 * b * nh * s  # q dO k v
-        for name, fn, n_mm, written in (
-                ("prefill_attention_dkv", at.launch_dkv, 4, 2 * nkv),
-                ("prefill_attention_dq", at.launch_dq, 3, nh)):
+        sched = getattr(at, "bwd_schedule", None)  # older --root checkouts
+        work = (sched(s, ops[-1]) if sched else None)
+        for name, fn, n_mm, written, w in (
+                ("prefill_attention_dkv", at.launch_dkv, 4, 2 * nkv,
+                 work and work[1]),
+                ("prefill_attention_dq", at.launch_dq, 3, nh,
+                 work and work[3])):
             r = rows[name]
+            r["card"] = card()
             r["ms"], r["eager_ms"] = time_ms(fn, [[ops, scale]], iters)
             r["bound_ms"], r["bound_by"] = bound(
                 rows_in + tensor * written, n_mm * 2 * hd * pairs)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-        dsd = dout.view(b, s, nh, hd).transpose(1, 2)
-        library, _ = time_ms(lambda: torch.autograd.grad(
-            sd, (qt, kt, vt), dsd, retain_graph=True), [[]], iters,
-            graph=False)
+            if w:
+                r["cta_work_max_over_mean"] = max(w) / (sum(w) / len(w))
+    if timing and yardsticks:
+        whole, _ = time_ms(lambda: at.prefill_attention_bwd(
+            q, k, v, out, lse, dout, scale), [[]], iters)
+        library, backend, how, refused = _sdpa_bwd(q, k, v, dout, iters)
         plain, _ = time_ms(lambda: torch.autograd.grad(
             ref, leaves, dout, retain_graph=True), [[]], min(iters, 5),
             graph=False)
         for r in rows.values():
             r["plain_ms"], r["library_ms"] = plain, library
+            r["port_backward_ms"] = whole
             r["plain"] = "the twin's whole backward (dq, dk and dv)"
+            r["port_backward"] = ("bwd_inputs (D = rowsum(dO * O)), K10 "
+                                  "and K11: dq, dk and dv")
             r["library"] = ("torch scaled_dot_product_attention's backward "
-                            "(causal, GQA; dq, dk and dv)")
+                            f"(causal, GQA; dq, dk and dv), backend "
+                            f"{backend}, timed as {how}")
+            r["library_refused"] = refused
     for r in rows.values():
         emit(r)
     return rows
@@ -1364,7 +1476,9 @@ def phase_kernels(dev):
                         ("GPT-J hd 256", (2, 384, 16, 16, 256)),
                         ("S = 300", (2, 300, 32, 8, 128)),
                         ("B = 1", (1, 512, 32, 8, 128)),
-                        ("hd 96, padded", (1, 200, 8, 2, 96))):
+                        ("hd 96, padded", (1, 200, 8, 2, 96)),
+                        ("S = 1000, rep 8", (1, 1000, 32, 4, 128)),
+                        ("hd 256, GQA", (2, 384, 16, 4, 256))):
         _attn_bwd_case(case, *shape, dev, timing=False)
     # K5 at traffic C's and D's last decode step, then the edge shapes
     rep["fused_attn_step"] = _k5_case(rng, "C: Mistral bf16", MISTRAL, 8,
@@ -1593,11 +1707,12 @@ def phase_e2e(dev):
     # traffic A: bs1 ctx64 greedy decode (bench.py's shape)
     _build.reset_launches()
     tok_s, t_small, t_big, per_token, out_a = _quotient(
-        lambda n: run_gen(prompt_a, n), 32, 512, 2, warm=(32,))
+        lambda n: run_gen(prompt_a, n), 32, DECODE_BIG, 2, warm=(32,))
     counts["A"] = dict(_build.LAUNCHES)
-    check(out_a.shape == (1, 64 + 512), "traffic A output shape")
+    check(out_a.shape == (1, 64 + DECODE_BIG), "traffic A output shape")
     emit({"phase": "e2e", "traffic": "A", "batch": 1, "prompt": 64,
-          "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
+          "decode_tok_s": tok_s, "t_32_s": t_small,
+          f"t_{DECODE_BIG}_s": t_big,
           "launches": counts["A"], "launches_per_decode_token": per_token})
 
     emit({"phase": "e2e", "step": "profile", "traffic": "A",
@@ -1680,7 +1795,8 @@ def _traffic_g(cfg, prompt, dev):
     """Traffic G: TinyLlama unfused (seed 0, the JAX synthesiser's draw) as
     the facade's default ``from_quantized`` leaves a checkpoint, driven
     through ``AwqCausalLM.generate``: K1 for q, k, v and o, K8 for the MLP.
-    Decode tok/s by A's method (512- and 32-token quotient, min of 2)."""
+    Decode tok/s by A's method (``DECODE_BIG``- and 32-token quotient, min
+    of 2)."""
     import torch
 
     from autoawq_tpu_torch import AwqCausalLM
@@ -1697,18 +1813,20 @@ def _traffic_g(cfg, prompt, dev):
         return time.perf_counter() - t, out
 
     _build.reset_launches()
-    tok_s, t_small, t_big, per_token, out = _quotient(run, 32, 512, 2,
-                                                      warm=(32,))
+    tok_s, t_small, t_big, per_token, out = _quotient(run, 32, DECODE_BIG,
+                                                      2, warm=(32,))
     counts = dict(_build.LAUNCHES)
     layers = cfg.num_hidden_layers
-    check(out.shape == (1, prompt.shape[1] + 512), "traffic G output shape")
+    check(out.shape == (1, prompt.shape[1] + DECODE_BIG),
+          "traffic G output shape")
     check(per_token["fused_mlp3"] == layers and per_token["fused_mlp"] == 0,
           f"traffic G: {per_token['fused_mlp3']} fused_mlp3 launches per "
           f"decode step, expected {layers}")
     emit({"phase": "e2e", "traffic": "G", "card": card(), "batch": 1,
           "prompt": prompt.shape[1], "layout": "unfused",
-          "method": "A's: 512- and 32-token quotient, min of 2",
-          "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
+          "method": f"A's: {DECODE_BIG}- and 32-token quotient, min of 2",
+          "decode_tok_s": tok_s, "t_32_s": t_small,
+          f"t_{DECODE_BIG}_s": t_big,
           "launches": counts, "launches_per_decode_token": per_token})
     emit({"phase": "e2e", "step": "profile", "traffic": "G", "card": card(),
           "what": "decode_step", **profile_decode(cfg, model.params, prompt,
@@ -1783,15 +1901,16 @@ def _batched_traffic(cfg, params, name, prompt, cap, kv_quant, reps,
 
 
 def _mistral_traffics(dev):
-    """Mistral-7B at full width: traffics C (bf16 cache) and D (int8
-    cache), each followed by its teacher-forced check."""
+    """Mistral-7B at full width, ``E2E_MISTRAL_DEPTH`` of its 32 layers:
+    traffics C (bf16 cache) and D (int8 cache), each followed by its
+    teacher-forced check, then H, I, J and K on the same weights."""
     import numpy as np
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.serve import generate as gen
 
-    cfg = ModelConfig(**MISTRAL)
+    cfg = ModelConfig(**dict(MISTRAL, num_hidden_layers=E2E_MISTRAL_DEPTH))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # drawn on the card (the host's numpy draw took ~65 s of the script)
@@ -2034,7 +2153,7 @@ def _paged_traffics(cfg, params, dev):
         kernel = "paged_attn_stock" if name == "J" else "paged_attn"
         other = "paged_attn" if name == "J" else "paged_attn_stock"
         counts[name], per_step[name] = _paged_traffic(
-            cfg, params, name, prompts, 3,
+            cfg, params, name, prompts, 2,
             {kernel: layers, other: 0, "w4a16_gemv": 2 * layers,
              "fused_mlp": layers, "fused_attn_step": 0}, whole_run, **kw)
         rows = _teacher_forced_paged(cfg, params, prompts, 3, **kw)
@@ -2846,6 +2965,51 @@ def phase_decode_mlp_attn(dev):
           "what": "paged decode step (8 slots busy)",
           **device_profile(lambda i: eng.step(), 8, match=DECODE_MATCH)})
     del eng, params
+
+
+def phase_attn_bwd(dev):
+    """K10 and K11 of the checkout under test, for an A/B of two checkouts
+    in one call (``--root``, in turns: parent, change, change, parent): at
+    traffic W's step (B=4, S=512, 32/8 heads, hd 128), TinyLlama's heads
+    and GPT-J's hd 256, each held against the twin's gradients and timed
+    with its bound; then traffic W's step ms (min of 3 after a warm-up) on
+    W's weights, as the train phase builds them (Mistral at full width and
+    depth, rank-8 adapters on q/k/v/o, 4 x 512 seeded ids, bf16, AdamW)."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.train import lora
+
+    _build.build_all(("prefill_attention", "prefill_attention_bwd",
+                      "w4a16_gemm"))
+    torch.manual_seed(15)
+    for case, shape in (("W: Mistral", TRAIN_ATTN),
+                        ("TinyLlama", (2, 384, 32, 4, 64)),
+                        ("GPT-J hd 256", (2, 384, 16, 16, 256))):
+        _attn_bwd_case(case, *shape, dev, yardsticks=False)
+    cfg = ModelConfig(**MISTRAL)
+    torch.cuda.empty_cache()
+    params = _unfused(cfg, synth_zoo_on_card(cfg, 0, dev))
+    lora.add_lora(cfg, params, rank=TRAIN_RANK, seed=0)
+    adapters, base = lora.split_lora(params)
+    opt = lora.make_optimizer(adapters, "adamw", lr=TRAIN_LR)
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, TRAIN_BATCH)).to(dev)
+    runs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = lora.lora_train_step_opt(cfg, adapters, base, opt, tokens,
+                                        dtype=torch.bfloat16).item()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    check(math.isfinite(loss), f"attn_bwd: W step loss {loss}")
+    emit({"phase": "attn_bwd", "traffic": "W", "card": card(),
+          "step_ms_min": min(runs[1:]), "step_ms": runs[1:], "loss": loss})
+    del adapters, base, params, opt
+    torch.cuda.empty_cache()
 
 
 def phase_load(dev):
@@ -3927,18 +4091,19 @@ def _mpt_traffics(dev, gen_t, rng):
 
     t0 = time.perf_counter()
     _build.reset_launches()
-    tok_s, t_small, t_big, per_step["L"], out = _quotient(run_l, 32, 512, 2,
-                                                          warm=(32,))
+    tok_s, t_small, t_big, per_step["L"], out = _quotient(
+        run_l, 32, DECODE_BIG, 2, warm=(32,))
     counts["L"] = dict(_build.LAUNCHES)
-    check(out.shape == (1, 64 + 512) and bool((out < cfg.vocab_size).all()),
-          "traffic L output")
+    check(out.shape == (1, 64 + DECODE_BIG)
+          and bool((out < cfg.vocab_size).all()), "traffic L output")
     _check_launches("L (a decode step)", per_step["L"],
                     {"w4a16_gemv": 4 * layers, "fused_mlp": 0,
                      "fused_attn_step": 0, "paged_attn": 0})
     emit({"phase": "zoo", "traffic": "L", "model": "mpt-7b", "card": card(),
           "batch": 1, "prompt": 64,
-          "method": "A's: 512- and 32-token quotient, min of 2",
-          "decode_tok_s": tok_s, "t_32_s": t_small, "t_512_s": t_big,
+          "method": f"A's: {DECODE_BIG}- and 32-token quotient, min of 2",
+          "decode_tok_s": tok_s, "t_32_s": t_small,
+          f"t_{DECODE_BIG}_s": t_big,
           "launches": counts["L"], "launches_per_decode_step": per_step["L"],
           "seconds": time.perf_counter() - t0})
     emit({"phase": "zoo", "step": "profile", "traffic": "L", "card": card(),
@@ -5416,6 +5581,8 @@ def main(argv=None) -> int:
         timed("linears", phase_linears, dev)
     if "decode_mlp_attn" in phases:
         timed("decode_mlp_attn", phase_decode_mlp_attn, dev)
+    if "attn_bwd" in phases:
+        timed("attn_bwd", phase_attn_bwd, dev)
     if rep:
         kernels = []
         # the eleven kernels' representative rows, then the mla_moe phase's

@@ -121,3 +121,21 @@ def test_flash_gate_mirrors_jax(rng):
     # any head dim: the K4 wrapper pads it, as _flash_prefill does
     assert pm._flash_ok(cfg, "auto", torch.zeros(1, 200, 4, 80),
                         torch.zeros(1, 200, 4, 80))
+
+
+@pytest.mark.parametrize("s,hd", [(512, 128), (2048, 128), (384, 64),
+                                  (384, 256), (300, 128), (65, 128),
+                                  (129, 256), (64, 64)])
+def test_backward_schedule_covers_and_levels(s, hd):
+    # K10 and K11 pair each tile with its mirror: every tile in one CTA,
+    # and (the lone middle tile of an odd count aside) equal work per CTA
+    dkv, dkv_work, dq, dq_work = at.bwd_schedule(s, hd)
+    nq = -(-s // at.BWD_TILE)
+    rows = at.BWD_TILE * (2 if hd <= 128 else 1)
+    assert sorted(t for c in dkv for t in c) == list(range(nq))
+    assert sorted(t for c in dq for t in c) == list(range(-(-s // rows)))
+    assert dkv_work == [sum(nq - kt for kt in c) for c in dkv]
+    for work in (dkv_work, dq_work):
+        assert max(work) <= 1.25 * sum(work) / len(work) or len(work) <= 2
+    if s == 512 and hd == 128:  # traffic W's step: 4 pairs, 2 pairs
+        assert dkv_work == [9] * 4 and dq_work == [10] * 2

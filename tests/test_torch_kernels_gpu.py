@@ -1256,7 +1256,13 @@ def test_card_quantized_mla_model_serves_as_its_reload(cuda, tmp_path):
     (4, 512, 32, 8, 128, False),  # traffic W's step
     (2, 384, 32, 4, 64, False), (2, 384, 16, 16, 256, False),
     (2, 300, 32, 8, 128, True), (1, 512, 32, 8, 128, False),
-    (1, 200, 8, 2, 96, True), (1, 64, 2, 1, 64, False)])
+    (1, 200, 8, 2, 96, True), (1, 64, 2, 1, 64, False),
+    # tiles cut at every edge (one row past a 64-row tile, one short, one
+    # past two; the 128-row K11 tile half live), GQA groups of 1, 2 and 8
+    (2, 65, 8, 8, 128, False), (1, 127, 8, 4, 64, True),
+    (2, 129, 16, 8, 128, True), (1, 1000, 32, 4, 128, False),
+    (1, 2048, 32, 8, 128, False),  # B = 1, long: 32 key tiles, 16 pairs
+    (2, 384, 16, 4, 256, False), (1, 129, 8, 2, 256, True)])  # hd 256, GQA
 def test_prefill_attention_backward(cuda, b, s, nh, nkv, hd, strided):
     q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
     kv = torch.randn(b, s, 2 * nkv, hd, device=cuda).to(torch.bfloat16)
@@ -1280,6 +1286,21 @@ def test_prefill_attention_backward(cuda, b, s, nh, nkv, hd, strided):
     assert rel(got[0], want[0]) <= 2e-2
     for half in (slice(0, nkv), slice(nkv, 2 * nkv)):  # dk, dv
         assert rel(got[1][:, :, half], want[1][:, :, half]) <= 2e-2
+
+
+@pytest.mark.parametrize("b,s,nh,nkv,hd", [
+    (4, 512, 32, 8, 128), (1, 129, 8, 2, 64), (2, 384, 16, 4, 256)])
+def test_prefill_attention_backward_repeats_bits(cuda, b, s, nh, nkv, hd):
+    # no atomics on the outputs: two calls on the same inputs, equal bits
+    q = torch.randn(b, s, nh, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(b, s, nkv, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(b, s, nkv, hd, device=cuda).to(torch.bfloat16)
+    dout = torch.randn(b, s, nh * hd, device=cuda).to(torch.bfloat16)
+    scale = hd ** -0.5
+    out, lse = attention.prefill_attention_lse(q, k, v, scale)
+    first = attention.prefill_attention_bwd(q, k, v, out, lse, dout, scale)
+    second = attention.prefill_attention_bwd(q, k, v, out, lse, dout, scale)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.parametrize("b,s,nh,nkv,hd", [
