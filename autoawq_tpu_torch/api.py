@@ -168,6 +168,38 @@ class AwqCausalLM:
                                  self.params, shard_bytes,
                                  src_path=self._src_path)
 
+    def shard(self, mesh, dtype: Optional[torch.dtype] = torch.bfloat16,
+              tp_attention: bool = True, moe_dispatch: str = "replicate"
+              ) -> "AwqCausalLM":
+        """Keep this rank's shard of the model for TP / EP serving over
+        ``mesh`` (``parallel/mesh.build_mesh``; JAX ``AwqCausalLM.shard``,
+        ``autoawq_tpu/api.py:191-214``): Megatron column / row shards on
+        ``tensor``, stacked experts split over ``expert``
+        (``parallel/specs.shard_params``). With ``tp_attention`` and
+        tensor > 1 the per-rank re-fused qkv stack is built first
+        (``nn/fuse.tp_stack_qkv``), so a decode step that K5's rule takes
+        runs K5 on the rank's heads (``ops/tp_attn.py``). ``self.cfg``
+        becomes the rank's local config (its heads and intermediate
+        width), ``self.global_cfg`` keeps the model's; float leaves are
+        cast to ``dtype`` (scales stay f32). Every rank calls it; what it
+        refuses (heads that do not divide, MLA / ALiBi under TP) raises
+        before the tree is touched."""
+        from autoawq_tpu_torch.nn.fuse import tp_stack_qkv
+        from autoawq_tpu_torch.parallel.specs import (check_shardable,
+                                                      shard_params)
+
+        t = mesh.size("tensor")
+        check_shardable(self.cfg, self.params, t, mesh.size("expert"))
+        if tp_attention and t > 1:
+            tp_stack_qkv(self.cfg, self.params, t)
+        cfg, params = shard_params(self.cfg, self.params, mesh,
+                                   device=self.device,
+                                   moe_dispatch=moe_dispatch)
+        self.params = params if dtype is None else cast_params(params, dtype)
+        self.global_cfg, self.cfg = self.cfg, cfg
+        self.mesh = mesh
+        return self
+
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(input_ids, device=self.device)
         return ids[None] if ids.dim() == 1 else ids

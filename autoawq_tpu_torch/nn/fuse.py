@@ -95,19 +95,86 @@ def fuse_model(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
             m["gate_up_proj"] = _fuse([m.pop("gate_proj"), m.pop("up_proj")],
                                       [inter, inter])
         experts = m.get("experts", [])
+        if experts_stackable(experts):
+            m["experts_stacked"] = stack_experts(cfg, m)["experts_stacked"]
+            del m["experts"]
+            continue
         for e in experts:
             if "gate_proj" in e:
                 e["gate_up_proj"] = _fuse(
                     [e.pop("gate_proj"), e.pop("up_proj")],
                     [expert_inter, expert_inter])
-        if experts and all("qweight" in e.get("gate_up_proj", {})
-                           and "qweight" in e.get("down_proj", {})
-                           for e in experts):
-            m["experts_stacked"] = {
-                name: _stack_expert_lins([e[name] for e in experts])
-                for name in ("gate_up_proj", "down_proj")}
-            del m["experts"]
     return attach_kv_b_dense(cfg, params)
+
+
+def experts_stackable(experts: List[Dict[str, Any]]) -> bool:
+    """Whether a layer's experts stack for the grouped kernel K6: every
+    expert's gate and up (or fused gate_up) and down are quantized."""
+    return bool(experts) and all(
+        "down_proj" in e and ("gate_up_proj" in e or "gate_proj" in e)
+        and all("qweight" in e[n] for n in
+                ("gate_proj", "up_proj", "gate_up_proj", "down_proj")
+                if n in e)
+        for e in experts)
+
+
+def stack_experts(cfg: ModelConfig, mlp: Dict[str, Any]) -> Dict[str, Any]:
+    """A new MoE block dict whose ``experts`` list (``experts_stackable``)
+    is fused and stacked into ``experts_stacked``; the caller's dict is not
+    written. ``fuse_model`` stacks through it, and expert parallelism
+    shards the stack."""
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    fused = [{"gate_up_proj": _fuse([e["gate_proj"], e["up_proj"]],
+                                    [inter, inter]),
+              "down_proj": e["down_proj"]} if "gate_proj" in e else e
+             for e in mlp["experts"]]
+    out = {k: v for k, v in mlp.items() if k != "experts"}
+    out["experts_stacked"] = {
+        name: _stack_expert_lins([e[name] for e in fused])
+        for name in ("gate_up_proj", "down_proj")}
+    return out
+
+
+def tp_stack_qkv(cfg: ModelConfig, params: Dict[str, Any],
+                 tp: int) -> Dict[str, Any]:
+    """In place: add ``qkv_proj_tp``, a [tp, ...] stack of per-rank fused
+    qkv LINs, to every attention block with quantized q/k/v (JAX
+    ``tp_stack_qkv``, ``autoawq_tpu/nn/fuse.py:197``). Entry i is
+    [q_i | k_i | v_i] for rank i's nh/tp query and nkv/tp KV heads, the
+    members' column slices concatenated and padded once, so every entry has
+    one width; ``parallel/specs.shard_params`` gives rank i entry i, on
+    which K5 runs (``ops/tp_attn.py``). A fused qkv_proj is sliced the same
+    way. Blocks with LoRA adapters are skipped (the stack would drop them),
+    as JAX skips them. Heads that do not divide raise ValueError."""
+    from autoawq_tpu_torch.parallel.specs import _cols
+
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+    if nh % tp or nkv % tp:
+        raise ValueError(f"heads ({nh}/{nkv}) not divisible by tp={tp}")
+    pq, pk = nh * hd // tp, nkv * hd // tp
+    for lp in params["layers"]:
+        attn = lp["self_attn"]
+        if cfg.is_mla:
+            continue
+        if "qkv_proj" in attn:
+            fused = attn["qkv_proj"]
+            lins = [_cols(fused, 0, nh * hd),
+                    _cols(fused, nh * hd, (nh + nkv) * hd),
+                    _cols(fused, (nh + nkv) * hd, (nh + 2 * nkv) * hd)]
+        elif "q_proj" in attn:
+            lins = [attn["q_proj"], attn["k_proj"], attn["v_proj"]]
+        else:
+            continue
+        if any("qweight" not in p or "lora_a" in p for p in lins):
+            continue
+        entries = [_fuse([_cols(lins[0], i * pq, (i + 1) * pq),
+                          _cols(lins[1], i * pk, (i + 1) * pk),
+                          _cols(lins[2], i * pk, (i + 1) * pk)],
+                         [pq, pk, pk]) for i in range(tp)]
+        attn["qkv_proj_tp"] = {key: torch.stack([e[key] for e in entries])
+                               for key in entries[0]}
+    return params
 
 
 def attach_kv_b_dense(cfg: ModelConfig,

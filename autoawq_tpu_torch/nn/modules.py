@@ -65,10 +65,15 @@ from autoawq_tpu_torch.ops import _build
 from autoawq_tpu_torch.ops import attention as attn_ops
 from autoawq_tpu_torch.ops import fused_attn_step as fas
 from autoawq_tpu_torch.ops import fused_mlp as mlp_ops
+from autoawq_tpu_torch.ops import moe_a2a
 from autoawq_tpu_torch.ops import moe_gemm as moe_ops
 from autoawq_tpu_torch.ops import paged_attn as paged_ops
+from autoawq_tpu_torch.ops import sharded_gemm
 from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
+from autoawq_tpu_torch.ops import sharded_moe
+from autoawq_tpu_torch.ops import tp_attn
 from autoawq_tpu_torch.ops.gemm import awq_matmul, dequantize
+from autoawq_tpu_torch.parallel.mesh import Axis
 
 # MoE model types with a loader in the JAX package (its ``ARCHITECTURES``);
 # phimoe has none there, so its config parses as a dense llama
@@ -102,7 +107,12 @@ def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     """A quantized or float linear, x [..., K] -> [..., N], plus a LoRA
     adapter's ``(x @ lora_a) @ lora_b`` where the LIN carries one (JAX
     ``linear``, ``autoawq_tpu/nn/modules.py:75-79``; adapters cast to x's
-    dtype)."""
+    dtype). A LIN of a tensor-parallel rank's tree carries its collective
+    as a marker (``tp_psum``: all-reduce, then the bias; ``tp_gather``:
+    ``ops/sharded_gemm.py``), as JAX's ``tp_psum`` (:45-75)."""
+    if sharded_gemm.is_sharded(p):
+        return sharded_gemm.linear_sharded(
+            p, x, out_features, lambda q, u, n: linear(q, u, n, method))
     bias = p.get("bias")
     if is_quantized(p):
         y = awq_matmul(x, p["qweight"], p["scales"], p.get("qzeros"),
@@ -365,9 +375,13 @@ def _gqa_grouped_wins(b: int, hd: int, t: int) -> bool:
 def _flash_ok(cfg: ModelConfig, method: str, q: torch.Tensor,
               k: torch.Tensor) -> bool:
     """K4 eligibility (JAX ``_flash_ok``): no softcap, equal q/k lengths,
-    s >= 128. Any head dim qualifies: the K4 wrapper pads it as
-    ``_flash_prefill`` does."""
+    s >= 128. On a CUDA tensor the head dim must be one K4 is built for or
+    pads to (up to ``attention.HEAD_DIMS[-1]``, 256); a wider head takes
+    ``_attend``, JAX's plain einsum, as JAX's own gate sends it off the
+    TPU. On the CPU K4's twin takes any head dim."""
     s, t = q.shape[1], k.shape[1]
+    if q.device.type != "cpu" and q.shape[-1] > attn_ops.HEAD_DIMS[-1]:
+        return False
     return (method != "plain" and not cfg.attn_softcap and s == t
             and s >= 128)
 
@@ -449,6 +463,15 @@ def _paged_write(pages: torch.Tensor, new: torch.Tensor, table: torch.Tensor,
     return pages
 
 
+def _k7_takes(q: torch.Tensor, nkv: int, ps: int) -> bool:
+    """Whether the "bespoke" route runs K7: always on the CPU (its twin
+    takes any head dim), and on the card where ``paged_attn.supported``
+    takes the pool (head dims up to 256). Otherwise the step takes the
+    gather, JAX's default paged route, which takes any head dim."""
+    _, _, nh, hd = q.shape
+    return q.device.type == "cpu" or paged_ops.supported(nh, nkv, hd, ps)
+
+
 def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, kv_cache: Dict[str, Any], scale: float,
                   method: str, paged_attn: str):
@@ -460,8 +483,10 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     (K9: bf16 pools without a window or ALiBi; raises ValueError on any
     other pool, where JAX falls to the gather) or "gather" (the JAX
     default's formulation: the table's pages gathered into a slab, grouped
-    GQA). ``method="plain"`` takes the gather, as JAX's "jnp" does. On a
-    CPU tensor K7 and K9 run their twins. ALiBi models hand K7 their slopes
+    GQA). ``method="plain"`` takes the gather, as JAX's "jnp" does, and so
+    does "bespoke" on a pool K7 does not take (:func:`_k7_takes`: a head
+    dim above 256 on the card). On a CPU tensor K7 and K9 run their
+    twins. ALiBi models hand K7 their slopes
     and the gather its bias."""
     b, _, nh, hd = q.shape
     nkv = k.shape[2]
@@ -482,7 +507,8 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     softcap = cfg.attn_softcap or None
     window = cfg.sliding_window or None  # 0 means no window
     alibi = cfg.pos_embed == "alibi"
-    if method != "plain" and paged_attn == "bespoke":
+    if (method != "plain" and paged_attn == "bespoke"
+            and _k7_takes(q, nkv, ps)):
         out = paged_ops.paged_decode_attention(
             q[:, 0], kp, vp, table, lengths, scale=scale, k_scales=kss,
             v_scales=vss, softcap=softcap, window=window,
@@ -798,14 +824,36 @@ def mla_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return linear(p["o_proj"], out, cfg.hidden_size, method), kv_cache
 
 
+def _k5_lins(p: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The qkv and o LINs K5 runs on: the fused ``qkv_proj`` with an
+    unmarked o, or a tensor-parallel rank's ``qkv_proj_tp`` entry with o's
+    row shard (``tp_psum``; JAX's ``_tp_fused_attn_ok``,
+    ``autoawq_tpu/nn/modules.py:1047-1066``). None where neither."""
+    o = p.get("o_proj")
+    if o is None:
+        return None
+    if "qkv_proj" in p and not sharded_gemm.is_sharded(o):
+        return {"qkv_proj": p["qkv_proj"], "o_proj": o}
+    if "qkv_proj_tp" in p and "tp_psum" in o:
+        return {"qkv_proj": p["qkv_proj_tp"], "o_proj": o}
+    return None
+
+
 def _fused_attn_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                    method: str, kv_cache: Dict[str, Any]) -> bool:
-    """K5 eligibility (JAX ``_fused_attn_ok`` on "auto"): a bf16 cache with
-    B >= 8 or B * T >= 2048, or an int8 cache of capacity T >= 2048, and the
-    model-level gates of ``fused_attn_step.supported``. The thresholds are
-    the TPU's; the H100's own are a later A/B (ROADMAP queue 1 item 11).
-    An input that requires grad is refused (K5 has no backward)."""
+    """K5 eligibility (JAX ``_fused_attn_ok`` on "auto", and
+    ``_tp_fused_attn_ok`` for a tensor-parallel rank, on its local heads):
+    a bf16 cache with B >= 8 or B * T >= 2048, or an int8 cache of
+    capacity T >= 2048, and the model-level gates of
+    ``fused_attn_step.supported``. The thresholds are the TPU's; the
+    H100's own are a later A/B (ROADMAP queue 1 item 11). JAX takes its TP
+    route only on a TPU or under ``AWQ_TPU_FUSED_ATTN=force``; the port
+    takes it by this rule on any device, as it takes K5 (ROADMAP §3). An
+    input that requires grad is refused (K5 has no backward)."""
     if method == "plain" or _build.grad_wanted(x):
+        return False
+    lins = _k5_lins(p)
+    if lins is None:
         return False
     kc = kv_cache["k"]
     b, t = kc.shape[0], kc.shape[2]
@@ -814,7 +862,7 @@ def _fused_attn_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             return False
     elif b * t < 2048 and b < 8:
         return False
-    return fas.supported(cfg, p, x, kc)
+    return fas.supported(cfg, lins, x, kc)
 
 
 def _fused_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
@@ -822,17 +870,27 @@ def _fused_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                      kv_cache: Dict[str, Any]):
     """The decode step through K5 (JAX ``attention``'s fused branch): the
     kernel returns y and the post-RoPE k/v rows; the cache write (int8
-    rows quantized here from K5's f32 rows) and the o bias are outside."""
+    rows quantized here from K5's f32 rows) and the o bias are outside.
+    On a tensor-parallel rank K5 runs on the local heads and y is summed
+    over the tensor group before the bias (``ops/tp_attn.py``)."""
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim_)
     pos = kv_cache["pos"]
     kc, vc = kv_cache["k"], kv_cache["v"]
     ks, vs = kv_cache.get("k_s"), kv_cache.get("v_s")
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
-    y, k_new, v_new = fas.fused_attention_step(
-        x[:, 0], p["qkv_proj"], p["o_proj"], kc, vc, cos[:, 0], sin[:, 0],
-        pos, nh=nh, nkv=nkv, hd=hd, scale=scale,
-        window=cfg.sliding_window or None, k_scales=ks, v_scales=vs)
+    lins = _k5_lins(p)
+    o = lins["o_proj"]
+    kw = dict(nh=nh, nkv=nkv, hd=hd, scale=scale,
+              window=cfg.sliding_window or None, k_scales=ks, v_scales=vs)
+    if "tp_psum" in o:
+        y, k_new, v_new = tp_attn.fused_attention_step_tp(
+            x[:, 0], lins["qkv_proj"], o, kc, vc, cos[:, 0], sin[:, 0], pos,
+            axis=o["tp_psum"], **kw)
+    else:
+        y, k_new, v_new = fas.fused_attention_step(
+            x[:, 0], lins["qkv_proj"], o, kc, vc, cos[:, 0], sin[:, 0], pos,
+            **kw)
     if ks is not None:
         k_new, ks[:, :, pos] = _kv_quantize(k_new)
         v_new, vs[:, :, pos] = _kv_quantize(v_new)
@@ -867,11 +925,14 @@ def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     no gate / up bias, no ``act_scale``, M <= 32, a K8 activation. The
     TPU's tiling gates (``_lanes``/``PAIRS``, ``QW_SLAB_MAX``,
     ``inter % 128``) are not the H100 kernel's (ROADMAP §3). An input that
-    requires grad is refused (K8 has no backward)."""
+    requires grad is refused (K8 has no backward). On a tensor-parallel
+    rank the LINs are its shards (gate / up columns, down rows with
+    ``tp_psum``: JAX's ``fused_mlp_sharded``); a down replicated for want
+    of whole groups (``tp_gather``) takes the linears."""
     if method == "plain" or "act_scale" in p or _build.grad_wanted(x):
         return False
     gate, up, dn = p["gate_proj"], p["up_proj"], p.get("down_proj")
-    if dn is None:
+    if dn is None or "tp_gather" in dn:
         return False
     m = x.numel() // x.shape[-1]
     return mlp3_ops.supported(m, x.shape[-1], inter, gate, up, dn,
@@ -911,15 +972,9 @@ def mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         _tap(taps, tap_prefix + "gate_proj", x)
         _tap(taps, tap_prefix + "up_proj", x)
         if taps is None and _sharded_mlp_ok(cfg, p, x, method, inter):
-            gate, up, dn = p["gate_proj"], p["up_proj"], p["down_proj"]
-            y = mlp3_ops.fused_mlp3(
-                x, gate["qweight"], gate["scales"], up["qweight"],
-                up["scales"], dn["qweight"], dn["scales"], gate.get("qzeros"),
-                up.get("qzeros"), dn.get("qzeros"), inter=inter,
+            return mlp3_ops.fused_mlp_sharded(
+                x, p["gate_proj"], p["up_proj"], p["down_proj"], inter=inter,
                 act=cfg.hidden_act)
-            if dn.get("bias") is not None:
-                y = y + dn["bias"].to(y.dtype)
-            return y
         g = linear(p["gate_proj"], x, inter, method)
         u = linear(p["up_proj"], x, inter, method)
     h = mlp_ops.act_fn(cfg.hidden_act, g) * u
@@ -998,7 +1053,10 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     qwen2-moe's ``shared_expert`` (times the sigmoid of its
     ``shared_expert_gate``), then deepseek's ungated ``shared_experts`` at
     ``moe_intermediate_size * n_shared_experts``; both are unfused MLPs, so
-    at decode they take K8. Expert-parallel stacks (``tp_ep``) raise."""
+    at decode they take K8. An expert-parallel rank's stack (``tp_ep``)
+    holds its block of experts: replicate-and-sum (``ops/sharded_moe.py``,
+    JAX's ``tp_ep`` branch :1266-1285) or, marked ``ep_dispatch="a2a"``,
+    the all-to-all dispatch (``ops/moe_a2a.py``)."""
     _no_training("an MoE block (K6)", x, p)
     b, s, h = x.shape
     xt = x.reshape(-1, h)
@@ -1006,12 +1064,23 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     topw, topi = moe_route(cfg, p, xt, method)
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
     if "experts_stacked" in p:
-        if "tp_ep" in p["experts_stacked"]:
-            raise NotImplementedError(
-                "expert-parallel MoE stacks are not in the port yet "
-                "(parallelism, ROADMAP queue 1 item 15)")
-        out = moe_ops.moe_mlp(p["experts_stacked"], xt, topw, topi,
-                              cfg.hidden_act, inter, method).float()
+        st = p["experts_stacked"]
+        if "tp_ep" not in st:
+            out = moe_ops.moe_mlp(st, xt, topw, topi, cfg.hidden_act, inter,
+                                  method).float()
+        elif not isinstance(st["tp_ep"], Axis):
+            raise TypeError(
+                "an expert-parallel stack's tp_ep marker is the "
+                "parallel/mesh.Axis handle parallel/specs.shard_params "
+                f"writes, not {st['tp_ep']!r}")
+        elif st["ep_dispatch"] == "a2a":
+            out = moe_a2a.moe_mlp_a2a_block(
+                st, xt, topw, topi, cfg.hidden_act, inter, st["tp_ep"],
+                method).float()
+        else:
+            out = sharded_moe.moe_mlp_sharded(
+                st, xt, topw, topi, cfg.hidden_act, inter, st["tp_ep"],
+                method)
     else:
         weights = ((topi[..., None] == torch.arange(
             cfg.num_experts, device=x.device)).float()

@@ -1,0 +1,62 @@
+"""Tensor-parallel int4 linears on this rank's shard: K1 / K2 plus the
+collective a shard needs.
+
+Counterpart of ``autoawq_tpu/ops/sharded_gemm.py`` (``awq_matmul_sharded``
+:171, ``_classify`` :65) in the manual form of JAX's pipeline stages. JAX
+wraps the Pallas kernel in ``custom_partitioning`` so GSPMD runs it on
+each chip's shard; the port's rank holds its shard already
+(``parallel/specs.shard_params``), so the local product is the ordinary
+dispatcher ``ops/gemm.awq_matmul`` (K1 below M = 256, K2 from there; the
+twin on the CPU) and the collective is explicit:
+
+* column shard (no marker): the local columns; no collective.
+* row shard (``tp_psum``): the partial product over this rank's K rows,
+  all-reduced in f32 over the tensor group and rounded once to the output
+  type, then the bias, once (JAX's ``linear``, ``modules.py:56-59``).
+* replicated row LIN (``tp_gather``): the local input all-gathered along
+  K, then the whole LIN.
+
+No kernel of its own: the launches are K1's or K2's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from autoawq_tpu_torch.parallel import distributed as pd
+from autoawq_tpu_torch.parallel.specs import MARKERS
+
+
+def is_sharded(p: Dict[str, Any]) -> bool:
+    """Whether a LIN needs a collective (a column shard needs none)."""
+    return "tp_psum" in p or "tp_gather" in p
+
+
+def bare(p: Dict[str, Any]) -> Dict[str, Any]:
+    """The LIN without its markers."""
+    return {k: v for k, v in p.items() if k not in MARKERS}
+
+
+def reduce_rows(y: torch.Tensor, axis,
+                bias=None) -> torch.Tensor:
+    """Finish a row-parallel product: the f32 sum over ``axis``, rounded
+    once to y's type, then the bias."""
+    y = pd.all_reduce(y.float(), axis).to(y.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def linear_sharded(p: Dict[str, Any], x: torch.Tensor, out_features: int,
+                   local: Callable[[Dict[str, Any], torch.Tensor, int],
+                                   torch.Tensor]) -> torch.Tensor:
+    """A marked LIN (quantized or float) on this rank. ``local`` is the
+    one-rank linear (``nn/modules.linear``), run on the bare LIN."""
+    lin = bare(p)
+    if "tp_gather" in p:
+        return local(lin, pd.all_gather(x, p["tp_gather"], dim=-1),
+                     out_features)
+    bias = lin.pop("bias", None)
+    return reduce_rows(local(lin, x, out_features), p["tp_psum"], bias)

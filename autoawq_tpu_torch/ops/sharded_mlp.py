@@ -2,10 +2,13 @@
 int4 gate, up and down operands (the checkpoint layout): kernel K8
 (``csrc/fused_mlp3.cu``) and its plain twin.
 
-Counterpart of the single-chip part of ``autoawq_tpu/ops/sharded_mlp.py``
-(``fused_mlp3_pallas`` :125, ``_jnp_mlp3`` :223). The GSPMD wrapper, which
-runs the kernel on each tensor-parallel rank's slice of the intermediate,
-waits for the port's parallelism (ROADMAP queue 1 item 15).
+Counterpart of ``autoawq_tpu/ops/sharded_mlp.py`` (``fused_mlp3_pallas``
+:125, ``_jnp_mlp3`` :223, and its GSPMD wrapper ``fused_mlp_sharded``
+:365 with ``_local_mlp3`` :237). Under tensor parallelism each rank holds
+the column shards of gate and up and the row shard of down for its I/t
+slice of the intermediate (``parallel/specs.shard_params``):
+:func:`fused_mlp_sharded` runs K8 on that slice and all-reduces the
+partial output in f32 over the tensor group, then adds down's bias once.
 """
 
 from __future__ import annotations
@@ -101,3 +104,23 @@ def fused_mlp3(x: torch.Tensor, g_qweight, g_scales, u_qweight, u_scales,
                   out.data_ptr(), m, h, inter, n2, gs_g, gs_d, ACTS[act], nt,
                   cs1, cs2)
     return out.reshape(*lead, n2)
+
+
+def fused_mlp_sharded(x: torch.Tensor, gate: Dict[str, Any],
+                      up: Dict[str, Any], down: Dict[str, Any], *,
+                      inter: int, act: str = "silu") -> torch.Tensor:
+    """K8 on this rank's LINs (``inter`` the local width), then, for a
+    ``down`` marked ``tp_psum``, the f32 sum over its tensor group; down's
+    bias after the sum. Unmarked LINs are the one-rank MLP."""
+    from autoawq_tpu_torch.ops.sharded_gemm import reduce_rows
+
+    y = fused_mlp3(x, gate["qweight"], gate["scales"], up["qweight"],
+                   up["scales"], down["qweight"], down["scales"],
+                   gate.get("qzeros"), up.get("qzeros"), down.get("qzeros"),
+                   inter=inter, act=act)
+    axis = down.get("tp_psum")
+    if axis is not None:
+        return reduce_rows(y, axis, down.get("bias"))
+    if down.get("bias") is not None:
+        y = y + down["bias"].to(y.dtype)
+    return y

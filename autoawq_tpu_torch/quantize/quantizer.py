@@ -15,10 +15,23 @@ applied, and the propagation of the *unscaled* block output to the next
 layer. Statistics run in float32. The search matmuls are float32
 ``torch.matmul``; this module sets no global switch, so TF32 stays off
 unless the caller turned it on (``torch.backends.cuda.matmul.allow_tf32``).
+
+Data-parallel calibration (``mesh=`` with a ``data`` axis; JAX's
+``mesh=``, :116, :187-201, ``_shard_batch`` :346): each data rank takes
+its contiguous slice of the calibration samples and runs the layer
+forwards on it, and every reduction over the batch is summed over the data
+group before anything is chosen: the activation means, the scale grid's
+losses (one all-reduce of the grid's sums a group) and the clip grid's
+errors (one of a column chunk's, over the rows of JAX's global ``[::step]``
+token sample that fall in the rank's slice). So each rank makes the
+choices one process would, up to the order of the sums; JAX's GSPMD
+psums do the same inside its jitted searches. A sample count the axis does
+not divide runs unsharded on every rank, with a warning, as JAX's does.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -35,6 +48,7 @@ from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.models.plugins import (CLIP_AVOID, ScaleGroup,
                                               get_plugin, make_inspect_fn)
 from autoawq_tpu_torch.nn import modules
+from autoawq_tpu_torch.parallel import distributed as pd
 from autoawq_tpu_torch.quantize import scale as scale_mod
 from autoawq_tpu_torch.utils.device import resolve_device
 from autoawq_tpu_torch.utils.tree import (get_by_path, set_by_path,
@@ -84,7 +98,11 @@ class AwqQuantizer:
     arrays, on any device), calibrated on ``calib_tokens`` [n, seq_len].
     Runs on the card unless ``device`` names another (RuntimeError with no
     card and no device). Each layer is moved to the device in turn. The
-    result is on the CPU, or on the device with ``keep_on_device``."""
+    result is on the CPU, or on the device with ``keep_on_device``. With
+    ``mesh`` (``parallel/mesh.build_mesh``) whose ``data`` axis is above
+    1, every rank passes the same ``calib_tokens`` and calibrates its
+    slice of them (see the module docstring); every rank returns the same
+    tree, and only data rank 0 writes ``resume_dir``'s files."""
 
     def __init__(
         self,
@@ -115,8 +133,6 @@ class AwqQuantizer:
         if calib_inputs is not None or calib_rope is not None:
             raise _not_yet("calibration on input embeddings (calib_inputs, "
                            "calib_rope)", "17")
-        if mesh is not None:
-            raise _not_yet("data-parallel calibration (mesh)", "15")
         if calib_tokens is None:
             raise ValueError("need calib_tokens")
         modules.check_supported(cfg)
@@ -124,6 +140,15 @@ class AwqQuantizer:
         self.qcfg = qcfg
         self.params = params
         self.calib_tokens = np.asarray(calib_tokens)
+        self.mesh = mesh
+        self._ddp = mesh.size("data") if mesh is not None else 1
+        n_calib = len(self.calib_tokens)
+        if self._ddp > 1 and n_calib % self._ddp:
+            logging.getLogger(__name__).warning(
+                "calib sample count %d not divisible by data axis %d; "
+                "calibration runs replicated", n_calib, self._ddp)
+            self.mesh, self._ddp = None, 1
+        self._data = self.mesh.axis("data") if self._ddp > 1 else None
         self.device = resolve_device(device)
         self.duo_scaling = duo_scaling
         self.do_clip = apply_clip
@@ -187,7 +212,7 @@ class AwqQuantizer:
                 f"packed kernels are 4-bit only (w_bit={self.qcfg.w_bit}); "
                 "use quantize(export_compatible=True) and pack externally")
         cfg, dev = self.cfg, self.device
-        tokens = torch.from_numpy(self.calib_tokens).to(dev)
+        tokens = torch.from_numpy(self._local(self.calib_tokens)).to(dev)
         # the calibration inputs of JAX's quantize(): learned positions and
         # bloom's embedding LayerNorm, rope tables keyed on the length, and
         # the ALiBi bias in the mask
@@ -221,7 +246,7 @@ class AwqQuantizer:
                 lp, x = load_layer_ckpt(ck)
                 new_layers.append(to_device(lp, dev) if self.keep_on_device
                                   else lp)
-                x = x.to(dev)
+                x = self._local(x).to(dev)
                 continue
             lp = to_device(self.params["layers"][i], dev, self.weight_dtype)
             # [1] record each linear's input; propagate the float output
@@ -267,7 +292,11 @@ class AwqQuantizer:
             self._clock("pack", t0)
             x = next_x
             if ck is not None:
-                save_layer_ckpt(ck, new_layers[-1], x)
+                # the whole batch's stream, so any rank count resumes
+                xs = x if self._data is None else pd.all_gather(
+                    x, self._data, dim=0)
+                if self._data is None or self._data.index == 0:
+                    save_layer_ckpt(ck, new_layers[-1], xs)
 
         home = dev if self.keep_on_device else "cpu"
         out = to_device({k: v for k, v in self.params.items()
@@ -311,16 +340,37 @@ class AwqQuantizer:
 
     # ------------------------------------------------------------------ #
 
+    def _local(self, a):
+        """This data rank's contiguous slice of a batch-leading array."""
+        if self._data is None:
+            return a
+        n = len(a) // self._ddp
+        return a[self._data.index * n:(self._data.index + 1) * n]
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A batch reduction's local sum, summed over the data group."""
+        return t if self._data is None else pd.all_reduce(t, self._data)
+
     def _chunk_size(self, b: int) -> Optional[int]:
-        """Largest divisor of the sample count <= n_parallel_calib_samples
-        (None: no chunking)."""
+        """Largest divisor of the sample count ``b`` (the whole batch, all
+        data ranks') <= n_parallel_calib_samples (None: no chunking); under
+        data-parallel calibration chunks also split evenly over the
+        ``data`` axis (JAX's ``_chunk_size``)."""
         c = self.n_parallel
         if not c or c >= b:
             return None
         c = max(1, min(c, b))
-        while b % c:
+        while b % c or c % self._ddp:
             c -= 1
+            if c < self._ddp:
+                return None
         return c
+
+    def _local_chunk(self, b: int) -> Optional[int]:
+        """The chunk of a rank's ``b`` local samples: its share of
+        :meth:`_chunk_size` of the whole batch."""
+        c = self._chunk_size(b * self._ddp)
+        return None if c is None else c // self._ddp
 
     def _offload(self, t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Recorded inputs to host memory, one copy per distinct tensor
@@ -344,7 +394,7 @@ class AwqQuantizer:
             return y, (self._offload(t) if self.offload_taps else t)
 
         b = x.shape[0]
-        c = self._chunk_size(b)
+        c = self._local_chunk(b)
         if c is None:
             y, t = run(x)
             taps.update(t)
@@ -372,7 +422,7 @@ class AwqQuantizer:
         inspect = make_inspect_fn(self.cfg, group, self.out_features_map)
 
         def run(lp, x, cos, sin, mask):
-            c = self._chunk_size(x.shape[0]) if x.dim() >= 3 else None
+            c = self._local_chunk(x.shape[0]) if x.dim() >= 3 else None
             if c is None:
                 return inspect(lp, x, cos, sin, mask)
             return torch.cat([inspect(lp, x[lo:lo + c], cos, sin, mask)
@@ -402,13 +452,13 @@ class AwqQuantizer:
         t_tot = flat.shape[0]
         rows = (t_tot if self.max_chunk_memory is None
                 else max(1, self.max_chunk_memory // (4 * k)))
-        if rows >= t_tot:
+        if rows >= t_tot and self._data is None:
             x_mean = flat.float().abs().mean(0)
         else:  # a byte-budgeted sum of chunk sums: the same mean
             acc = torch.zeros(k, dtype=torch.float32, device=self.device)
             for s0 in range(0, t_tot, rows):
                 acc = acc + flat[s0:s0 + rows].float().abs().sum(0)
-            x_mean = acc / t_tot
+            x_mean = self._sum(acc) / (t_tot * self._ddp)
         fp_out = inspect(lp, inp, cos, sin, mask).float()
 
         def compute_scales(ratio: torch.Tensor) -> torch.Tensor:
@@ -434,8 +484,13 @@ class AwqQuantizer:
                 fc["kernel"] = w2.to(inp.dtype)
                 set_by_path(lp2, path, fc)
             out = inspect(lp2, inp, cos, sin, mask).float()
-            losses.append(torch.mean((fp_out - out) ** 2))
+            if self._data is None:
+                losses.append(torch.mean((fp_out - out) ** 2))
+            else:
+                losses.append(torch.sum((fp_out - out) ** 2))
         losses = torch.stack(losses)
+        if self._data is not None:  # the whole batch's mean
+            losses = self._sum(losses) / (fp_out.numel() * self._ddp)
         # a NaN loss is never chosen (JAX's nanargmin)
         best = int(torch.argmin(torch.nan_to_num(losses, nan=float("inf"))))
         return compute_scales(ratios[best]), best, losses.tolist()
@@ -451,19 +506,24 @@ class AwqQuantizer:
         bits, qz = self.qcfg.w_bit, self.qcfg.zero_point
         n_steps = int(self.max_clip_shrink * self.n_grid)
         n_chunk = 256 if n % 256 == 0 else (64 if n % 64 == 0 else n)
-        t_total = int(np.prod(inp.shape[:-1]))
-        step = max(1, t_total // self.n_clip_sample_tokens)
+        t_total = int(np.prod(inp.shape[:-1]))  # this rank's tokens
+        t_all = t_total * self._ddp
+        step = max(1, t_all // self.n_clip_sample_tokens)
+        n_sample = -(-t_all // step)  # rows of the whole batch's [::step]
         if self.max_chunk_memory is not None:
             # bound the column chunk so the search's two [T', K/g, nc] f32
             # buffers fit the byte budget
-            t_eff = -(-t_total // step)
             nc_max = max(1, self.max_chunk_memory
-                         // (8 * t_eff * max(k // g, 1)))
+                         // (8 * n_sample * max(k // g, 1)))
             cand = [c for c in (256, 128, 64, 32, 16, 8, 4, 2, 1)
                     if n % c == 0 and c <= min(nc_max, n_chunk)]
             if cand:
                 n_chunk = cand[0]
-        x = inp.reshape(-1, k)[::step].to(self.device).float()  # [T', K]
+        # the rows of the whole batch's [::step] that fall in this rank's
+        # slice of it (all of them in one process)
+        first = 0 if self._data is None else (
+            -self._data.index * t_total) % step
+        x = inp.reshape(-1, k)[first::step].to(self.device).float()
         xg = x.reshape(x.shape[0], k // g, g).transpose(0, 1)  # [K/g, T', g]
 
         best = []
@@ -473,13 +533,20 @@ class AwqQuantizer:
             org_out = torch.bmm(xg, wgrp)  # [K/g, T', nc]
             best_max = org_max
             min_err = torch.full_like(org_max, 1e9)
+            errs = []
             for i_s in range(n_steps):
                 mv = org_max * (1 - i_s / self.n_grid)
                 cur = torch.clamp(wgrp, -mv[:, None, :], mv[:, None, :])
                 qw = pseudo_quantize_weight(
                     cur.reshape(k, -1), bits=bits, group_size=g,
                     zero_point=qz).reshape(k // g, g, -1)
-                err = ((torch.bmm(xg, qw) - org_out) ** 2).mean(dim=1)
+                d2 = (torch.bmm(xg, qw) - org_out) ** 2
+                errs.append(d2.mean(dim=1) if self._data is None
+                            else d2.sum(dim=1))
+            if self._data is not None:  # one all-reduce for the chunk
+                errs = list(self._sum(torch.stack(errs)) / n_sample)
+            for i_s, err in enumerate(errs):
+                mv = org_max * (1 - i_s / self.n_grid)
                 better = err < min_err
                 min_err = torch.where(better, err, min_err)
                 best_max = torch.where(better, mv, best_max)

@@ -39,11 +39,13 @@ Phases, each printing JSON lines:
               padded hd 96, S = 1000 at rep 8 and hd 256 with GQA; a
               second call bit-equal to the first; K4's ``out`` bit-equal
               with and without its log-sum-exp output. The build phase
-              fails if K10 or K11 spills at hd 64 or 128.
+              fails if K10 or K11 spills at hd 64 or 128. Past the widest
+              head (hd 320): a 2 x 128 prompt and a paged step take the
+              plain routes (no K4, no K7) within the teacher-forced rule.
 4. e2e      — TinyLlama-1.1B at full width (22 layers, seed-0 synthetic
               weights, bf16, fused qkv / gate_up). Traffic A: bs1, 64-token
               prompt, greedy decode, decode tok/s by the difference quotient
-              of 256 and 32 new tokens (min of 2 each; ``DECODE_BIG``).
+              of 128 and 32 new tokens (min of 2 each; ``DECODE_BIG``).
               Traffic B: bs2, two
               384-token prompts, 32 new tokens, prefill seconds. Launch
               counts are zeroed before each traffic and read after it.
@@ -106,8 +108,8 @@ Phases, each printing JSON lines:
               fused, and checks each one's logits against the model built
               in memory from the same nibbles.
 6. quantize — AWQ on the card. TinyLlama at full width and depth (seed-0
-              float weights from ``io/hf.init_random_params``, f32, hot
-              embedding columns 0-5 x 8) quantized through the facade on
+              f32 float weights drawn on the card, hot embedding columns
+              0-5 x 8) quantized through the facade on
               128 x 512 seeded calibration ids (g128, zero point, scale
               and clip search, f32): wall seconds split into tapped
               forwards, scale search, clip search and packing, peak
@@ -165,7 +167,7 @@ Phases, each printing JSON lines:
               at its four linears, K2 at fc1 prefill, K7 with ALiBi at N's
               shape), then traffic L: bs1, 64-token prompt, greedy decode
               through ``generate``, tok/s by the difference quotient of
-              256 and 32 new tokens (min of 2), launches per step held
+              128 and 32 new tokens (min of 2), launches per step held
               exactly (K1 128), device ms a step and busy share; traffic
               M: prefill 2 x 384 (K2 at M = 768, ALiBi attention in plain
               ops), seconds and device ms; traffic N: the paged engine in
@@ -187,8 +189,8 @@ Phases, each printing JSON lines:
               10,944 is no whole number of 128-row groups), latent cache
               bytes a token against materialized K/V. Traffic O: bs1,
               64-token prompt, greedy through ``generate``, tok/s by the
-              difference quotient of a 64- and a 16-token generation (min
-              of 2), device ms a step, busy share and the step's byte
+              difference quotient of a 64- and a 16-token generation (one
+              run each), device ms a step, busy share and the step's byte
               bound, launches per step held exactly (K1 81, K6 52, K8 26,
               K3 1); teacher-forced with the f32 run's expert choice
               replayed (bf16 and int8 latent caches), routing flips held,
@@ -210,7 +212,8 @@ Phases, each printing JSON lines:
               prompt, 128 new tokens, k = 4, with a self-draft of the first
               8 layers, with draft = target (all proposals accepted, the
               bonus token), both greedy, and the self-draft at temperature
-              0.8 twice under one seed (the streams equal): rounds, accept
+              0.8 for 32 tokens twice under one seed (the streams equal):
+              rounds, accept
               rate, tok/s, launches held exactly from the rounds and draft
               steps, and a profile of a 4-token run (device ms a round).
               Traffic T: the speculative slot pool
@@ -253,7 +256,40 @@ Phases, each printing JSON lines:
               (``TRAIN_CHECK_LAYERS``), one step's loss and adapter
               gradients (B drawn nonzero) against the plain route in bf16
               and f32 by the teacher-forced style rule.
-11. a ``kernels`` line: every ported kernel with launches, error and times
+11. parallel — tensor, expert and data parallelism on torch.distributed.
+              (a) A world of one over NCCL in this process: TinyLlama at
+              full width and depth (seed 0, fused) through
+              ``shard(build_mesh(tensor=1))``: an all-reduce is the
+              identity, the tree unchanged, A's step (bs1 x 64) and C's
+              shape (bs8 x 64) give the unsharded port's greedy streams
+              exactly (16 tokens) and A's and C's launches a step. (b) Two
+              ranks spawned on the one card over gloo (NCCL refuses two
+              ranks on one device; the port stages gloo's collectives on
+              CUDA tensors through host memory), each printing its step
+              ms with the backend: TinyLlama at full width and depth at
+              tensor 2, a 2 x 384 prefill (K2, K4 on the rank's heads), a
+              bs8 x 64 prefill with ``PARALLEL_DECODE_STEPS`` decode steps
+              (K5, K8 a layer) and A's bs1 x 64 with as many (K1 on q, k,
+              v and o's row shard, K8), launches a rank held exactly,
+              logits held against the unsharded port's f32 plain path by
+              the teacher-forced rule; the slot engine on H's requests (16
+              x 64 tokens, 64 new: H's 128 cut) at
+              ``PARALLEL_ENGINE_LAYERS`` (16) layers against the unsharded
+              engine, streams equal or
+              parting only at a bf16 near tie; Mixtral-8x7B at full
+              width, ``PARALLEL_MIXTRAL_LAYERS`` (2) layers, expert 2, E's
+              bs1 step and F's 8 x 512 prefill under both dispatch
+              schemes with the f32 run's expert choice replayed, held by
+              the rule and beside the world of one's kernel path, launches
+              held; data-parallel AWQ calibration of TinyLlama at full
+              width, 2 layers, data 2 against one process on 16 x 512
+              seeded ids (clip search off and on, the CPU tests' bounds on
+              scales and the tree; with it off the logits within 5e-3 +
+              5e-3 max |logit|, with it on the tree's close share alone).
+              Then K1, K2, K5, K6 and K8 against their twins at a rank's
+              shapes (tensor 2: TinyLlama; expert 2: Mixtral's 4 experts
+              a rank), timed with bounds and library calls.
+12. a ``kernels`` line: every ported kernel with launches, error and times
    (the mla_moe phase's K6 and K8 rows after the eleven).
 
 Asked for by name only, each for an A/B of two checkouts in one call
@@ -294,7 +330,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe", "serve", "train")
+          "mla_moe", "serve", "train", "parallel")
 EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
                 "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -400,11 +436,11 @@ ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
 # more than 4)
 MIXTRAL_DEPTH = 4
 # The long generation of A's, G's and L's decode quotient (new tokens,
-# cut from 512) and the depth of Mistral-7B in the e2e phase's traffics C,
-# D, H, I, J and K (16 of its 32 layers): both cut to keep the script
-# within its time limit on slower hosts, where these host-bound decode
-# loops take most of its time.
-DECODE_BIG = 256
+# cut from 512, then from 256 when the parallel phase came) and the depth
+# of Mistral-7B in the e2e phase's traffics C, D, H, I, J and K (16 of its
+# 32 layers): both cut to keep the script within its time limit on slower
+# hosts, where these host-bound decode loops take most of its time.
+DECODE_BIG = 128
 E2E_MISTRAL_DEPTH = 16
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
@@ -1027,6 +1063,67 @@ def _attn_bwd_case(case, b, s, nh, nkv, hd, dev, timing=True, iters=20,
     return rows
 
 
+def _head_dim_320_check(dev):
+    """Past K4's and K7's widest head (256): a llama with hidden 1280,
+    heads 4/2 and hd 320 (seed 0, one layer) prefills a 2 x 128 prompt
+    through ``_attend`` and takes one paged step through the gather on the
+    default "bespoke" route; neither launches K4 or K7, and both steps'
+    logits hold the teacher-forced rule against the plain twins (bf16 and
+    f32) on the card."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.paged import paged_decode_step
+
+    cfg = ModelConfig(model_type="llama", vocab_size=256, hidden_size=1280,
+                      intermediate_size=512, num_hidden_layers=1,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      head_dim=320)
+    params = synth_zoo_on_card(cfg, 0, dev)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 128))).to(dev)
+    ps, n = 64, 3  # three 64-row pages a slot: the prompt and the step
+    table = torch.arange(1, 1 + 2 * n, dtype=torch.int32,
+                         device=dev).reshape(2, n)
+    pos = torch.full((2,), 128, dtype=torch.int32, device=dev)
+    runs = {"kernel": ("auto", torch.bfloat16),
+            "plain": ("plain", torch.bfloat16),
+            "f32": ("plain", torch.float32)}
+    first, step, token, launches = {}, {}, None, None
+    for name, (method, dt) in runs.items():  # the kernel path first
+        caches = gen.init_kv_cache(cfg, 2, n * ps, dt, dev)
+        _build.reset_launches()
+        first[name], _ = gen.prefill(cfg, params, prompt, caches, method, dt)
+        if token is None:
+            token = first[name].argmax(-1)[:, None]
+        pool = {}
+        for kv in ("k", "v"):  # the contiguous rows as pages 1.., page 0
+            c = caches[0][kv]  # the trash page
+            pages = c.new_zeros((c.shape[1], 1 + 2 * n, ps, c.shape[3]))
+            pages[:, 1:] = c.reshape(2, c.shape[1], n, ps, c.shape[3]
+                                     ).transpose(0, 1).reshape(
+                c.shape[1], 2 * n, ps, c.shape[3])
+            pool[kv + "_pages"] = pages
+        step[name], _ = paged_decode_step(cfg, params, token, [pool], table,
+                                          pos, method, dt)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(not launches.get("prefill_attention")
+          and not launches.get("paged_attn"),
+          f"head dim 320: K4 or K7 launched ({launches})")
+    rows = [{"position": p, "kernel_vs_f32": rel_err(got["kernel"],
+                                                     got["f32"])[1],
+             "plain_bf16_vs_f32": rel_err(got["plain"], got["f32"])[1]}
+            for p, got in ((127, first), (128, step))]
+    _check_teacher_forced("head dim 320 (prompt, paged step)", rows)
+    emit({"phase": "kernels", "step": "head dim 320", "card": card(),
+          "launches": launches, "rows": rows})
+
+
 def _k5_case(rng, case, model, b, t, vl, dev, int8=False, window=None,
              bias=False, timing=True):
     """K5 against its twin at one shape (y per batch row, k_new / v_new per
@@ -1469,12 +1566,14 @@ def phase_kernels(dev):
     _attn_case(*D_ATTN, dev, iters=10, case="D prefill")
     for hd in (128, 96, 256):  # 96 is zero-padded to K4's 128 instance
         _attn_case(1, 200, 8, 2, hd, dev, timing=False)
+    _head_dim_320_check(dev)
     # K10 and K11 at traffic W's step (Mistral's heads), then TinyLlama's,
     # GPT-J's hd 256, a length off the 64-row tiles, B = 1 and a padded hd
     rep.update(_attn_bwd_case("W: Mistral", *TRAIN_ATTN, dev))
     for case, shape in (("TinyLlama", (2, 384, 32, 4, 64)),
-                        ("GPT-J hd 256", (2, 384, 16, 16, 256)),
-                        ("S = 300", (2, 300, 32, 8, 128)),
+                        ("GPT-J hd 256", (2, 384, 16, 16, 256))):
+        _attn_bwd_case(case, *shape, dev)  # timed, SDPA's backward beside
+    for case, shape in (("S = 300", (2, 300, 32, 8, 128)),
                         ("B = 1", (1, 512, 32, 8, 128)),
                         ("hd 96, padded", (1, 200, 8, 2, 96)),
                         ("S = 1000, rep 8", (1, 1000, 32, 4, 128)),
@@ -1679,15 +1778,12 @@ def phase_e2e(dev):
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
-    from autoawq_tpu_torch.nn.fuse import fuse_model
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
 
     cfg = ModelConfig(**TINYLLAMA)
     t0 = time.perf_counter()
-    params = fuse_model(cfg, random_quantized_params(
-        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    params = synth_zoo_on_card(cfg, 0, dev)
     torch.cuda.synchronize()
     emit({"phase": "e2e", "step": "synth", "layers": cfg.num_hidden_layers,
           "seconds": time.perf_counter() - t0})
@@ -1792,19 +1888,17 @@ def _quotient(run, small: int, big: int, reps: int, warm=()):
 
 
 def _traffic_g(cfg, prompt, dev):
-    """Traffic G: TinyLlama unfused (seed 0, the JAX synthesiser's draw) as
-    the facade's default ``from_quantized`` leaves a checkpoint, driven
+    """Traffic G: TinyLlama unfused (seed 0, drawn on the card, q/k/v and
+    gate/up split) as the facade's default ``from_quantized`` leaves a
+    checkpoint, driven
     through ``AwqCausalLM.generate``: K1 for q, k, v and o, K8 for the MLP.
     Decode tok/s by A's method (``DECODE_BIG``- and 32-token quotient, min
     of 2)."""
-    import torch
-
     from autoawq_tpu_torch import AwqCausalLM
     from autoawq_tpu_torch.ops import _build
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
 
-    model = AwqCausalLM(cfg, random_quantized_params(
-        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev), device=dev)
+    model = AwqCausalLM(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+                        device=dev)
     assert "gate_proj" in model.params["layers"][0]["mlp"]
 
     def run(n):
@@ -3120,13 +3214,21 @@ def phase_load(dev):
 
 
 def _outlier_fp(cfg, dev):
-    """Seeded float weights (``io/hf.init_random_params``, seed 0, f32 on
-    the card) with the hot embedding columns 0-5 (x 8) of
-    ``tests/test_quantizer.make_outlier_params``."""
-    from autoawq_tpu_torch.io.hf import init_random_params
-
-    params = init_random_params(cfg, seed=0, device=dev)
-    params["embed_tokens"]["weight"][:, :6] *= 8.0
+    """Seeded f32 float weights of a llama-family model drawn on the card
+    (``synth_float_on_card``, seed 0: std 0.05 and norms of ones, as
+    ``io/hf.init_random_params``, and the hot embedding columns 0-5 x 8 of
+    ``tests/test_quantizer.make_outlier_params``), with q / k / v apart as
+    the llama plugin quantizes them. A numpy draw on the host took ~20 s
+    at TinyLlama's size."""
+    params = synth_float_on_card(cfg, 0, dev)
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+    for lp in params["layers"]:
+        w = lp["self_attn"].pop("qkv_proj")["kernel"]
+        for name, lo, hi in (("q", 0, nh), ("k", nh, nh + nkv),
+                             ("v", nh + nkv, nh + 2 * nkv)):
+            lp["self_attn"][f"{name}_proj"] = {
+                "kernel": w[:, lo * hd:hi * hd].contiguous()}
     return params
 
 
@@ -4428,7 +4530,8 @@ def _v2_lite_traffics(dev, rng):
 
     t0 = time.perf_counter()
     _build.reset_launches()
-    tok_s, t_small, t_big, per_step["O"], out = _quotient(run_o, 16, 64, 2,
+    # one run each (min of 2 until the parallel phase came, for time)
+    tok_s, t_small, t_big, per_step["O"], out = _quotient(run_o, 16, 64, 1,
                                                           warm=(16,))
     counts["O"] = dict(_build.LAUNCHES)
     check(out.shape == (1, 64 + 64) and bool((out < cfg.vocab_size).all()),
@@ -4699,9 +4802,11 @@ def _teacher_forced_chunks(cfg, params, seqs, s, k, cap):
     return rows
 
 
-def _near_ties(name, s, gots, wants, used, steps, twins):
+def _near_ties(name, s, gots, wants, used, steps, twins, first=1):
     """Greedy speculative streams against the plain ones, row by row:
-    equal, or parting first at generated token p >= 1 at a bf16 near tie.
+    equal, or parting first at generated token p >= ``first`` (1: the
+    prefill's token must agree; 0 where both paths' prefill rows are
+    recorded at position s - 1) at a bf16 near tie.
     At the row that chose token p (position s + p - 1, the same prefix on
     both paths) the engine's own verify row e and the plain path's own
     decode-step row d each hold the teacher-forced rule against the f32
@@ -4714,11 +4819,11 @@ def _near_ties(name, s, gots, wants, used, steps, twins):
         diff = [j for j, (x, y) in enumerate(zip(got, want)) if x != y]
         check(len(got) == len(want), f"{name} {b}: {len(got)} tokens, "
               f"expected {len(want)}")
-        check(not diff or diff[0] >= 1, f"{name} {b}: the first token, "
-              "from the prefill, differs")
+        check(not diff or diff[0] >= first, f"{name} {b}: the first "
+              "token, from the prefill, differs")
         rec = {"equal": not diff}
         recs.append(rec)
-        if not diff or diff[0] < 1:
+        if not diff or diff[0] < first:
             continue
         p = diff[0]
         t, g, w = s + p - 1, got[p], want[p]
@@ -4784,10 +4889,11 @@ def _spec_traffic_s(cfg, params, fparams, dev, rng):
     steps = {int(a[4]): out[0][0] for a, out, _ in log}
     dcfg, dparams = self_draft(cfg, params, SPEC_DRAFT_LAYERS)
     counts = {}
-    # the sampled run repeats its first 32 tokens under the same seed
+    # the sampled run repeats its 32 tokens under the same seed (cut from
+    # 128 for the time limit when the parallel phase came)
     runs = (("self-draft", dcfg, dparams, 0.0, n),
             ("draft=target", cfg, params, 0.0, n),
-            ("sampled", dcfg, dparams, 0.8, n),
+            ("sampled", dcfg, dparams, 0.8, 32),
             ("sampled, again", dcfg, dparams, 0.8, 32))
     sampled, greedy = [], {}
     for name, dc, dp, temp, n_run in runs:
@@ -5181,14 +5287,11 @@ def _eviction_traffic_v(dev, rng):
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
-    from autoawq_tpu_torch.nn.fuse import fuse_model
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
 
     cfg = ModelConfig(**TINYLLAMA)
-    params = fuse_model(cfg, random_quantized_params(
-        cfg, seed=0, fp_dtype=torch.bfloat16, device=dev))
+    params = synth_zoo_on_card(cfg, 0, dev)
     lt, cap, n = cfg.num_hidden_layers, 256, 384
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (1, 64))).to(dev)
@@ -5495,6 +5598,587 @@ def phase_train(dev):
     return counts, {"W": per_step}
 
 
+# --------------------------------------------------------------- parallel
+
+# The parallel phase (tensor, expert and data parallelism on
+# torch.distributed). The card is one H100 and NCCL refuses two ranks on
+# one device, so the phase runs the code two ways: (a) a world of one over
+# NCCL in this process; (b) two ranks sharing the card over gloo, spawned
+# by the phase, whose collectives on CUDA tensors the port stages through
+# host memory (parallel/distributed.py: STAGED). Neither is a collective's
+# speed: gloo stages through the host. The slot engine over tensor 2 runs
+# H's requests on TinyLlama cut to PARALLEL_ENGINE_LAYERS layers, Mixtral
+# runs PARALLEL_MIXTRAL_LAYERS layers at full width, and the
+# data-parallel calibration TinyLlama at full width on
+# PARALLEL_CALIB_LAYERS layers and PARALLEL_CALIB ids (16 x 512).
+PARALLEL_ENGINE_LAYERS = 16
+# H's requests, 64 new tokens each (H's 128 cut for the time limit)
+PARALLEL_ENGINE = dict(requests=16, prompt=64, new=64)
+PARALLEL_MIXTRAL_LAYERS = 2
+PARALLEL_CALIB = (16, 512)
+PARALLEL_CALIB_LAYERS = 2
+PARALLEL_DECODE_STEPS = 4  # teacher-forced bs8 decode steps at tensor 2
+PARALLEL_TIMEOUT = 900  # seconds the two ranks may take together
+# what the spawned ranks read from this module (a rehearsal on the CPU
+# swaps them for tiny values, and the ranks import the module afresh)
+PARALLEL_SPEC = ("TINYLLAMA", "MIXTRAL", "PARALLEL_ENGINE_LAYERS",
+                 "PARALLEL_ENGINE", "PARALLEL_MIXTRAL_LAYERS",
+                 "PARALLEL_CALIB", "PARALLEL_CALIB_LAYERS",
+                 "PARALLEL_DECODE_STEPS")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _forced_logits(cfg, params, prompt, tokens, method, dtype, dev,
+                   whole=False):
+    """A prefill of ``prompt`` (every position's logits with ``whole``,
+    else the last one's), then one decode step per entry of ``tokens``
+    ([steps, B, 1]), teacher-forced. Returns the logits list and the
+    prefill's and each decode step's launches (and a step's
+    milliseconds)."""
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s = prompt.shape
+    _build.reset_launches()
+    if whole:  # a prefill alone, every position's logits
+        return ([modules.forward(cfg, params, prompt, method, dtype)],
+                [{"launches": dict(_build.LAUNCHES)}])
+    caches = gen.init_kv_cache(cfg, b, s + len(tokens), dtype, dev)
+    out = [gen.prefill(cfg, params, prompt, caches, method, dtype)[0]]
+    steps = [{"launches": dict(_build.LAUNCHES)}]
+    for i, tok in enumerate(tokens):
+        _sync(dev)
+        _build.reset_launches()
+        t = time.perf_counter()
+        out.append(gen.decode_step(cfg, params, tok, caches, s + i, method,
+                                   dtype)[0])
+        _sync(dev)
+        steps.append({"launches": dict(_build.LAUNCHES),
+                      "ms": (time.perf_counter() - t) * 1e3})
+    return out, steps
+
+
+def _hold_rule(name, got, plain, f32):
+    """Rows of ``got`` against the f32 plain run by the teacher-forced rule
+    (within twice the bf16 plain run's distance, + 1e-3)."""
+    rows = [{"position": i, "kernel_vs_f32": rel_err(g, f)[1],
+             "plain_bf16_vs_f32": rel_err(p, f)[1]}
+            for i, (g, p, f) in enumerate(zip(got, plain, f32))]
+    _check_teacher_forced(name, rows)
+    return rows
+
+
+def _held_launches(name, steps, expect):
+    for i, st in enumerate(steps):
+        _check_launches(f"{name} {'prefill' if i == 0 else f'step {i}'}",
+                        {k: v for k, v in st["launches"].items() if v},
+                        expect[min(i, 1)])
+
+
+def _rank_tp(rank, dev, rng):
+    """TinyLlama at full width and depth over tensor 2: a 2 x 384 prefill
+    (every position), A's bs1 x 64 prefill and a bs8 x 64 prefill, each
+    with PARALLEL_DECODE_STEPS teacher-forced decode steps, each rank's
+    launches held exactly, the logits held (rank 0) against the unsharded
+    port's plain path in f32 by the teacher-forced rule; then the slot
+    engine on H's requests at
+    PARALLEL_ENGINE_LAYERS layers against the unsharded engine (rank 0),
+    streams equal or parting only at a bf16 near tie."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.serve import batching
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.batching import BatchingEngine
+
+    cfg = ModelConfig(**TINYLLAMA)
+    full = synth_zoo_on_card(cfg, 0, dev)
+    v, bf, f32 = cfg.vocab_size, torch.bfloat16, torch.float32
+    pre = torch.from_numpy(rng.integers(0, v, (2, 384))).to(dev)
+    dec = torch.from_numpy(rng.integers(0, v, (8, 64))).to(dev)
+    toks = torch.from_numpy(rng.integers(
+        0, v, (PARALLEL_DECODE_STEPS, 8, 1))).to(dev)
+    n, ecfg = PARALLEL_ENGINE, dataclasses.replace(
+        cfg, num_hidden_layers=PARALLEL_ENGINE_LAYERS)
+    prompts = [rng.integers(0, v, (n["prompt"],))
+               for _ in range(n["requests"])]
+    cap = n["prompt"] + n["new"]
+    one = torch.from_numpy(rng.integers(0, v, (1, 64))).to(dev)
+    one_toks = torch.from_numpy(rng.integers(
+        0, v, (PARALLEL_DECODE_STEPS, 1, 1))).to(dev)
+
+    def seen(e):
+        return lambda: ([None if r is None else r.id for r in e.slots],
+                        e.pos.copy())
+
+    def engine(c, p):
+        """Streams, and each request's logits rows by position: the
+        admission's prefill row (position 63) and every decode row."""
+        eng = BatchingEngine(c, p, max_batch=8, max_seq_len=cap, device=dev)
+        for i, pr in enumerate(prompts):
+            eng.add_request(i, pr, n["new"])
+        steps = {i: {} for i in range(len(prompts))}
+        t = time.perf_counter()
+        with _recorded(batching, "batched_decode_step", seen(eng)) as log, \
+                _recorded(gen, "prefill") as plog:
+            out = eng.run()
+        _sync(dev)
+        for _, res, (ids, pos) in log:
+            for slot, i in enumerate(ids):
+                if i is not None:
+                    steps[i][int(pos[slot])] = res[0][slot]
+        by_prompt = {tuple(pr.tolist()): i for i, pr in enumerate(prompts)}
+        for a, res, _ in plog:
+            i = by_prompt[tuple(a[2][0].tolist())]
+            steps[i][n["prompt"] - 1] = res[0][0]
+        return out, steps, time.perf_counter() - t
+
+    ref = {}
+    if rank == 0:  # the unsharded port: plain bf16 and f32, its engine
+        for dt in (bf, f32):
+            ref[("pre", dt)] = _forced_logits(cfg, full, pre, [], "plain",
+                                              dt, dev, whole=True)[0]
+            ref[("dec", dt)] = _forced_logits(cfg, full, dec, toks, "plain",
+                                              dt, dev)[0]
+            ref[("one", dt)] = _forced_logits(cfg, full, one, one_toks,
+                                              "plain", dt, dev)[0]
+        full16 = {**full, "layers": full["layers"][:PARALLEL_ENGINE_LAYERS]}
+        ref["engine"] = engine(ecfg, full16)
+    model = AwqCausalLM(cfg, full, device=dev).shard(build_mesh(tensor=2),
+                                                     dtype=None)
+    del full
+    lcfg, lp = model.cfg, model.params
+    L = cfg.num_hidden_layers
+    got_pre, st_pre = _forced_logits(lcfg, lp, pre, [], "auto", bf, dev,
+                                     whole=True)
+    got_dec, st_dec = _forced_logits(lcfg, lp, dec, toks, "auto", bf, dev)
+    got_one, st_one = _forced_logits(lcfg, lp, one, one_toks, "auto", bf,
+                                     dev)
+    # per rank: q, k, v, o, gate, up and down on K2 a layer (o and down
+    # row shards) and K4 on the local heads; each decode step K5 on the
+    # local heads and K8 on the local slice, one each a layer
+    prefill = {"w4a16_gemm": 7 * L, "prefill_attention": L}
+    _held_launches(f"parallel rank {rank} tensor 2 prefill 2 x 384",
+                   st_pre, [prefill])
+    _held_launches(f"parallel rank {rank} tensor 2 bs8 decode", st_dec,
+                   [{"w4a16_gemm": 7 * L},  # 64 tokens: no K4 below 128
+                    {"fused_attn_step": L, "fused_mlp3": L}])
+    # A's bs1 x 64: every linear on K1 (64 rows, below K2's 256), o and
+    # down row shards all-reduced after K1; each step q, k, v and o on K1
+    # (B = 1 and a 68-row cache: no K5) and K8 on the local slice
+    _held_launches(f"parallel rank {rank} tensor 2 bs1 decode", st_one,
+                   [{"w4a16_gemv": 7 * L},
+                    {"w4a16_gemv": 4 * L, "fused_mlp3": L}])
+    for traffic, st in (("bs8 x 64 decode", st_dec),
+                        ("bs1 x 64 decode", st_one)):
+        emit({"phase": "parallel", "rank": rank, "backend": "gloo",
+              "model": "tinyllama", "tensor": 2, "traffic": traffic,
+              "step_ms": [s["ms"] for s in st[1:]],
+              "launches_per_step": st[1]["launches"]})
+    if rank == 0:
+        rows = _hold_rule("parallel tensor 2 prefill 2 x 384", got_pre,
+                          ref[("pre", bf)], ref[("pre", f32)])
+        rows += _hold_rule("parallel tensor 2 bs8 decode", got_dec,
+                           ref[("dec", bf)], ref[("dec", f32)])
+        rows += _hold_rule("parallel tensor 2 bs1 decode", got_one,
+                           ref[("one", bf)], ref[("one", f32)])
+        emit({"phase": "parallel", "step": "tensor 2 vs unsharded f32",
+              "rows": rows})
+    del got_pre
+    ref.pop(("pre", bf), None), ref.pop(("pre", f32), None)
+    lp16 = {**lp, "layers": lp["layers"][:PARALLEL_ENGINE_LAYERS]}
+    got, steps, secs = engine(dataclasses.replace(
+        lcfg, num_hidden_layers=PARALLEL_ENGINE_LAYERS), lp16)
+    emit({"phase": "parallel", "rank": rank, "backend": "gloo",
+          "model": "tinyllama", "tensor": 2, "traffic": "slot engine",
+          "layers": PARALLEL_ENGINE_LAYERS, **n, "seconds": secs})
+    if rank == 0:
+        want, wsteps, wsecs = ref["engine"]
+        ids = range(len(prompts))
+        seqs = torch.from_numpy(np.stack([np.concatenate(
+            [prompts[i], want[i]]) for i in ids])).to(dev)
+        recs = []
+        for lo in range(0, len(prompts), 8):
+            wave = list(ids)[lo:lo + 8]
+            twins = _twins(ecfg, full16, seqs[wave])
+            recs += _near_ties(
+                "parallel slot engine tensor 2", n["prompt"],
+                [got[i] for i in wave], [want[i] for i in wave],
+                {b: {t: (0, r) for t, r in steps[i].items()}
+                 for b, i in enumerate(wave)},
+                {b: wsteps[i] for b, i in enumerate(wave)}, twins, first=0)
+            del twins
+        emit({"phase": "parallel", "step": "slot engine vs unsharded",
+              "unsharded_seconds": wsecs,
+              "equal_streams": sum(r["equal"] for r in recs),
+              "streams": len(recs),
+              "partings": [r for r in recs if not r["equal"]]})
+
+
+def _rank_ep(rank, dev, rng):
+    """Mixtral-8x7B at full width, PARALLEL_MIXTRAL_LAYERS layers, experts
+    over an expert axis of 2 under both dispatch schemes: E's bs1 step
+    (prefill 64 and two teacher-forced decode steps) and F's 8 x 512
+    prefill (every position), the f32 run's expert choice replayed in
+    every run (rank 0 records it and sends it), each rank's launches held
+    exactly, the logits held (rank 0) against the f32 plain run by the
+    teacher-forced rule and beside the world of one's kernel path."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = dataclasses.replace(ModelConfig(**MIXTRAL),
+                              num_hidden_layers=PARALLEL_MIXTRAL_LAYERS)
+    full = synth_moe_on_card(cfg, 0, dev)
+    v, bf, f32 = cfg.vocab_size, torch.bfloat16, torch.float32
+    e_prompt = torch.from_numpy(rng.integers(0, v, (1, 64))).to(dev)
+    e_toks = torch.from_numpy(rng.integers(0, v, (2, 1, 1))).to(dev)
+    f_prompt = torch.from_numpy(rng.integers(0, v, (8, 512))).to(dev)
+    L = cfg.num_hidden_layers
+    tape = _RouteTape(L)
+
+    def runs(params, method, dtype, c=cfg):
+        e, st = _forced_logits(c, params, e_prompt, e_toks, method, dtype,
+                               dev)
+        f, fst = _forced_logits(c, params, f_prompt, [], method, dtype, dev,
+                                whole=True)
+        return e + f, st, fst
+
+    record = [None]
+    ref = {}
+    with tape:
+        if rank == 0:
+            rec = []
+            tape.reset(record=rec)
+            ref["f32"] = runs(full, "plain", f32)[0]
+            record = [[t.cpu() for t in rec]]
+            tape.reset(replay=rec)
+            ref["bf16"] = runs(full, "plain", bf)[0]
+            tape.reset(replay=rec)
+            ref["one"] = runs(full, "auto", bf)[0]
+        dist.broadcast_object_list(record, src=0)
+        rec = [t.to(dev) for t in record[0]]
+        for scheme in ("replicate", "a2a"):
+            m = AwqCausalLM(cfg, full, device=dev).shard(
+                build_mesh(expert=2), dtype=None, moe_dispatch=scheme)
+            tape.reset(replay=rec)
+            got, st, fst = runs(m.params, "auto", bf, m.cfg)
+            name = f"parallel rank {rank} expert 2 {scheme}"
+            _held_launches(f"{name} E", st, [
+                {"w4a16_gemv": 2 * L, "moe_gemm": 2 * L},
+                {"w4a16_gemv": 2 * L, "moe_gemm": 2 * L}])
+            _held_launches(f"{name} F", fst, [
+                {"w4a16_gemm": 2 * L, "prefill_attention": L,
+                 "moe_gemm": 2 * L}])
+            emit({"phase": "parallel", "rank": rank, "backend": "gloo",
+                  "model": "mixtral", "layers": L, "expert": 2,
+                  "dispatch": scheme, "traffic": "E bs1 decode",
+                  "step_ms": [s["ms"] for s in st[1:]]})
+            if rank == 0:
+                rows = _hold_rule(f"parallel expert 2 {scheme}", got,
+                                  ref["bf16"], ref["f32"])
+                for r, g, o in zip(rows, got, ref["one"]):
+                    r["vs_world_of_one"] = rel_err(g, o)[1]
+                emit({"phase": "parallel", "step": f"expert 2 {scheme}",
+                      "rows": rows})
+            del m, got
+
+
+def _rank_dp(rank, dev, rng):
+    """Data-parallel AWQ calibration: TinyLlama at full width on
+    PARALLEL_CALIB_LAYERS layers, data 2 against one process (rank 0) on
+    the same seeded ids, clip search off and on, with the CPU tests'
+    bounds: layer 0's scales within rtol 1e-4 / atol 1e-5, >= 99.9% (off)
+    or 99% (on) of the tree's elements within 1e-4. With the clip search
+    off the logits are held within 5e-3 + 5e-3 * max |logit|, looser than
+    the CPU tests' element-wise rtol = atol = 5e-3: at full width the sums'
+    order flips an element or two of the tree by one grid step (a close
+    share of 0.99999999), which moves a logit by ~0.04. With it on, more
+    grid ties flip, so the close share alone holds that leg, as on the
+    CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
+    from autoawq_tpu_torch.utils.tree import tensor_leaves
+
+    cfg = dataclasses.replace(ModelConfig(**TINYLLAMA),
+                              num_hidden_layers=PARALLEL_CALIB_LAYERS)
+    fp = _outlier_fp(cfg, dev)
+    calib = rng.integers(0, cfg.vocab_size, PARALLEL_CALIB)
+    qcfg = AwqConfig(q_group_size=128, zero_point=True)
+    mesh = build_mesh(data=2)
+    tok = torch.from_numpy(calib[:2]).to(dev)
+    for clip, share in ((False, 0.999), (True, 0.99)):
+        t = time.perf_counter()
+        q = AwqQuantizer(cfg, qcfg, fp, calib, progress=False,
+                         apply_clip=clip, mesh=mesh, device=dev)
+        got = q.quantize()
+        secs = time.perf_counter() - t
+        emit({"phase": "parallel", "rank": rank, "backend": "gloo",
+              "step": "data 2 calibration", "clip": clip, "seconds": secs})
+        if rank:
+            continue
+        t = time.perf_counter()
+        q1 = AwqQuantizer(cfg, qcfg, fp, calib, progress=False,
+                          apply_clip=clip, device=dev)
+        want = q1.quantize()
+        secs1 = time.perf_counter() - t
+        s_ok = all(torch.allclose(a[1], b[1], rtol=1e-4, atol=1e-5)
+                   for a, b in zip(q.all_scales[0], q1.all_scales[0]))
+        n_close = n_all = 0
+        for a, b in zip(tensor_leaves(got), tensor_leaves(want)):
+            a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+            n_close += int(np.isclose(a, b, rtol=1e-4, atol=1e-4).sum())
+            n_all += a.size
+        lg = [modules.forward(cfg, _to(tree, dev), tok, "plain",
+                              torch.float32) for tree in (got, want)]
+        d = (lg[0] - lg[1]).abs().max().item()
+        lim = None if clip else 5e-3 + 5e-3 * lg[1].abs().max().item()
+        check(s_ok and n_close / n_all >= share and (clip or d <= lim),
+              f"parallel data 2 calibration (clip {clip}): scales "
+              f"{s_ok}, close share {n_close / n_all:.5f}, logits {d:.3g} "
+              f"(limit {lim})")
+        emit({"phase": "parallel", "step": "data 2 vs one process",
+              "clip": clip, "scales_close": s_ok,
+              "close_share": n_close / n_all, "logits_max_abs": d,
+              "logits_limit": lim, "one_process_seconds": secs1})
+
+
+def _to(tree, dev):
+    from autoawq_tpu_torch.utils.tree import to_device
+
+    return to_device(tree, dev)
+
+
+def _parallel_rank(rank, world, port, tmp, device, spec):
+    """One rank of the phase's gloo world (spawned): its output goes to a
+    file the phase prints after the join, its failures to another."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.parallel import distributed as pd
+
+    globals().update(spec)
+    out = open(os.path.join(tmp, f"rank{rank}.out"), "w")
+    sys.stdout = out
+    err = None
+    try:
+        dev = pd.initialize(init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank, backend="gloo",
+                            device=device)
+        with torch.inference_mode():
+            for part in (_rank_tp, _rank_ep, _rank_dp):
+                t = time.perf_counter()
+                part(rank, dev, np.random.default_rng(0))
+                emit({"phase": "parallel", "rank": rank,
+                      "part": part.__name__,
+                      "seconds": time.perf_counter() - t})
+        emit({"phase": "parallel", "rank": rank, "staged_collectives":
+              dict(pd.STAGED), "note": "gloo collectives on CUDA tensors, "
+              "staged through host memory by design"})
+    except Exception:  # reported by the phase, which fails the run
+        err = traceback.format_exc()
+    finally:
+        out.flush()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"failures": failures, "error": err}, f)
+        torch.distributed.destroy_process_group()
+
+
+def _world_of_one(dev):
+    """(a): TinyLlama at full width and depth (seed 0, fused) through
+    ``shard(build_mesh(tensor=1))`` in a world of one over NCCL: an
+    all-reduce over the one rank is the identity, the tree is the model's
+    own, and A's step (bs1 x 64) and C's shape (bs8 x 64, K5) give the
+    unsharded port's greedy streams exactly, with A's and C's launches a
+    step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.parallel import distributed as pd
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg = ModelConfig(**TINYLLAMA)
+    params = synth_zoo_on_card(cfg, 0, dev)
+    pd.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                  world_size=1, rank=0, device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = build_mesh(tensor=1)
+        x = torch.randn(8, 2048, device=dev)
+        check(torch.equal(pd.all_reduce(x, mesh.axis("tensor")), x),
+              f"parallel world of one: {backend} all-reduce is not the "
+              "identity")
+        m = AwqCausalLM(cfg, params, device=dev).shard(mesh, dtype=None)
+        check(m.params is params and m.cfg is cfg,
+              "parallel world of one: shard changed the tree")
+        rng = np.random.default_rng(0)
+        L = cfg.num_hidden_layers
+        for name, b, expect in (
+                ("A", 1, {"w4a16_gemv": 2 * L, "fused_mlp": L}),
+                ("C", 8, {"fused_attn_step": L, "fused_mlp": L})):
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, 64))).to(dev)
+            streams = [gen.generate(c, p, prompt, 16, dtype=torch.bfloat16,
+                                    max_seq_len=128).cpu()
+                       for c, p in ((m.cfg, m.params), (cfg, params))]
+            check(torch.equal(*streams), f"parallel world of one {name}: "
+                  "streams differ from the unsharded port's")
+            caches = gen.init_kv_cache(cfg, b, 128, torch.bfloat16, dev)
+            gen.prefill(m.cfg, m.params, prompt, caches)
+            tok = streams[0][:, 64:65].to(dev)
+            _sync(dev)
+            _build.reset_launches()
+            t = time.perf_counter()
+            gen.decode_step(m.cfg, m.params, tok, caches, 64)
+            _sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+            got = {k: v for k, v in _build.LAUNCHES.items() if v}
+            _check_launches(f"parallel world of one {name}", got, expect)
+            emit({"phase": "parallel", "rank": 0, "backend": backend,
+                  "world": 1, "model": "tinyllama", "traffic": name,
+                  "batch": b, "streams_equal": torch.equal(*streams),
+                  "step_ms": ms, "launches_per_step": got})
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_kernel_rows(dev):
+    """K1, K2, K5, K6 and K8 against their twins at a rank's shapes under
+    tensor 2 (TinyLlama: qkv 2048->1280, o 1024->2048 a row shard, gate /
+    up 2048->2816, down 2816->2048 a row shard; K5 on 16/2 heads) and
+    expert 2 (Mixtral: 4 of 8 experts a rank), timed with their bounds and
+    library calls as the kernels phase times them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    t = TINYLLAMA
+    h, hd, i2 = t["hidden_size"], t["head_dim"], t["intermediate_size"] // 2
+    nh, nkv = t["num_attention_heads"] // 2, t["num_key_value_heads"] // 2
+    shapes = {"qkv": (h, (nh + 2 * nkv) * hd),
+              "o (row shard)": (nh * hd, h), "gate / up": (h, i2),
+              "down (row shard)": (i2, h)}
+    rows = []
+    for case in ("qkv", "o (row shard)"):
+        rows.append(_gemm_case(rng, "w4a16_gemv", f"tensor 2 {case}", 1,
+                               *shapes[case], 128, True, dev))
+    for case, (k, n) in shapes.items():
+        rows.append(_gemm_case(rng, "w4a16_gemm", f"tensor 2 {case}", 768,
+                               k, n, 128, True, dev))
+    local = dict(t, num_attention_heads=nh, num_key_value_heads=nkv)
+    rows.append(_k5_case(rng, f"tensor 2: TinyLlama {nh}/{nkv} heads", local,
+                         8, 128, 127, dev))
+    for m in (1, 8):
+        rows.append(_mlp3_case(rng, f"tensor 2: TinyLlama M={m}", m, h, i2,
+                               "silu", dev))
+    h, inter = MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"]
+    gu = qlin_on_card(gen, h, 2 * inter, experts=4)
+    dn = qlin_on_card(gen, inter, h, experts=4)
+    rows.append(_moe_case(gen, "expert 2: E decode, gate_up, 4 experts",
+                          gu, 1, dev))
+    rows.append(_moe_case(gen, "expert 2: F prefill, gate_up, 4 experts",
+                          gu, 4096, dev, iters=10))
+    rows.append(_moe_case(gen, "expert 2: F prefill, down, 4 experts", dn,
+                          4096, dev, iters=10))
+    return rows
+
+
+def phase_parallel(dev):
+    """Tensor, expert and data parallelism on the card: the two gloo ranks
+    (b) spawned first, the world of one over NCCL (a) while they start,
+    then their results, then the kernels at a rank's shapes."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    spec = {k: globals()[k] for k in PARALLEL_SPEC}
+    ctx = mp.start_processes(_parallel_rank, args=(2, _free_port(), tmp,
+                                                   str(dev), spec),
+                             nprocs=2, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        _world_of_one(dev)
+    finally:
+        deadline = time.time() + PARALLEL_TIMEOUT
+        done = False
+        while not done:
+            try:
+                done = ctx.join(timeout=max(1, deadline - time.time()))
+            except Exception as e:  # a rank exited with an error
+                check(False, f"parallel: a rank failed: {e}")
+                done = True
+            if not done and time.time() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                check(False, "parallel: the ranks did not finish in "
+                      f"{PARALLEL_TIMEOUT} s")
+                done = True
+    for r in range(2):
+        path = os.path.join(tmp, f"rank{r}.out")
+        if os.path.exists(path):
+            with open(path) as f:
+                sys.stdout.write(f.read())
+        res_path = os.path.join(tmp, f"rank{r}.json")
+        if not os.path.exists(res_path):
+            check(False, f"parallel rank {r}: no result")
+            continue
+        with open(res_path) as f:
+            res = json.load(f)
+        for what in res["failures"]:
+            check(False, f"rank {r}: {what}")
+        check(res["error"] is None, f"parallel rank {r} raised: "
+              f"{res['error']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "parallel", "step": "ranks", "seconds":
+          time.perf_counter() - t0})
+    _parallel_kernel_rows(dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5573,6 +6257,8 @@ def main(argv=None) -> int:
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "parallel" in phases:
+        timed("parallel", phase_parallel, dev)
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:

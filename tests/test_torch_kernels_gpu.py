@@ -956,6 +956,72 @@ def test_bs8_decode_at_head_dim_320_takes_the_plain_attention(cuda):
     assert rel(logits["kernel"], logits["f32"]) <= limit
 
 
+def _pool_from_cache(cache, ps):
+    """A contiguous cache [B, nkv, T, hd] copied into a page pool
+    [nkv, 1 + B * T / ps, ps, hd] (page 0 the trash page) and its table."""
+    b, nkv, t, hd = cache["k"].shape
+    n = t // ps
+    table = torch.arange(1, 1 + b * n, device=cache["k"].device,
+                         dtype=torch.int32).reshape(b, n)
+    pool = {}
+    for name in ("k", "v"):
+        pages = cache[name].new_zeros((nkv, 1 + b * n, ps, hd))
+        pages[:, 1:] = cache[name].reshape(b, nkv, n, ps, hd).transpose(
+            0, 1).reshape(nkv, b * n, ps, hd)
+        pool[name + "_pages"] = pages
+    return pool, table
+
+
+def test_prompt_and_paged_step_at_head_dim_320_take_the_plain_routes(cuda):
+    """hd 320 is above K4's and K7's widest instance (256): a 128-token
+    prompt takes ``_attend`` (no K4) and a paged step on the default
+    "bespoke" route takes the gather (no K7). The prompt's last logits and
+    the paged step's sit within twice the bf16 plain path's distance from
+    the f32 plain path on the CPU (+1e-3), the teacher-forced rule."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.paged import paged_decode_step
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+    from autoawq_tpu_torch.utils.tree import to_device
+
+    cfg = ModelConfig(model_type="llama", vocab_size=256, hidden_size=1280,
+                      intermediate_size=512, num_hidden_layers=1,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      head_dim=320)
+    params = random_quantized_params(cfg, seed=0, fp_dtype=torch.bfloat16,
+                                     device=cuda)
+    cpu = torch.device("cpu")
+    host = to_device(params, cpu)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 128)))
+    runs = {"kernel": (cuda, "auto", torch.bfloat16),
+            "plain": (cpu, "plain", torch.bfloat16),
+            "f32": (cpu, "plain", torch.float32)}
+    first, step, launches, token = {}, {}, {}, None
+    for name, (dev, method, dt) in runs.items():  # the card first
+        p = params if dev == cuda else host
+        caches = gen.init_kv_cache(cfg, 2, 192, dt, dev)
+        _build.reset_launches()
+        first[name], _ = gen.prefill(cfg, p, prompt.to(dev), caches, method,
+                                     dt)
+        if token is None:
+            token = first[name].argmax(-1)[:, None].cpu()
+        pool, table = _pool_from_cache(caches[0], 64)
+        pos = torch.full((2,), 128, dtype=torch.int32, device=dev)
+        step[name], _ = paged_decode_step(cfg, p, token.to(dev), [pool],
+                                          table, pos, method, dt)
+        if dev == cuda:
+            torch.cuda.synchronize()
+        launches[name] = dict(_build.LAUNCHES)
+    assert launches["kernel"]["prefill_attention"] == 0
+    assert launches["kernel"]["paged_attn"] == 0
+    assert launches["kernel"]["w4a16_gemm"] > 0  # the prompt's linears
+    for got in (first, step):
+        assert bool(torch.isfinite(got["kernel"]).all())
+        limit = 2 * rel(got["plain"], got["f32"]) + 1e-3
+        assert rel(got["kernel"].cpu(), got["f32"]) <= limit
+
+
 QUANT_TINY = dict(model_type="llama", vocab_size=256, hidden_size=128,
                   intermediate_size=256, num_hidden_layers=2,
                   num_attention_heads=4, num_key_value_heads=4, head_dim=32,

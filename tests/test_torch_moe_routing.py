@@ -206,11 +206,25 @@ def test_moe_block_with_shared_experts_matches_jax(name, route):
 
 
 def test_expert_parallel_stacks_raise():
+    """An expert-parallel stack's marker is the ``parallel/mesh.Axis``
+    handle ``shard_params`` writes: JAX's form, an axis name, raises. With
+    the handle of a one-rank expert axis, both dispatch schemes compute
+    the unsharded block."""
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
     _, cfg, tree = _block_models("deepseek_shared_experts")
     m = fuse.fuse_model(cfg, from_jax_params(cfg, tree))["layers"][0]["mlp"]
-    m["experts_stacked"]["tp_ep"] = "expert"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        modules.moe_block(cfg, m, torch.zeros(1, 2, 256))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 3, 256)).astype(np.float32))
+    ref = modules.moe_block(cfg, m, x)
+    st = m["experts_stacked"]
+    for scheme in ("replicate", "a2a"):
+        m["experts_stacked"] = {**st, "tp_ep": "expert",
+                                "ep_dispatch": scheme}
+        with pytest.raises(TypeError, match="Axis"):
+            modules.moe_block(cfg, m, x)
+        m["experts_stacked"]["tp_ep"] = build_mesh().axis("expert")
+        close(modules.moe_block(cfg, m, x), ref)
 
 
 @pytest.mark.parametrize("t,k,e", [(1, 6, 64), (768, 6, 64), (1, 8, 128),

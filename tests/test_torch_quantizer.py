@@ -332,15 +332,30 @@ def test_quantizer_runs_on_the_card_by_default(monkeypatch):
         AwqQuantizer(cfg, AwqConfig(), {}, calib_ids(TINY))
 
 
-# resume_dir and quantize_lm_head were item 14's refusals; they run now,
-# and tests/test_torch_interop.py holds them against JAX
+# resume_dir and quantize_lm_head were item 14's refusals, and mesh item
+# 15's; they run now (tests/test_torch_interop.py and
+# tests/test_torch_parallel_calib.py hold them against JAX)
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 15"),
     (dict(calib_inputs=np.zeros((1, 4, 128), np.float32)), "item 17"),
 ])
 def test_options_outside_the_port_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _port_quantizer(**kw)
+
+
+def test_mesh_of_one_rank_calibrates_as_without_one():
+    """A mesh whose data axis is 1 (one process, no world) is one
+    process's calibration: the same choices and tree."""
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    ref_q = _port_quantizer(apply_clip=False)
+    ref = ref_q.quantize()
+    q = _port_quantizer(apply_clip=False, mesh=build_mesh())
+    got = q.quantize()
+    assert q._data is None
+    assert [c["best"] for c in q.scale_choices[0]] == \
+        [c["best"] for c in ref_q.scale_choices[0]]
+    _assert_same_packed(got, ref)
 
 
 def test_plugins_outside_the_port_raise():
