@@ -31,6 +31,10 @@ from autoawq_tpu_torch.config import AwqConfig
 from autoawq_tpu_torch.io import serialize
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
+from autoawq_tpu_torch.parallel.distributed import hybrid_mesh  # noqa: F401
+from autoawq_tpu_torch.parallel.mesh import build_mesh  # noqa: F401
+from autoawq_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_forward, pipeline_lora_step, to_pipeline)
 from autoawq_tpu_torch.quantize.calib import get_calib_dataset
 from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
 from autoawq_tpu_torch.serve import generate as gen
@@ -181,9 +185,12 @@ class AwqCausalLM:
         runs K5 on the rank's heads (``ops/tp_attn.py``). ``self.cfg``
         becomes the rank's local config (its heads and intermediate
         width), ``self.global_cfg`` keeps the model's; float leaves are
-        cast to ``dtype`` (scales stay f32). Every rank calls it; what it
-        refuses (heads that do not divide, MLA / ALiBi under TP) raises
-        before the tree is touched."""
+        cast to ``dtype`` (scales stay f32). MLA, ALiBi and LoRA trees
+        shard too: MLA over whole heads, ALiBi with the rank's slopes, LoRA
+        adapters with their LIN (``lora_train_step`` then trains the
+        rank's tree through Megatron's conjugate pair). Every rank calls
+        it; what it refuses (heads that do not divide) raises before the
+        tree is touched."""
         from autoawq_tpu_torch.nn.fuse import tp_stack_qkv
         from autoawq_tpu_torch.parallel.specs import (check_shardable,
                                                       shard_params)

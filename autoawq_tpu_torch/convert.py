@@ -32,7 +32,8 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def lin_from_planar(p: Dict[str, Any], n: int, device="cpu") -> Dict[str, Any]:
-    """One LIN of the JAX tree -> the port's LIN."""
+    """One LIN of the JAX tree -> the port's LIN, its LoRA adapters with
+    it."""
     if "qweight" in p:
         qw, sc, qz = planar_to_port(p["qweight"], p["scales"],
                                     p.get("qzeros"), n, device)
@@ -43,6 +44,9 @@ def lin_from_planar(p: Dict[str, Any], n: int, device="cpu") -> Dict[str, Any]:
         out = {"kernel": to_tensor(p["kernel"], device)}
     if p.get("bias") is not None:
         out["bias"] = to_tensor(p["bias"], device)
+    for name in ("lora_a", "lora_b"):  # adapters (JAX train/lora.add_lora)
+        if name in p:
+            out[name] = to_tensor(p[name], device)
     return out
 
 

@@ -253,6 +253,18 @@ class ModelConfig:
         return d
 
 
+@dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """A tensor-parallel rank's view of a model (``parallel/specs.
+    local_cfg``): its ``num_attention_heads`` are the global heads
+    [head_offset, head_offset + num_attention_heads) of ``global_heads``.
+    ALiBi reads its slopes there (``nn/modules.head_slopes``), since a
+    model of nh / t heads has other slopes than any nh / t of the global
+    sheet's. Never saved: a checkpoint holds the model's config."""
+    head_offset: int = 0
+    global_heads: int = 0
+
+
 def _freeze_rope(rs) -> Tuple[Tuple[str, Any], ...]:
     """rope_scaling dict (or round-tripped pairs) -> hashable sorted tuple.
     List values (longrope short/long factor arrays) become tuples."""

@@ -60,7 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from autoawq_tpu_torch.models.config import ModelConfig
+from autoawq_tpu_torch.models.config import ModelConfig, RankConfig
 from autoawq_tpu_torch.ops import _build
 from autoawq_tpu_torch.ops import attention as attn_ops
 from autoawq_tpu_torch.ops import fused_attn_step as fas
@@ -110,7 +110,7 @@ def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     dtype). A LIN of a tensor-parallel rank's tree carries its collective
     as a marker (``tp_psum``: all-reduce, then the bias; ``tp_gather``:
     ``ops/sharded_gemm.py``), as JAX's ``tp_psum`` (:45-75)."""
-    if sharded_gemm.is_sharded(p):
+    if sharded_gemm.is_marked(p):
         return sharded_gemm.linear_sharded(
             p, x, out_features, lambda q, u, n: linear(q, u, n, method))
     bias = p.get("bias")
@@ -194,22 +194,38 @@ def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(slopes.astype(np.float32)).to(device)
 
 
-def alibi_bias(n_heads: int, q_pos: torch.Tensor,
+def head_slopes(heads, device="cpu") -> torch.Tensor:
+    """The ALiBi slopes of ``heads``: a head count (a whole model's sheet,
+    :func:`alibi_slopes`), or a config, whose heads are the model's unless
+    it is a tensor-parallel rank's (``RankConfig``: the global sheet's
+    heads [head_offset, head_offset + nh), the slopes JAX's head-sharded
+    bias gives that rank, ``autoawq_tpu/parallel/pipeline.py:391-400``)."""
+    if isinstance(heads, int):
+        return alibi_slopes(heads, device)
+    nh = heads.num_attention_heads
+    if isinstance(heads, RankConfig):
+        off = heads.head_offset
+        return alibi_slopes(heads.global_heads, device)[off:off + nh]
+    return alibi_slopes(nh, device)
+
+
+def alibi_bias(heads, q_pos: torch.Tensor,
                k_pos: torch.Tensor) -> torch.Tensor:
     """Additive ALiBi bias [1, H, S, T]: slope_h * (j - i) for query
-    positions q_pos [S] and key positions k_pos [T]."""
+    positions q_pos [S] and key positions k_pos [T]; ``heads`` as
+    :func:`head_slopes` takes it."""
     rel = (k_pos[None, :] - q_pos[:, None]).float()
-    return alibi_slopes(n_heads, q_pos.device)[None, :, None, None] \
+    return head_slopes(heads, q_pos.device)[None, :, None, None] \
         * rel[None, None]
 
 
-def alibi_slot_bias(n_heads: int, pos: torch.Tensor, t: int) -> torch.Tensor:
+def alibi_slot_bias(heads, pos: torch.Tensor, t: int) -> torch.Tensor:
     """Per-slot ALiBi bias [B, H, 1, T] for one query a slot at its own
     position pos [B] (JAX ``batched_decode_step``: slopes * (k - pos_b),
     not ``alibi_bias`` over the slots)."""
     rel = (torch.arange(t, device=pos.device)[None, :]
            - pos[:, None]).float()  # [B, T]
-    return alibi_slopes(n_heads, pos.device)[None, :, None, None] \
+    return head_slopes(heads, pos.device)[None, :, None, None] \
         * rel[:, None, None, :]
 
 
@@ -512,7 +528,7 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         out = paged_ops.paged_decode_attention(
             q[:, 0], kp, vp, table, lengths, scale=scale, k_scales=kss,
             v_scales=vss, softcap=softcap, window=window,
-            alibi_slopes=alibi_slopes(nh, q.device) if alibi else None)
+            alibi_slopes=head_slopes(cfg, q.device) if alibi else None)
         return out.reshape(b, 1, nh * hd), new_cache
     if method != "plain" and paged_attn == "stock":
         if quant or window or alibi or kp.dtype != torch.bfloat16:
@@ -539,7 +555,7 @@ def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     idx = torch.arange(kb.shape[2], device=q.device)[None, :]
     if alibi:
         rel = (idx - (lengths - 1)[:, None]).float()  # [B, T]
-        scores = scores + (alibi_slopes(nh, q.device).reshape(
+        scores = scores + (head_slopes(cfg, q.device).reshape(
             nkv, nh // nkv)[None, :, :, None] * rel[:, None, None, :])
     valid = idx < lengths[:, None]  # [B, T]
     if window:
@@ -1053,7 +1069,10 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     qwen2-moe's ``shared_expert`` (times the sigmoid of its
     ``shared_expert_gate``), then deepseek's ungated ``shared_experts`` at
     ``moe_intermediate_size * n_shared_experts``; both are unfused MLPs, so
-    at decode they take K8. An expert-parallel rank's stack (``tp_ep``)
+    at decode they take K8. On a tensor-parallel rank a shared expert
+    carries ``tp_div`` (JAX :1304-1320): its gate and up are column shards,
+    so it runs 1/t of the intermediate, and its down's ``tp_psum``
+    completes the sum. An expert-parallel rank's stack (``tp_ep``)
     holds its block of experts: replicate-and-sum (``ops/sharded_moe.py``,
     JAX's ``tp_ep`` branch :1266-1285) or, marked ``ep_dispatch="a2a"``,
     the all-to-all dispatch (``ops/moe_a2a.py``)."""
@@ -1093,7 +1112,8 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             out = out + weights[:, e: e + 1] * ye.float()
     if "shared_expert" in p:
         se = mlp(cfg, p["shared_expert"], xt[None], method,
-                 intermediate=cfg.shared_expert_intermediate_size,
+                 intermediate=(cfg.shared_expert_intermediate_size
+                               // p["shared_expert"].get("tp_div", 1)),
                  taps=taps, tap_prefix="mlp.shared_expert.")[0]
         if "shared_expert_gate" in p:
             se = se * torch.sigmoid(
@@ -1101,7 +1121,8 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         out = out + se.float()
     if "shared_experts" in p:
         se = mlp(cfg, p["shared_experts"], xt[None], method,
-                 intermediate=inter * max(1, cfg.n_shared_experts),
+                 intermediate=(inter * max(1, cfg.n_shared_experts)
+                               // p["shared_experts"].get("tp_div", 1)),
                  taps=taps, tap_prefix="mlp.shared_experts.")[0]
         out = out + se.float()
     return out.to(x.dtype).reshape(b, s, h)
@@ -1229,7 +1250,7 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     mask = causal_mask(s, device=dev, sliding_window=cfg.sliding_window)
     if cfg.pos_embed == "alibi":
         ar = torch.arange(s, device=dev)
-        mask = mask + alibi_bias(cfg.num_attention_heads, ar, ar)
+        mask = mask + alibi_bias(cfg, ar, ar)
     causal_prefill = causal_prefill_ok(cfg)
     for lp in params["layers"]:
         x, _ = block(cfg, lp, x, cos, sin, mask, None, method, causal_prefill)

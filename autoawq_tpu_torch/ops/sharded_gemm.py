@@ -9,12 +9,18 @@ each chip's shard; the port's rank holds its shard already
 dispatcher ``ops/gemm.awq_matmul`` (K1 below M = 256, K2 from there; the
 twin on the CPU) and the collective is explicit:
 
-* column shard (no marker): the local columns; no collective.
+* column shard (``tp_col``): the local columns; no collective in the
+  forward. Under autograd the input enters through Megatron's f
+  (``parallel/distributed.copy_to_tensor``: its gradient summed over the
+  tensor group), and so does a replicated ``lora_a``.
 * row shard (``tp_psum``): the partial product over this rank's K rows,
-  all-reduced in f32 over the tensor group and rounded once to the output
-  type, then the bias, once (JAX's ``linear``, ``modules.py:56-59``).
+  LoRA's ``(x_r A_r) B`` partial included, all-reduced in f32 over the
+  tensor group (Megatron's g, ``reduce_from_tensor``: the gradient passes
+  to each partial unchanged) and rounded once to the output type, then
+  the bias, once (JAX's ``linear``, ``modules.py:56-79``). A replicated
+  ``lora_b`` enters through f, so its gradient sums the ranks' partials.
 * replicated row LIN (``tp_gather``): the local input all-gathered along
-  K, then the whole LIN.
+  K (its gradient this rank's piece), then the whole LIN.
 
 No kernel of its own: the launches are K1's or K2's.
 """
@@ -30,8 +36,14 @@ from autoawq_tpu_torch.parallel.specs import MARKERS
 
 
 def is_sharded(p: Dict[str, Any]) -> bool:
-    """Whether a LIN needs a collective (a column shard needs none)."""
+    """Whether a LIN needs a collective in its forward (a column shard
+    needs none)."""
     return "tp_psum" in p or "tp_gather" in p
+
+
+def is_marked(p: Dict[str, Any]) -> bool:
+    """Whether a LIN is a tensor-parallel rank's (any of its markers)."""
+    return "tp_col" in p or is_sharded(p)
 
 
 def bare(p: Dict[str, Any]) -> Dict[str, Any]:
@@ -43,7 +55,7 @@ def reduce_rows(y: torch.Tensor, axis,
                 bias=None) -> torch.Tensor:
     """Finish a row-parallel product: the f32 sum over ``axis``, rounded
     once to y's type, then the bias."""
-    y = pd.all_reduce(y.float(), axis).to(y.dtype)
+    y = pd.reduce_from_tensor(y.float(), axis).to(y.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -55,8 +67,16 @@ def linear_sharded(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     """A marked LIN (quantized or float) on this rank. ``local`` is the
     one-rank linear (``nn/modules.linear``), run on the bare LIN."""
     lin = bare(p)
+    if "tp_col" in p:
+        ax = p["tp_col"]
+        if "lora_a" in lin:
+            lin["lora_a"] = pd.copy_to_tensor(lin["lora_a"], ax)
+        return local(lin, pd.copy_to_tensor(x, ax), out_features)
     if "tp_gather" in p:
-        return local(lin, pd.all_gather(x, p["tp_gather"], dim=-1),
+        return local(lin, pd.gather_from_tensor(x, p["tp_gather"], dim=-1),
                      out_features)
+    ax = p["tp_psum"]
     bias = lin.pop("bias", None)
-    return reduce_rows(local(lin, x, out_features), p["tp_psum"], bias)
+    if "lora_b" in lin:
+        lin["lora_b"] = pd.copy_to_tensor(lin["lora_b"], ax)
+    return reduce_rows(local(lin, x, out_features), ax, bias)

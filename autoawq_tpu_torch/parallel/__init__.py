@@ -1,1 +1,25 @@
-"""Tensor, expert and data parallelism over ``torch.distributed``."""
+"""Tensor, expert, data and pipeline parallelism over ``torch.distributed``.
+
+The entry points, imported from their modules on first use (the modules
+import ``nn/modules``, which imports this package's mesh):
+``initialize`` and ``hybrid_mesh`` (``distributed``), ``build_mesh``
+(``mesh``), ``shard_params`` (``specs``), ``stack_layers``,
+``unstack_layers``, ``to_pipeline``, ``pipeline_forward`` and
+``pipeline_lora_step`` (``pipeline``).
+"""
+
+import importlib
+
+_EXPORTS = {"initialize": "distributed", "hybrid_mesh": "distributed",
+            "build_mesh": "mesh", "shard_params": "specs",
+            "stack_layers": "pipeline", "unstack_layers": "pipeline",
+            "to_pipeline": "pipeline", "pipeline_forward": "pipeline",
+            "pipeline_lora_step": "pipeline"}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                   name)

@@ -2,35 +2,46 @@
 
 Counterpart of ``autoawq_tpu/parallel/specs.py`` (``param_specs`` :105,
 ``shard_params`` :181) and of the manual Megatron form of its pipeline
-stages (``autoawq_tpu/parallel/pipeline.py``: ``_local_cfg`` :262-274,
-``_mark_tp`` :234-259). JAX annotates the full tree and lets GSPMD place
-the collectives; the port gives each rank its own shard of the tree and a
+stages (``autoawq_tpu/parallel/pipeline.py``: ``_validate_tp`` :100-149,
+``_lin_tp_specs`` :151-215, ``_mark_tp`` :234-259, ``_local_cfg``
+:262-274). JAX annotates the full tree and lets GSPMD place the
+collectives; the port gives each rank its own shard of the tree and a
 local config, runs the ordinary ``nn/modules`` forward on them, and calls
 the collectives where JAX psums:
 
-* column-parallel LINs (:data:`COLUMN_PARALLEL`: q/k/v, gate/up, fc1)
-  split their output columns: rank i holds columns [i*N/t, (i+1)*N/t) of
-  the logical width, padded once to a multiple of 4 (``core/packing.
-  pad_cols``); a bias splits too. No collective.
+* column-parallel LINs (:data:`COLUMN_PARALLEL`: q/k/v, gate/up, fc1,
+  MLA's q / q_b and kv_b) split their output columns: rank i holds columns
+  [i*N/t, (i+1)*N/t) of the logical width, padded once to a multiple of 4
+  (``core/packing.pad_cols``); a bias and a LoRA ``lora_b`` split too,
+  ``lora_a`` is whole. Marked ``tp_col``: no collective in the forward,
+  Megatron's f under autograd (``ops/sharded_gemm.py``). MLA's per-head
+  [nope|rope] and [nope|v] column blocks are contiguous, so a column split
+  is a split over whole heads; kv_b's dense f32 leaf is rebuilt from the
+  rank's slice (``nn/fuse.attach_kv_b_dense``).
 * row-parallel LINs (:data:`ROW_PARALLEL`: o, down, fc2) split K along
   whole groups: rank i holds packed rows [i*K/8t, (i+1)*K/8t), scale rows
   [i*G/t, (i+1)*G/t), and its own zero points, unpacked along G and
   repacked once (the port packs zeros along G in words of 8, so 22 groups
-  a rank do not split the words of 44). The LIN is marked ``tp_psum``:
-  ``nn/modules.linear`` all-reduces its output in f32 and adds the bias
-  once, after the sum (JAX ``linear``'s ``tp_psum``,
-  ``autoawq_tpu/nn/modules.py:45-75``).
+  a rank do not split the words of 44); ``lora_a`` splits its K rows,
+  ``lora_b`` is whole. The LIN is marked ``tp_psum``: ``nn/modules.linear``
+  all-reduces its output in f32 and adds the bias once, after the sum (JAX
+  ``linear``'s ``tp_psum``, ``autoawq_tpu/nn/modules.py:45-79``).
 * a row LIN whose K/t is not a whole number of groups and packed words
-  (or whose K the JAX loader padded) replicates, with JAX's log line, and
-  carries ``tp_gather``: the local input is all-gathered, then the whole
-  LIN runs, so the local forward is unchanged. Column LINs always divide
-  here: the heads divide t (:func:`check_shardable`), and a dense MLP
-  whose width t does not divide is not sharded at all.
-* stacked experts ([E, ...] leaves) split E over ``expert``: rank j holds
-  experts [j*E/d, (j+1)*E/d), marked ``tp_ep`` (``ops/sharded_moe.py``,
-  or ``ops/moe_a2a.py`` with ``ep_dispatch="a2a"``).
-* norms, embeddings, the router and the lm_head replicate (JAX shards a
-  float lm_head's columns; every rank here needs the whole logits).
+  (or whose K the JAX loader padded) replicates under flat tensor
+  parallelism, with JAX's log line, and carries ``tp_gather``: the local
+  input is all-gathered, then the whole LIN runs. A pipeline stage
+  (``strict``) refuses it instead, as JAX's stage does (``_lin_tp_specs``:
+  manual TP never replicates).
+* stacked experts ([E, ...] leaves) split E over ``expert`` (flat), or
+  over ``tensor`` inside a pipeline stage (JAX's ``tp_ep: "tensor"``):
+  rank j holds experts [j*E/d, (j+1)*E/d), marked ``tp_ep``
+  (``ops/sharded_moe.py``, or ``ops/moe_a2a.py`` with
+  ``ep_dispatch="a2a"``). Shared experts split their intermediate over
+  ``tensor`` (gate / up columns, down rows) and carry ``tp_div``.
+* norms, embeddings, the router, MLA's latent projections (q_a,
+  kv_a_proj_with_mqa) and their norms, and the lm_head replicate (JAX
+  shards a float lm_head's columns; every rank here needs the whole
+  logits).
 * fused qkv / gate_up LINs are split back into q/k/v and gate/up before
   sharding, as ``to_pipeline`` unfuses them (``pipeline.py:290-300``); the
   per-rank re-fused qkv that K5 takes under TP is ``qkv_proj_tp``
@@ -42,21 +53,23 @@ layout also asks for 256-lane superblocks and even group counts, so the
 port shards some LINs JAX replicates (TinyLlama's k / v at tensor 2, the
 small test models' attention). The values are the same either way
 (ROADMAP §3). Markers are :class:`parallel.mesh.Axis` handles, where JAX's
-are axis names.
+are axis names. The caller's tree is read, never written: every shard is a
+new dict, so a refusal leaves it as it was.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from autoawq_tpu_torch.core.packing import pack_port, pad_cols, unpack_port
-from autoawq_tpu_torch.models.config import ModelConfig
-from autoawq_tpu_torch.nn.fuse import experts_stackable, stack_experts
-from autoawq_tpu_torch.parallel.mesh import Mesh
+from autoawq_tpu_torch.models.config import ModelConfig, RankConfig
+from autoawq_tpu_torch.nn.fuse import (attach_kv_b_dense, experts_stackable,
+                                       stack_experts)
+from autoawq_tpu_torch.parallel.mesh import Axis, Mesh
 from autoawq_tpu_torch.utils.tree import to_device
 
 logger = logging.getLogger(__name__)
@@ -65,8 +78,11 @@ COLUMN_PARALLEL = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj",
                    "lm_head", "w1", "w3", "qkv_proj", "gate_up_proj",
                    "fc1", "q_b_proj", "kv_b_proj")
 ROW_PARALLEL = ("o_proj", "down_proj", "w2", "fc2")
-# the markers a sharded LIN or expert stack may carry (never checkpointed)
-MARKERS = ("tp_psum", "tp_gather", "tp_ep", "ep_dispatch")
+# the markers a sharded LIN, MLP or expert stack may carry (never
+# checkpointed)
+MARKERS = ("tp_psum", "tp_gather", "tp_col", "tp_div", "tp_ep",
+           "ep_dispatch")
+SHARED_EXPERTS = ("shared_expert", "shared_experts")
 
 # replication fallbacks on layers smaller than this are expected (tiny
 # test models) and not worth a log line (JAX's _WARN_BYTES)
@@ -108,42 +124,91 @@ def lin_decision(path: str, lin: Dict[str, Any], tensor: int,
     return "row" if ok else "rep"
 
 
-def local_cfg(cfg: ModelConfig, tensor: int) -> ModelConfig:
-    """Each tensor rank's view (JAX ``_local_cfg``): nh/t query heads,
-    nkv/t KV heads and, for a dense MLP that divides, I/t channels; the
-    head dim is pinned (it would otherwise follow hidden / nh). MoE
-    models keep their intermediate widths (experts split over
-    ``expert``)."""
+def local_cfg(cfg: ModelConfig, tensor: int, index: int = 0) -> ModelConfig:
+    """Tensor rank ``index``'s view (JAX ``_local_cfg``): nh/t query heads
+    (global heads [index*nh/t, (index+1)*nh/t), which ALiBi reads:
+    ``models/config.RankConfig``), nkv/t KV heads where t divides them
+    (MLA's latent row is replicated) and, for a dense MLP that divides,
+    I/t channels; the head dim is pinned (it would otherwise follow hidden
+    / nh). MoE models keep their intermediate widths (routed experts split
+    whole, shared experts carry ``tp_div``)."""
     if tensor == 1:
         return cfg
-    kw = dict(num_attention_heads=cfg.num_attention_heads // tensor,
-              num_key_value_heads=cfg.num_key_value_heads // tensor,
-              head_dim=cfg.head_dim_)
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    kw = dict(num_attention_heads=nh // tensor, head_dim=cfg.head_dim_,
+              head_offset=index * (nh // tensor), global_heads=nh)
+    if nkv % tensor == 0:
+        kw["num_key_value_heads"] = nkv // tensor
     if not cfg.is_moe and cfg.intermediate_size % tensor == 0:
         kw["intermediate_size"] = cfg.intermediate_size // tensor
-    return dataclasses.replace(cfg, **kw)
+    base = {f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(ModelConfig)}
+    return RankConfig(**{**base, **kw})
+
+
+def _shared_inter(cfg: ModelConfig, name: str) -> int:
+    """A shared expert's intermediate width, as ``moe_block`` runs it."""
+    if name == "shared_expert":
+        return cfg.shared_expert_intermediate_size or 0
+    inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    return inter * max(1, cfg.n_shared_experts)
+
+
+def validate_tp(cfg: ModelConfig, layers: List[Dict[str, Any]],
+                tensor: int) -> None:
+    """JAX ``_validate_tp``: the shapes a pipeline stage's tensor
+    parallelism cannot split raise, with JAX's messages, before anything is
+    built."""
+    if tensor == 1:
+        return
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if cfg.is_mla:
+        if nh % tensor:
+            raise ValueError(
+                f"PPxTP: MLA heads ({nh}) must divide tensor={tensor}")
+    elif nh % tensor or nkv % tensor:
+        raise ValueError(
+            f"PPxTP: heads ({nh}/{nkv}) must divide tensor={tensor}")
+    if not cfg.is_moe and cfg.intermediate_size % tensor:
+        raise ValueError(
+            f"PPxTP: intermediate ({cfg.intermediate_size}) must divide "
+            f"tensor={tensor}")
+    if cfg.is_moe:
+        se = cfg.shared_expert_intermediate_size or 0
+        if se % tensor:
+            raise ValueError(
+                f"PPxTP: shared-expert intermediate ({se}) must divide "
+                f"tensor={tensor}")
+        if cfg.n_shared_experts:
+            tot = _shared_inter(cfg, "shared_experts")
+            if tot % tensor:
+                raise ValueError(
+                    f"PPxTP: shared-experts intermediate ({tot}) must "
+                    f"divide tensor={tensor}")
+    for lp in layers:
+        m = lp.get("mlp", {})
+        if "experts" in m:
+            raise NotImplementedError(
+                "PPxTP: unstacked expert lists cannot shard — stack the "
+                "experts first (nn/fuse.fuse_model, quantized models)")
+        if "experts_stacked" in m:
+            e = m["experts_stacked"]["gate_up_proj"]["qweight"].shape[0]
+            if e % tensor:
+                raise ValueError(
+                    f"PPxTP: {e} experts % tensor={tensor} != 0")
 
 
 def check_shardable(cfg: ModelConfig, params: Dict[str, Any], tensor: int,
                     expert: int) -> None:
-    """Raise for what the port cannot shard, before anything is built, so
-    a refused shard leaves the caller's tree as it was."""
+    """Raise for what flat tensor / expert parallelism cannot shard,
+    before anything is built, so a refused shard leaves the caller's tree
+    as it was: query heads (and, but for MLA, KV heads) that t does not
+    divide, and stacked experts that ``expert`` does not divide."""
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    if tensor > 1:
-        if nh % tensor or nkv % tensor:
-            raise ValueError(
-                f"heads ({nh}/{nkv}) not divisible by tp={tensor}")
-        if cfg.is_mla or cfg.pos_embed == "alibi":
-            raise NotImplementedError(
-                "tensor parallelism of MLA and ALiBi models is not in the "
-                "port yet (ROADMAP queue 1 item 15b)")
+    if tensor > 1 and (nh % tensor or (not cfg.is_mla and nkv % tensor)):
+        raise ValueError(
+            f"heads ({nh}/{nkv}) not divisible by tp={tensor}")
     for lp in params["layers"]:
-        for sub in (lp["self_attn"], lp["mlp"]):
-            for v in sub.values():
-                if isinstance(v, dict) and "lora_a" in v:
-                    raise NotImplementedError(
-                        "sharding a tree with LoRA adapters is not in the "
-                        "port yet (ROADMAP queue 1 item 15b)")
         st = lp["mlp"].get("experts_stacked")
         if expert > 1 and st is not None \
                 and st["gate_up_proj"]["qweight"].shape[0] % expert:
@@ -158,7 +223,8 @@ def _own(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def _cols(lin: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
-    """Logical columns [lo, hi) of a LIN, padded once to a multiple of 4."""
+    """Logical columns [lo, hi) of a LIN, padded once to a multiple of 4
+    (a LoRA ``lora_b``'s columns too, ``lora_a`` whole)."""
     out: Dict[str, Any] = {}
     if "qweight" in lin:
         qz = lin.get("qzeros")
@@ -172,13 +238,16 @@ def _cols(lin: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
         out["kernel"] = lin["kernel"][:, lo:hi]
     if lin.get("bias") is not None:
         out["bias"] = lin["bias"][lo:hi]
+    if "lora_a" in lin:
+        out["lora_a"] = lin["lora_a"]
+        out["lora_b"] = lin["lora_b"][:, lo:hi]
     return out
 
 
 def _rows(lin: Dict[str, Any], i: int, t: int) -> Dict[str, Any]:
     """Rank i's K rows of a LIN: packed rows, scale rows and zero points
-    repacked along G for the shard; the bias whole (added after the
-    all-reduce)."""
+    repacked along G for the shard, a LoRA ``lora_a``'s rows; the bias and
+    ``lora_b`` whole (added after the all-reduce, and summed through it)."""
     out: Dict[str, Any] = {}
     if "qweight" in lin:
         r8, g = lin["qweight"].shape[0] // t, lin["scales"].shape[0] // t
@@ -192,6 +261,10 @@ def _rows(lin: Dict[str, Any], i: int, t: int) -> Dict[str, Any]:
         out["kernel"] = lin["kernel"][i * k:(i + 1) * k]
     if lin.get("bias") is not None:
         out["bias"] = lin["bias"]
+    if "lora_a" in lin:
+        k = lin["lora_a"].shape[0] // t
+        out["lora_a"] = lin["lora_a"][i * k:(i + 1) * k]
+        out["lora_b"] = lin["lora_b"]
     return out
 
 
@@ -213,13 +286,24 @@ def _split_fused(attn_or_mlp: Dict[str, Any], key: str,
 
 
 def _widths(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    """(logical output width, logical input width) by LIN name."""
+    """(logical output width, logical input width) by LIN name, MLA's
+    head-sharded LINs included."""
     hd, nh, nkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
     h, i = cfg.hidden_size, cfg.intermediate_size
-    return {"q_proj": (nh * hd, h), "k_proj": (nkv * hd, h),
-            "v_proj": (nkv * hd, h), "o_proj": (h, nh * hd),
-            "gate_proj": (i, h), "up_proj": (i, h), "fc1": (i, h),
-            "down_proj": (h, i), "fc2": (h, i)}
+    out = {"q_proj": (nh * hd, h), "k_proj": (nkv * hd, h),
+           "v_proj": (nkv * hd, h), "o_proj": (h, nh * hd),
+           "gate_proj": (i, h), "up_proj": (i, h), "fc1": (i, h),
+           "down_proj": (h, i), "fc2": (h, i)}
+    if cfg.is_mla:
+        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        out.update(q_proj=(nh * dq, h),
+                   q_b_proj=(nh * dq, cfg.q_lora_rank or 0),
+                   kv_b_proj=(nh * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+                              cfg.kv_lora_rank),
+                   o_proj=(h, nh * cfg.v_head_dim))
+        for name in ("k_proj", "v_proj"):
+            out.pop(name)
+    return out
 
 
 def _unfused(cfg: ModelConfig, lp: Dict[str, Any]) -> Tuple[Dict, Dict]:
@@ -235,18 +319,23 @@ def _unfused(cfg: ModelConfig, lp: Dict[str, Any]) -> Tuple[Dict, Dict]:
     return attn, mlp
 
 
-def _shard_lin(path: str, lin: Dict[str, Any], mesh: Mesh,
-               widths: Tuple[int, int], device) -> Dict[str, Any]:
+def _shard_lin(path: str, lin: Dict[str, Any], ax: Axis,
+               widths: Tuple[int, int], device,
+               strict: bool = False) -> Dict[str, Any]:
     """This rank's LIN: its column or row shard, or a whole row LIN that
-    takes the all-gathered input."""
-    ax = mesh.axis("tensor")
+    takes the all-gathered input (``strict``: a ValueError instead)."""
     t, i = ax.size, ax.index
     kind = lin_decision(path, lin, t, *widths)
     if kind == "col":
         n = widths[0] // t
-        return _owned(_cols(lin, i * n, (i + 1) * n), device)
+        return {**_owned(_cols(lin, i * n, (i + 1) * n), device),
+                "tp_col": ax}
     if kind == "row":
         return {**_owned(_rows(lin, i, t), device), "tp_psum": ax}
+    if strict:
+        raise ValueError(
+            f"PPxTP: quant LIN '{path}' does not divide tensor={t} at the "
+            "packing granularity (see parallel/specs.py)")
     if _nbytes(lin) >= _WARN_BYTES:
         logger.warning("TP fallback: %s does not divide over tensor=%d — "
                        "running replicated", path, t)
@@ -279,6 +368,39 @@ def _mlp_sharded(cfg: ModelConfig, tensor: int) -> bool:
         and cfg.intermediate_size % tensor == 0
 
 
+def shard_layer(cfg: ModelConfig, li: int, lp: Dict[str, Any], mesh: Mesh,
+                device=None, moe_dispatch: str = "replicate",
+                strict: bool = False) -> Dict[str, Any]:
+    """Layer ``li``'s tree on this rank (a new dict; ``lp`` is read).
+    ``strict`` is a pipeline stage's tensor parallelism (JAX's
+    ``_lin_tp_specs`` / ``_mark_tp``): no LIN replicates, and stacked
+    experts split over ``tensor``."""
+    t = mesh.size("tensor")
+    ax = mesh.axis("tensor")
+    attn, mlp = _unfused(cfg, lp) if t > 1 else (lp["self_attn"],
+                                                 lp["mlp"])
+    w = _widths(cfg)
+    new = {k: v for k, v in lp.items() if k not in ("self_attn", "mlp")}
+    a = {}
+    for name, sub in attn.items():
+        path = f"layers.{li}.self_attn.{name}"
+        if name == "qkv_proj_tp":  # entry i of a stack for t ranks
+            if sub["qweight"].shape[0] == t > 1:
+                a[name] = {k: _own(v[ax.index], device)
+                           for k, v in sub.items()}
+        elif name in w and t > 1:
+            a[name] = _shard_lin(path, sub, ax, w[name], device, strict)
+        else:
+            a[name] = sub
+    kv_b = attn.get("kv_b_proj")
+    if t > 1 and kv_b is not None and "dense" in kv_b:
+        # the rank's dense leaf from the rank's kv_b columns
+        attach_kv_b_dense(local_cfg(cfg, t), {"layers": [{"self_attn": a}]})
+    new["self_attn"] = a
+    new["mlp"] = _shard_mlp(cfg, li, mlp, mesh, device, moe_dispatch, strict)
+    return new
+
+
 def shard_params(cfg: ModelConfig, params: Dict[str, Any], mesh: Mesh,
                  device=None, moe_dispatch: str = "replicate"
                  ) -> Tuple[ModelConfig, Dict[str, Any]]:
@@ -298,63 +420,72 @@ def shard_params(cfg: ModelConfig, params: Dict[str, Any], mesh: Mesh,
     check_shardable(cfg, params, t, e)
     if t == 1 and e == 1:
         return cfg, params
-    w = _widths(cfg)
     out = {k: v for k, v in params.items() if k != "layers"}
-    layers = []
-    for li, lp in enumerate(params["layers"]):
-        attn, mlp = _unfused(cfg, lp) if t > 1 else (lp["self_attn"],
-                                                     lp["mlp"])
-        new = {k: v for k, v in lp.items() if k not in ("self_attn", "mlp")}
-        a = {}
-        for name, sub in attn.items():
-            path = f"layers.{li}.self_attn.{name}"
-            if name == "qkv_proj_tp":  # entry i of a stack for t ranks
-                if sub["qweight"].shape[0] == t > 1:
-                    a[name] = {k: _own(v[mesh.index("tensor")], device)
-                               for k, v in sub.items()}
-            elif name in w and t > 1:
-                a[name] = _shard_lin(path, sub, mesh, w[name], device)
-            else:
-                a[name] = sub
-        new["self_attn"] = a
-        new["mlp"] = _shard_mlp(cfg, li, mlp, mesh, device, moe_dispatch)
-        layers.append(new)
-    out["layers"] = layers
+    out["layers"] = [shard_layer(cfg, li, lp, mesh, device, moe_dispatch)
+                     for li, lp in enumerate(params["layers"])]
     if device is not None:
         out = to_device(out, device)
-    return local_cfg(cfg, t), out
+    return local_cfg(cfg, t, mesh.index("tensor")), out
+
+
+def _split_experts(st: Dict[str, Any], ax: Axis, device,
+                   moe_dispatch: str) -> Dict[str, Any]:
+    """Rank ``ax.index``'s contiguous block of a stack's experts."""
+    n = st["gate_up_proj"]["qweight"].shape[0] // ax.size
+    lo = ax.index * n
+    out = {name: {k: _own(v[lo:lo + n], device) for k, v in lin.items()}
+           for name, lin in st.items() if isinstance(lin, dict)}
+    out.update(tp_ep=ax, ep_dispatch=moe_dispatch)
+    return out
+
+
+def _shard_dense_mlp(cfg: ModelConfig, prefix: str, mlp: Dict[str, Any],
+                     ax: Axis, inter: int, device,
+                     strict: bool) -> Dict[str, Any]:
+    """A dense MLP of intermediate width ``inter`` split over ``ax``:
+    gate / up / fc1 columns, down / fc2 rows, ``act_scale`` by channel."""
+    h, t = cfg.hidden_size, ax.size
+    w = {"gate_proj": (inter, h), "up_proj": (inter, h), "fc1": (inter, h),
+         "down_proj": (h, inter), "fc2": (h, inter)}
+    out = {}
+    for name, sub in mlp.items():
+        if name in w:
+            out[name] = _shard_lin(f"{prefix}.{name}", sub, ax, w[name],
+                                   device, strict)
+        elif name == "act_scale":  # one entry per intermediate channel
+            n = inter // t
+            out[name] = _own(sub[..., ax.index * n:(ax.index + 1) * n],
+                             device)
+        else:
+            out[name] = sub
+    return out
 
 
 def _shard_mlp(cfg: ModelConfig, li: int, mlp: Dict[str, Any], mesh: Mesh,
-               device, moe_dispatch: str) -> Dict[str, Any]:
+               device, moe_dispatch: str,
+               strict: bool = False) -> Dict[str, Any]:
     t = mesh.size("tensor")
+    ax = mesh.axis("tensor")
     if cfg.is_moe:
         m = dict(mlp)
         if mesh.size("expert") > 1 and experts_stackable(
                 m.get("experts", [])):
             m = stack_experts(cfg, m)
         st = m.get("experts_stacked")
-        if st is not None and mesh.size("expert") > 1:
-            ax = mesh.axis("expert")
-            n = st["gate_up_proj"]["qweight"].shape[0] // ax.size
-            lo = ax.index * n
-            m["experts_stacked"] = {
-                name: {k: _own(v[lo:lo + n], device) for k, v in lin.items()}
-                for name, lin in st.items() if isinstance(lin, dict)}
-            m["experts_stacked"].update(tp_ep=ax, ep_dispatch=moe_dispatch)
+        if st is not None and strict and t > 1:
+            m["experts_stacked"] = _split_experts(st, ax, device,
+                                                  "replicate")
+        elif st is not None and mesh.size("expert") > 1:
+            m["experts_stacked"] = _split_experts(
+                st, mesh.axis("expert"), device, moe_dispatch)
+        for name in SHARED_EXPERTS:
+            inter = _shared_inter(cfg, name)
+            if name in m and t > 1 and (strict or inter % t == 0):
+                m[name] = {**_shard_dense_mlp(
+                    cfg, f"layers.{li}.mlp.{name}", m[name], ax, inter,
+                    device, strict), "tp_div": t}
         return m
     if not _mlp_sharded(cfg, t):
         return mlp
-    w = _widths(cfg)
-    out = {}
-    for name, sub in mlp.items():
-        if name in w:
-            out[name] = _shard_lin(f"layers.{li}.mlp.{name}", sub, mesh,
-                                   w[name], device)
-        elif name == "act_scale":  # one entry per intermediate channel
-            n = cfg.intermediate_size // t
-            i = mesh.index("tensor")
-            out[name] = _own(sub[..., i * n:(i + 1) * n], device)
-        else:
-            out[name] = sub
-    return out
+    return _shard_dense_mlp(cfg, f"layers.{li}.mlp", mlp, ax,
+                            cfg.intermediate_size, device, strict)

@@ -227,7 +227,7 @@ class AwqQuantizer:
         mask = modules.causal_mask(s, device=dev,
                                    sliding_window=cfg.sliding_window)
         if cfg.pos_embed == "alibi":
-            mask = mask + modules.alibi_bias(cfg.num_attention_heads, ar, ar)
+            mask = mask + modules.alibi_bias(cfg, ar, ar)
 
         new_layers = []
         iterator = range(cfg.num_hidden_layers)

@@ -60,8 +60,7 @@ def batched_decode_step(cfg: ModelConfig, params: Dict[str, Any],
         ok = ok & (ki > pos[:, None] - cfg.sliding_window)
     mask = torch.where(ok, 0.0, -1e30).float()[:, None, None, :]
     if cfg.pos_embed == "alibi":  # each slot's query sits at its own pos
-        mask = mask + modules.alibi_slot_bias(cfg.num_attention_heads, pos,
-                                              max_t)
+        mask = mask + modules.alibi_slot_bias(cfg, pos, max_t)
     cos, sin = modules.rope_tables(cfg, pos[:, None], seq_len=max_t)
     for lp, cache in zip(params["layers"], caches):
         x, _ = modules.block(cfg, lp, x, cos, sin, mask,
@@ -90,7 +89,7 @@ def prefill_chunk(cfg: ModelConfig, params: Dict[str, Any],
         ok = ok & (ki > positions[0][:, None] - cfg.sliding_window)
     mask = torch.where(ok, 0.0, -1e30).float()[None, None]
     if cfg.pos_embed == "alibi":
-        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+        mask = mask + modules.alibi_bias(cfg,
                                          positions[0], ki[0])
     cos, sin = modules.rope_tables(cfg, positions, seq_len=max_t)
     for lp, cache in zip(params["layers"], row_caches):

@@ -132,7 +132,7 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
     mask = modules.causal_mask(s, t, device=dev,
                                sliding_window=cfg.sliding_window)
     if cfg.pos_embed == "alibi":
-        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+        mask = mask + modules.alibi_bias(cfg,
                                          positions[0],
                                          torch.arange(t, device=dev))
     x = _run_blocks(cfg, params, x, positions, mask, caches, 0, method,
@@ -155,7 +155,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any],
     mask = modules.causal_mask(1, max_t, offset=pos, device=dev,
                                sliding_window=cfg.sliding_window)
     if cfg.pos_embed == "alibi":
-        mask = mask + modules.alibi_bias(cfg.num_attention_heads,
+        mask = mask + modules.alibi_bias(cfg,
                                          positions[0],
                                          torch.arange(max_t, device=dev))
     x = _run_blocks(cfg, params, x, positions, mask, caches, pos, method)

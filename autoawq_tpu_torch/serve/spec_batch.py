@@ -64,7 +64,7 @@ def batched_chunk_step(cfg: ModelConfig, params: Dict[str, Any],
     mask = torch.where(ok, 0.0, -1e30).float()[:, None]
     if cfg.pos_embed == "alibi":
         rel = (ki[None, None, :] - positions[:, :, None]).float()
-        slopes = modules.alibi_slopes(cfg.num_attention_heads, dev)
+        slopes = modules.head_slopes(cfg, dev)
         mask = mask + slopes[None, :, None, None] * rel[:, None]
     cos, sin = modules.rope_tables(cfg, positions, seq_len=max_t)
     for lp, cache in zip(params["layers"], caches):

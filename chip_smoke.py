@@ -58,7 +58,7 @@ Phases, each printing JSON lines:
               the facade's default ``from_quantized`` keeps) through
               ``AwqCausalLM.generate``, decode tok/s by A's method, and
               its kernel path against the plain path as A's.
-              Then Mistral-7B at full width, ``E2E_MISTRAL_DEPTH`` (16) of
+              Then Mistral-7B at full width, ``E2E_MISTRAL_DEPTH`` (8) of
               its 32 layers (seed-0 weights drawn on the card, fused).
               Traffic C: bs8, eight 64-token prompts, 64 new
               tokens, bf16 cache of capacity 128. Traffic D: bs8, eight
@@ -185,18 +185,19 @@ Phases, each printing JSON lines:
               DeepSeek-V2-Lite's decode and prefill shapes (64 experts,
               top-6), at 128 (Qwen3-30B-A3B) and 256 experts (DeepSeek-V3)
               top-8, and K8 at V2-Lite's shared experts. DeepSeek-V2-Lite
-              at full width and depth (27 layers, g64: its dense MLP of
-              10,944 is no whole number of 128-row groups), latent cache
+              at full width, ``V2_LITE_DEPTH`` (9) of its 27 layers (g64:
+              its dense MLP of 10,944 is no whole number of 128-row
+              groups), latent cache
               bytes a token against materialized K/V. Traffic O: bs1,
               64-token prompt, greedy through ``generate``, tok/s by the
               difference quotient of a 64- and a 16-token generation (one
               run each), device ms a step, busy share and the step's byte
-              bound, launches per step held exactly (K1 81, K6 52, K8 26,
+              bound, launches per step held exactly (K1 27, K6 16, K8 8,
               K3 1); teacher-forced with the f32 run's expert choice
               replayed (bf16 and int8 latent caches), routing flips held,
               and the MoE block per layer against a dense f32 reference
-              with the shared experts. Traffic P: prefill 2 x 384 (K2 188,
-              K6 52, K4 0 a prefill), seconds and device ms. Traffic R:
+              with the shared experts. Traffic P: prefill 2 x 384 (K2 62,
+              K6 16, K4 0 a prefill), seconds and device ms. Traffic R:
               H's paged configuration and requests on a latent pool,
               steady tok/s, launches as O; the paged
               step teacher-forced (bf16 and int8 pools) and against the
@@ -289,7 +290,32 @@ Phases, each printing JSON lines:
               Then K1, K2, K5, K6 and K8 against their twins at a rank's
               shapes (tensor 2: TinyLlama; expert 2: Mixtral's 4 experts
               a rank), timed with bounds and library calls.
-12. a ``kernels`` line: every ported kernel with launches, error and times
+12. pipeline — GPipe stages (``parallel/pipeline.py``), with tensor
+              parallelism inside them. (a) A world of one over NCCL in
+              this process: TinyLlama at full width and depth,
+              ``pipeline_forward`` (fused) and ``pipeline_lora_step``
+              (unfused, adapters on q / k / v / o) at pipe 1 over 4
+              microbatches of 1 x 384 beside ``forward`` and
+              ``lora_train_step``, each held against the plain f32 run.
+              (b) Two gloo ranks: Mistral-7B at full width,
+              ``PIPELINE_DEPTH`` (8) layers, pipe 2, W's 4 x 512 ids in 4
+              microbatches, rank-8 f32 adapters on q / k / v / o: the
+              forward's logits by the teacher-forced rule and one LoRA
+              step's loss and updates by W's rule, against the world of
+              one's plain runs; launches a stage held exactly (K2, K4;
+              K10, K11 in the step); host ms a step. (c) Four gloo ranks:
+              TinyLlama at full width and depth, pipe 2 x tensor 2, B's 2 x
+              384 in 2 microbatches, adapters on q / v / o / down, held as
+              (b). (d) The same four ranks at full width and
+              ``PIPELINE_BREADTH_DEPTH`` (2) layers: MPT-7B (ALiBi) and
+              DeepSeek-V2-Lite (both layers MoE) at pipe 2 x tensor 2 over
+              2 x 256, then flat tensor 2 with a 1 x 64 prefill and
+              ``PARALLEL_DECODE_STEPS`` teacher-forced decode steps (MPT on
+              K1; V2-Lite's absorbed decode on the rank's heads, K6, K8),
+              V2-Lite's f32 expert choice replayed. Then K2 at Mistral's
+              unfused linears at M = 512 and K1 at an MPT-7B rank's under
+              tensor 2, timed with bounds and library calls.
+13. a ``kernels`` line: every ported kernel with launches, error and times
    (the mla_moe phase's K6 and K8 rows after the eleven).
 
 Asked for by name only, each for an A/B of two checkouts in one call
@@ -330,7 +356,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe", "serve", "train", "parallel")
+          "mla_moe", "serve", "train", "parallel", "pipeline")
 EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
                 "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -437,11 +463,14 @@ ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
 MIXTRAL_DEPTH = 4
 # The long generation of A's, G's and L's decode quotient (new tokens,
 # cut from 512, then from 256 when the parallel phase came) and the depth
-# of Mistral-7B in the e2e phase's traffics C, D, H, I, J and K (16 of its
-# 32 layers): both cut to keep the script within its time limit on slower
-# hosts, where these host-bound decode loops take most of its time.
+# of Mistral-7B in the e2e phase's traffics C, D, H, I, J and K (8 of its
+# 32 layers: 16 until the pipeline phase came), and DeepSeek-V2-Lite's in
+# the mla_moe phase's O, P and R (9 of its 27: layer 0 dense, 8 MoE): cut
+# to keep the script within its time limit on slower hosts, where these
+# host-bound decode loops take most of its time.
 DECODE_BIG = 128
-E2E_MISTRAL_DEPTH = 16
+E2E_MISTRAL_DEPTH = 8
+V2_LITE_DEPTH = 9
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
@@ -4487,7 +4516,8 @@ def _decode_step_bytes(cfg, params, experts_read):
 
 
 def _v2_lite_traffics(dev, rng):
-    """DeepSeek-V2-Lite at full width and depth: traffics O (bs1 decode),
+    """DeepSeek-V2-Lite at full width, ``V2_LITE_DEPTH`` layers: traffics O
+    (bs1 decode),
     P (prefill 2 x 384) and R (the paged engine on a latent pool), each
     with its launches held exactly and its teacher-forced check, the int8
     latent cache, the paged step against the contiguous latent path, and
@@ -4498,8 +4528,8 @@ def _v2_lite_traffics(dev, rng):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
 
-    cfg, params = _zoo_model(DEEPSEEK_V2_LITE, dev, phase="mla_moe",
-                             gs=MLA_MOE_GS)
+    cfg, params = _zoo_model(DEEPSEEK_V2_LITE, dev, V2_LITE_DEPTH,
+                             phase="mla_moe", gs=MLA_MOE_GS)
     layers = cfg.num_hidden_layers
     moe = layers - cfg.first_k_dense_replace
     dense = cfg.first_k_dense_replace
@@ -4614,9 +4644,9 @@ def _v2_lite_traffics(dev, rng):
 
 def phase_mla_moe(dev):
     """MLA and DeepSeek / Qwen3 MoE on the card: kernel rows at their
-    shapes, DeepSeek-V2-Lite's traffics O, P and R at full width and depth
-    (``_v2_lite_traffics``), then DeepSeek-V3 and Qwen3-30B-A3B at
-    published width, depth ``MLA_MOE_CUT_DEPTH``, through
+    shapes, DeepSeek-V2-Lite's traffics O, P and R at full width,
+    ``V2_LITE_DEPTH`` layers (``_v2_lite_traffics``), then DeepSeek-V3 and
+    Qwen3-30B-A3B at published width, depth ``MLA_MOE_CUT_DEPTH``, through
     ``_served_checks``. Returns (launch counts summed over the phase,
     launches per decode step of O and R, the kernel rows)."""
     import numpy as np
@@ -5984,9 +6014,11 @@ def _to(tree, dev):
     return to_device(tree, dev)
 
 
-def _parallel_rank(rank, world, port, tmp, device, spec):
-    """One rank of the phase's gloo world (spawned): its output goes to a
-    file the phase prints after the join, its failures to another."""
+def _world_rank(rank, world, port, tmp, device, spec, phase, parts):
+    """One rank of a phase's gloo world (spawned): it runs the named
+    ``parts`` of this module in order, in inference mode but for
+    ``GRAD_PARTS``; its output goes to a file the phase prints after the
+    join, its failures to another."""
     import traceback
 
     import numpy as np
@@ -6002,16 +6034,18 @@ def _parallel_rank(rank, world, port, tmp, device, spec):
         dev = pd.initialize(init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank, backend="gloo",
                             device=device)
-        with torch.inference_mode():
-            for part in (_rank_tp, _rank_ep, _rank_dp):
-                t = time.perf_counter()
-                part(rank, dev, np.random.default_rng(0))
-                emit({"phase": "parallel", "rank": rank,
-                      "part": part.__name__,
-                      "seconds": time.perf_counter() - t})
-        emit({"phase": "parallel", "rank": rank, "staged_collectives":
-              dict(pd.STAGED), "note": "gloo collectives on CUDA tensors, "
-              "staged through host memory by design"})
+        for name in parts:
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if name not in GRAD_PARTS:
+                    stack.enter_context(torch.inference_mode())
+                globals()[name](rank, dev, np.random.default_rng(0))
+            emit({"phase": phase, "rank": rank, "part": name,
+                  "seconds": time.perf_counter() - t})
+        emit({"phase": phase, "rank": rank, "staged_collectives":
+              dict(pd.STAGED), "note": "gloo collectives and point-to-point "
+              "transfers on CUDA tensors, staged through host memory by "
+              "design"})
     except Exception:  # reported by the phase, which fails the run
         err = traceback.format_exc()
     finally:
@@ -6019,6 +6053,55 @@ def _parallel_rank(rank, world, port, tmp, device, spec):
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump({"failures": failures, "error": err}, f)
         torch.distributed.destroy_process_group()
+
+
+def _spawn_world(world, phase, parts, spec_names, dev):
+    """Start ``world`` gloo ranks sharing the card, each running
+    ``parts``; returns (context, scratch directory) without waiting."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    spec = {k: globals()[k] for k in spec_names}
+    ctx = mp.start_processes(_world_rank, args=(
+        world, _free_port(), tmp, str(dev), spec, phase, parts),
+        nprocs=world, join=False, start_method="spawn")
+    return ctx, tmp
+
+
+def _join_world(ctx, tmp, world, phase, deadline):
+    """Wait for the ranks until ``deadline`` (``time.time()``), print
+    their output, and fail the run on a rank's failure, error or
+    absence."""
+    done = False
+    while not done:
+        try:
+            done = ctx.join(timeout=max(1, deadline - time.time()))
+        except Exception as e:  # a rank exited with an error
+            check(False, f"{phase}: a rank failed: {e}")
+            done = True
+        if not done and time.time() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            check(False, f"{phase}: the ranks did not finish in time")
+            done = True
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.out")
+        if os.path.exists(path):
+            with open(path) as f:
+                sys.stdout.write(f.read())
+        res_path = os.path.join(tmp, f"rank{r}.json")
+        if not os.path.exists(res_path):
+            check(False, f"{phase} rank {r}: no result")
+            continue
+        with open(res_path) as f:
+            res = json.load(f)
+        for what in res["failures"]:
+            check(False, f"rank {r}: {what}")
+        check(res["error"] is None, f"{phase} rank {r} raised: "
+              f"{res['error']}")
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _world_of_one(dev):
@@ -6131,52 +6214,543 @@ def phase_parallel(dev):
     """Tensor, expert and data parallelism on the card: the two gloo ranks
     (b) spawned first, the world of one over NCCL (a) while they start,
     then their results, then the kernels at a rank's shapes."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
-    spec = {k: globals()[k] for k in PARALLEL_SPEC}
-    ctx = mp.start_processes(_parallel_rank, args=(2, _free_port(), tmp,
-                                                   str(dev), spec),
-                             nprocs=2, join=False, start_method="spawn")
+    ctx, tmp = _spawn_world(2, "parallel", ("_rank_tp", "_rank_ep",
+                                            "_rank_dp"), PARALLEL_SPEC, dev)
     t0 = time.perf_counter()
     try:
         _world_of_one(dev)
     finally:
-        deadline = time.time() + PARALLEL_TIMEOUT
-        done = False
-        while not done:
-            try:
-                done = ctx.join(timeout=max(1, deadline - time.time()))
-            except Exception as e:  # a rank exited with an error
-                check(False, f"parallel: a rank failed: {e}")
-                done = True
-            if not done and time.time() >= deadline:
-                for p in ctx.processes:
-                    p.kill()
-                check(False, "parallel: the ranks did not finish in "
-                      f"{PARALLEL_TIMEOUT} s")
-                done = True
-    for r in range(2):
-        path = os.path.join(tmp, f"rank{r}.out")
-        if os.path.exists(path):
-            with open(path) as f:
-                sys.stdout.write(f.read())
-        res_path = os.path.join(tmp, f"rank{r}.json")
-        if not os.path.exists(res_path):
-            check(False, f"parallel rank {r}: no result")
-            continue
-        with open(res_path) as f:
-            res = json.load(f)
-        for what in res["failures"]:
-            check(False, f"rank {r}: {what}")
-        check(res["error"] is None, f"parallel rank {r} raised: "
-              f"{res['error']}")
-    shutil.rmtree(tmp, ignore_errors=True)
+        _join_world(ctx, tmp, 2, "parallel",
+                    time.time() + PARALLEL_TIMEOUT)
     emit({"phase": "parallel", "step": "ranks", "seconds":
           time.perf_counter() - t0})
     _parallel_kernel_rows(dev)
+
+
+# --------------------------------------------------------------- pipeline
+
+# The pipeline phase (GPipe stages, with tensor parallelism inside each).
+# As in the parallel phase, NCCL refuses two ranks on one device, so (a)
+# runs a world of one over NCCL in this process and (b)-(d) spawn gloo
+# ranks on the one card, whose collectives and point-to-point transfers
+# on CUDA tensors the port stages through host memory: no number of
+# theirs is a speed. (b) Mistral-7B at full width, PIPELINE_DEPTH of its
+# 32 layers, W's batch in 4 microbatches; (c) TinyLlama at full width and
+# depth, B's shape in 2; (d) MPT-7B and DeepSeek-V2-Lite at full width,
+# PIPELINE_BREADTH_DEPTH layers (V2-Lite with first_k_dense_replace 0, so
+# that both are MoE layers).
+PIPELINE_DEPTH = 8
+PIPELINE_W = (4, 512, 4)  # batch, length, microbatches
+PIPELINE_TP = (2, 384, 2)
+PIPELINE_ONE = (4, 384, 4)  # (a): TinyLlama in a world of one
+PIPELINE_BREADTH_DEPTH = 2
+PIPELINE_BREADTH = (2, 256, 2)  # (d)'s pipelined prefill: K2 at M = 256
+PIPELINE_LR = 1e-3
+PIPELINE_TIMEOUT = 600  # seconds the ranks may take
+PIPELINE_SPEC = ("TINYLLAMA", "MISTRAL", "MPT7B", "DEEPSEEK_V2_LITE",
+                 "MLA_MOE_GS", "PIPELINE_DEPTH", "PIPELINE_W", "PIPELINE_TP",
+                 "PIPELINE_BREADTH_DEPTH", "PIPELINE_BREADTH", "PIPELINE_LR",
+                 "PARALLEL_DECODE_STEPS", "TRAIN_RANK")
+# the spawned parts that record autograd (every other runs in inference
+# mode)
+GRAD_PARTS = ("_rank_pp_mistral", "_rank_pp_tp")
+COL_LINS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+
+
+def _pp_adapters(cfg, params, targets, dev):
+    """Rank-8 f32 adapters on ``targets`` (``add_lora``, seed 0), in place,
+    with lora_b drawn nonzero (seed 2, std 1e-2) so that lora_a has a
+    gradient, as W's check draws them."""
+    import torch
+
+    from autoawq_tpu_torch.train import lora
+
+    lora.add_lora(cfg, params, rank=TRAIN_RANK, targets=targets, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for lp in params["layers"]:
+        for sub in (lp["self_attn"], lp["mlp"]):
+            for lin in sub.values():
+                if isinstance(lin, dict) and "lora_b" in lin:
+                    lin["lora_b"] = torch.randn(
+                        lin["lora_b"].shape, generator=gen, device=dev) * 1e-2
+    return params
+
+
+def _adapter_paths(tree, prefix=""):
+    """The adapter leaves of a tree by dotted path (detached clones)."""
+    items = (enumerate(tree) if isinstance(tree, list) else tree.items())
+    out = {}
+    for k, v in items:
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            out.update(_adapter_paths(v, path))
+        elif str(k).startswith("lora_"):
+            out[path] = v.detach().clone()
+    return out
+
+
+def _fresh_adapters(tree):
+    """A copy of the tree's containers with the adapters cloned (a step
+    updates them in place)."""
+    if isinstance(tree, dict):
+        return {k: (v.detach().clone() if k.startswith("lora_")
+                    else _fresh_adapters(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fresh_adapters(v) for v in tree]
+    return tree
+
+
+def _ref_step(cfg, params, tokens, method, dtype):
+    """The world of one's ``lora_train_step`` on a copy of the adapters:
+    (loss, each adapter's update by path, seconds)."""
+    import torch
+
+    from autoawq_tpu_torch.train import lora
+
+    tree = _fresh_adapters(params)
+    old = _adapter_paths(tree)
+    adapters, base = lora.split_lora(tree)
+    t = time.perf_counter()
+    loss, new = lora.lora_train_step(cfg, adapters, base, tokens, PIPELINE_LR,
+                                     method, dtype)
+    loss = loss.item()
+    secs = time.perf_counter() - t
+    upd = {p: old[p] - v for p, v in _adapter_paths(new).items()}
+    del tree, adapters, base, new
+    torch.cuda.empty_cache()
+    return loss, upd, secs
+
+
+def _held_step(name, got_loss, got_upd, refs):
+    """A step's loss and adapter updates against the world of one's plain
+    steps in f32 and bf16 by W's rule (within twice the bf16 step's
+    distance from f32, + 1e-2). ``got_upd`` maps each update to the path
+    and slice of the whole-model update it is."""
+    (lf, f32, _), (lp_, bf, _) = refs["f32"], refs["bf16"]
+    got, ref, plain = [], [], []
+    for (path, sl), g in got_upd.items():
+        got.append(g)
+        ref.append(f32[path][sl])
+        plain.append(bf[path][sl])
+    rows = _grad_rows(got, ref, plain)
+    loss_ok = abs(got_loss - lf) <= 2 * abs(lp_ - lf) + TOL[
+        "train_grad_floor"] * abs(lf)
+    check(math.isfinite(got_loss) and loss_ok and all(r["ok"] for r in rows),
+          f"{name}: outside W's rule: loss {got_loss:.6g} (plain "
+          f"{lp_:.6g}, f32 {lf:.6g}), {sum(not r['ok'] for r in rows)} of "
+          f"{len(rows)} adapter updates")
+    return {"loss": {"pipelined": got_loss, "plain": lp_, "plain_f32": lf},
+            "updates": len(rows),
+            "worst_kernel_vs_f32": max(r["kernel_vs_f32"] for r in rows),
+            "worst_plain_bf16_vs_f32": max(r["plain_bf16_vs_f32"]
+                                           for r in rows)}
+
+
+def _stage_updates(mesh, old, new, per):
+    """A stage rank's adapter updates keyed by (whole-model path, the
+    slice of the whole update it is: a column shard's lora_b columns, a
+    row shard's lora_a rows)."""
+    t, ti = mesh.size("tensor"), mesh.index("tensor")
+    out = {}
+    for path, v in _adapter_paths(new).items():
+        _, i, sub, lin, leaf = path.split(".")
+        li = mesh.index("pipe") * per + int(i)
+        g = old[path] - v
+        sl = (slice(None),)
+        if t > 1 and leaf == "lora_b" and lin in COL_LINS:
+            n = g.shape[1]
+            sl = (slice(None), slice(ti * n, (ti + 1) * n))
+        elif t > 1 and leaf == "lora_a" and lin not in COL_LINS:
+            n = g.shape[0]
+            sl = (slice(ti * n, (ti + 1) * n),)
+        out[(f"layers.{li}.{sub}.{lin}.{leaf}", sl)] = g
+    return out
+
+
+def _pp_part(name, rank, cfg, params, tokens, mesh, m, expect, refs,
+             dev):
+    """``pipeline_forward`` and one ``pipeline_lora_step`` of ``params``
+    (adapters included) on ``mesh``: each rank's launches held exactly
+    (``expect``: the forward's, then the step's), the logits (rank 0) by
+    the teacher-forced rule and the step by W's, both against the world of
+    one's plain runs ``refs`` (f32 and bf16 forward logits and steps);
+    host ms of each, the backend named."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.parallel import pipeline as pp
+    from autoawq_tpu_torch.train import lora
+
+    bf = torch.bfloat16
+    pparams = pp.to_pipeline(cfg, _fresh_adapters(params), mesh, device=dev)
+    per = cfg.num_hidden_layers // mesh.size("pipe")
+    where = {a: mesh.index(a) for a in mesh.axis_names}
+    _sync(dev)
+    _build.reset_launches()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits = pp.pipeline_forward(cfg, pparams, tokens, mesh, m,
+                                     dtype=bf)
+    _sync(dev)
+    fwd_ms = (time.perf_counter() - t) * 1e3
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check_launches(f"{name} rank {rank} forward", got, expect[0])
+    if rank == 0:
+        rows = _hold_rule(f"{name} forward", [logits], [refs["logits_bf16"]],
+                          [refs["logits_f32"]])
+        emit({"phase": "pipeline", "step": f"{name} forward vs f32",
+              "rows": rows})
+    del logits
+    old = _adapter_paths(pparams)
+    adapters, base = lora.split_lora(pparams)
+    _sync(dev)
+    _build.reset_launches()
+    t = time.perf_counter()
+    loss, new = pp.pipeline_lora_step(cfg, adapters, base, tokens, mesh, m,
+                                      lr=PIPELINE_LR, dtype=bf)
+    loss = loss.item()
+    _sync(dev)
+    step_ms = (time.perf_counter() - t) * 1e3
+    got_step = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check_launches(f"{name} rank {rank} LoRA step", got_step, expect[1])
+    held = _held_step(f"{name} rank {rank} LoRA step", loss,
+                      _stage_updates(mesh, old, new, per), refs)
+    emit({"phase": "pipeline", "part": name, "rank": rank, "where": where,
+          "backend": "gloo", "forward_ms": fwd_ms, "step_ms": step_ms,
+          "launches_forward": got, "launches_step": got_step,
+          "reference_step_seconds": {k: refs[k][2] for k in ("f32",
+                                                             "bf16")},
+          **held})
+
+
+def _pp_refs(cfg, params, tokens, dev, logits=True):
+    """The world of one's plain runs on the unsharded tree: f32 and bf16
+    forward logits (``logits``) and LoRA steps."""
+    import torch
+
+    from autoawq_tpu_torch.nn import modules
+
+    refs = {}
+    if logits:
+        with torch.no_grad():
+            for dt, key in ((torch.float32, "logits_f32"),
+                            (torch.bfloat16, "logits_bf16")):
+                refs[key] = modules.forward(cfg, params, tokens, "plain", dt)
+    refs["f32"] = _ref_step(cfg, params, tokens, "plain", torch.float32)
+    refs["bf16"] = _ref_step(cfg, params, tokens, "plain", torch.bfloat16)
+    return refs
+
+
+def _rank_pp_mistral(rank, dev, rng):
+    """(b) Mistral-7B-Instruct-v0.2 at full width, PIPELINE_DEPTH layers,
+    pipe 2 (two ranks, 4 layers a stage), unfused, rank-8 f32 adapters on
+    q / k / v / o as in W, W's 4 x 512 seeded ids in 4 microbatches of 1 x
+    512. A stage's forward: K2 on its 7 linears a layer and microbatch, K4
+    a layer and microbatch; its step adds K10 and K11 a layer and
+    microbatch."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    b, s, m = PIPELINE_W
+    cfg = dataclasses.replace(ModelConfig(**MISTRAL),
+                              num_hidden_layers=PIPELINE_DEPTH)
+    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+                          ("q_proj", "k_proj", "v_proj", "o_proj"), dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    refs = _pp_refs(cfg, params, tokens, dev, logits=rank == 0)
+    per = PIPELINE_DEPTH // 2
+    fwd = {"w4a16_gemm": 7 * per * m, "prefill_attention": per * m}
+    step = {**fwd, "prefill_attention_dkv": per * m,
+            "prefill_attention_dq": per * m}
+    _pp_part("pipeline (b) mistral pipe 2", rank, cfg, params, tokens,
+             build_mesh(pipe=2), m, (fwd, step), refs, dev)
+
+
+def _rank_pp_tp(rank, dev, rng):
+    """(c) TinyLlama at full width and depth, pipe 2 x tensor 2 (four
+    ranks: 11 layers a stage, 16 / 2 heads a rank), B's 2 x 384 in 2
+    microbatches, adapters on q / v / o / down as in JAX's
+    ``test_pipeline_tp_lora_step_matches_sequential``."""
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    b, s, m = PIPELINE_TP
+    cfg = ModelConfig(**TINYLLAMA)
+    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+                          ("q_proj", "v_proj", "o_proj", "down_proj"), dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    refs = _pp_refs(cfg, params, tokens, dev, logits=rank == 0)
+    per = cfg.num_hidden_layers // 2
+    fwd = {"w4a16_gemm": 7 * per * m, "prefill_attention": per * m}
+    step = {**fwd, "prefill_attention_dkv": per * m,
+            "prefill_attention_dq": per * m}
+    _pp_part("pipeline (c) tinyllama pipe 2 x tensor 2", rank, cfg, params,
+             tokens, build_mesh(pipe=2, tensor=2), m, (fwd, step), refs,
+             dev)
+
+
+def _stage_replay(record, mesh, layers, m, rows):
+    """The f32 run's expert choice of each call a stage rank makes: its
+    layers' choices for this data rank's ``rows`` tokens of each
+    microbatch, in the stage's order (microbatch by microbatch)."""
+    per = layers // mesh.size("pipe")
+    lo = mesh.index("pipe") * per
+    return [record[li][j * rows:(j + 1) * rows]
+            for j in range(m) for li in range(lo, lo + per)]
+
+
+def _rank_pp_breadth(rank, dev, rng):
+    """(d) at full width, PIPELINE_BREADTH_DEPTH layers, four ranks:
+    MPT-7B (ALiBi, 16 heads a rank) pipe 2 x tensor 2 over 2 x 256 in 2
+    microbatches, then flat tensor 2 (data 2) with a 1 x 64 prefill and
+    PARALLEL_DECODE_STEPS teacher-forced steps on K1; DeepSeek-V2-Lite
+    (first_k_dense_replace 0: both layers MoE; MLA on 8 heads a rank, 32
+    of 64 experts a rank through K6, shared experts at tp_div 2) pipe 2 x
+    tensor 2, then flat tensor 2 with the absorbed decode on the rank's
+    heads, the f32 run's expert choice replayed in every bf16 run. Logits
+    held by the rule (rank 0), launches a rank exactly."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.parallel import pipeline as pp
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    bf, f32 = torch.bfloat16, torch.float32
+    L = PIPELINE_BREADTH_DEPTH
+    b, s, m = PIPELINE_BREADTH
+    steps = PARALLEL_DECODE_STEPS
+    pp_mesh = build_mesh(pipe=2, tensor=2)
+    flat = build_mesh(tensor=2)
+    for name, hf, gs in (("mpt-7b", MPT7B, 128),
+                         ("deepseek-v2-lite", DEEPSEEK_V2_LITE, MLA_MOE_GS)):
+        cfg = ModelConfig.from_hf_dict(hf)
+        cfg = dataclasses.replace(cfg, num_hidden_layers=L,
+                                  **({"first_k_dense_replace": 0}
+                                     if cfg.is_mla else {}))
+        full = synth_zoo_on_card(cfg, 0, dev, gs)
+        v = cfg.vocab_size
+        tokens = torch.from_numpy(rng.integers(0, v, (b, s))).to(dev)
+        prompt = torch.from_numpy(rng.integers(0, v, (1, 64))).to(dev)
+        toks = torch.from_numpy(rng.integers(0, v, (steps, 1, 1))).to(dev)
+        moe = cfg.is_moe
+        tape = _RouteTape(L)
+        rec_fwd, rec_dec = [], []
+        # the unsharded plain runs: f32 (recording the expert choice on
+        # every rank, which replays it) and bf16 (rank 0, replaying)
+        with tape.reset(record=rec_fwd if moe else None):
+            ref_fwd = {f32: modules.forward(cfg, full, tokens, "plain", f32)}
+        with tape.reset(record=rec_dec if moe else None):
+            ref_dec = {f32: _forced_logits(cfg, full, prompt, toks, "plain",
+                                           f32, dev)[0]}
+        if rank == 0:
+            with tape.reset(replay=rec_fwd if moe else None):
+                ref_fwd[bf] = modules.forward(cfg, full, tokens, "plain", bf)
+            with tape.reset(replay=rec_dec if moe else None):
+                ref_dec[bf] = _forced_logits(cfg, full, prompt, toks,
+                                             "plain", bf, dev)[0]
+        # pipe 2 x tensor 2: one layer a stage
+        pparams = pp.to_pipeline(cfg, full, pp_mesh, device=dev)
+        replay = (_stage_replay(rec_fwd, pp_mesh, L, m, b // m * s)
+                  if moe else None)
+        _sync(dev)
+        _build.reset_launches()
+        t = time.perf_counter()
+        with tape.reset(replay=replay):
+            logits = pp.pipeline_forward(cfg, pparams, tokens, pp_mesh, m,
+                                         dtype=bf)
+        _sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        got = {k: n for k, n in _build.LAUNCHES.items() if n}
+        per = L // 2
+        if moe:  # q, kv_a, kv_b, o and the shared experts' 3; K6 twice
+            expect = {"w4a16_gemm": 7 * per * m, "moe_gemm": 2 * per * m}
+        else:  # q, k, v, o, fc1, fc2; ALiBi attends in plain ops
+            expect = {"w4a16_gemm": 6 * per * m}
+        _check_launches(f"pipeline (d) {name} pipe 2 x tensor 2 rank {rank}",
+                        got, expect)
+        if rank == 0:
+            rows = _hold_rule(f"pipeline (d) {name} pipe 2 x tensor 2",
+                              [logits], [ref_fwd[bf]], [ref_fwd[f32]])
+            emit({"phase": "pipeline", "step": f"(d) {name} pipe 2 x "
+                  "tensor 2 vs f32", "rows": rows})
+        emit({"phase": "pipeline", "part": f"(d) {name} pipe 2 x tensor 2",
+              "rank": rank, "backend": "gloo", "forward_ms": ms,
+              "launches_forward": got})
+        del pparams, logits
+        # flat tensor 2 (data 2): a prefill and teacher-forced decode steps
+        model = AwqCausalLM(cfg, full, device=dev).shard(flat, dtype=None)
+        with tape.reset(replay=rec_dec if moe else None):
+            got_dec, st = _forced_logits(model.cfg, model.params, prompt,
+                                         toks, "auto", bf, dev)
+        if moe:  # 64 rows: q, kv_a, kv_b, o and the shared experts on K1;
+            # a step: q, kv_a, o on K1 (the latent decode in plain ops),
+            # the shared experts on K8
+            expect = [{"w4a16_gemv": 7 * L, "moe_gemm": 2 * L},
+                      {"w4a16_gemv": 3 * L, "fused_mlp3": L,
+                       "moe_gemm": 2 * L}]
+        else:  # q, k, v, o, fc1, fc2 on K1 (ALiBi: no K5; fc1 / fc2: no K8)
+            expect = [{"w4a16_gemv": 6 * L}, {"w4a16_gemv": 6 * L}]
+        _held_launches(f"pipeline (d) {name} tensor 2 rank {rank}", st,
+                       expect)
+        if rank == 0:
+            rows = _hold_rule(f"pipeline (d) {name} tensor 2 decode",
+                              got_dec, ref_dec[bf], ref_dec[f32])
+            emit({"phase": "pipeline", "step": f"(d) {name} tensor 2 "
+                  "decode vs f32", "rows": rows})
+        emit({"phase": "pipeline", "part": f"(d) {name} tensor 2",
+              "rank": rank, "backend": "gloo",
+              "step_ms": [x["ms"] for x in st[1:]],
+              "launches_per_step": st[1]["launches"]})
+        del model, full, ref_fwd, ref_dec, got_dec
+        torch.cuda.empty_cache()
+
+
+def _pipeline_world_of_one(dev):
+    """(a): TinyLlama at full width and depth in a world of one over NCCL:
+    ``pipeline_forward`` (fused) and ``pipeline_lora_step`` (unfused,
+    adapters on q / k / v / o) at pipe 1 over 4 microbatches of 1 x 384,
+    beside ``forward`` and ``lora_train_step`` on the same inputs; each
+    held against the plain f32 run by the teacher-forced rule (logits) or
+    W's (the step), their distance from each other reported."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.parallel import distributed as pd
+    from autoawq_tpu_torch.parallel import pipeline as pp
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.train import lora
+
+    b, s, m = PIPELINE_ONE
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = ModelConfig(**TINYLLAMA)
+    L = cfg.num_hidden_layers
+    params = synth_zoo_on_card(cfg, 0, dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    pd.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                  world_size=1, rank=0, device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = build_mesh()
+        with torch.no_grad():
+            pparams = pp.to_pipeline(cfg, params, mesh, device=dev)
+            _build.reset_launches()
+            t = time.perf_counter()
+            got = pp.pipeline_forward(cfg, pparams, tokens, mesh, m,
+                                      dtype=bf)
+            _sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+            launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+            _check_launches("pipeline (a) forward", launches,
+                            {"w4a16_gemm": 4 * L * m,
+                             "prefill_attention": L * m})
+            one = modules.forward(cfg, params, tokens, "auto", bf)
+            plain = {dt: modules.forward(cfg, params, tokens, "plain", dt)
+                     for dt in (bf, f32)}
+        rows = _hold_rule("pipeline (a) pipeline_forward", [got],
+                          [plain[bf]], [plain[f32]])
+        rows += _hold_rule("pipeline (a) forward", [one], [plain[bf]],
+                           [plain[f32]])
+        emit({"phase": "pipeline", "part": "(a) world of one",
+              "backend": backend, "forward_ms": ms,
+              "launches_forward": launches, "rows": rows,
+              "pipeline_vs_forward": rel_err(got, one)})
+        del got, one, plain, pparams
+        params = _pp_adapters(cfg, _unfused(cfg, params),
+                              ("q_proj", "k_proj", "v_proj", "o_proj"), dev)
+        refs = _pp_refs(cfg, params, tokens, dev, logits=False)
+        kernel = _ref_step(cfg, params, tokens, "auto", bf)
+        pparams = pp.to_pipeline(cfg, _fresh_adapters(params), mesh,
+                                 device=dev)
+        old = _adapter_paths(pparams)
+        adapters, base = lora.split_lora(pparams)
+        _build.reset_launches()
+        t = time.perf_counter()
+        loss, new = pp.pipeline_lora_step(cfg, adapters, base, tokens, mesh,
+                                          m, lr=PIPELINE_LR, dtype=bf)
+        loss = loss.item()
+        _sync(dev)
+        step_ms = (time.perf_counter() - t) * 1e3
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        _check_launches("pipeline (a) LoRA step", launches,
+                        {"w4a16_gemm": 7 * L * m, "prefill_attention": L * m,
+                         "prefill_attention_dkv": L * m,
+                         "prefill_attention_dq": L * m})
+        upd = _stage_updates(mesh, old, new, L)
+        held = _held_step("pipeline (a) pipeline_lora_step", loss, upd, refs)
+        held_one = _held_step("pipeline (a) lora_train_step", kernel[0],
+                              {(p, (slice(None),)): u
+                               for p, u in kernel[1].items()}, refs)
+        dist_one = max((u - kernel[1][p][sl]).float().norm().item()
+                       / max(kernel[1][p][sl].float().norm().item(), 1e-30)
+                       for (p, sl), u in upd.items())
+        emit({"phase": "pipeline", "part": "(a) world of one LoRA step",
+              "backend": backend, "step_ms": step_ms,
+              "launches_step": launches, "pipelined": held,
+              "lora_train_step": held_one,
+              "worst_update_vs_lora_train_step": dist_one})
+    finally:
+        dist.destroy_process_group()
+
+
+def _pipeline_kernel_rows(dev):
+    """K2 at (b)'s shapes, Mistral's unfused linears at M = 512 (a
+    microbatch of 1 x 512: q / o 4096 -> 4096, k / v 4096 -> 1024, gate /
+    up 4096 -> 14336, down 14336 -> 4096), and K1 at an MPT-7B rank's
+    under tensor 2 (q / k / v 4096 -> 2048, o 2048 -> 4096 a row shard,
+    fc1 4096 -> 8192, fc2 8192 -> 4096 a row shard), against their twins
+    and timed with their bounds and library calls."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    h, i = MISTRAL["hidden_size"], MISTRAL["intermediate_size"]
+    kv = MISTRAL["num_key_value_heads"] * MISTRAL["head_dim"]
+    for case, k, n in (("q / o", h, h), ("k / v", h, kv),
+                       ("gate / up", h, i), ("down", i, h)):
+        _gemm_case(rng, "w4a16_gemm", f"pipeline (b) mistral {case}", 512,
+                   k, n, 128, True, dev)
+    h = MPT7B["d_model"]
+    for case, k, n in (("q / k / v", h, h // 2), ("o (row shard)", h // 2, h),
+                       ("fc1", h, 2 * h), ("fc2 (row shard)", 2 * h, h)):
+        _gemm_case(rng, "w4a16_gemv", f"pipeline (d) mpt-7b tensor 2 {case}",
+                   1, k, n, 128, True, dev)
+
+
+def phase_pipeline(dev):
+    """GPipe on the card: the two ranks of (b) and the four of (c) and (d)
+    spawned first, the world of one over NCCL (a) while they run, then
+    their results, then the kernels at the new shapes."""
+    t0 = time.perf_counter()
+    worlds = [(_spawn_world(2, "pipeline", ("_rank_pp_mistral",),
+                            PIPELINE_SPEC, dev), 2),
+              (_spawn_world(4, "pipeline", ("_rank_pp_tp",
+                                            "_rank_pp_breadth"),
+                            PIPELINE_SPEC, dev), 4)]
+    deadline = time.time() + PIPELINE_TIMEOUT
+    try:
+        _pipeline_world_of_one(dev)
+    finally:
+        for (ctx, tmp), n in worlds:
+            _join_world(ctx, tmp, n, "pipeline", deadline)
+    emit({"phase": "pipeline", "step": "ranks", "seconds":
+          time.perf_counter() - t0})
+    _pipeline_kernel_rows(dev)
 
 
 def main(argv=None) -> int:
@@ -6259,6 +6833,8 @@ def main(argv=None) -> int:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "parallel" in phases:
         timed("parallel", phase_parallel, dev)
+    if "pipeline" in phases:
+        timed("pipeline", phase_pipeline, dev)
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:

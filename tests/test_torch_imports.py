@@ -27,7 +27,8 @@ def test_port_imports_nothing_forbidden():
         "from autoawq_tpu_torch.ops import (_build, attention, "
         "fused_attn_step, fused_mlp, gemm, moe_a2a, moe_gemm, paged_attn, "
         "sharded_gemm, sharded_mlp, sharded_moe, tp_attn)\n"
-        "from autoawq_tpu_torch.parallel import distributed, mesh, specs\n"
+        "from autoawq_tpu_torch.parallel import (distributed, mesh, "
+        "pipeline, specs)\n"
         "from autoawq_tpu_torch.serve import (batching, beam, generate, "
         "paged, server, spec_batch, speculative)\n"
         "from autoawq_tpu_torch.quantize import calib, quantizer, scale\n"

@@ -64,7 +64,8 @@ ENG = dict(model_type="llama", vocab_size=512, hidden_size=256,
            num_attention_heads=8, num_key_value_heads=4, head_dim=32,
            max_position_embeddings=64)
 TOL = 2e-4
-CASES = ["tp_forward", "tree_shards", "tp_decode", "tp_mlp", "tp_engine"]
+CASES = ["tp_forward", "tree_shards", "tp_decode", "tp_mlp", "tp_engine",
+         "meshes"]
 
 
 def _np(tree):
@@ -324,15 +325,50 @@ def test_tp_stack_refuses_heads_that_do_not_divide():
     assert "qkv_proj_tp" not in params["layers"][0]["self_attn"]
 
 
-def test_pipe_and_hybrid_meshes_name_the_item_that_carries_them():
-    from autoawq_tpu_torch.parallel import distributed
-
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        build_mesh(pipe=2)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        distributed.hybrid_mesh(tensor=2)
+def test_pipe_and_hybrid_meshes_name_the_item_that_carries_them(run):
+    """The meshes the port once refused: ``build_mesh(pipe=2)`` over four
+    ranks is (data, pipe, expert, tensor), each rank at JAX's row-major
+    coordinates with its pipe group of two; ``hybrid_mesh(tensor=2)`` over
+    two nodes of two ranks (``LOCAL_WORLD_SIZE`` = 2) is (data, expert,
+    tensor) with data across the nodes. Without a world, a mesh of two
+    ranks is still refused."""
+    _, _, res = run
+    for rank, r in enumerate(res):
+        m = r["meshes"][(("pipe", 2),)]
+        assert m["axes"] == ("data", "pipe", "expert", "tensor")
+        assert m["coords"] == {"data": rank // 2, "pipe": rank % 2,
+                               "expert": 0, "tensor": 0}
+        assert m["sum"] == 2
+        h = r["meshes"]["hybrid"][(("tensor", 2),)]
+        assert h["axes"] == ("data", "expert", "tensor")
+        assert h["coords"] == {"data": rank // 2, "expert": 0,
+                               "tensor": rank % 2}
     with pytest.raises(ValueError, match="not divisible"):
         build_mesh(tensor=2)  # one process, no world: 1 device
+
+
+def test_hybrid_mesh_shapes(run):
+    """JAX's ``test_hybrid_mesh_shapes`` on the port's world of four ranks
+    as two nodes: the (data, expert, tensor) axes, data = devices //
+    (tensor x expert) with the node count as its DCN factor, an explicit
+    ``dcn_data`` that leaves data's size as it is, node k's ranks at data
+    indices of node k, and JAX's errors."""
+    _, _, res = run
+    for rank, r in enumerate(res):
+        hy = r["meshes"]["hybrid"]
+        assert hy[(("tensor", 2),)]["shape"] == {"data": 2, "expert": 1,
+                                                 "tensor": 2}
+        assert hy[(("tensor", 2),)]["data_sum"] == 2
+        assert hy[(("expert", 2),)]["shape"] == {"data": 2, "expert": 2,
+                                                 "tensor": 1}
+        assert hy[(("expert", 2),)]["coords"]["data"] == rank // 2
+        assert hy[(("dcn_data", 1), ("tensor", 2))]["shape"]["data"] == 2
+        assert hy[(("tensor", 1),)]["shape"]["data"] == 4
+        assert hy[(("tensor", 1),)]["coords"]["data"] == rank
+        assert r["meshes"]["hybrid_errors"] == [
+            "2 per-slice devices not divisible by tensor=2 x expert=2",
+            "2 per-slice devices not divisible by tensor=3 x expert=1",
+            "mesh dcn2 x ici2 x expert1 x tensor2 != 4 devices"]
 
 
 @pytest.mark.parametrize("t", [2, 4])

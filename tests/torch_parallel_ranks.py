@@ -30,11 +30,13 @@ from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.nn.fuse import tp_stack_qkv
 from autoawq_tpu_torch.ops import moe_a2a, sharded_moe, tp_attn
 from autoawq_tpu_torch.parallel import distributed as pd
+from autoawq_tpu_torch.parallel import pipeline as pp
 from autoawq_tpu_torch.parallel.mesh import build_mesh
 from autoawq_tpu_torch.parallel.specs import param_decisions, shard_params
 from autoawq_tpu_torch.quantize.quantizer import AwqQuantizer
 from autoawq_tpu_torch.serve import generate as gen
 from autoawq_tpu_torch.serve.batching import BatchingEngine
+from autoawq_tpu_torch.train import lora as lora_mod
 
 CPU = torch.device("cpu")
 
@@ -297,5 +299,192 @@ def dp_calib(rank, inp):
     return out
 
 
+def _where(mesh) -> Dict[str, int]:
+    return {a: mesh.index(a) for a in mesh.axis_names}
+
+
+def _lora_leaves(tree, prefix=""):
+    """The adapter leaves of a tree, detached, by dotted path."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, (dict, list)):
+            out.update(_lora_leaves(v, path))
+        elif k.startswith("lora_"):
+            out[path] = v.detach().clone()
+    return out
+
+
+def meshes(rank, inp):
+    """``build_mesh(pipe=2)``'s axes, coordinates and neighbours, and
+    ``hybrid_mesh``'s shapes, coordinates and errors with
+    ``LOCAL_WORLD_SIZE`` = 2 (two nodes of two ranks)."""
+    out = {}
+    for kw in (dict(pipe=2), dict(pipe=2, tensor=2), dict(pipe=4)):
+        mesh = build_mesh(**kw)
+        out[tuple(sorted(kw.items()))] = {
+            "axes": mesh.axis_names, "shape": dict(mesh.shape),
+            "coords": dict(mesh.coords),
+            "pipe": mesh.neighbours("pipe"),
+            "sum": pd.all_reduce(torch.ones(1), mesh.axis("pipe")).item()}
+    old = os.environ.get("LOCAL_WORLD_SIZE")
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    try:
+        hy = {}
+        for kw in (dict(tensor=2), dict(expert=2),
+                   dict(tensor=2, dcn_data=1), dict(tensor=1)):
+            mesh = pd.hybrid_mesh(**kw)
+            hy[tuple(sorted(kw.items()))] = {
+                "axes": mesh.axis_names, "shape": dict(mesh.shape),
+                "coords": dict(mesh.coords),
+                "data_sum": pd.all_reduce(torch.ones(1),
+                                          mesh.axis("data")).item()}
+        errors = []
+        for kw in (dict(tensor=2, expert=2), dict(tensor=3),
+                   dict(tensor=2, ici_data=2)):
+            try:
+                pd.hybrid_mesh(**kw)
+                errors.append(None)
+            except ValueError as e:
+                errors.append(str(e))
+        out["hybrid"], out["hybrid_errors"] = hy, errors
+    finally:
+        if old is None:
+            del os.environ["LOCAL_WORLD_SIZE"]
+        else:
+            os.environ["LOCAL_WORLD_SIZE"] = old
+    return out
+
+
+def pp_forward(rank, inp):
+    """``pipeline_forward`` logits of each case on its mesh, at each
+    microbatch count; whether the caller's tree kept its fused LINs."""
+    out = {}
+    for name, case in inp["pp_forward"].items():
+        cfg, params = case["cfg"], case["params"]
+        mesh = build_mesh(**case["mesh"])
+        pparams = pp.to_pipeline(cfg, params, mesh, device="cpu")
+        for m in case["microbatches"]:
+            out[(name, m)] = pp.pipeline_forward(
+                cfg, pparams, case["tokens"], mesh, m, dtype=torch.float32)
+        out[(name, "fused_kept")] = "qkv_proj" in params["layers"][0][
+            "self_attn"]
+    return out
+
+
+def pp_lora(rank, inp):
+    """One ``pipeline_lora_step`` of each case: the loss and this rank's
+    updated adapters, with its coordinates."""
+    out = {}
+    for name, case in inp["pp_lora"].items():
+        cfg = case["cfg"]
+        mesh = build_mesh(**case["mesh"])
+        pparams = pp.to_pipeline(cfg, _copy_tensors(case["params"]), mesh,
+                                 device="cpu")
+        lora, base = lora_mod.split_lora(pparams)
+        loss, new = pp.pipeline_lora_step(cfg, lora, base, case["tokens"],
+                                          mesh, 2, lr=1e-2,
+                                          dtype=torch.float32)
+        out[name] = {"loss": loss.item(), "where": _where(mesh),
+                     "adapters": _lora_leaves(new)}
+    return out
+
+
+def pp_refusals(rank, inp):
+    """What ``to_pipeline`` and ``pipeline_forward`` refuse, with their
+    messages, and whether the caller's tree is as it was."""
+    out = {}
+    mesh = build_mesh(pipe=2, tensor=2)
+    for name, (cfg, params) in inp["pp_refuse"].items():
+        before = {k: sorted(v) for k, v in params["layers"][0].items()}
+        try:
+            pp.to_pipeline(cfg, params, mesh, device="cpu")
+            err = None
+        except (ValueError, NotImplementedError) as e:
+            err = (type(e).__name__, str(e))
+        after = {k: sorted(v) for k, v in params["layers"][0].items()}
+        out[name] = {"error": err, "untouched": before == after}
+    cfg, params = inp["pp_forward"]["dense"]["cfg"], \
+        inp["pp_forward"]["dense"]["params"]
+    mesh = build_mesh(pipe=2, data=2)
+    pparams = pp.to_pipeline(cfg, params, mesh, device="cpu")
+    for name, (tokens, m) in (("microbatches", (torch.zeros(4, 8,
+                                                            dtype=torch.long),
+                                                3)),
+                              ("data", (torch.zeros(2, 8, dtype=torch.long),
+                                        2))):
+        try:
+            pp.pipeline_forward(cfg, pparams, tokens, mesh, m)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def tp_breadth(rank, inp):
+    """Flat tensor 2 of the trees the port once refused: an ALiBi MPT, an MLA +
+    MoE DeepSeek-V2 (the forward, a prefill and one decode step through
+    ``shard``), and a LoRA tree (one ``lora_train_step`` on the rank's
+    shards, and the adapters' gradients)."""
+    out = {}
+    mesh = build_mesh(tensor=2)
+    for name in ("mpt", "mla"):
+        cfg, params = inp[f"{name}_cfg"], inp[f"{name}_params"]
+        m = _model(cfg, params).shard(mesh, dtype=None)
+        out[(name, "forward")] = modules.forward(
+            m.cfg, m.params, inp[f"{name}_tokens"], dtype=torch.float32)
+        out[(name, "decode")] = _prefill_decode(m.cfg, m.params,
+                                                inp[f"{name}_prompt"], 64)
+        out[(name, "cfg")] = (m.cfg.num_attention_heads,
+                              getattr(m.cfg, "head_offset", None))
+    cfg = inp["lora_cfg"]
+    lcfg, local = shard_params(cfg, _copy_tensors(inp["lora_params"]), mesh)
+    lora, base = lora_mod.split_lora(local)
+    _, grads = lora_mod.lora_loss_and_grads(lcfg, lora, base,
+                                            inp["lora_tokens"],
+                                            dtype=torch.float32)
+    paths = list(_lora_leaves(lora))
+    out["lora_grads"] = dict(zip(paths, [g.clone() for g in grads]))
+    loss, new = lora_mod.lora_train_step(lcfg, lora, base,
+                                         inp["lora_tokens"], lr=1e-2,
+                                         dtype=torch.float32)
+    out["lora_step"] = {"loss": loss.item(), "adapters": _lora_leaves(new)}
+    out["pair"] = _pair_grads(mesh.axis("tensor"))
+    return out
+
+
+def _pair_grads(ax):
+    """The three autograd collectives on small seeded operands: the
+    gradient a rank's piece of an all-gathered input gets, the gradient of
+    a replicated input to the rank's columns (Megatron's f), and the sum
+    of the rank's row partials with its input's gradient (g)."""
+    g = torch.Generator().manual_seed(7)
+    x, w = torch.randn(3, 8, generator=g), torch.randn(8, 6, generator=g)
+    c = torch.randn(3, 6, generator=g)
+    rows, cols = slice(4 * ax.index, 4 * ax.index + 4), \
+        slice(3 * ax.index, 3 * ax.index + 3)
+    xg = x[:, rows].clone().requires_grad_()
+    (pd.gather_from_tensor(xg, ax) @ w * c).sum().backward()
+    xc = x.clone().requires_grad_()
+    (pd.copy_to_tensor(xc, ax) @ w[:, cols] * c[:, cols]).sum().backward()
+    xr = x[:, rows].clone().requires_grad_()
+    y = pd.reduce_from_tensor(xr @ w[rows], ax)
+    (y * c).sum().backward()
+    return {"gather": xg.grad, "copy": xc.grad, "reduce": xr.grad,
+            "reduce_y": y.detach(), "x": x, "w": w, "c": c}
+
+
+def _copy_tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tensors(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
 CASES = {f.__name__: f for f in (tp_forward, tree_shards, tp_decode, tp_mlp,
-                                 tp_engine, ep_ops, ep_model, dp_calib)}
+                                 tp_engine, ep_ops, ep_model, dp_calib,
+                                 meshes, pp_forward, pp_lora, pp_refusals,
+                                 tp_breadth)}
