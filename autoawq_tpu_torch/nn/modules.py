@@ -73,6 +73,7 @@ from autoawq_tpu_torch.ops import sharded_mlp as mlp3_ops
 from autoawq_tpu_torch.ops import sharded_moe
 from autoawq_tpu_torch.ops import tp_attn
 from autoawq_tpu_torch.ops.gemm import awq_matmul, dequantize
+from autoawq_tpu_torch.parallel import distributed as pd
 from autoawq_tpu_torch.parallel.mesh import Axis
 
 # MoE model types with a loader in the JAX package (its ``ARCHITECTURES``);
@@ -127,21 +128,20 @@ def linear(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     return y
 
 
+def _any_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_any_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_any_grad(v) for v in tree)
+    return False
+
+
 def _wants_grad(x: torch.Tensor, p: Dict[str, Any]) -> bool:
     """Whether autograd records this sub-module: x requires grad, or a
-    tensor of one of its LINs does (an adapter)."""
-    if not torch.is_grad_enabled():
-        return False
-    return x.requires_grad or any(
-        isinstance(t, torch.Tensor) and t.requires_grad
-        for lin in p.values() if isinstance(lin, dict) for t in lin.values())
-
-
-def _no_training(what: str, x: torch.Tensor, p: Dict[str, Any]) -> None:
-    if _wants_grad(x, p):
-        raise NotImplementedError(
-            f"training through {what} is not in the port yet: its route "
-            "has no backward (ROADMAP queue 1 item 16)")
+    tensor anywhere in its tree does (an adapter)."""
+    return torch.is_grad_enabled() and (x.requires_grad or _any_grad(p))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -656,19 +656,28 @@ def attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 
 
 def _dense_weight(lin: Dict[str, Any], out_features: int) -> torch.Tensor:
-    """Dense f32 weight [K, out_features] of a LIN (JAX ``_dense_weight``),
-    for the absorbed MLA decode, which reassociates kv_b's matmul. A
-    quantized kv_b carries it as its ``dense`` leaf, built once at load
-    (``nn/fuse.attach_kv_b_dense``: the dequantization JAX runs every step,
-    so the same values); without the leaf it is dequantized on every call,
-    as in JAX. A float kernel is always read as it stands, since
-    calibration may rescale it in place."""
+    """Dense f32 weight [K, out_features] of a LIN (JAX ``_dense_weight``,
+    ``autoawq_tpu/nn/modules.py:749-762``), for the absorbed MLA decode,
+    which reassociates kv_b's matmul. A quantized kv_b carries it as its
+    ``dense`` leaf, built once at load (``nn/fuse.attach_kv_b_dense``: the
+    dequantization JAX runs every step, so the same values); without the
+    leaf it is dequantized on every call, as in JAX. A float kernel is
+    always read as it stands, since calibration may rescale it in place.
+    A LoRA adapter's ``lora_a @ lora_b`` is folded in f32 on every call,
+    never into the leaf, since training changes it; a tensor-parallel
+    rank's ``lora_b`` holds the rank's columns, as its ``dense`` leaf
+    does."""
     if "dense" in lin:
-        return lin["dense"][:, :out_features]
-    if not is_quantized(lin):
-        return lin["kernel"].float()[:, :out_features]
-    return dequantize(lin["qweight"], lin["scales"], lin.get("qzeros"),
-                      dtype=torch.float32)[:, :out_features]
+        w = lin["dense"][:, :out_features]
+    elif not is_quantized(lin):
+        w = lin["kernel"].float()[:, :out_features]
+    else:
+        w = dequantize(lin["qweight"], lin["scales"], lin.get("qzeros"),
+                       dtype=torch.float32)[:, :out_features]
+    if "lora_a" in lin:
+        w = w + torch.matmul(lin["lora_a"].float(),
+                             lin["lora_b"].float())[:, :out_features]
+    return w
 
 
 def _mla_scores(q_nope, q_pe, w3, c_cache, pe_cache, dn, sb=None):
@@ -735,8 +744,13 @@ def mla_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     * ``"k"`` / ``"v"`` [B, nh, T, dq | dv], materialized per-head K/V
       (``init_kv_cache(mla_latent=False)``).
 
+    A training forward (``train/lora.causal_lm_loss``) has no cache, so
+    under grad it takes the first branch, the materialized prefill in f32
+    einsums; on the card its linears run ``ops/gemm.AwqMatmulFn`` (K1 / K2
+    forward, the dequantized product backward), and no cache row is
+    written.
+
     Returns (y [B, S, H], the cache with ``pos`` advanced)."""
-    _no_training("MLA attention (the latent path)", x, p)
     b, s, _ = x.shape
     nh = cfg.num_attention_heads
     dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
@@ -758,6 +772,11 @@ def mla_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     c = rms_norm(c, p["kv_a_layernorm"]["weight"], cfg.rms_norm_eps)
     q_pe = apply_rope(q_pe, cos, sin, dr, style="gptj")
     k_pe = apply_rope(k_pe[:, :, None, :], cos, sin, dr, style="gptj")
+    if "tp_col" in p["kv_b_proj"]:
+        # a tensor-parallel rank: the replicated rope head meets only the
+        # rank's heads, so under autograd its gradient is summed over the
+        # tensor ranks (Megatron's f), as c's is where it enters kv_b
+        k_pe = pd.copy_to_tensor(k_pe, p["kv_b_proj"]["tp_col"])
     scale = cfg.attn_scale if cfg.attn_scale is not None else dq ** -0.5
 
     latent_decode = (kv_cache is not None
@@ -948,7 +967,8 @@ def _sharded_mlp_ok(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     if method == "plain" or "act_scale" in p or _build.grad_wanted(x):
         return False
     gate, up, dn = p["gate_proj"], p["up_proj"], p.get("down_proj")
-    if dn is None or "tp_gather" in dn:
+    if dn is None or any(m in dn for m in sharded_gemm.ROW_MARKERS
+                         if m != "tp_psum"):
         return False
     m = x.numel() // x.shape[-1]
     return mlp3_ops.supported(m, x.shape[-1], inter, gate, up, dn,
@@ -1055,6 +1075,46 @@ def moe_route(cfg: ModelConfig, p: Dict[str, Any], xt: torch.Tensor,
     return topw * cfg.routed_scaling_factor, topi
 
 
+def _stacked_expert(st: Dict[str, Any], e: int) -> Dict[str, Any]:
+    """Expert e of a stack as an MLP dict of views (``gate_up_proj``,
+    ``down_proj``; each slice of a contiguous [E, ...] leaf is contiguous
+    and, N being a multiple of 4, 16-byte aligned, as K1 / K2 ask)."""
+    return {name: {k: v[e] for k, v in lin.items()}
+            for name, lin in st.items() if isinstance(lin, dict)}
+
+
+def _routed_rows(cfg: ModelConfig, expert, n_experts: int, xt: torch.Tensor,
+                 topw: torch.Tensor, topi: torch.Tensor, inter: int,
+                 method: str) -> torch.Tensor:
+    """The routed experts under grad, f32 [T, H]: expert e's ``mlp``
+    (``expert(e)``, its dict) on only the rows routed to it, its output
+    times their ``topw`` added back by ``index_add`` in f32, e = 0..E-1
+    (JAX adds ``weights[:, e] * ye`` in that order over every token; an
+    unrouted row's weight is exactly 0.0, so sums and gradients are the
+    same). An expert with no rows launches nothing; on the card one with
+    fewer than 256 runs K1, one with more K2 (``ops/gemm.AwqMatmulFn``).
+    The (token, slot) entries are sorted by expert, stably, so each
+    expert's rows stay in token order; their counts are read on the host,
+    once a block."""
+    k = topi.shape[-1]
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n_experts).tolist()
+    weights = topw.reshape(-1)
+    out = torch.zeros(xt.shape, dtype=torch.float32, device=xt.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        entries = order[start:start + n]
+        start += n
+        rows = entries // k
+        ye = mlp(cfg, expert(e), xt[rows][None], method,
+                 intermediate=inter)[0]
+        out = out.index_add(0, rows, weights[entries][:, None] * ye.float())
+    return out
+
+
 def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               method: str = "auto", taps: Optional[Dict] = None
               ) -> torch.Tensor:
@@ -1065,6 +1125,13 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     every token weighted by the routing, which at decode runs K8 once per
     expert. Calibration (``taps``) takes the dense route, so
     ``mlp.experts.{e}.*`` hold every token's row in token order, as in JAX.
+    Under grad (an input or an adapter that requires it) both forms run
+    each expert on its routed rows only (:func:`_routed_rows`; a stack's
+    expert as views of its slice), and the gradient reaches x through the
+    experts and through the router (``topw``), as ``jax.vjp`` of JAX's
+    list route has it; K6 has no backward (nor has JAX's grouped kernel),
+    and an expert-parallel stack under grad raises NotImplementedError, as
+    JAX's raises.
     Shared experts are added after the routed ones in f32, in JAX's order:
     qwen2-moe's ``shared_expert`` (times the sigmoid of its
     ``shared_expert_gate``), then deepseek's ungated ``shared_experts`` at
@@ -1076,15 +1143,27 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     holds its block of experts: replicate-and-sum (``ops/sharded_moe.py``,
     JAX's ``tp_ep`` branch :1266-1285) or, marked ``ep_dispatch="a2a"``,
     the all-to-all dispatch (``ops/moe_a2a.py``)."""
-    _no_training("an MoE block (K6)", x, p)
     b, s, h = x.shape
     xt = x.reshape(-1, h)
     _tap(taps, "mlp.gate", x)
     topw, topi = moe_route(cfg, p, xt, method)
     inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    routed_rows = taps is None and _wants_grad(x, p)
     if "experts_stacked" in p:
         st = p["experts_stacked"]
-        if "tp_ep" not in st:
+        if "tp_ep" in st and routed_rows:
+            raise NotImplementedError(
+                "training through an expert-parallel stack (tp_ep) is not "
+                "in the port, as it is not in the JAX package: jax.grad of "
+                "its moe_block raises NotImplementedError at the grouped "
+                "Pallas kernel (in pipeline_lora_step's stages) or at its "
+                "custom_partitioning (flat expert parallelism); train "
+                "the stack unsharded")
+        if routed_rows:
+            out = _routed_rows(cfg, functools.partial(_stacked_expert, st),
+                               st["gate_up_proj"]["qweight"].shape[0], xt,
+                               topw, topi, inter, method)
+        elif "tp_ep" not in st:
             out = moe_ops.moe_mlp(st, xt, topw, topi, cfg.hidden_act, inter,
                                   method).float()
         elif not isinstance(st["tp_ep"], Axis):
@@ -1100,6 +1179,9 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             out = sharded_moe.moe_mlp_sharded(
                 st, xt, topw, topi, cfg.hidden_act, inter, st["tp_ep"],
                 method)
+    elif routed_rows:
+        out = _routed_rows(cfg, p["experts"].__getitem__, len(p["experts"]),
+                           xt, topw, topi, inter, method)
     else:
         weights = ((topi[..., None] == torch.arange(
             cfg.num_experts, device=x.device)).float()
@@ -1128,16 +1210,86 @@ def moe_block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     return out.to(x.dtype).reshape(b, s, h)
 
 
+def _remark(lin: Dict[str, Any], marker: str) -> Dict[str, Any]:
+    """A row shard's LIN with its ``tp_psum`` replaced by ``marker``."""
+    out = {k: v for k, v in lin.items() if k != "tp_psum"}
+    out[marker] = lin["tp_psum"]
+    return out
+
+
+def _seq_marked(cfg: ModelConfig, p: Dict[str, Any]):
+    """(layer tree, mode) under sequence parallelism: the block's last
+    row-parallel product remarked so that it ends in a reduce-scatter
+    along S (``ops/sharded_gemm.py``): the MLP's down (or fc2) with
+    ``tp_scatter`` ("scatter"); for a parallel residual both branches'
+    with ``tp_partial``, reduced once as their sum ("partial"). A block
+    whose output is replicated (an MoE block, a replicated MLP or one that
+    gathers its input, ``tp_gather``) is left as it is (None) and its
+    output sliced."""
+    m = p["mlp"]
+    last = next((n for n in ("down_proj", "fc2") if n in m), None)
+    if ("experts" in m or "experts_stacked" in m or last is None
+            or "tp_psum" not in m[last]):
+        return p, None
+    if not cfg.parallel_residual:
+        return {**p, "mlp": {**m, last: _remark(m[last], "tp_scatter")}}, \
+            "scatter"
+    o = p["self_attn"].get("o_proj")
+    if o is None or "tp_psum" not in o:
+        return p, None
+    return {**p, "self_attn": {**p["self_attn"],
+                               "o_proj": _remark(o, "tp_partial")},
+            "mlp": {**m, last: _remark(m[last], "tp_partial")}}, "partial"
+
+
+def _seq_summed(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                branches: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """A parallel residual under sequence parallelism: the rank's chunk of
+    x plus the reduce-scatter of both branches' partial sum (f32), then
+    the o and down (fc2) biases, once, scaled as their branch is."""
+    out = sharded_gemm.scatter_rows(branches.float(), axis).to(x.dtype)
+    m = p["mlp"]
+    for lin in (p["self_attn"]["o_proj"],
+                m["down_proj"] if "down_proj" in m else m["fc2"]):
+        if lin.get("bias") is not None:
+            b = lin["bias"].to(x.dtype)
+            out = out + (b * cfg.residual_scale if cfg.residual_scale else b)
+    return pd.seq_chunk(x, axis) + out
+
+
+def _seq_add(x: torch.Tensor, y: torch.Tensor,
+             axis: Optional[Axis]) -> torch.Tensor:
+    """The residual add, x + y; under sequence parallelism the rank's
+    chunk of it: y is already a chunk where the block reduce-scattered,
+    else the replicated sum is sliced."""
+    if axis is None:
+        return x + y
+    if y.shape[1] != x.shape[1]:
+        return pd.seq_chunk(x, axis) + y
+    return pd.seq_chunk(x + y, axis)
+
+
 def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
           cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
           kv_cache: Optional[Dict[str, Any]] = None, method: str = "auto",
           causal_prefill: bool = False, paged_attn: str = "bespoke",
-          taps: Optional[Dict] = None):
+          taps: Optional[Dict] = None,
+          sequence_parallel: Optional[Tuple[Axis, int]] = None):
     """One decoder layer: pre-norm residual; parallel attention and MLP off
     the residual input (gptj, falcon, cohere, neox; one shared norm where
     ``shared_input_norm``); minicpm's ``residual_scale`` on each branch;
     gemma2's post-attention and pre/post-feedforward norms. An MLP with
-    experts is an MoE block."""
+    experts is an MoE block. ``sequence_parallel`` is (the tensor axis,
+    S) under :func:`forward`'s sequence parallelism: x is this rank's
+    chunk of the residual stream [B, S'/t, H]; the block all-gathers the
+    sequence at its start (the pad dropped), runs on the whole of it, and
+    returns its chunk, its last row-parallel all-reduce a reduce-scatter
+    along S (:func:`_seq_marked`)."""
+    axis = mode = None
+    if sequence_parallel is not None:
+        axis, s = sequence_parallel
+        x = pd.seq_gather(x, axis, s)
+        p, mode = _seq_marked(cfg, p)
     h = norm(cfg, p["input_layernorm"], x)
     if cfg.is_mla:
         attn_out, kv_cache = mla_attention(cfg, p["self_attn"], h, cos, sin,
@@ -1154,7 +1306,10 @@ def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         if cfg.residual_scale:
             attn_out = attn_out * cfg.residual_scale
             mlp_out = mlp_out * cfg.residual_scale
-        return x + attn_out + mlp_out, kv_cache
+        if mode == "partial":
+            return _seq_summed(cfg, p, x, attn_out.float()
+                               + mlp_out.float(), axis), kv_cache
+        return _seq_add(x + attn_out, mlp_out, axis), kv_cache
     if cfg.residual_scale:
         attn_out = attn_out * cfg.residual_scale
     if cfg.post_norms:
@@ -1171,7 +1326,7 @@ def block(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         mlp_out = mlp_out * cfg.residual_scale
     if cfg.post_norms:
         mlp_out = norm(cfg, p["post_feedforward_layernorm"], mlp_out)
-    return x + mlp_out, kv_cache
+    return _seq_add(x, mlp_out, axis), kv_cache
 
 
 def embed(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -1238,10 +1393,30 @@ def causal_prefill_ok(cfg: ModelConfig) -> bool:
 
 
 def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            method: str = "auto",
-            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Full prefill forward, tokens [B, S] -> logits [B, S, V] (f32)."""
+            method: str = "auto", dtype: Optional[torch.dtype] = None,
+            sequence_parallel: Optional[Axis] = None) -> torch.Tensor:
+    """Full prefill forward, tokens [B, S] -> logits [B, S, V] (f32).
+
+    ``sequence_parallel`` (a tensor-parallel rank's tree and config, and
+    the mesh's ``tensor`` Axis handle, e.g. ``mesh.axis("tensor")``) keeps
+    the residual stream sharded along S between blocks, Megatron's
+    sequence parallelism (JAX ``forward(activation_spec=P("data",
+    "tensor", None))``, ``autoawq_tpu/nn/modules.py:1436-1471``, which
+    constrains the stream at block boundaries only): the embedding is
+    sliced to this rank's chunk [B, S'/t, H] (S padded to a multiple S' of
+    t; norms are row-wise, so a pad row never touches a real one), each
+    block gathers the sequence and ends in a reduce-scatter
+    (:func:`block`), and the final norm and the head run on the gathered
+    stream. The values are the replicated forward's, within f32 summation
+    order. The forward only, as in JAX (its ``causal_lm_loss`` takes no
+    ``activation_spec``): under grad it raises NotImplementedError."""
     check_supported(cfg)
+    if sequence_parallel is not None and torch.is_grad_enabled() and \
+            _any_grad(params):
+        raise NotImplementedError(
+            "sequence parallelism is the forward's only, as in the JAX "
+            "package (its causal_lm_loss takes no activation_spec): its "
+            "reduce-scatter has no backward")
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :]
@@ -1252,6 +1427,13 @@ def forward(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
         ar = torch.arange(s, device=dev)
         mask = mask + alibi_bias(cfg, ar, ar)
     causal_prefill = causal_prefill_ok(cfg)
+    seq = None
+    if sequence_parallel is not None:
+        seq = (sequence_parallel, s)
+        x = pd.seq_chunk(x, sequence_parallel)
     for lp in params["layers"]:
-        x, _ = block(cfg, lp, x, cos, sin, mask, None, method, causal_prefill)
+        x, _ = block(cfg, lp, x, cos, sin, mask, None, method, causal_prefill,
+                     sequence_parallel=seq)
+    if seq is not None:
+        x = pd.seq_gather(x, sequence_parallel, s)
     return logits_fn(cfg, params, x, method)

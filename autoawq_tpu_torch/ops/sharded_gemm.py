@@ -21,6 +21,14 @@ twin on the CPU) and the collective is explicit:
   ``lora_b`` enters through f, so its gradient sums the ranks' partials.
 * replicated row LIN (``tp_gather``): the local input all-gathered along
   K (its gradient this rank's piece), then the whole LIN.
+* under sequence parallelism (``nn/modules.block``) a block's last row
+  shard carries ``tp_scatter`` in place of ``tp_psum``: its partial
+  product, padded along S to a multiple of t, is reduce-scattered in f32
+  along S (``parallel/distributed.reduce_scatter``), rounded once, then
+  the bias; or ``tp_partial``: the partial product alone, with no
+  collective and no bias, which the block sums with the other branch's
+  before one reduce-scatter (a parallel residual). The forward only, as
+  JAX exposes sequence parallelism on ``forward`` only.
 
 No kernel of its own: the launches are K1's or K2's.
 """
@@ -35,10 +43,13 @@ from autoawq_tpu_torch.parallel import distributed as pd
 from autoawq_tpu_torch.parallel.specs import MARKERS
 
 
+ROW_MARKERS = ("tp_psum", "tp_gather", "tp_scatter", "tp_partial")
+
+
 def is_sharded(p: Dict[str, Any]) -> bool:
-    """Whether a LIN needs a collective in its forward (a column shard
-    needs none)."""
-    return "tp_psum" in p or "tp_gather" in p
+    """Whether a LIN is a shard whose product is partial or needs a
+    collective in its forward (a column shard is neither)."""
+    return any(m in p for m in ROW_MARKERS)
 
 
 def is_marked(p: Dict[str, Any]) -> bool:
@@ -61,6 +72,18 @@ def reduce_rows(y: torch.Tensor, axis,
     return y
 
 
+def scatter_rows(y: torch.Tensor, axis, bias=None) -> torch.Tensor:
+    """Finish a row-parallel product [B, S, N] under sequence parallelism:
+    the f32 sum over ``axis``, of which this rank keeps its chunk of S
+    (padded to a multiple of t), rounded once to y's type, then the
+    bias."""
+    y32 = pd.pad_to(y.float(), axis.size, 1)
+    y = pd.reduce_scatter(y32, axis, dim=1).to(y.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
 def linear_sharded(p: Dict[str, Any], x: torch.Tensor, out_features: int,
                    local: Callable[[Dict[str, Any], torch.Tensor, int],
                                    torch.Tensor]) -> torch.Tensor:
@@ -75,8 +98,14 @@ def linear_sharded(p: Dict[str, Any], x: torch.Tensor, out_features: int,
     if "tp_gather" in p:
         return local(lin, pd.gather_from_tensor(x, p["tp_gather"], dim=-1),
                      out_features)
-    ax = p["tp_psum"]
     bias = lin.pop("bias", None)
+    if "tp_partial" in p:
+        return local(lin, x, out_features)
+    if "tp_scatter" in p:
+        ax = p["tp_scatter"]
+        y = local(lin, x, out_features)
+        return scatter_rows(y, ax, bias)
+    ax = p["tp_psum"]
     if "lora_b" in lin:
         lin["lora_b"] = pd.copy_to_tensor(lin["lora_b"], ax)
     return reduce_rows(local(lin, x, out_features), ax, bias)

@@ -2,16 +2,19 @@
 
 The entry points, imported from their modules on first use (the modules
 import ``nn/modules``, which imports this package's mesh):
-``initialize`` and ``hybrid_mesh`` (``distributed``), ``build_mesh``
-(``mesh``), ``shard_params`` (``specs``), ``stack_layers``,
+``initialize``, ``hybrid_mesh`` and ``reduce_scatter`` (``distributed``),
+``build_mesh`` (``mesh``), ``shard_params`` (``specs``), ``stack_layers``,
 ``unstack_layers``, ``to_pipeline``, ``pipeline_forward`` and
-``pipeline_lora_step`` (``pipeline``).
+``pipeline_lora_step`` (``pipeline``). Sequence parallelism is
+``nn/modules.forward(..., sequence_parallel=mesh.axis("tensor"))`` on a
+rank's ``shard_params`` tree.
 """
 
 import importlib
 
 _EXPORTS = {"initialize": "distributed", "hybrid_mesh": "distributed",
-            "build_mesh": "mesh", "shard_params": "specs",
+            "reduce_scatter": "distributed", "build_mesh": "mesh",
+            "shard_params": "specs",
             "stack_layers": "pipeline", "unstack_layers": "pipeline",
             "to_pipeline": "pipeline", "pipeline_forward": "pipeline",
             "pipeline_lora_step": "pipeline"}

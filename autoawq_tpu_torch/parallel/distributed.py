@@ -32,7 +32,7 @@ from autoawq_tpu_torch.utils.device import resolve_device
 # gloo collectives and point-to-point transfers on CUDA tensors staged
 # through host memory, by name
 STAGED = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0,
-          "broadcast": 0, "send": 0, "recv": 0}
+          "broadcast": 0, "send": 0, "recv": 0, "reduce_scatter": 0}
 
 
 def initialize(init_method: Optional[str] = None,
@@ -134,6 +134,58 @@ def all_gather(t: torch.Tensor, axis: Axis, dim: int = -1) -> torch.Tensor:
     dist.all_gather(parts, src, group=axis.group)
     out = torch.cat(parts, dim=dim)
     return out.to(t.device) if staged else out
+
+
+def reduce_scatter(t: torch.Tensor, axis: Axis, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of ``t`` over ``axis``, of which this rank keeps its block
+    along ``dim``: index i the i-th of ``axis.size`` equal blocks (NCCL's
+    ``reduce_scatter_tensor``; under gloo a CUDA tensor is staged through
+    host memory). ``dim`` must split evenly (:func:`pad_to`)."""
+    if axis.group is None:
+        return t
+    n = t.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"reduce_scatter: dim {dim} of size {n} does not "
+                         f"split over {axis.size} ranks")
+    staged = _staged(t, axis)
+    if staged:
+        STAGED["reduce_scatter"] += 1
+    src = t.movedim(dim, 0)
+    src = src.cpu().contiguous() if staged else src.contiguous()
+    out = torch.empty((n // axis.size, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=axis.group)
+    out = out.movedim(0, dim)
+    return out.to(t.device) if staged else out
+
+
+def pad_to(t: torch.Tensor, multiple: int, dim: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of ``dim`` to a multiple of
+    ``multiple`` (``t`` itself where it is one)."""
+    n = t.shape[dim]
+    pad = -n % multiple
+    if not pad:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def seq_chunk(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This rank's chunk of the sequence, x [B, S, ...] -> [B, S'/t, ...]
+    with S padded to S' = a multiple of t (sequence parallelism's
+    residual stream; the pad rows are zeros and are dropped at the
+    gather)."""
+    x = pad_to(x, axis.size, 1)
+    c = x.shape[1] // axis.size
+    return x[:, axis.index * c:(axis.index + 1) * c]
+
+
+def seq_gather(x: torch.Tensor, axis: Axis, s: int) -> torch.Tensor:
+    """The whole sequence from the ranks' chunks [B, S'/t, ...], its pad
+    dropped: [B, s, ...]."""
+    return all_gather(x, axis, dim=1)[:, :s]
 
 
 def all_to_all(t: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -261,7 +261,19 @@ def pipeline_lora_step(cfg: ModelConfig, lora, base, tokens: torch.Tensor,
     (``train/lora.split_lora`` of a :func:`to_pipeline` tree), in place;
     the quantized base stays frozen. GPipe: every microbatch's forward,
     then every backward, in the same order on every stage. Returns (the
-    whole batch's mean NLL before the step, on every rank; ``lora``)."""
+    whole batch's mean NLL before the step, on every rank; ``lora``).
+    MLA stages train as dense ones do. MoE stages train at tensor 1 (the
+    routed-rows route of ``nn/modules.moe_block``); at tensor > 1 their
+    experts split over tensor (``tp_ep``), which has no backward in the
+    JAX package either (its step raises NotImplementedError at the grouped
+    kernel), so every rank raises NotImplementedError before any
+    transfer."""
+    if cfg.is_moe and mesh.size("tensor") > 1:
+        raise NotImplementedError(
+            "pipeline_lora_step: the stages' experts split over tensor "
+            "(tp_ep) have no backward, as in the JAX package, whose "
+            "pipeline_lora_step raises NotImplementedError at the grouped "
+            "kernel; train an MoE model's stages at tensor 1")
     pparams = merge_lora(lora, base)
     sch = _Schedule(cfg, pparams, tokens, mesh, n_microbatches, method,
                     dtype)

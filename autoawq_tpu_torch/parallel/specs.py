@@ -81,7 +81,7 @@ ROW_PARALLEL = ("o_proj", "down_proj", "w2", "fc2")
 # the markers a sharded LIN, MLP or expert stack may carry (never
 # checkpointed)
 MARKERS = ("tp_psum", "tp_gather", "tp_col", "tp_div", "tp_ep",
-           "ep_dispatch")
+           "ep_dispatch", "tp_scatter", "tp_partial")
 SHARED_EXPERTS = ("shared_expert", "shared_experts")
 
 # replication fallbacks on layers smaller than this are expected (tiny

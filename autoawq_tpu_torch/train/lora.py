@@ -9,8 +9,15 @@ forward (``method="auto"``) runs K2 for every int4 linear (its backward
 ``dx = g @ dequantize(W).T``, ``ops/gemm.AwqMatmulFn``) and K4 for the
 prefill attention with K10 / K11 as its backward
 (``ops/attention.PrefillAttentionFn``); the fused decode kernels refuse
-inputs that require grad. Dense llama-family models train; MoE and MLA
-models raise (ROADMAP queue 1 item 16).
+inputs that require grad. Every model of the port trains: MoE blocks run
+each expert on its routed rows under grad (K1 below 256 rows, K2 from
+there; a stacked expert as views of its slice of the stack) and
+differentiate through the router, MLA through its materialized prefill
+(``nn/modules.moe_block`` / ``mla_attention``). ``add_lora`` takes every
+role JAX's takes, the expert lists' ``mlp.experts.{e}.*``, MLA's
+``q_a_proj`` / ``q_b_proj`` / ``kv_a_proj_with_mqa`` / ``kv_b_proj`` and
+deepseek's ``shared_experts`` among them; an expert-parallel stack under
+grad raises, as JAX's does.
 
 Optimizers are ``torch.optim`` (no optax): :func:`make_optimizer` gives
 AdamW with optax's defaults (betas 0.9 / 0.999, eps 1e-8, decoupled weight
@@ -122,10 +129,14 @@ def causal_lm_loss(cfg: ModelConfig, params: Dict[str, Any],
 def lora_loss_and_grads(cfg: ModelConfig, lora, base, tokens,
                         method: str = "auto", dtype=None):
     """(loss, grads): the loss of ``merge_lora(lora, base)`` and its
-    gradients with respect to the adapter leaves, in tree order."""
+    gradients with respect to the adapter leaves, in tree order. An
+    adapter the step never reads (an expert no token was routed to) gets
+    zeros, as JAX's dense route gives it (its rows weigh 0.0)."""
     leaves = tensor_leaves(lora)
     loss = causal_lm_loss(cfg, merge_lora(lora, base), tokens, method, dtype)
-    return loss.detach(), torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tuple(torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads))
 
 
 def lora_train_step(cfg: ModelConfig, lora, base, tokens, lr: float = 1e-4,

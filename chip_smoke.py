@@ -90,7 +90,7 @@ Phases, each printing JSON lines:
               reused pages held exactly, then ``run(burst=16)`` against
               ``run(burst=1)`` on the same 8 requests.
               Then Mixtral-8x7B at full width, depth cut to
-              ``MIXTRAL_DEPTH`` (4) of 32 layers (8 experts, top-2, seed-0
+              ``MIXTRAL_DEPTH`` (2) of 32 layers (8 experts, top-2, seed-0
               weights drawn on the card, experts stacked). Traffic
               E: bs1, one 64-token prompt, bf16 cache of capacity 128.
               Traffic F: bs8, eight 512-token prompts, bf16 cache of
@@ -185,7 +185,7 @@ Phases, each printing JSON lines:
               DeepSeek-V2-Lite's decode and prefill shapes (64 experts,
               top-6), at 128 (Qwen3-30B-A3B) and 256 experts (DeepSeek-V3)
               top-8, and K8 at V2-Lite's shared experts. DeepSeek-V2-Lite
-              at full width, ``V2_LITE_DEPTH`` (9) of its 27 layers (g64:
+              at full width, ``V2_LITE_DEPTH`` (5) of its 27 layers (g64:
               its dense MLP of 10,944 is no whole number of 128-row
               groups), latent cache
               bytes a token against materialized K/V. Traffic O: bs1,
@@ -257,6 +257,25 @@ Phases, each printing JSON lines:
               (``TRAIN_CHECK_LAYERS``), one step's loss and adapter
               gradients (B drawn nonzero) against the plain route in bf16
               and f32 by the teacher-forced style rule.
+              Traffic X: Mixtral-8x7B at full width, ``MIXTRAL_DEPTH`` (2)
+              of 32 layers (seed-0 W4 g128 weights drawn on the card,
+              experts stacked, attention unfused), rank-8 adapters on q /
+              k / v / o; traffic Y: DeepSeek-V2-Lite at full width,
+              ``V2_LITE_DEPTH`` (5) of 27 layers, g64, adapters on q_proj,
+              kv_b_proj and o_proj; both W's batch, bf16, AdamW. Each
+              expert runs on its routed rows (K1 below 256, K2 from
+              there). (c) One step's launches held exactly against those
+              its recorded routing implies, step ms (min of 3), tokens/s,
+              a profile, peak memory; (b) 8 steps, the last loss below
+              the first; (a) on the first 2 layers one step's loss and
+              gradients against the plain route in bf16 and f32, the
+              plain runs replaying the kernel route's expert choice (flip
+              shares reported and held); Y's (d): a greedy decode through
+              the latent cache with the trained kv_b adapter, held
+              teacher-forced against the materialized forward by the e2e
+              rule, and its f32 latent decode within 1e-3 of the f32
+              forward. Then K2 at X's expert shapes (M = 512) and K1 at
+              Y's (M = 192), timed with bounds and library calls.
 11. parallel — tensor, expert and data parallelism on torch.distributed.
               (a) A world of one over NCCL in this process: TinyLlama at
               full width and depth (seed 0, fused) through
@@ -287,6 +306,13 @@ Phases, each printing JSON lines:
               seeded ids (clip search off and on, the CPU tests' bounds on
               scales and the tree; with it off the logits within 5e-3 +
               5e-3 max |logit|, with it on the tree's close share alone).
+              Sequence parallelism at tensor 2 (``forward(...,
+              sequence_parallel=)``): TinyLlama at full width,
+              ``PARALLEL_SP_LAYERS`` (2) layers, a 2 x 384 and a 2 x 383
+              prompt, launches and staged collectives (all-gathers,
+              reduce-scatters, all-reduces) held exactly, logits held
+              against the unsharded f32 plain path by the rule, host ms
+              reported as not a speed.
               Then K1, K2, K5, K6 and K8 against their twins at a rank's
               shapes (tensor 2: TinyLlama; expert 2: Mixtral's 4 experts
               a rank), timed with bounds and library calls.
@@ -456,21 +482,23 @@ MLA_MOE_GS = 64
 # first_k_dense_replace cut from 3 to 1, so one dense and one MoE layer)
 MLA_MOE_CUT_DEPTH = 2
 ZOO_DEPTH = 2  # Gemma-2, Qwen3 and GPT-J at published width, depth cut
-# Mixtral's traffics E and F at published width, depth cut to an eighth:
-# with the zoo, mla_moe, serve and train phases the script would otherwise
-# run past its time limit (16 layers took ~63 s more than 8, and 8 ~50 s
-# more than 4)
-MIXTRAL_DEPTH = 4
+# Mixtral's traffics E, F and X at published width, depth cut to a
+# sixteenth: with the zoo, mla_moe, serve and train phases the script
+# would otherwise run past its time limit (16 layers took ~63 s more than
+# 8, and 8 ~50 s more than 4; 4 to 2 when traffics X and Y came and a
+# whole run on a slow host took 1,150 s)
+MIXTRAL_DEPTH = 2
 # The long generation of A's, G's and L's decode quotient (new tokens,
 # cut from 512, then from 256 when the parallel phase came) and the depth
 # of Mistral-7B in the e2e phase's traffics C, D, H, I, J and K (8 of its
 # 32 layers: 16 until the pipeline phase came), and DeepSeek-V2-Lite's in
-# the mla_moe phase's O, P and R (9 of its 27: layer 0 dense, 8 MoE): cut
-# to keep the script within its time limit on slower hosts, where these
-# host-bound decode loops take most of its time.
+# the mla_moe phase's O, P and R and the train phase's Y (5 of its 27:
+# layer 0 dense, 4 MoE; 9 until traffics X and Y came): cut to keep the
+# script within its time limit on slower hosts, where these host-bound
+# decode loops take most of its time.
 DECODE_BIG = 128
 E2E_MISTRAL_DEPTH = 8
-V2_LITE_DEPTH = 9
+V2_LITE_DEPTH = 5
 # AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
 # seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
@@ -514,6 +542,16 @@ TRAIN_STEPS = 16
 TRAIN_LR = 1e-3
 TRAIN_CHECK_LAYERS = (2, 16)
 TRAIN_ATTN = (4, 512, 32, 8, 128)  # K4 / K10 / K11 at W's step
+TRAIN_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj")
+# traffics X (Mixtral-8x7B at MIXTRAL_DEPTH layers, experts stacked,
+# attention unfused) and Y (DeepSeek-V2-Lite at V2_LITE_DEPTH layers, g64,
+# adapters on q, kv_b and o): W's batch, rank and learning rate, 8 AdamW
+# steps, the gradient check on the first 2 layers; Y's (d) a greedy decode
+# of 4 steps after a 2 x 64 prompt through the latent cache
+TRAIN_MOE_STEPS = 8
+TRAIN_MOE_CHECK_LAYERS = 2
+V2_LITE_TRAIN_TARGETS = ("q_proj", "kv_b_proj", "o_proj")
+TRAIN_FOLD = (2, 64, 4)
 BACKWARD_KERNELS = ("prefill_attention_dkv", "prefill_attention_dq")
 KERNEL_META = {
     "w4a16_gemv": ("autoawq_tpu_torch/csrc/w4a16_gemv.cu",
@@ -590,13 +628,17 @@ KERNEL_META = {
 # Traffic W's gradients are held by the teacher-forced style rule: each
 # adapter gradient's relative L2 distance from an f32 plain step within
 # twice the bf16 plain step's plus a floor of 1e-2 (about 2.5 bf16 ulps of
-# rounding carried through the layers); the same for the loss.
+# rounding carried through the layers); the same for the loss. Traffic Y's
+# f32 latent decode (the absorbed kv_b with its adapter folded) is held
+# against the f32 materialized forward at 1e-3 of the logit scale: the two
+# differ by f32 summation order alone (the CPU tests read ~1e-6), while a
+# dropped kv_b adapter moves the logits by ~1 of their scale there.
 TOL = {"w4a16_gemv": 1e-2, "w4a16_gemm": 1e-2, "fused_mlp": 2e-2,
        "prefill_attention": 2 ** -6, "fused_attn_step": 2 ** -6,
        "fused_attn_step_kv": 2 ** -7, "moe_gemm": 1e-2, "moe_mlp": 2e-2,
        "moe_block": 2e-2, "fused_mlp3": 2e-2, "paged_attn": 1e-4,
        "paged_attn_stock": 2 ** -6, "prefill_attention_bwd": 2e-2,
-       "train_grad_floor": 1e-2}
+       "train_grad_floor": 1e-2, "mla_fold": 1e-3}
 # the paged pools of traffics H-K (CHIP_AB_R5_PAGED.json's pool for H, I
 # and J; scripts/bench_serve.py's paged configuration for K)
 PAGED_POOL = dict(max_batch=8, page_size=64, pages_per_seq=8,
@@ -1744,20 +1786,24 @@ def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
     return rows
 
 
-def device_profile(run, calls: int, match=()):
+def device_profile(run, calls: int, match=(), host_ops=True):
     """torch.profiler over ``calls`` calls of ``run(i)``: host wall ms per
     call, device ms per call, the device's busy share, device activities
     (kernels, copies) per call, and device time by kernel name (the twelve
     largest, and every kernel whose name holds a string of ``match``).
     Only the device's own events are summed: an operator's row repeats the
-    time of the kernels it launched."""
+    time of the kernels it launched. ``host_ops=False`` records the device
+    alone, for a call of tens of thousands of host operators, whose
+    records would take the profiler longer to process than the call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         for i in range(calls):
             run(i)
@@ -2513,16 +2559,18 @@ def _mixtral_traffics(dev):
 class _RouteTape:
     """While entered, ``modules.moe_route`` records each call's expert
     choice (``record``), or replays a recorded one call by call
-    (``replay``), and keeps the router's input at the calls ``tap_calls``
-    (``taps``: (layer, xt))."""
+    (``replay``; ``free`` records the choice the call would have made),
+    and keeps the router's input at the calls ``tap_calls`` (``taps``:
+    (layer, xt))."""
 
     def __init__(self, layers):
         self.layers = layers
         self.reset()
 
-    def reset(self, record=None, replay=None, taps=None, tap_calls=()):
+    def reset(self, record=None, replay=None, taps=None, tap_calls=(),
+              free=None):
         self.record, self.replay, self.taps = record, replay, taps
-        self.tap_calls, self.i = tap_calls, 0
+        self.tap_calls, self.i, self.free = tap_calls, 0, free
         return self
 
     def __enter__(self):
@@ -2541,6 +2589,11 @@ class _RouteTape:
         if self.taps is not None and self.i in self.tap_calls:
             self.taps.append((self.i % self.layers, xt.clone()))
         if self.replay is not None:
+            if self.free is not None:  # the choice this run would make
+                import torch
+
+                with torch.no_grad():
+                    self.free.append(self.route(cfg_, p, xt, method)[1])
             topi = self.replay[self.i]
         topw, topi = self.route(cfg_, p, xt, method, topi)
         if self.record is not None:
@@ -5455,9 +5508,10 @@ def _unfused(cfg, params):
         for name, lo, hi in zip(("q_proj", "k_proj", "v_proj"), bounds,
                                 bounds[1:]):
             lp["self_attn"][name] = cols(qkv, lo, hi)
-        gu = lp["mlp"].pop("gate_up_proj")
-        lp["mlp"]["gate_proj"] = cols(gu, 0, inter)
-        lp["mlp"]["up_proj"] = cols(gu, inter, 2 * inter)
+        if "gate_up_proj" in lp["mlp"]:  # a dense MLP (MoE keeps its own)
+            gu = lp["mlp"].pop("gate_up_proj")
+            lp["mlp"]["gate_proj"] = cols(gu, 0, inter)
+            lp["mlp"]["up_proj"] = cols(gu, inter, 2 * inter)
     return params
 
 
@@ -5489,11 +5543,16 @@ def _grad_rows(got, ref, plain):
     return rows
 
 
-def _train_grad_check(cfg, base_params, tokens, depth, dev):
-    """Check (a) of traffic W on the first ``depth`` layers: one step's
-    loss and adapter gradients (A from ``add_lora``, B drawn nonzero so
-    that A has a gradient) on the kernel route, held against the plain
-    route in bf16 and in f32 by the teacher-forced style rule."""
+def _train_grad_check(cfg, base_params, tokens, depth, dev, traffic="W",
+                      targets=TRAIN_TARGETS):
+    """Check (a) of a training traffic on the first ``depth`` layers: one
+    step's loss and adapter gradients (A from ``add_lora``, B drawn
+    nonzero so that A has a gradient) on the kernel route, held against
+    the plain route in bf16 and in f32 by the teacher-forced style rule.
+    An MoE model's plain runs replay the kernel route's expert choice
+    (``moe_route(..., topi=)``), so that routing flips between the
+    dtypes are not counted; the flip shares of the choices the runs would
+    have made are reported and held as the e2e phase holds them."""
     import dataclasses
 
     import torch
@@ -5502,42 +5561,328 @@ def _train_grad_check(cfg, base_params, tokens, depth, dev):
 
     ccfg = dataclasses.replace(cfg, num_hidden_layers=depth)
     cut = _own_attn(base_params, depth)
-    lora.add_lora(ccfg, cut, rank=TRAIN_RANK, seed=1)
+    lora.add_lora(ccfg, cut, rank=TRAIN_RANK, seed=1, targets=targets)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     for lp in cut["layers"]:
         for lin in lp["self_attn"].values():
-            lin["lora_b"] = torch.randn(lin["lora_b"].shape, generator=gen,
-                                        device=dev) * 1e-2
+            if "lora_b" in lin:
+                lin["lora_b"] = torch.randn(lin["lora_b"].shape,
+                                            generator=gen, device=dev) * 1e-2
     adapters, base = lora.split_lora(cut)
+    tape = _RouteTape(1)
+    chosen, free = [], {"plain": [], "plain_f32": []}
     runs = {}
-    for name, method, dt in (("kernel", "auto", torch.bfloat16),
-                             ("plain", "plain", torch.bfloat16),
-                             ("plain_f32", "plain", torch.float32)):
-        t = time.perf_counter()
-        loss, grads = lora.lora_loss_and_grads(ccfg, adapters, base, tokens,
-                                               method, dt)
-        torch.cuda.synchronize()
-        runs[name] = (loss.item(), grads, time.perf_counter() - t)
+    with tape if ccfg.is_moe else contextlib.nullcontext():
+        for name, method, dt in (("kernel", "auto", torch.bfloat16),
+                                 ("plain", "plain", torch.bfloat16),
+                                 ("plain_f32", "plain", torch.float32)):
+            if ccfg.is_moe and name == "kernel":
+                tape.reset(record=chosen)
+            elif ccfg.is_moe:
+                tape.reset(replay=chosen, free=free[name])
+            t = time.perf_counter()
+            loss, grads = lora.lora_loss_and_grads(ccfg, adapters, base,
+                                                   tokens, method, dt)
+            torch.cuda.synchronize()
+            runs[name] = (loss.item(), grads, time.perf_counter() - t)
+    routing = None
+    if ccfg.is_moe:
+        routing = {"route_calls": len(chosen),
+                   "kernel_flip_share": _flip_share(chosen,
+                                                    free["plain_f32"]),
+                   "plain_bf16_flip_share": _flip_share(
+                       free["plain"], free["plain_f32"]),
+                   "plain_runs_replay": "the kernel route's choice"}
+        _check_routing(f"train {traffic} ({depth} layers)", routing)
     rows = _grad_rows(runs["kernel"][1], runs["plain_f32"][1],
                       runs["plain"][1])
     lk, lp_, lf = (runs[n][0] for n in ("kernel", "plain", "plain_f32"))
     loss_ok = abs(lk - lf) <= 2 * abs(lp_ - lf) + TOL[
         "train_grad_floor"] * abs(lf)
     check(loss_ok and all(r["ok"] for r in rows),
-          f"train W ({depth} layers): kernel route outside the rule: loss "
-          f"{lk:.6g} (plain {lp_:.6g}, f32 {lf:.6g}), "
+          f"train {traffic} ({depth} layers): kernel route outside the "
+          f"rule: loss {lk:.6g} (plain {lp_:.6g}, f32 {lf:.6g}), "
           f"{sum(not r['ok'] for r in rows)} of {len(rows)} gradients")
-    emit({"phase": "train", "step": "kernel_vs_plain", "traffic": "W",
+    emit({"phase": "train", "step": "kernel_vs_plain", "traffic": traffic,
           "layers": depth, "loss": {"kernel": lk, "plain": lp_,
                                     "plain_f32": lf},
           "seconds": {n: r[2] for n, r in runs.items()},
+          "routing": routing,
           "worst_kernel_vs_f32": max(r["kernel_vs_f32"] for r in rows),
           "worst_plain_bf16_vs_f32": max(r["plain_bf16_vs_f32"]
                                          for r in rows),
           "worst_kernel_vs_plain_bf16": max(r["kernel_vs_plain_bf16"]
                                             for r in rows),
           "gradients": rows})
+
+
+def _train_ids(cfg, dev):
+    """X's and Y's fixed batch: ``TRAIN_BATCH`` seeded ids."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(43).integers(
+        0, cfg.vocab_size, TRAIN_BATCH)).to(dev)
+
+
+def _moe_step_launches(cfg, routing, fixed):
+    """One training step's exact launches: ``fixed`` (the attention's and
+    the dense and shared MLPs') plus, for each MoE layer's recorded
+    routing (``topi`` [T, k]) and each expert, two launches (gate_up and
+    down) by its routed rows: none for 0 rows, K1 below ``WS_MIN_M`` (256)
+    and K2 from there (``nn/modules._routed_rows``). Returns (launches,
+    each MoE layer's rows per expert)."""
+    import torch
+
+    from autoawq_tpu_torch.ops.gemm import WS_MIN_M
+
+    expect = dict(fixed)
+    rows = []
+    for topi in routing:
+        per = torch.bincount(topi.flatten(),
+                             minlength=cfg.num_experts).tolist()
+        rows.append(per)
+        for n in per:
+            if n:
+                k = "w4a16_gemm" if n >= WS_MIN_M else "w4a16_gemv"
+                expect[k] = expect.get(k, 0) + 2
+    return {k: n for k, n in expect.items() if n}, rows
+
+
+def _lora_moe_traffic(traffic, model, cfg, base_params, targets, fixed, dev):
+    """Checks (c) and (b) of traffic X or Y: rank-8 f32 adapters on
+    ``targets``, one fixed batch of ``TRAIN_BATCH`` seeded ids, bf16,
+    AdamW. (c) one step's launches held exactly against those its
+    recorded routing implies (:func:`_moe_step_launches`), the step's ms
+    (min of 3), training tokens/s, a profile of one step and the peak
+    memory; (b) ``TRAIN_MOE_STEPS`` steps, the last loss below the first.
+    Returns (the steps' launch counts, one step's launches, the trained
+    adapters and the base)."""
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.train import lora
+
+    tokens = _train_ids(cfg, dev)
+    bf = torch.bfloat16
+    params = _own_attn(base_params, cfg.num_hidden_layers)
+    lora.add_lora(cfg, params, rank=TRAIN_RANK, seed=0, targets=targets)
+    adapters, base = lora.split_lora(params)
+    opt = lora.make_optimizer(adapters, "adamw", lr=TRAIN_LR)
+
+    def step():
+        return lora.lora_train_step_opt(cfg, adapters, base, opt, tokens,
+                                        dtype=bf).item()
+
+    routing = []
+    seconds = {}
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with _RouteTape(1) as tape:
+        tape.reset(record=routing)
+        losses = [step()]
+    torch.cuda.synchronize()
+    per_step = dict(_build.LAUNCHES)
+    got = {k: n for k, n in per_step.items() if n}
+    expect, rows = _moe_step_launches(cfg, routing, fixed)
+    check(got == expect, f"train {traffic}: launches a step {got}, "
+          f"expected {expect} from the step's routing")
+    counts = dict(per_step)
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    seconds["first_4_steps"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = device_profile(lambda i: losses.append(step()), 1,
+                          match=("w4a16_gemm", "DenseJob", "gemv",
+                                 "prefill_attn", "dkv_kernel",
+                                 "dq_kernel"), host_ops=False)
+    seconds["profiled_step"] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    while len(losses) < TRAIN_MOE_STEPS:
+        losses.append(step())
+    torch.cuda.synchronize()
+    seconds["other_steps"] = time.perf_counter() - t
+    for k in counts:
+        counts[k] = _build.LAUNCHES[k]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train {traffic}: loss {losses[0]:.5g} -> {losses[-1]:.5g} over "
+          f"{TRAIN_MOE_STEPS} AdamW steps")
+    tok = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    emit({"phase": "train", "traffic": traffic, "model": model,
+          "card": card(), "layers": cfg.num_hidden_layers,
+          "batch": list(TRAIN_BATCH), "rank": TRAIN_RANK,
+          "targets": list(targets), "lr": TRAIN_LR, "step_ms": step_ms,
+          "step_ms_min": min(step_ms),
+          "train_tokens_per_s": tok / (min(step_ms) / 1e3),
+          "launches_per_step": got,
+          "routed_rows_per_expert": rows, "losses": losses,
+          "peak_memory_bytes": peak, "profile": prof, "seconds": seconds})
+    return counts, per_step, adapters, base
+
+
+def _fold_check(cfg, params, dev):
+    """Check (d) of traffic Y: the repaired kv_b fold on the card. A
+    greedy decode through the latent cache (kernel route, bf16) with the
+    trained kv_b adapter, its logits held teacher-forced against the
+    materialized forward's (``modules.forward``, kv_b through ``linear``
+    with the adapter) by the e2e rule: within twice the bf16 plain
+    forward's distance from the f32 plain forward, + 1e-3; the forwards
+    replay the decode's expert choice. Beside it the plain route's f32
+    latent decode (same choice) against the f32 forward, within
+    ``TOL["mla_fold"]``: the adapter's fold alone, which a dropped
+    adapter moves by far more."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s, n = TRAIN_FOLD
+    prompt = torch.from_numpy(np.random.default_rng(44).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    moe = sum("experts_stacked" in lp["mlp"] for lp in params["layers"])
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def latent(method, dtype, tokens):
+        caches = gen.init_kv_cache(cfg, b, s + n, dtype, dev)
+        out = [gen.prefill(cfg, params, prompt, caches, method, dtype)[0]]
+        for j in range(n):
+            if len(tokens) == j:
+                tokens.append(out[-1].argmax(-1)[:, None])
+            out.append(gen.decode_step(cfg, params, tokens[j], caches, s + j,
+                                       method, dtype)[0])
+        return out
+
+    rec, tokens = [], []
+    with torch.no_grad(), _RouteTape(moe) as tape:
+        tape.reset(record=rec)
+        got = latent("auto", bf, tokens)
+        seq = torch.cat([prompt] + tokens, dim=1)
+        k = rec[0].shape[-1]
+        whole = [torch.cat([rec[m].reshape(b, s, k)] + [
+            rec[(j + 1) * moe + m].reshape(b, 1, k) for j in range(n)],
+            dim=1).reshape(-1, k) for m in range(moe)]
+        fwd = {}
+        for name, dt in (("plain", bf), ("plain_f32", f32)):
+            tape.reset(replay=whole)
+            fwd[name] = modules.forward(cfg, params, seq, "plain", dt)[
+                :, s - 1:]
+        tape.reset(replay=rec)
+        lat32 = latent("plain", f32, tokens)
+    rows = [{"position": s - 1 + i,
+             "kernel_vs_f32": rel_err(got[i], fwd["plain_f32"][:, i])[1],
+             "plain_bf16_vs_f32": rel_err(fwd["plain"][:, i],
+                                          fwd["plain_f32"][:, i])[1],
+             "latent_f32_vs_materialized_f32": rel_err(
+                 lat32[i], fwd["plain_f32"][:, i])[1]}
+            for i in range(n + 1)]
+    _check_teacher_forced("Y (d) latent decode vs materialized forward",
+                          rows)
+    worst = max(r["latent_f32_vs_materialized_f32"] for r in rows)
+    check(worst <= TOL["mla_fold"], f"train Y (d): the f32 latent decode "
+          f"is {worst:.3g} of the logit scale from the materialized "
+          f"forward (limit {TOL['mla_fold']})")
+    emit({"phase": "train", "step": "kv_b_fold", "traffic": "Y",
+          "card": card(), "batch": b, "prompt": s, "decode_steps": n,
+          "rows": rows})
+
+
+def _train_kernel_rows(dev):
+    """K2 at Mixtral's expert gate_up (4096 -> 28672) and down (14336 ->
+    4096) at 512 routed rows (X's mean: 2048 tokens x top-2 / 8), K1 at
+    V2-Lite's expert gate_up (2048 -> 2816) and down (1408 -> 2048) at 192
+    (Y's mean: 2048 x top-6 / 64), each against its twin and timed with
+    its bound, the twin and the library call, as the kernels phase times
+    them."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    h, i = MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"]
+    vh = DEEPSEEK_V2_LITE["hidden_size"]
+    vi = DEEPSEEK_V2_LITE["moe_intermediate_size"]
+    return [_gemm_case(None, kernel, f"train {case}", m, k, n, gs, True,
+                       dev, iters=50, gen=gen)
+            for kernel, case, m, k, n, gs in (
+                ("w4a16_gemm", "X expert gate_up", 512, h, 2 * i, 128),
+                ("w4a16_gemm", "X expert down", 512, i, h, 128),
+                ("w4a16_gemv", "Y expert gate_up", 192, vh, 2 * vi,
+                 MLA_MOE_GS),
+                ("w4a16_gemv", "Y expert down", 192, vi, vh, MLA_MOE_GS))]
+
+
+def _traffics_x_y(dev):
+    """Traffics X (Mixtral-8x7B) and Y (DeepSeek-V2-Lite): LoRA through
+    MoE and MLA on the card. Returns (launch counts, launches a step)."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    counts, per_step = {}, {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    cfg = dataclasses.replace(ModelConfig(**MIXTRAL),
+                              num_hidden_layers=MIXTRAL_DEPTH)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    base_params = _unfused(cfg, synth_moe_on_card(cfg, 0, dev))
+    torch.cuda.synchronize()
+    emit({"phase": "train", "model": "mixtral-8x7b", "step": "synth",
+          "layers": MIXTRAL_DEPTH,
+          "published_layers": MIXTRAL["num_hidden_layers"],
+          "cut": f"depth {MIXTRAL_DEPTH} of "
+          f"{MIXTRAL['num_hidden_layers']} layers, published width",
+          "seconds": time.perf_counter() - t})
+    L = cfg.num_hidden_layers
+    c, per_step["X"], _, _ = _lora_moe_traffic(
+        "X", "mixtral-8x7b", cfg, base_params, TRAIN_TARGETS,
+        {"w4a16_gemm": 4 * L, "prefill_attention": L,
+         "prefill_attention_dkv": L, "prefill_attention_dq": L}, dev)
+    add(c)
+    t = time.perf_counter()
+    _train_grad_check(cfg, base_params, _train_ids(cfg, dev),
+                      TRAIN_MOE_CHECK_LAYERS, dev, "X", TRAIN_TARGETS)
+    emit({"phase": "train", "traffic": "X", "step": "check (a) seconds",
+          "seconds": time.perf_counter() - t})
+    del base_params
+    torch.cuda.empty_cache()
+
+    cfg, base_params = _zoo_model(DEEPSEEK_V2_LITE, dev, V2_LITE_DEPTH,
+                                  phase="train", gs=MLA_MOE_GS)
+    L, dense = cfg.num_hidden_layers, cfg.first_k_dense_replace
+    # a layer's q, kv_a, kv_b and o; a dense MLP's gate_up and down; a
+    # MoE layer's shared experts' gate, up and down: K2 each at 2,048 rows
+    c, per_step["Y"], adapters, base = _lora_moe_traffic(
+        "Y", "deepseek-v2-lite", cfg, base_params, V2_LITE_TRAIN_TARGETS,
+        {"w4a16_gemm": 4 * L + 2 * dense + 3 * (L - dense)}, dev)
+    add(c)
+    from autoawq_tpu_torch.train import lora
+
+    t = time.perf_counter()
+    _fold_check(cfg, lora.merge_lora(adapters, base), dev)
+    del adapters, base
+    emit({"phase": "train", "traffic": "Y", "step": "check (d) seconds",
+          "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    _train_grad_check(cfg, base_params, _train_ids(cfg, dev),
+                      TRAIN_MOE_CHECK_LAYERS, dev, "Y", V2_LITE_TRAIN_TARGETS)
+    emit({"phase": "train", "traffic": "Y", "step": "check (a) seconds",
+          "seconds": time.perf_counter() - t})
+    del base_params
+    torch.cuda.empty_cache()
+    return counts, per_step
 
 
 def phase_train(dev):
@@ -5551,8 +5896,11 @@ def phase_train(dev):
     tokens/s, a profile of one step and the peak memory; (b) 16 AdamW
     steps, the last loss below the first; (a) on the first 2 and 16
     layers (``TRAIN_CHECK_LAYERS``), one step's loss and adapter gradients
-    against the plain route in bf16 and in f32. Returns (launch counts of
-    the phase's kernel-route steps, launches a step)."""
+    against the plain route in bf16 and in f32. Then traffics X and Y,
+    LoRA through MoE and MLA (:func:`_traffics_x_y`), and K1 / K2 at
+    their experts' shapes (:func:`_train_kernel_rows`). Returns (launch
+    counts of the phase's kernel-route steps, launches a step of each
+    traffic, the kernel rows)."""
     import numpy as np
     import torch
 
@@ -5563,7 +5911,7 @@ def phase_train(dev):
     cfg = ModelConfig(**MISTRAL)
     layers = cfg.num_hidden_layers
     torch.cuda.empty_cache()
-    t = time.perf_counter()
+    t = t_w = time.perf_counter()
     base_params = _unfused(cfg, synth_zoo_on_card(cfg, 0, dev))
     torch.cuda.synchronize()
     emit({"phase": "train", "model": "mistral-7b", "step": "synth",
@@ -5625,7 +5973,15 @@ def phase_train(dev):
         _train_grad_check(cfg, base_params, tokens, depth, dev)
     del base_params
     torch.cuda.empty_cache()
-    return counts, {"W": per_step}
+    emit({"phase": "train", "traffic": "W", "step": "seconds",
+          "seconds": time.perf_counter() - t_w})
+    t = time.perf_counter()
+    more, steps = _traffics_x_y(dev)
+    for k_, n in more.items():
+        counts[k_] = counts.get(k_, 0) + n
+    emit({"phase": "train", "traffic": "X and Y", "step": "seconds",
+          "seconds": time.perf_counter() - t})
+    return counts, {"W": per_step, **steps}, _train_kernel_rows(dev)
 
 
 # --------------------------------------------------------------- parallel
@@ -5651,10 +6007,16 @@ PARALLEL_DECODE_STEPS = 4  # teacher-forced bs8 decode steps at tensor 2
 PARALLEL_TIMEOUT = 900  # seconds the two ranks may take together
 # what the spawned ranks read from this module (a rehearsal on the CPU
 # swaps them for tiny values, and the ranks import the module afresh)
+# sequence parallelism at tensor 2: TinyLlama at full width,
+# PARALLEL_SP_LAYERS layers, a 2 x 384 prompt and a 2 x 383 one (padded
+# to 384 along S)
+PARALLEL_SP_LAYERS = 2
+PARALLEL_SP = (384, 383)
 PARALLEL_SPEC = ("TINYLLAMA", "MIXTRAL", "PARALLEL_ENGINE_LAYERS",
                  "PARALLEL_ENGINE", "PARALLEL_MIXTRAL_LAYERS",
                  "PARALLEL_CALIB", "PARALLEL_CALIB_LAYERS",
-                 "PARALLEL_DECODE_STEPS")
+                 "PARALLEL_DECODE_STEPS", "PARALLEL_SP_LAYERS",
+                 "PARALLEL_SP")
 
 
 def _free_port() -> int:
@@ -5865,6 +6227,86 @@ def _rank_tp(rank, dev, rng):
               "equal_streams": sum(r["equal"] for r in recs),
               "streams": len(recs),
               "partings": [r for r in recs if not r["equal"]]})
+
+
+def _rank_sp(rank, dev, rng):
+    """Sequence parallelism over tensor 2: TinyLlama at full width,
+    ``PARALLEL_SP_LAYERS`` layers, ``forward(...,
+    sequence_parallel=mesh.axis("tensor"))`` on each prompt of
+    ``PARALLEL_SP`` (2 x 384, and 2 x 383 padded to 384 along S). Each
+    rank's launches held exactly (q, k, v, o, gate, up and down on K2 over
+    the gathered sequence, K4 on the rank's heads, a layer) and its staged
+    collectives (an all-gather a block and one before the head, the o
+    all-reduce and the down reduce-scatter a block); the logits held
+    (rank 0) against the unsharded port's plain path in f32 by the
+    teacher-forced rule, and beside the same rank's replicated
+    tensor-parallel forward. The host ms are reported, and are not a speed:
+    gloo stages the collectives through host memory and the ranks share
+    the card."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.parallel import distributed as pd
+    from autoawq_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = dataclasses.replace(ModelConfig(**TINYLLAMA),
+                              num_hidden_layers=PARALLEL_SP_LAYERS)
+    L = cfg.num_hidden_layers
+    full = synth_zoo_on_card(cfg, 0, dev)
+    bf, f32 = torch.bfloat16, torch.float32
+    prompts = {s: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (2, s))).to(dev)
+               for s in PARALLEL_SP}
+    ref = {}
+    if rank == 0:  # the unsharded port's plain path
+        for s, p in prompts.items():
+            for dt in (bf, f32):
+                ref[(s, dt)] = modules.forward(cfg, full, p, "plain", dt)
+    mesh = build_mesh(tensor=2)
+    model = AwqCausalLM(cfg, full, device=dev).shard(mesh, dtype=None)
+    del full
+    rows = []
+    for s, p in prompts.items():
+        name = f"parallel rank {rank} sequence parallel 2 x {s}"
+        before = dict(pd.STAGED)
+        _sync(dev)
+        _build.reset_launches()
+        t = time.perf_counter()
+        got = modules.forward(model.cfg, model.params, p, dtype=bf,
+                              sequence_parallel=mesh.axis("tensor"))
+        _sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        staged = {k: n - before.get(k, 0) for k, n in pd.STAGED.items()
+                  if n != before.get(k, 0)}
+        want = {"w4a16_gemm": 7 * L, "prefill_attention": L}
+        check(launches == want, f"{name}: launches {launches}, expected "
+              f"{want}")
+        want = {"all_gather": L + 1, "all_reduce": L, "reduce_scatter": L}
+        check(staged == want, f"{name}: staged collectives {staged}, "
+              f"expected {want}")
+        tp = modules.forward(model.cfg, model.params, p, dtype=bf)
+        check(tuple(got.shape) == (2, s, cfg.vocab_size)
+              and bool(torch.isfinite(got).all()), f"{name}: logits of "
+              f"shape {tuple(got.shape)}, or not finite")
+        emit({"phase": "parallel", "rank": rank, "backend": "gloo",
+              "model": "tinyllama", "layers": L, "tensor": 2,
+              "traffic": f"sequence parallel 2 x {s}", "host_ms": ms,
+              "note": "host ms of two gloo ranks sharing one card, "
+              "collectives staged through host memory: not a speed",
+              "staged_collectives": staged, "launches": launches,
+              "sp_vs_replicated_tp_bf16": rel_err(got, tp)[1]})
+        if rank == 0:
+            rows += _hold_rule(f"parallel sequence parallel 2 x {s}", [got],
+                               [ref[(s, bf)]], [ref[(s, f32)]])
+    if rank == 0:
+        emit({"phase": "parallel", "step": "sequence parallel vs "
+              "unsharded f32", "rows": rows})
 
 
 def _rank_ep(rank, dev, rng):
@@ -6215,7 +6657,8 @@ def phase_parallel(dev):
     (b) spawned first, the world of one over NCCL (a) while they start,
     then their results, then the kernels at a rank's shapes."""
     ctx, tmp = _spawn_world(2, "parallel", ("_rank_tp", "_rank_ep",
-                                            "_rank_dp"), PARALLEL_SPEC, dev)
+                                            "_rank_dp", "_rank_sp"),
+                            PARALLEL_SPEC, dev)
     t0 = time.perf_counter()
     try:
         _world_of_one(dev)
@@ -6827,7 +7270,8 @@ def main(argv=None) -> int:
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "train" in phases:
-        counts, per_step = timed("train", phase_train, dev)
+        counts, per_step, rows = timed("train", phase_train, dev)
+        extra_rows = extra_rows + rows
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
@@ -6848,7 +7292,8 @@ def main(argv=None) -> int:
     if rep:
         kernels = []
         # the eleven kernels' representative rows, then the mla_moe phase's
-        # K6 and K8 rows at their own shapes
+        # K6 and K8 rows and the train phase's K1 and K2 rows at their own
+        # shapes
         for name, r in [(n, rep[n]) for n in KERNEL_META] + [
                 (r["kernel"], r) for r in extra_rows]:
             source, replaces = KERNEL_META[name]

@@ -1444,3 +1444,123 @@ def test_inference_launches_unchanged_without_grad(cuda):
     assert {k: n for k, n in _build.LAUNCHES.items() if n} == {
         "w4a16_gemm": 14, "prefill_attention": 2,
         "prefill_attention_dkv": 2, "prefill_attention_dq": 2}
+
+
+def test_mixtral_moe_block_under_grad_matches_the_cpu_plain_gradients(
+        cuda):
+    """A Mixtral-8x7B MoE block at published width (hidden 4096, 8 stacked
+    experts of 14336, top-2) under grad on 512 tokens, the router biased
+    toward expert 0 so that some experts get 256 rows or more and some
+    fewer: each expert on its routed rows, K2 from 256 rows and K1 below
+    (two launches each, gate_up and down; none for an expert with no
+    rows), as the recorded routing implies; the output, dx and the router
+    kernel's gradient against the CPU's plain route in f32 on the same
+    expert choice, within 2e-2 of their scale (moe_block's limit: bf16
+    products and expert outputs against f32)."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+
+    cfg = ModelConfig(model_type="mixtral", vocab_size=256, hidden_size=4096,
+                      intermediate_size=14336, num_hidden_layers=1,
+                      num_attention_heads=32, num_key_value_heads=8,
+                      num_experts=8, num_experts_per_tok=2)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    gate = torch.randn(4096, 8, device=cuda, generator=g) * 0.02
+    gate[:, 0] += 5e-4
+    mlp = {"gate": {"kernel": gate.to(torch.bfloat16)},
+           "experts_stacked": {
+               "gate_up_proj": stack(g, 8, 4096, 2 * 14336, 128, True, cuda),
+               "down_proj": stack(g, 8, 14336, 4096, 128, True, cuda)}}
+    x = (torch.randn(1, 512, 4096, device=cuda, generator=g) + 1.0).to(
+        torch.bfloat16)
+    dy = torch.randn(1, 512, 4096, device=cuda, generator=g).to(
+        torch.bfloat16)
+    route = modules.moe_route
+    tape = []
+
+    def taped(cfg_, p, xt, method="auto", topi=None):
+        if tape:
+            return route(cfg_, p, xt, method, tape[0].to(xt.device))
+        out = route(cfg_, p, xt, method, topi)
+        tape.append(out[1])
+        return out
+
+    def run(p, xin, dyin, method):
+        xg = xin.clone().requires_grad_()
+        gk = p["gate"]["kernel"].clone().requires_grad_()
+        y = modules.moe_block(cfg, {**p, "gate": {"kernel": gk}}, xg,
+                              method)
+        dx, dg = torch.autograd.grad(y, [xg, gk], dyin)
+        return y.detach(), dx, dg
+
+    modules.moe_route = taped
+    try:
+        _build.reset_launches()
+        got = run(mlp, x, dy, "auto")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cpu = {"gate": {"kernel": mlp["gate"]["kernel"].float().cpu()},
+               "experts_stacked": {
+                   n: {k: v.cpu() for k, v in lin.items()}
+                   for n, lin in mlp["experts_stacked"].items()}}
+        want = run(cpu, x.float().cpu(), dy.float().cpu(), "plain")
+    finally:
+        modules.moe_route = route
+    rows = torch.bincount(tape[0].flatten().cpu(), minlength=8).tolist()
+    expect = {}
+    for n in rows:
+        if n:
+            k = "w4a16_gemm" if n >= gemm.WS_MIN_M else "w4a16_gemv"
+            expect[k] = expect.get(k, 0) + 2
+    assert "w4a16_gemm" in expect and "w4a16_gemv" in expect, rows
+    assert launches == expect, (rows, launches)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert rel(a.cpu(), b) <= 2e-2
+
+
+def test_v2_lite_latent_decode_folds_the_kv_b_adapter(cuda):
+    """DeepSeek-V2-Lite's MLA at published width (g64, kv_b's dense leaf
+    attached) with a kv_b adapter whose B is nonzero: a prefill of 64
+    tokens, then one decode step through the latent cache on the kernel
+    route (kv_b's dense weight with the adapter folded in, K1 for the
+    linears) against the materialized per-head cache on the plain route,
+    within 2e-2 of the output's scale (bf16 in other orders); the same
+    step without the adapter differs by more than ten times that, so the
+    check sees an adapter the fold drops."""
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.nn.fuse import attach_kv_b_dense
+    from autoawq_tpu_torch.serve import generate as gen
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    cfg, layer = v2_lite_layer(g, cuda)
+    attach_kv_b_dense(cfg, {"layers": [layer]})
+    attn = layer["self_attn"]
+    bare = {**attn, "kv_b_proj": dict(attn["kv_b_proj"])}
+    attn["kv_b_proj"]["lora_a"] = torch.randn(
+        512, 8, device=cuda, generator=g) * 0.25
+    attn["kv_b_proj"]["lora_b"] = torch.randn(
+        8, 16 * 256, device=cuda, generator=g) * 0.05
+    x = torch.randn(1, 65, 2048, device=cuda, generator=g).to(
+        torch.bfloat16)
+    cos, sin = modules.rope_tables(cfg, torch.arange(65, device=cuda)[None])
+    mask = modules.causal_mask(64, device=cuda)
+    step_mask = torch.zeros(1, 1, 1, 80, device=cuda)
+    step_mask[..., 65:] = -1e30
+
+    def decode(p, latent, method):
+        cache = gen.init_kv_cache(cfg, 1, 80, device=cuda,
+                                  mla_latent=latent)[0]
+        modules.mla_attention(cfg, p, x[:, :64], cos[:, :64], sin[:, :64],
+                              mask, {**cache, "pos": 0}, method,
+                              causal_prefill=True)
+        return modules.mla_attention(cfg, p, x[:, 64:], cos[:, 64:],
+                                     sin[:, 64:], step_mask,
+                                     {**cache, "pos": 64}, method)[0]
+
+    with torch.inference_mode():
+        got = decode(attn, True, "auto")
+        ref = decode(attn, False, "plain")
+        lora_free = decode(bare, True, "auto")
+    assert rel(got, ref) <= 2e-2
+    assert rel(lora_free, ref) > 0.2

@@ -411,26 +411,6 @@ def test_gates_refuse_inputs_that_require_grad():
     torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("model_type", ["mixtral", "deepseek_v2"])
-def test_moe_and_mla_refuse_training(model_type):
-    from autoawq_tpu_torch.io.hf import init_random_params
-
-    kw = dict(KW, model_type=model_type, num_hidden_layers=1)
-    if model_type == "mixtral":
-        kw.update(num_experts=2, num_experts_per_tok=1)
-    else:
-        kw.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
-                  v_head_dim=16, q_lora_rank=None, num_key_value_heads=4)
-    cfg = ModelConfig(**kw)
-    params = init_random_params(cfg, seed=0, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    params["embed_tokens"]["weight"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        lora.causal_lm_loss(cfg, params, tokens)
-    with torch.no_grad():
-        assert torch.isfinite(lora.causal_lm_loss(cfg, params, tokens))
-
-
 def test_launch_counts_are_untouched_on_the_cpu():
     before = dict(_build.LAUNCHES)
     jcfg, cfg, jp, pp = models(seed=6)

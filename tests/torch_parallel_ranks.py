@@ -476,6 +476,70 @@ def _pair_grads(ax):
             "reduce_y": y.detach(), "x": x, "w": w, "c": c}
 
 
+def sp_forward(rank, inp):
+    """``forward`` at tensor 4 with sequence parallelism
+    (``sequence_parallel=mesh.axis("tensor")``) and without, for each
+    case, f32, with the reduce-scatters the SP run made."""
+    out = {}
+    mesh = build_mesh(tensor=4)
+    ax = mesh.axis("tensor")
+    calls = []
+    real = pd.reduce_scatter
+
+    def counted(t, axis, dim=0):
+        calls.append(tuple(t.shape))
+        return real(t, axis, dim)
+
+    pd.reduce_scatter = counted
+    try:
+        for name, case in inp["sp"].items():
+            m = _model(case["cfg"], case["params"]).shard(mesh, dtype=None)
+            with torch.no_grad():
+                del calls[:]
+                sp = modules.forward(m.cfg, m.params, case["tokens"],
+                                     dtype=torch.float32,
+                                     sequence_parallel=ax)
+                scatters = list(calls)
+                tp = modules.forward(m.cfg, m.params, case["tokens"],
+                                     dtype=torch.float32)
+            out[name] = {"sp": sp, "tp": tp, "scatters": scatters}
+    finally:
+        pd.reduce_scatter = real
+    return out
+
+
+def pp_mla_lora(rank, inp):
+    """One ``pipeline_lora_step`` on MLA stages at pipe 2 x tensor 2: the
+    loss and this rank's updated adapters (``pp_lora``'s layout)."""
+    case = inp["pp_mla"]
+    cfg = case["cfg"]
+    mesh = build_mesh(pipe=2, tensor=2)
+    pparams = pp.to_pipeline(cfg, _copy_tensors(case["params"]), mesh,
+                             device="cpu")
+    lora, base = lora_mod.split_lora(pparams)
+    loss, new = pp.pipeline_lora_step(cfg, lora, base, case["tokens"], mesh,
+                                      2, lr=1e-2, dtype=torch.float32)
+    return {"loss": loss.item(), "where": _where(mesh),
+            "adapters": _lora_leaves(new)}
+
+
+def pp_moe_refusal(rank, inp):
+    """``pipeline_lora_step`` on MoE stages whose experts split over
+    tensor (``tp_ep``): the error on every rank, before any transfer."""
+    case = inp["pp_moe"]
+    cfg = case["cfg"]
+    mesh = build_mesh(pipe=2, tensor=2)
+    pparams = pp.to_pipeline(cfg, _copy_tensors(case["params"]), mesh,
+                             device="cpu")
+    lora, base = lora_mod.split_lora(pparams)
+    try:
+        pp.pipeline_lora_step(cfg, lora, base, case["tokens"], mesh, 2,
+                              dtype=torch.float32)
+        return None
+    except NotImplementedError as e:
+        return str(e)
+
+
 def _copy_tensors(tree):
     if isinstance(tree, dict):
         return {k: _copy_tensors(v) for k, v in tree.items()}
@@ -487,4 +551,5 @@ def _copy_tensors(tree):
 CASES = {f.__name__: f for f in (tp_forward, tree_shards, tp_decode, tp_mlp,
                                  tp_engine, ep_ops, ep_model, dp_calib,
                                  meshes, pp_forward, pp_lora, pp_refusals,
-                                 tp_breadth)}
+                                 tp_breadth, sp_forward, pp_mla_lora,
+                                 pp_moe_refusal)}
