@@ -11,5 +11,7 @@ it, nor jax.
 __version__ = "0.1.0"
 
 from autoawq_tpu_torch.config import AwqConfig  # noqa: F401
-from autoawq_tpu_torch.api import AutoAWQForCausalLM, AwqCausalLM  # noqa: F401
+from autoawq_tpu_torch.api import (AutoAWQForCausalLM,  # noqa: F401
+                                   AwqCausalLM, AwqLlavaModel,
+                                   AwqQwen2VLModel)
 from autoawq_tpu_torch.models.config import ModelConfig  # noqa: F401

@@ -44,8 +44,11 @@ from autoawq_tpu_torch.utils.device import resolve_device
 def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     """Cast float leaves other than quantization scales and MLA's dense
     kv_b weight to ``dtype`` (both stay f32: the kernels' contract, and
-    the absorbed decode's, as in JAX)."""
+    the absorbed decode's, as in JAX). The unmodeled tensors of
+    ``params["_extra"]`` keep their dtype (the save writes them back)."""
     def walk(node, key=None):
+        if key == "_extra":
+            return node
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
@@ -271,25 +274,309 @@ class AwqCausalLM:
             kv_quant=kv_quant, stream_callback=stream_callback)
 
 
+def _load_dir(path: str):
+    """(raw config.json, state dict) of a local checkpoint directory."""
+    from autoawq_tpu_torch.io.hf import load_state_dict_from_dir
+
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"{path} is not a local directory (the port has no hub download)")
+    with open(os.path.join(path, "config.json")) as f:
+        raw = json.load(f)
+    return raw, load_state_dict_from_dir(path)
+
+
+class _VisionLanguageModel:
+    """What the LLaVA and Qwen2-VL facades share: a float vision tower
+    beside a language model that AWQ quantizes alone (AutoAWQ's
+    ``modules_to_not_convert``), on the card unless ``device`` names
+    another. ``params["language_model"]`` is a decoder tree of the port."""
+
+    def __init__(self, text_cfg: ModelConfig, vision_cfg: Dict,
+                 raw_config: Dict, params: Dict[str, Any],
+                 qcfg: Optional[AwqConfig] = None, device=None):
+        modules.check_supported(text_cfg)
+        self.cfg = text_cfg
+        self.vision_cfg = vision_cfg
+        self.raw_config = raw_config
+        self.params = params
+        self.quant_config = qcfg
+        self.device = resolve_device(device)
+        self._quantizer: Optional[AwqQuantizer] = None
+        self._src_path: Optional[str] = None
+
+    @classmethod
+    def _tree(cls, raw: Dict, sd: Dict[str, torch.Tensor], device):
+        """(text config, vision config, params) of a checkpoint."""
+        raise NotImplementedError
+
+    @classmethod
+    def _load(cls, path: str, device, quantized: bool):
+        raw, sd = _load_dir(path)
+        if not quantized:
+            sd = {k: v.float() for k, v in sd.items()}
+        qcfg = (AwqConfig.from_dict(raw["quantization_config"])
+                if "quantization_config" in raw else None)
+        if quantized and qcfg is None:
+            raise ValueError(f"{path} has no quantization_config")
+        text_cfg, vision_cfg, params = cls._tree(raw, sd, device)
+        m = cls(text_cfg, vision_cfg, raw, params, qcfg, device)
+        m._src_path = path
+        return m
+
+    @classmethod
+    def from_pretrained(cls, path: str, device=None):
+        """A float checkpoint, in float32 on the card unless ``device``
+        names another, for :meth:`quantize`."""
+        return cls._load(path, resolve_device(device), False)
+
+    @classmethod
+    def from_quantized(cls, path: str, fuse_layers: bool = False,
+                       to_device: bool = False,
+                       dtype: Optional[torch.dtype] = torch.bfloat16,
+                       device=None):
+        """A quantized checkpoint (AutoAWQ GEMM), on the card unless
+        ``device`` names another. ``fuse_layers`` fuses the language
+        model's q/k/v and gate/up (the tower stays as it is); ``to_device``
+        casts the float leaves to ``dtype`` (scales stay f32), the JAX
+        facade's knob (its load leaves the tree on the host)."""
+        from autoawq_tpu_torch.nn import fuse
+
+        m = cls._load(path, resolve_device(device), True)
+        if fuse_layers:
+            m.params["language_model"] = fuse.fuse_model(
+                m.cfg, m.params["language_model"])
+        if to_device and dtype is not None:
+            m.params = cast_params(m.params, dtype)
+        return m
+
+    def quantize(self, tokenizer=None, quant_config=None, **kw) -> None:
+        """AWQ of the language model alone on text calibration (the
+        arguments of :meth:`AwqCausalLM.quantize`)."""
+        lm = AwqCausalLM(self.cfg, self.params["language_model"], None,
+                         self.device)
+        lm.quantize(tokenizer, quant_config, **kw)
+        self.params["language_model"] = lm.params
+        self.quant_config = lm.quant_config
+        self._quantizer = lm._quantizer
+
+    def _state_dict(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def _save(self, path: str, raw: Dict) -> None:
+        if self.quant_config is None:
+            raise RuntimeError("model is not quantized")
+        os.makedirs(path, exist_ok=True)
+        serialize.copy_aux_files(self._src_path, path)
+        raw["quantization_config"] = self.quant_config.to_transformers_dict()
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(raw, f, indent=2)
+        serialize.write_safetensors(path, self._state_dict())
+
+    def _ids(self, input_ids) -> torch.Tensor:
+        ids = torch.as_tensor(input_ids, device=self.device)
+        return ids[None] if ids.dim() == 1 else ids
+
+    def _pixels(self, pixel_values) -> Optional[torch.Tensor]:
+        return (None if pixel_values is None
+                else torch.as_tensor(pixel_values, device=self.device))
+
+
+class AwqLlavaModel(_VisionLanguageModel):
+    """LLaVA-1.5 and LLaVA-NeXT (JAX ``AwqLlavaModel``,
+    ``autoawq_tpu/api.py:235-377``): the CLIP tower and projector stay
+    float, the language model is AWQ-quantized on text. The default
+    activation dtype is bf16 (the JAX facade's is f32): the kernels take
+    bf16."""
+
+    @classmethod
+    def _tree(cls, raw, sd, device):
+        from autoawq_tpu_torch.models.vision import \
+            llava_params_from_state_dict
+
+        text_cfg = ModelConfig.from_hf_dict(raw["text_config"])
+        return (text_cfg, raw["vision_config"],
+                llava_params_from_state_dict(text_cfg, sd, device))
+
+    def save_quantized(self, path: str) -> None:
+        """An AutoAWQ LLaVA directory (transformers' current key layout,
+        the source's tokenizer and processor files beside it)."""
+        raw = dict(self.raw_config)
+        raw["text_config"] = {**raw.get("text_config", {}),
+                              "autoawq_tpu_config": self.cfg.to_hf_dict()[
+                                  "autoawq_tpu_config"]}
+        self._save(path, raw)
+
+    def _state_dict(self):
+        from autoawq_tpu_torch.models.vision import \
+            llava_state_dict_from_params
+
+        return llava_state_dict_from_params(self.cfg, self.params)
+
+    def _vision_args(self) -> Dict[str, Any]:
+        r = self.raw_config
+        return dict(image_token_index=r.get("image_token_index", 32000),
+                    vision_feature_layer=r.get("vision_feature_layer", -2),
+                    vision_feature_select_strategy=r.get(
+                        "vision_feature_select_strategy", "default"))
+
+    @torch.inference_mode()
+    def __call__(self, input_ids, pixel_values=None, method: str = "auto",
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """ids [B, S] and pixels [n, 3, H, W] -> f32 logits [B, S, V]."""
+        from autoawq_tpu_torch.models.vision import llava_forward
+
+        return llava_forward(self.cfg, self.vision_cfg, self.params,
+                             self._ids(input_ids),
+                             self._pixels(pixel_values), method=method,
+                             dtype=dtype, **self._vision_args())
+
+    @torch.inference_mode()
+    def input_embeds(self, input_ids, pixel_values=None,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """The prompt's input embeds [B, S, H], vision features spliced at
+        the image tokens: ``prompt_embeds`` of ``generate`` or of an
+        engine's ``add_request``."""
+        from autoawq_tpu_torch.models.vision import llava_input_embeds
+
+        return llava_input_embeds(self.cfg, self.vision_cfg, self.params,
+                                  self._ids(input_ids),
+                                  self._pixels(pixel_values), dtype=dtype,
+                                  **self._vision_args())
+
+    @torch.inference_mode()
+    def generate(self, input_ids, pixel_values=None,
+                 max_new_tokens: int = 64,
+                 dtype: torch.dtype = torch.bfloat16, method: str = "auto",
+                 **kw) -> torch.Tensor:
+        """Image-conditioned generation: the prompt prefills from its
+        spliced embeds, decoding continues on token ids (``kw``:
+        ``serve/generate.generate``'s sampling knobs). Returns
+        [B, S + new] ids."""
+        embeds = self.input_embeds(input_ids, pixel_values, dtype=dtype)
+        return gen.generate(self.cfg, self.params["language_model"],
+                            self._ids(input_ids), max_new_tokens,
+                            prompt_embeds=embeds, dtype=dtype, method=method,
+                            **kw)
+
+
+class AwqQwen2VLModel(_VisionLanguageModel):
+    """Qwen2-VL and Qwen2.5-VL (JAX ``AwqQwen2VLModel``,
+    ``autoawq_tpu/api.py:378-576``): the float vision tower beside an
+    M-RoPE language model that AWQ quantizes on text or, with
+    ``calib_patches``, on image-conditioned prompts. No ``generate``, as
+    in JAX."""
+
+    @property
+    def _is_25(self) -> bool:
+        return self.cfg.model_type == "qwen2_5_vl"
+
+    @classmethod
+    def _tree(cls, raw, sd, device):
+        from autoawq_tpu_torch.models.qwen_vl import \
+            qwen_vl_params_from_state_dict
+
+        text_cfg = ModelConfig.from_hf_dict(raw)
+        vcfg = dict(raw["vision_config"])
+        vcfg.setdefault("in_channels", vcfg.pop("in_chans", 3))
+        return (text_cfg, vcfg,
+                qwen_vl_params_from_state_dict(text_cfg, vcfg, sd, device))
+
+    def _token_ids(self) -> Dict[str, Any]:
+        return dict(
+            image_token_id=self.raw_config.get("image_token_id", 151655),
+            video_token_id=self.raw_config.get("video_token_id"))
+
+    def quantize(self, tokenizer=None, quant_config=None,
+                 calib_patches=None, calib_grid_thw=(),
+                 calib_second_per_grid_ts=None, **kw) -> None:
+        """AWQ of the language model: on text by default; with
+        ``calib_patches`` (the stacked [sum(t*h*w), C*tps*ps*ps] patch
+        rows) and ``calib_grid_thw``, on image-conditioned prompts:
+        ``calib_data`` is then pre-tokenized [n, s] samples with their
+        placeholder runs in place, and calibration sees the tower's
+        features spliced there under the M-RoPE tables
+        (``AwqQuantizer(calib_inputs=, calib_rope=)``)."""
+        from autoawq_tpu_torch.models.qwen_vl import multimodal_calib_inputs
+
+        if calib_patches is None:
+            return super().quantize(tokenizer, quant_config, **kw)
+        if isinstance(quant_config, dict) or quant_config is None:
+            quant_config = AwqConfig.from_dict(quant_config)
+        tokens = np.asarray(kw.pop("calib_data"))
+        if tokens.ndim != 2:
+            raise ValueError(
+                "multimodal calibration needs pre-tokenized [n, s] samples "
+                "with placeholder runs aligned to calib_patches")
+        with torch.inference_mode():
+            x, cos, sin = multimodal_calib_inputs(
+                self.cfg, self.vision_cfg, self.params, tokens,
+                torch.as_tensor(calib_patches, device=self.device),
+                calib_grid_thw, second_per_grid_ts=calib_second_per_grid_ts,
+                is_25=self._is_25, device=self.device, **self._token_ids())
+        for k in ("max_calib_samples", "max_calib_seq_len"):
+            kw.pop(k, None)
+        quantizer = AwqQuantizer(
+            self.cfg, quant_config, self.params["language_model"], None,
+            calib_inputs=x, calib_rope=(cos, sin), keep_on_device=True,
+            device=self.device, **kw)
+        self.params["language_model"] = quantizer.quantize()
+        self.quant_config = quant_config
+        self._quantizer = quantizer
+
+    def save_quantized(self, path: str) -> None:
+        """An AutoAWQ Qwen2-VL directory (current key nesting, the visual
+        keys in f16, the processor files beside it)."""
+        raw = dict(self.raw_config)
+        raw["autoawq_tpu_config"] = self.cfg.to_hf_dict()[
+            "autoawq_tpu_config"]
+        self._save(path, raw)
+
+    def _state_dict(self):
+        from autoawq_tpu_torch.models.qwen_vl import \
+            qwen_vl_state_dict_from_params
+
+        return qwen_vl_state_dict_from_params(self.cfg, self.vision_cfg,
+                                              self.params)
+
+    @torch.inference_mode()
+    def __call__(self, input_ids, pixel_values=None, image_grid_thw=(),
+                 method: str = "auto",
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """Host ids [B, S], patch rows and their grids -> f32 logits."""
+        from autoawq_tpu_torch.models.qwen_vl import qwen2vl_forward
+
+        return qwen2vl_forward(
+            self.cfg, self.vision_cfg, self.params, input_ids,
+            self._pixels(pixel_values),
+            [tuple(int(x) for x in g) for g in image_grid_thw],
+            image_token_id=self._token_ids()["image_token_id"],
+            is_25=self._is_25, method=method, dtype=dtype)
+
+
+MULTIMODAL_TYPES = ("llava", "llava_next")
+QWEN_VL_TYPES = ("qwen2_vl", "qwen2_5_vl")
+
+
 class AutoAWQForCausalLM:
-    """Name-compatible dispatcher over the port's decoder zoo (multimodal
-    types raise, naming ROADMAP item 17)."""
+    """Name-compatible dispatcher on config.json's ``model_type``: LLaVA
+    and Qwen2-VL types to their facades, the decoder zoo to
+    :class:`AwqCausalLM`."""
 
     @staticmethod
-    def _check_type(path: str) -> None:
+    def _route(path: str):
         with open(os.path.join(path, "config.json")) as f:
             mt = json.load(f).get("model_type", "llama")
-        if mt in ("llava", "llava_next", "qwen2_vl", "qwen2_5_vl"):
-            raise NotImplementedError(
-                f"{mt} is not in the port yet (multimodal, ROADMAP queue 1 "
-                "item 17)")
+        if mt in MULTIMODAL_TYPES:
+            return AwqLlavaModel
+        if mt in QWEN_VL_TYPES:
+            return AwqQwen2VLModel
+        return AwqCausalLM
 
     @classmethod
-    def from_pretrained(cls, path: str, **kw) -> AwqCausalLM:
-        cls._check_type(path)
-        return AwqCausalLM.from_pretrained(path, **kw)
+    def from_pretrained(cls, path: str, **kw):
+        return cls._route(path).from_pretrained(path, **kw)
 
     @classmethod
-    def from_quantized(cls, path: str, **kw) -> AwqCausalLM:
-        cls._check_type(path)
-        return AwqCausalLM.from_quantized(path, **kw)
+    def from_quantized(cls, path: str, **kw):
+        return cls._route(path).from_quantized(path, **kw)

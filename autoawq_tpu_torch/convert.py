@@ -116,6 +116,17 @@ def _attn_from_jax(attn: Dict[str, Any], outs: Dict[str, int],
             for name, p in attn.items()}
 
 
+def _float_tree(tree, device):
+    """A vision tower or projector of the JAX tree: every array leaf to a
+    tensor, the structure kept (its linears are float ``kernel [in, out]``
+    in both packages)."""
+    if isinstance(tree, dict):
+        return {k: _float_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float_tree(v, device) for v in tree]
+    return None if tree is None else to_tensor(tree, device)
+
+
 def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """The JAX package's param tree of any architecture the port runs
@@ -125,7 +136,14 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
     ``fc2``, ``act_scale``, experts, the router's
     ``e_score_correction_bias``, shared experts and their gate), the
     learned positions, bloom's ``embed_ln`` and an lm_head with its
-    bias."""
+    bias. A multimodal tree (LLaVA's ``{"language_model", "vision_tower",
+    "projector"}`` with LLaVA-NeXT's ``"image_newline"``, or Qwen2-VL's
+    ``{"language_model", "visual"}``; ``cfg`` the text config) converts
+    its language model so and its float tower leaf by leaf. A checkpoint's
+    unmodeled tensors (``"_extra"``) come along as CPU tensors."""
+    if "language_model" in tree:
+        return {k: (from_jax_params(cfg, v, device) if k == "language_model"
+                    else _float_tree(v, device)) for k, v in tree.items()}
     outs = role_out_features(cfg)
     params: Dict[str, Any] = {
         "embed_tokens": {"weight": to_tensor(tree["embed_tokens"]["weight"],
@@ -148,4 +166,6 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
             else:
                 port[name] = _norm(sub, device)
         params["layers"].append(port)
+    if "_extra" in tree:
+        params["_extra"] = {k: to_tensor(v) for k, v in tree["_extra"].items()}
     return params

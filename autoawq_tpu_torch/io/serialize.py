@@ -3,10 +3,15 @@ tensors.
 
 Counterpart of ``autoawq_tpu/io/serialize.py`` (``copy_aux_files`` :41,
 ``save_quantized`` :103, ``write_safetensors`` :133, ``load_config``
-:166, ``from_quantized`` :233, ``from_pretrained`` :248), local
-directories only. AutoAWQ's ``version`` gemm, gemv, gemv_fast or marlin
-(the last three through ``io/interop``'s pre-pass, as JAX's :121-126 and
-:241-243; marlin symmetric only); 4-bit only. Directory layout:
+:166, ``_TrackingSD`` :178, ``_load_params_with_extras`` :216,
+``from_quantized`` :233, ``from_pretrained`` :248), local directories
+only. Tensors that the layer map does not read (phi3_v's
+``model.vision_embed_tokens.*``, stray buffers) are kept in
+``params["_extra"]`` as CPU tensors and written back by
+``save_quantized``, f32 as f16, as JAX does. AutoAWQ's ``version`` gemm,
+gemv, gemv_fast or marlin (the last three through ``io/interop``'s
+pre-pass, as JAX's :121-126 and :241-243; marlin symmetric only); 4-bit
+only. Directory layout:
 
   config.json            HF model config + ``quantization_config``
   model.safetensors      one file, or
@@ -118,6 +123,9 @@ def save_quantized(path: str, cfg: ModelConfig, qcfg: AwqConfig,
     if version in interop._CONVERTIBLE:
         sd = _convert(interop.convert_gemm_state_dict_to, sd, version,
                       qcfg.q_group_size)
+    for k, v in params.get("_extra", {}).items():  # unmodeled tensors
+        v = torch.as_tensor(v).cpu()
+        sd[k] = v.half() if v.dtype == torch.float32 else v
     write_safetensors(path, sd, shard_bytes)
 
 
@@ -160,6 +168,37 @@ def load_config(path: str) -> Tuple[ModelConfig, Optional[AwqConfig]]:
     return cfg, qcfg
 
 
+class _TrackingSD(dict):
+    """A state dict that records the keys the layer map reads."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.consumed = set()
+
+    def __getitem__(self, k):
+        self.consumed.add(k)
+        return super().__getitem__(k)
+
+    def get(self, k, default=None):
+        if k in self:
+            self.consumed.add(k)
+        return super().get(k, default)
+
+
+def _load_params_with_extras(cfg: ModelConfig, sd: Dict[str, torch.Tensor],
+                             device) -> Dict[str, Any]:
+    """``params_from_state_dict``, plus every tensor it did not read in
+    ``params["_extra"]`` (CPU tensors), so ``save_quantized`` writes them
+    back: the analogue of the reference keeping unknown submodules of the
+    HF tree it edits in place."""
+    tsd = _TrackingSD(sd)
+    params = hf_io.params_from_state_dict(cfg, tsd, device)
+    extra = {k: v for k, v in sd.items() if k not in tsd.consumed}
+    if extra:
+        params["_extra"] = extra
+    return params
+
+
 def from_quantized(path: str, device=None
                    ) -> Tuple[ModelConfig, AwqConfig, Dict[str, Any]]:
     """Load an AutoAWQ GEMM checkpoint directory into port params, on the
@@ -182,7 +221,7 @@ def from_quantized(path: str, device=None
     if version in interop._CONVERTIBLE:
         sd = _convert(interop.convert_state_dict_to_gemm, sd, version,
                       qcfg.q_group_size)
-    return cfg, qcfg, hf_io.params_from_state_dict(cfg, sd, device)
+    return cfg, qcfg, _load_params_with_extras(cfg, sd, device)
 
 
 def from_pretrained(path: str, device=None
@@ -196,4 +235,4 @@ def from_pretrained(path: str, device=None
     device = resolve_device(device)
     sd = {k: v.float() for k, v in
           hf_io.load_state_dict_from_dir(path).items()}
-    return cfg, hf_io.params_from_state_dict(cfg, sd, device)
+    return cfg, _load_params_with_extras(cfg, sd, device)

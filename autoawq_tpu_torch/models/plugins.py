@@ -84,8 +84,11 @@ def _qkv_group(inspect: str) -> ScaleGroup:
 
 
 class LlamaFamilyPlugin:
+    # the vision-language LMs quantize as their text base; the vision tower
+    # is never converted (it lives outside the LM tree)
     model_types = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2",
-                   "yi", "aquila", "stablelm", "exaone", "minicpm")
+                   "yi", "aquila", "stablelm", "exaone", "minicpm",
+                   "qwen2_vl", "qwen2_5_vl")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
@@ -159,7 +162,8 @@ class Phi3Plugin:
     (MHA only: under GQA they would be part of k, so the group is skipped),
     up of gate_up."""
 
-    model_types = ("phi3", "phimoe")
+    # phi3_v's image embedder rides params["_extra"], never converted
+    model_types = ("phi3", "phi3_v", "phimoe")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
@@ -421,9 +425,9 @@ PLUGINS: Dict[str, type] = {
     for mt in plugin.model_types}
 
 # the JAX package's other plugin types, by the ROADMAP item that ports them
-_LATER = {mt: "multimodal models, ROADMAP queue 1 item 17"
-          for mt in ("phi3_v", "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
-                     "qwen2_5_omni_thinker", "qwen2_5_omni_text")}
+_LATER = {mt: "Qwen2.5-Omni, ROADMAP queue 1 item 17b"
+          for mt in ("qwen2_5_omni", "qwen2_5_omni_thinker",
+                     "qwen2_5_omni_text")}
 
 
 def get_plugin(model_type: str):

@@ -88,14 +88,20 @@ def quantize_linear_params(p: Dict[str, Any], qcfg: AwqConfig
     return out
 
 
-def _not_yet(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP queue 1 item {item})")
+def _rows(table: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """A sample chunk's rope rows: a per-sample table [B, S, rot/2] (M-RoPE
+    calibration) is sliced with the chunk, a shared [1, S, rot/2] one is
+    not."""
+    return table if table.shape[0] == 1 else table[lo:lo + n]
 
 
 class AwqQuantizer:
     """AWQ over every layer of ``params`` (a float tree, tensors or numpy
-    arrays, on any device), calibrated on ``calib_tokens`` [n, seq_len].
+    arrays, on any device), calibrated on ``calib_tokens`` [n, seq_len], or
+    on precomputed input embeds ``calib_inputs`` [n, s, h] (a multimodal
+    prompt's: vision features spliced at the image tokens) with their rope
+    tables ``calib_rope`` = (cos, sin), [1 | n, s, rot/2] (Qwen2-VL's
+    M-RoPE), which replace the embedding lookup and the 1-D rope.
     Runs on the card unless ``device`` names another (RuntimeError with no
     card and no device). Each layer is moved to the device in turn. The
     result is on the CPU, or on the device with ``keep_on_device``. With
@@ -130,19 +136,21 @@ class AwqQuantizer:
         keep_on_device: bool = False,
         device=None,
     ):
-        if calib_inputs is not None or calib_rope is not None:
-            raise _not_yet("calibration on input embeddings (calib_inputs, "
-                           "calib_rope)", "17")
-        if calib_tokens is None:
-            raise ValueError("need calib_tokens")
+        if calib_tokens is None and calib_inputs is None:
+            raise ValueError("need calib_tokens or calib_inputs")
         modules.check_supported(cfg)
         self.cfg = cfg
         self.qcfg = qcfg
         self.params = params
-        self.calib_tokens = np.asarray(calib_tokens)
+        self.calib_tokens = (None if calib_tokens is None
+                             else np.asarray(calib_tokens))
+        self.calib_inputs = (None if calib_inputs is None
+                             else torch.as_tensor(calib_inputs))
+        self.calib_rope = calib_rope
         self.mesh = mesh
         self._ddp = mesh.size("data") if mesh is not None else 1
-        n_calib = len(self.calib_tokens)
+        n_calib = len(self.calib_tokens if self.calib_tokens is not None
+                      else self.calib_inputs)
         if self._ddp > 1 and n_calib % self._ddp:
             logging.getLogger(__name__).warning(
                 "calib sample count %d not divisible by data axis %d; "
@@ -212,18 +220,29 @@ class AwqQuantizer:
                 f"packed kernels are 4-bit only (w_bit={self.qcfg.w_bit}); "
                 "use quantize(export_compatible=True) and pack externally")
         cfg, dev = self.cfg, self.device
-        tokens = torch.from_numpy(self._local(self.calib_tokens)).to(dev)
-        # the calibration inputs of JAX's quantize(): learned positions and
-        # bloom's embedding LayerNorm, rope tables keyed on the length, and
-        # the ALiBi bias in the mask
-        emb = {k: to_device(self.params[k], dev)
-               for k in ("embed_tokens", "embed_positions", "embed_ln")
-               if k in self.params}
-        s = tokens.shape[1]
-        ar = torch.arange(s, device=dev)
-        x = modules.embed(cfg, emb, tokens, dtype=self.compute_dtype,
-                          positions=ar[None, :])
-        cos, sin = modules.rope_tables(cfg, ar[None, :], seq_len=s)
+        if self.calib_inputs is not None:  # precomputed input embeds
+            x = self._local(self.calib_inputs).to(dev, self.compute_dtype)
+            s = x.shape[1]
+            ar = torch.arange(s, device=dev)
+        else:
+            # the calibration inputs of JAX's quantize(): learned positions
+            # and bloom's embedding LayerNorm, rope tables keyed on the
+            # length, and the ALiBi bias in the mask
+            tokens = torch.from_numpy(self._local(self.calib_tokens)).to(dev)
+            emb = {k: to_device(self.params[k], dev)
+                   for k in ("embed_tokens", "embed_positions", "embed_ln")
+                   if k in self.params}
+            s = tokens.shape[1]
+            ar = torch.arange(s, device=dev)
+            x = modules.embed(cfg, emb, tokens, dtype=self.compute_dtype,
+                              positions=ar[None, :])
+        if self.calib_rope is not None:
+            cos, sin = (torch.as_tensor(t).float().to(dev)
+                        for t in self.calib_rope)
+            if cos.shape[0] > 1:  # a table a sample: this rank's samples'
+                cos, sin = self._local(cos), self._local(sin)
+        else:
+            cos, sin = modules.rope_tables(cfg, ar[None, :], seq_len=s)
         mask = modules.causal_mask(s, device=dev,
                                    sliding_window=cfg.sliding_window)
         if cfg.pos_embed == "alibi":
@@ -300,7 +319,9 @@ class AwqQuantizer:
 
         home = dev if self.keep_on_device else "cpu"
         out = to_device({k: v for k, v in self.params.items()
-                         if k != "layers"}, home)
+                         if k not in ("layers", "_extra")}, home)
+        if "_extra" in self.params:  # unmodeled tensors stay on the CPU
+            out["_extra"] = self.params["_extra"]
         out["layers"] = new_layers
         if (self.quantize_lm_head and not export_compatible
                 and self.params.get("lm_head") is not None):
@@ -387,21 +408,22 @@ class AwqQuantizer:
         and fills ``taps``. With ``n_parallel_calib_samples`` the samples
         run in chunks; with ``offload_taps`` each chunk's recorded inputs go
         to host memory at once."""
-        def run(xc):
+        def run(xc, lo):
             t: Dict[str, torch.Tensor] = {}
-            y, _ = modules.block(self.cfg, lp, xc, cos, sin, mask,
+            y, _ = modules.block(self.cfg, lp, xc, _rows(cos, lo, len(xc)),
+                                 _rows(sin, lo, len(xc)), mask,
                                  method="plain", taps=t)
             return y, (self._offload(t) if self.offload_taps else t)
 
         b = x.shape[0]
         c = self._local_chunk(b)
         if c is None:
-            y, t = run(x)
+            y, t = run(x, 0)
             taps.update(t)
             return y
         ys, chunk_taps = [], []
         for lo in range(0, b, c):
-            yc, tc = run(x[lo:lo + c])
+            yc, tc = run(x[lo:lo + c], lo)
             ys.append(yc)
             chunk_taps.append(tc)
         # one concatenation per distinct tensor, releasing the chunks' pieces
@@ -425,7 +447,8 @@ class AwqQuantizer:
             c = self._local_chunk(x.shape[0]) if x.dim() >= 3 else None
             if c is None:
                 return inspect(lp, x, cos, sin, mask)
-            return torch.cat([inspect(lp, x[lo:lo + c], cos, sin, mask)
+            return torch.cat([inspect(lp, x[lo:lo + c], _rows(cos, lo, c),
+                                      _rows(sin, lo, c), mask)
                               for lo in range(0, x.shape[0], c)])
         return run
 

@@ -11,7 +11,9 @@ the whole pool per iteration.
   decode garbage that the host discards.
 * Admission prefills one request into a scratch [1, ...] cache and copies
   that row into the slot; ``prefill_chunk_size`` instead advances a long
-  prompt one chunk per engine step (chunked prefill).
+  prompt one chunk per engine step (chunked prefill). A multimodal
+  request (``prompt_embeds``, the vision features spliced into its prompt)
+  prefills whole from its embeds; decoding continues on token ids.
 * Sampling state (temperature, top-k, top-p, repetition penalty) is per
   slot; the penalty's token presence [B, V] lives on the device. Sampling
   draws from a ``torch.Generator`` seeded from ``seed`` (Gumbel-max over the
@@ -39,9 +41,6 @@ from autoawq_tpu_torch.utils.device import resolve_device
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.serve import generate as gen
-
-_EMBEDS = ("prompt_embeds (multimodal prompts) are not in the port yet "
-           "(ROADMAP queue 1 item 17)")
 
 
 def batched_decode_step(cfg: ModelConfig, params: Dict[str, Any],
@@ -72,17 +71,21 @@ def batched_decode_step(cfg: ModelConfig, params: Dict[str, Any],
 def prefill_chunk(cfg: ModelConfig, params: Dict[str, Any],
                   tokens: torch.Tensor,
                   row_caches: List[Dict[str, torch.Tensor]], pos0: int,
-                  method: str = "auto", dtype: torch.dtype = torch.bfloat16
+                  method: str = "auto", dtype: torch.dtype = torch.bfloat16,
+                  embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """One prompt chunk tokens [1, C] at offset ``pos0`` against a
     single-request cache; returns the chunk's [1, C, V] logits (the caller
     reads the last real position; padded tail positions write cache rows
-    that decode overwrites before they are ever unmasked)."""
+    that decode overwrites before they are ever unmasked). ``embeds``
+    [1, C, H] replaces the token embedding lookup (the paged engine's
+    suffix of a multimodal prompt after its shared pages)."""
     c = tokens.shape[1]
     max_t = gen._cache_len(row_caches)
     dev = tokens.device
     positions = pos0 + torch.arange(c, device=dev)[None, :]
-    x = modules.embed(cfg, params, tokens, dtype, positions)
+    x = (embeds.to(dtype) if embeds is not None
+         else modules.embed(cfg, params, tokens, dtype, positions))
     ki = torch.arange(max_t, device=dev)[None, :]
     ok = ki <= positions[0][:, None]  # [C, T]
     if cfg.sliding_window:
@@ -117,6 +120,19 @@ def advance_one_chunk(cfg, params, st, chunk_size: int, method, dtype):
     if st["done"] >= len(req.prompt):
         return logits[:, real - 1]
     return None
+
+
+def prompt_rows(prompt_embeds, n: int, device) -> Optional[torch.Tensor]:
+    """A request's ``prompt_embeds`` as [S, H] on ``device`` ([1, S, H] is
+    squeezed); ValueError unless S is the prompt's length ``n``."""
+    if prompt_embeds is None:
+        return None
+    e = torch.as_tensor(prompt_embeds, device=device)
+    if e.dim() == 3:
+        e = e[0]
+    if e.shape[0] != n:
+        raise ValueError("prompt_embeds length != prompt length")
+    return e
 
 
 def _install_slot(caches, row_caches, slot: int):
@@ -477,9 +493,14 @@ class Request:
                  max_new_tokens: int = 128, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  repetition_penalty: float = 1.0,
-                 stop: Optional[List[List[int]]] = None):
+                 stop: Optional[List[List[int]]] = None,
+                 prompt_embeds: Optional[torch.Tensor] = None):
         self.id = req_id
         self.prompt = np.asarray(prompt).reshape(-1)
+        # a multimodal prompt: [S, H] input embeds (vision features spliced
+        # at the image-token positions) replace the token embedding lookup
+        # at prefill; decoding stays on token ids
+        self.prompt_embeds = prompt_embeds
         self.max_new_tokens = max_new_tokens
         self.temperature = float(temperature)
         self.top_k = top_k
@@ -563,14 +584,13 @@ class BatchingEngine(SamplingSlots):
                     repetition_penalty: float = 1.0,
                     stop: Optional[List[List[int]]] = None,
                     prompt_embeds=None):
-        if prompt_embeds is not None:
-            raise NotImplementedError(_EMBEDS)
         prompt = np.asarray(prompt).reshape(-1)
         if len(prompt) >= self.max_seq:
             raise ValueError("prompt longer than max_seq_len")
+        prompt_embeds = prompt_rows(prompt_embeds, len(prompt), self.device)
         self.queue.append(Request(req_id, prompt, max_new_tokens,
                                   temperature, top_k, top_p,
-                                  repetition_penalty, stop))
+                                  repetition_penalty, stop, prompt_embeds))
 
     def _new_row(self):
         return gen.init_kv_cache(self.cfg, 1, self.max_seq, self.dtype,
@@ -586,13 +606,16 @@ class BatchingEngine(SamplingSlots):
                     or not self.queue):
                 continue
             req = self.queue.popleft()
-            if self.chunk is None:
+            if self.chunk is None or req.prompt_embeds is not None:
+                # an embeds prompt prefills whole, as in JAX
                 row = self._new_row()
+                embeds = (None if req.prompt_embeds is None
+                          else req.prompt_embeds[None])
                 logits, row = gen.prefill(
                     self.cfg, self.params,
                     torch.as_tensor(req.prompt[None], dtype=torch.long,
                                     device=self.device),
-                    row, self.method, self.dtype)
+                    row, self.method, self.dtype, embeds=embeds)
                 self._activate(slot, req, row, logits)
             else:  # reserve the slot; chunks advance one per engine step
                 self.inflight[slot] = {"req": req, "row": self._new_row(),

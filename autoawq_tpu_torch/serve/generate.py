@@ -117,16 +117,21 @@ def _run_blocks(cfg, params, x, positions, mask, caches, pos, method,
 
 def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
             caches: List[Dict[str, torch.Tensor]], method: str = "auto",
-            dtype: torch.dtype = torch.bfloat16
+            dtype: torch.dtype = torch.bfloat16,
+            embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Process the prompt [B, S]; returns (last-position logits [B, V] f32,
     caches filled at positions 0..S-1). With a sliding window or ALiBi the
-    prompt attends over the cache under its mask (no K4), as in JAX."""
+    prompt attends over the cache under its mask (no K4), as in JAX.
+    ``embeds`` [B, S, H] replaces the token embedding lookup (a multimodal
+    prompt: vision features spliced at the image-token positions); the
+    blocks, K4 among them, take it as they take a token prompt."""
     modules.check_supported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :]
-    x = modules.embed(cfg, params, tokens, dtype, positions)
+    x = (embeds.to(dtype) if embeds is not None
+         else modules.embed(cfg, params, tokens, dtype, positions))
     causal_prefill = modules.causal_prefill_ok(cfg)
     t = s if causal_prefill else _cache_len(caches)
     mask = modules.causal_mask(s, t, device=dev,
@@ -144,14 +149,17 @@ def prefill(cfg: ModelConfig, params: Dict[str, Any], tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Dict[str, Any],
                 token: torch.Tensor, caches: List[Dict[str, torch.Tensor]],
                 pos: int, method: str = "auto",
-                dtype: torch.dtype = torch.bfloat16
+                dtype: torch.dtype = torch.bfloat16,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """One decode step for token [B, 1] at position ``pos`` (the number of
-    tokens already cached); returns (logits [B, V] f32, caches)."""
+    tokens already cached); returns (logits [B, V] f32, caches). ``embeds``
+    [B, 1, H] replaces the token's embedding row."""
     max_t = _cache_len(caches)
     dev = token.device
     positions = torch.full((1, 1), pos, device=dev)
-    x = modules.embed(cfg, params, token, dtype, positions)
+    x = (embeds.to(dtype) if embeds is not None
+         else modules.embed(cfg, params, token, dtype, positions))
     mask = modules.causal_mask(1, max_t, offset=pos, device=dev,
                                sliding_window=cfg.sliding_window)
     if cfg.pos_embed == "alibi":
@@ -232,11 +240,14 @@ def generate(cfg: ModelConfig, params: Dict[str, Any], prompt: torch.Tensor,
              eos_token_id: Optional[int] = None,
              max_seq_len: Optional[int] = None, method: str = "auto",
              dtype: torch.dtype = torch.bfloat16, kv_quant: bool = False,
-             stream_callback=None) -> torch.Tensor:
+             stream_callback=None,
+             prompt_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Python-loop generation; returns [B, S + new] token ids. A
     ``max_seq_len`` below S + new evicts the oldest ``ROLL_STEP`` cached
     rows whenever the cache is full (``roll_kv``); the rope positions
-    restart from the rolled offset, as in JAX."""
+    restart from the rolled offset, as in JAX. ``prompt_embeds`` [B, S, H]
+    prefills from precomputed input embeds (a multimodal prompt); decoding
+    continues on token ids."""
     b, s = prompt.shape
     total = max_seq_len or (s + max_new_tokens)
     if total < s:
@@ -248,7 +259,8 @@ def generate(cfg: ModelConfig, params: Dict[str, Any], prompt: torch.Tensor,
                          f"{ROLL_STEP}, got {total}")
     dev = prompt.device
     caches = init_kv_cache(cfg, b, total, dtype, dev, kv_quant=kv_quant)
-    logits, caches = prefill(cfg, params, prompt, caches, method, dtype)
+    logits, caches = prefill(cfg, params, prompt, caches, method, dtype,
+                             embeds=prompt_embeds)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out = [prompt]

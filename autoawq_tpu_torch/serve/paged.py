@@ -34,8 +34,11 @@ per-slot retirement, one decode step for the pool). Specifics:
   scales for the two parts (``c_page_s`` [1, P, ps, 2]) and dequantizes
   cached prefix pages on gather.
 
-Multimodal ``prompt_embeds`` raise ``NotImplementedError`` (ROADMAP queue 1
-item 17).
+* A multimodal request (``prompt_embeds`` [S, H]) prefills whole from its
+  embeds (no chunking); each page's chain hash also covers a digest of its
+  embed rows, taken from one host copy at ``add_request``, so a repeated
+  image shares pages and a different image behind the same placeholder ids
+  does not. The suffix after shared pages prefills from its embed rows.
 """
 
 from __future__ import annotations
@@ -50,10 +53,10 @@ from autoawq_tpu_torch.utils.device import resolve_device
 from autoawq_tpu_torch.models.config import ModelConfig
 from autoawq_tpu_torch.nn import modules
 from autoawq_tpu_torch.serve import generate as gen
-from autoawq_tpu_torch.serve.batching import (_EMBEDS, Request,
-                                              SamplingSlots,
+from autoawq_tpu_torch.serve.batching import (Request, SamplingSlots,
                                               advance_one_chunk,
-                                              decode_burst, prefill_chunk)
+                                              decode_burst, prefill_chunk,
+                                              prompt_rows)
 
 ROUTES = ("bespoke", "stock", "gather")
 
@@ -101,6 +104,17 @@ def paged_decode_burst(cfg: ModelConfig, params: Dict[str, Any],
     return decode_burst(step, page_caches, tokens, pos, generator, pres,
                         temp, topk, topp, penalty, n=n, tracking=tracking,
                         sampling=sampling, want_lp=want_lp, want_top=want_top)
+
+
+def _page_digests(embeds: torch.Tensor, ps: int) -> List[bytes]:
+    """SHA-1 of each full page's embed rows [ps, H], from one host copy of
+    the request's [S, H] embeds (their raw bytes, whatever the dtype)."""
+    import hashlib
+
+    raw = embeds.detach().cpu().contiguous()
+    raw = raw.view(torch.uint8).reshape(raw.shape[0], -1).numpy()
+    return [hashlib.sha1(raw[i * ps:(i + 1) * ps].tobytes()).digest()
+            for i in range(raw.shape[0] // ps)]
 
 
 # pool key <-> contiguous-row key; the scale entries exist only in int8
@@ -249,26 +263,34 @@ class PagedBatchingEngine(SamplingSlots):
                     repetition_penalty: float = 1.0,
                     stop: Optional[List[List[int]]] = None,
                     prompt_embeds=None):
-        if prompt_embeds is not None:
-            raise NotImplementedError(_EMBEDS)
         prompt = np.asarray(prompt).reshape(-1)
+        prompt_embeds = prompt_rows(prompt_embeds, len(prompt), self.device)
         budget = len(prompt) + max_new_tokens + 1
         if budget > self.pps * self.ps:
             raise ValueError(
                 f"prompt+budget {budget} exceeds pages_per_seq*page_size "
                 f"({self.pps * self.ps})")
-        self.queue.append(Request(req_id, prompt, max_new_tokens,
-                                  temperature, top_k, top_p,
-                                  repetition_penalty, stop))
+        req = Request(req_id, prompt, max_new_tokens, temperature, top_k,
+                      top_p, repetition_penalty, stop, prompt_embeds)
+        req.page_digests = (None if prompt_embeds is None
+                            else _page_digests(prompt_embeds, self.ps))
+        self.queue.append(req)
 
     # ------------------------------------------------------ prefix cache
     @staticmethod
-    def _page_chain_hashes(prompt: np.ndarray, ps: int,
-                           max_pages: int) -> List[int]:
-        """Chain hashes of the first ``max_pages`` full pages."""
+    def _page_chain_hashes(prompt: np.ndarray, ps: int, max_pages: int,
+                           digests: Optional[List[bytes]] = None
+                           ) -> List[int]:
+        """Chain hashes of the first ``max_pages`` full pages; a multimodal
+        prompt's keys add each page's embed digest (``_page_digests``):
+        every LLaVA prompt carries the same image placeholder ids, so only
+        bit-equal embeds share a page."""
         out, h = [], 0
         for i in range(max_pages):
-            h = hash((h, tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])))
+            key: Any = tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])
+            if digests is not None:
+                key = (key, digests[i])
+            h = hash((h, key))
             out.append(h)
         return out
 
@@ -322,8 +344,8 @@ class PagedBatchingEngine(SamplingSlots):
             chain: List[int] = []
             if self.prefix_enabled:
                 max_sharable = (len(req.prompt) - 1) // self.ps
-                chain = self._page_chain_hashes(req.prompt, self.ps,
-                                                max_sharable)
+                chain = self._page_chain_hashes(
+                    req.prompt, self.ps, max_sharable, req.page_digests)
                 for h in chain:
                     pid = self.prefix_cache.get(h)
                     if pid is None:
@@ -356,10 +378,11 @@ class PagedBatchingEngine(SamplingSlots):
                 self.prefix_hits += 1
                 self.prefix_pages_reused += n_shared
 
-            if self.chunk is not None:
-                # chunking starts at the shared-prefix boundary (a page
-                # multiple, not always a chunk multiple): the row reaches
-                # the last chunk's end
+            if self.chunk is not None and req.prompt_embeds is None:
+                # an embeds prompt prefills whole, as in JAX; chunking
+                # starts at the shared-prefix boundary (a page multiple,
+                # not always a chunk multiple): the row reaches the last
+                # chunk's end
                 lo0 = n_shared * self.ps
                 suffix_len = len(req.prompt) - lo0
                 t_row = lo0 + max(-(-suffix_len // self.chunk) * self.chunk,
@@ -388,18 +411,26 @@ class PagedBatchingEngine(SamplingSlots):
                 pad_to = -(-real // self.ps) * self.ps
                 if pad_to > real:
                     suffix = np.pad(suffix, (0, pad_to - real))
+                emb = None
+                if req.prompt_embeds is not None:  # the suffix's rows
+                    emb = torch.nn.functional.pad(
+                        req.prompt_embeds[n_shared * self.ps:],
+                        (0, 0, 0, pad_to - real))[None]
                 logits, row = prefill_chunk(
                     self.cfg, self.params,
                     torch.as_tensor(suffix[None], dtype=torch.long,
                                     device=self.device),
-                    row, n_shared * self.ps, self.method, self.dtype)
+                    row, n_shared * self.ps, self.method, self.dtype,
+                    embeds=emb)
                 logits = logits[:, real - 1]
             else:
                 logits, row = gen.prefill(
                     self.cfg, self.params,
                     torch.as_tensor(req.prompt[None], dtype=torch.long,
                                     device=self.device),
-                    row, self.method, self.dtype)
+                    row, self.method, self.dtype,
+                    embeds=(None if req.prompt_embeds is None
+                            else req.prompt_embeds[None]))
             self._finish_admission(slot, req, row, logits, pages, chain,
                                    n_shared)
 

@@ -206,8 +206,9 @@ class SpeculativeBatchingEngine(BatchingEngine):
     verifies with the target: per-slot acceptance, any mix of greedy and
     sampled requests. The target admits as ``BatchingEngine`` does (chunked
     prefill, int8 caches, MLA latent caches); the draft, small by design,
-    prefills each prompt whole at activation. ``prompt_embeds`` raises, as
-    in the plain engine (ROADMAP queue 1 item 17)."""
+    prefills each prompt whole at activation. A ``prompt_embeds`` request
+    prefills the target from its embeds and the draft, which has its own
+    width, from the prompt's ids (placeholder ids at the image rows)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  draft_cfg: ModelConfig, draft_params: Dict[str, Any],

@@ -48,9 +48,12 @@ def iter_linears(tree: Dict[str, Any], prefix: str = ""):
 
 def to_device(tree, device, float_dtype: Optional[torch.dtype] = None):
     """A new tree with every array leaf (tensor or numpy) on ``device``,
-    float leaves cast to ``float_dtype`` where given."""
+    float leaves cast to ``float_dtype`` where given. A checkpoint's
+    unmodeled tensors (``params["_extra"]``, CPU tensors that no linear
+    reads and ``save_quantized`` writes back) stay as they are."""
     if isinstance(tree, dict):
-        return {k: to_device(v, device, float_dtype) for k, v in tree.items()}
+        return {k: v if k == "_extra" else to_device(v, device, float_dtype)
+                for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device, float_dtype) for v in tree]
     if isinstance(tree, np.ndarray):

@@ -341,8 +341,38 @@ Phases, each printing JSON lines:
               V2-Lite's f32 expert choice replayed. Then K2 at Mistral's
               unfused linears at M = 512 and K1 at an MPT-7B rank's under
               tensor 2, timed with bounds and library calls.
-13. a ``kernels`` line: every ported kernel with launches, error and times
-   (the mla_moe phase's K6 and K8 rows after the eleven).
+13. multimodal — vision-language models (seeded W4 g128 language models
+              with zero points and float bf16 towers drawn on the card,
+              seeded pixels). Traffic Q: LLaVA-1.5-7B
+              (``llava-hf/llava-1.5-7b-hf``'s config: CLIP ViT-L/14-336 at
+              full depth, the GELU projector, Llama-2-7B at
+              ``LLAVA_DEPTH`` (8) of 32 layers, fused). (a)
+              ``AwqLlavaModel.generate`` on one 336 x 336 image: 4 text +
+              576 image + 20 text tokens at bs1, 64 greedy new tokens;
+              launches held exactly (a prefill K2 32, K4 8; a decode step
+              K1 16, K3 8) and the teacher-forced rule over 8 steps from
+              the prompt's embeds (the f32 run's embeds from the tower in
+              f32). (b) The paged engine (H's pool with 11 pages a slot)
+              over four ``prompt_embeds`` requests, two sharing the image
+              and its text prefix: prefix hits held (1, 9 pages), a step's
+              launches held (K7 8, K1 16, K3 8), each stream equal to
+              ``generate``'s for its prompt or parting at a bf16 near tie
+              of the f32 twin. Traffic Z: Qwen2-VL-7B-Instruct
+              (``Qwen/Qwen2-VL-7B-Instruct``'s config, qkv bias, M-RoPE;
+              the tower at full depth, the language model at
+              ``QWEN_VL_DEPTH`` (4) of 28 layers). (a)
+              ``AwqQwen2VLModel.__call__`` on one 448 x 448 image (grid 1 x
+              32 x 32: 256 image rows of 296), K2 16 held, logits by the
+              rule against the plain path; (b) image-conditioned AWQ of 1
+              layer at full width on 8 such prompts (``calib_patches``):
+              seconds by part, peak memory, AWQ's mean KL at or below
+              RTN's on 2 held-out image prompts, then ``save_quantized`` /
+              ``from_quantized`` with logits equal to the in-memory
+              model's. Then K2 at both models' linears (M = 600 and 296),
+              K4 at Q's prefill, K1 and K3 at Llama-2-7B's decode.
+14. a ``kernels`` line: every ported kernel with launches, error and times
+   (the mla_moe phase's K6 and K8 rows after the eleven, then the train
+   and multimodal phases' rows).
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -382,7 +412,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe", "serve", "train", "parallel", "pipeline")
+          "mla_moe", "serve", "train", "parallel", "pipeline", "multimodal")
 EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
                 "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -629,6 +659,46 @@ KERNEL_META = {
 # adapter gradient's relative L2 distance from an f32 plain step within
 # twice the bf16 plain step's plus a floor of 1e-2 (about 2.5 bf16 ulps of
 # rounding carried through the layers); the same for the loss. Traffic Y's
+# LLaVA-1.5-7B: llava-hf/llava-1.5-7b-hf's config.json (CLIP ViT-L/14-336,
+# the 1024 -> 4096 -> 4096 GELU projector, Llama-2-7B)
+LLAVA_15_7B = dict(
+    model_type="llava", image_token_index=32000, projector_hidden_act="gelu",
+    vision_feature_layer=-2, vision_feature_select_strategy="default",
+    text_config=dict(model_type="llama", vocab_size=32064, hidden_size=4096,
+                     intermediate_size=11008, num_hidden_layers=32,
+                     num_attention_heads=32, num_key_value_heads=32,
+                     max_position_embeddings=4096, rms_norm_eps=1e-5,
+                     rope_theta=10000.0),
+    vision_config=dict(model_type="clip_vision_model", hidden_size=1024,
+                       intermediate_size=4096, num_hidden_layers=24,
+                       num_attention_heads=16, patch_size=14, image_size=336,
+                       hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                       projection_dim=768))
+# Qwen2-VL-7B-Instruct: Qwen/Qwen2-VL-7B-Instruct's config.json
+QWEN2_VL_7B = dict(
+    model_type="qwen2_vl", vocab_size=152064, hidden_size=3584,
+    intermediate_size=18944, num_hidden_layers=28, num_attention_heads=28,
+    num_key_value_heads=4, hidden_act="silu", max_position_embeddings=32768,
+    rms_norm_eps=1e-6, rope_theta=1e6, sliding_window=32768,
+    use_sliding_window=False, max_window_layers=28, tie_word_embeddings=False,
+    image_token_id=151655, video_token_id=151656,
+    vision_start_token_id=151652,
+    rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+    vision_config=dict(depth=32, embed_dim=1280, hidden_size=3584,
+                       num_heads=16, mlp_ratio=4, patch_size=14,
+                       temporal_patch_size=2, spatial_merge_size=2,
+                       in_chans=3, hidden_act="quick_gelu"))
+# the multimodal phase's cuts: the language models' depth (the towers run
+# at full depth), as Mistral's e2e traffics are cut
+LLAVA_DEPTH = 8
+QWEN_VL_DEPTH = 4
+QWEN_VL_QUANT_LAYERS = 1  # Z's image-conditioned AWQ, the quantize cuts'
+LLAVA_PROMPT = (4, 20)  # text tokens before and after Q's 576 image tokens
+LLAVA_NEW = 64
+LLAVA_TF_STEPS = 8
+QWEN_VL_GRID = (1, 32, 32)  # one 448 x 448 image: 1,024 patches, 256 rows
+QWEN_VL_TEXT = (14, 24)  # text around <|vision_start|> image <|vision_end|>
+QWEN_VL_CALIB = 8  # Z's image-conditioned calibration samples
 # f32 latent decode (the absorbed kv_b with its adapter folded) is held
 # against the f32 materialized forward at 1e-3 of the logit scale: the two
 # differ by f32 summation order alone (the CPU tests read ~1e-6), while a
@@ -1749,11 +1819,13 @@ def _paged_split_cases(gen, dev):
                     timing=False, **kw)
 
 
-def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
+def _teacher_forced(cfg, params, prompt, steps, kv_quant=False,
+                    embeds=None):
     """Kernel path (bf16), plain twins (bf16) and plain twins in f32 on the
     same tokens, all three with the same cache type: prefill logits, then
     ``steps`` decode steps fed the kernel path's greedy tokens. Returns
-    per-position errors against f32."""
+    per-position errors against f32. ``embeds`` ({dtype: [B, S, H]}) is a
+    multimodal prompt's input embeds, computed in each run's dtype."""
     import torch
 
     from autoawq_tpu_torch.serve import generate as gen
@@ -1765,7 +1837,9 @@ def _teacher_forced(cfg, params, prompt, steps, kv_quant=False):
     caches = {k: gen.init_kv_cache(cfg, b, s + steps, dt, prompt.device,
                                    kv_quant=kv_quant)
               for k, (_, dt) in runs.items()}
-    logits = {k: gen.prefill(cfg, params, prompt, caches[k], m, dt)[0]
+    logits = {k: gen.prefill(cfg, params, prompt, caches[k], m, dt,
+                             embeds=None if embeds is None
+                             else embeds[dt])[0]
               for k, (m, dt) in runs.items()}
     rows = []
     for step in range(steps + 1):
@@ -7196,6 +7270,534 @@ def phase_pipeline(dev):
     _pipeline_kernel_rows(dev)
 
 
+# ------------------------------------------------------------ multimodal
+
+def synth_vision_on_card(kind, vcfg, out_hidden, seed, dev):
+    """Seeded float bf16 weights of a vision tower (and LLaVA's projector),
+    drawn on the card by a torch.Generator: linears std 0.02 with biases,
+    LayerNorms of ones with zero biases. ``kind`` "clip" (LLaVA's CLIP
+    ViT; returns (tower, projector) to ``out_hidden``) or "qwen2_vl"
+    (returns the tower, its PatchMerger ending at ``vcfg["hidden_size"]``)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+
+    def n(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(bf)
+
+    def lin(k, m):
+        return {"kernel": n(k, m), "bias": n(m)}
+
+    def ln(h):
+        return {"weight": torch.ones(h, dtype=bf, device=dev),
+                "bias": torch.zeros(h, dtype=bf, device=dev)}
+
+    if kind == "clip":
+        h, ps = vcfg["hidden_size"], vcfg["patch_size"]
+        inter = vcfg["intermediate_size"]
+        tower = {
+            "class_embedding": n(h),
+            "patch_embedding": {"weight": n(h, 3, ps, ps)},
+            "position_embedding": {
+                "weight": n((vcfg["image_size"] // ps) ** 2 + 1, h)},
+            "pre_layernorm": ln(h), "post_layernorm": ln(h),
+            "layers": [{"layer_norm1": ln(h), "layer_norm2": ln(h),
+                        **{k: lin(h, h) for k in ("q_proj", "k_proj",
+                                                  "v_proj", "out_proj")},
+                        "fc1": lin(h, inter), "fc2": lin(inter, h)}
+                       for _ in range(vcfg["num_hidden_layers"])]}
+        return tower, {"linear_1": lin(h, out_hidden),
+                       "linear_2": lin(out_hidden, out_hidden)}
+    e, ps = vcfg["embed_dim"], vcfg["patch_size"]
+    rows = vcfg.get("in_chans", 3) * vcfg["temporal_patch_size"] * ps * ps
+    mlp = e * vcfg["mlp_ratio"]
+    m = e * vcfg["spatial_merge_size"] ** 2
+    return {"patch_embed": {"kernel": n(rows, e)},
+            "blocks": [{"norm1": ln(e), "norm2": ln(e),
+                        "qkv": lin(e, 3 * e), "proj": lin(e, e),
+                        "fc1": lin(e, mlp), "fc2": lin(mlp, e)}
+                       for _ in range(vcfg["depth"])],
+            "merger": {"ln_q": ln(e), "mlp0": lin(m, m),
+                       "mlp2": lin(m, vcfg["hidden_size"])}}
+
+
+def _text_ids(gen, n, vocab, avoid):
+    """``n`` seeded token ids below ``vocab``, none of them in ``avoid``."""
+    import torch
+
+    ids = torch.randint(0, vocab, (n,), device=gen.device, generator=gen)
+    for a in avoid:
+        ids = torch.where(ids == a, torch.zeros_like(ids), ids)
+    return ids
+
+
+def _embeds_twins(cfg, lm, e16, e32, seq):
+    """The plain twins' forwards over a multimodal prompt (its input embeds
+    in bf16 and f32) followed by the generated tokens ``seq`` [T]: [S + T,
+    V] f32 logits each, row t scoring the token after t."""
+    import torch
+
+    from autoawq_tpu_torch.models.vision import lm_forward
+    from autoawq_tpu_torch.nn import modules
+
+    out = []
+    for e, dt in ((e16, torch.bfloat16), (e32, torch.float32)):
+        x = torch.cat([e.to(dt), modules.embed(cfg, lm, seq[None], dt)],
+                      dim=1)
+        out.append(lm_forward(cfg, lm, x, "plain")[0].float())
+    return out
+
+
+def _stream_near_tie(name, s, got, want, twins):
+    """Two greedy streams of one multimodal prompt (S = ``s`` rows): equal,
+    or parting first at generated token p >= 1 at a bf16 near tie of the
+    f32 twin's row there (the same prefix on both): both tokens within the
+    teacher-forced rule's allowance (twice the bf16 twin's distance from
+    f32, plus 1e-3, of the row's scale) of the row's maximum. Returns the
+    record."""
+    diff = [j for j, (x, y) in enumerate(zip(got, want)) if x != y]
+    check(len(got) == len(want), f"{name}: {len(got)} tokens, expected "
+          f"{len(want)}")
+    rec = {"equal": not diff}
+    if not diff:
+        return rec
+    p = diff[0]
+    check(p >= 1, f"{name}: the first token, from the prefill, differs")
+    if p < 1:
+        return rec
+    b16, f32 = twins
+    t = s + p - 1
+    f = f32[t]
+    scale = float(f.abs().max())
+    allow = 2 * float((b16[t] - f).abs().max()) + 1e-3 * scale
+    top = float(f.max())
+    rec.update(first_difference=p, got_token=got[p], want_token=want[p],
+               got_gap=top - float(f[got[p]]),
+               want_gap=top - float(f[want[p]]), allowance=allow)
+    check(rec["got_gap"] <= allow and rec["want_gap"] <= allow,
+          f"{name}: the streams part at generated token {p} without a "
+          f"bf16 near tie: {rec}")
+    return rec
+
+
+def _llava_traffic(dev):
+    """Traffic Q (LLaVA-1.5-7B): (a) ``AwqLlavaModel.generate`` on one
+    image, (b) the paged engine over four ``prompt_embeds`` requests.
+    Returns (launches of the run, launches per decode step)."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.api import AwqLlavaModel
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve import paged
+
+    raw = LLAVA_15_7B
+    vcfg = raw["vision_config"]
+    cfg = ModelConfig.from_hf_dict(raw["text_config"])
+    full = cfg.num_hidden_layers
+    cfg = dataclasses.replace(cfg, num_hidden_layers=LLAVA_DEPTH)
+    t = time.perf_counter()
+    lm = synth_zoo_on_card(cfg, 0, dev)
+    tower, proj = synth_vision_on_card("clip", vcfg, cfg.hidden_size, 1,
+                                       dev)
+    model = AwqLlavaModel(cfg, vcfg, raw, {"language_model": lm,
+                                           "vision_tower": tower,
+                                           "projector": proj}, None, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "multimodal", "traffic": "Q", "step": "synth",
+          "cut": f"language model depth {LLAVA_DEPTH} of {full} layers, "
+                 "published width; the CLIP tower at full depth",
+          "seconds": time.perf_counter() - t,
+          "allocated_bytes": torch.cuda.memory_allocated()})
+    img_tok = raw["image_token_index"]
+    n_img = (vcfg["image_size"] // vcfg["patch_size"]) ** 2
+    pre, post = LLAVA_PROMPT
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+
+    def prompt(head, tail):
+        return torch.cat([head, torch.full((n_img,), img_tok, device=dev),
+                          tail])[None]
+
+    def text(n):
+        return _text_ids(g, n, cfg.vocab_size, (img_tok,))
+
+    head = text(pre)
+    ids_a = prompt(head, text(post))
+    pix = [torch.randn(1, 3, vcfg["image_size"], vcfg["image_size"],
+                       device=dev, generator=g) for _ in range(3)]
+    s = ids_a.shape[1]
+    L, new = LLAVA_DEPTH, LLAVA_NEW
+
+    # (a) generate on one image: K2 and K4 in the prefill, K1 and K3 a step
+    t = time.perf_counter()
+    e16 = model.input_embeds(ids_a, pix[0])
+    torch.cuda.synchronize()
+    t_vision = time.perf_counter() - t
+    _build.reset_launches()
+    t = time.perf_counter()
+    out_a = model.generate(ids_a, pix[0], max_new_tokens=new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    check(tuple(out_a.shape) == (1, s + new), "traffic Q output shape")
+    cache = gen.init_kv_cache(cfg, 1, s + 1, torch.bfloat16, dev)
+    _build.reset_launches()
+    logits, _ = gen.prefill(cfg, lm, ids_a, cache, embeds=e16)
+    torch.cuda.synchronize()
+    per_prefill = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    gen.decode_step(cfg, lm, logits.argmax(-1)[:, None], cache, s)
+    torch.cuda.synchronize()
+    per_step = dict(_build.LAUNCHES)
+    del cache
+    _check_launches("Q prefill", per_prefill,
+                    {"w4a16_gemm": 4 * L, "prefill_attention": L,
+                     "w4a16_gemv": 0, "fused_mlp": 0})
+    _check_launches("Q decode step", per_step,
+                    {"w4a16_gemv": 2 * L, "fused_mlp": L,
+                     "fused_attn_step": 0, "w4a16_gemm": 0})
+    _check_launches("Q generate", launches, {
+        k: per_prefill.get(k, 0) + (new - 1) * per_step.get(k, 0)
+        for k in set(per_prefill) | set(per_step)})
+    e32 = model.input_embeds(ids_a, pix[0], dtype=torch.float32)
+    rows = _teacher_forced(cfg, lm, ids_a, LLAVA_TF_STEPS,
+                           embeds={torch.bfloat16: e16,
+                                   torch.float32: e32})
+    _check_teacher_forced("Q", rows)
+    emit({"phase": "multimodal", "traffic": "Q", "card": card(),
+          "prompt": {"text_before": pre, "image_tokens": n_img,
+                     "text_after": post, "rows": s},
+          "new_tokens": new, "vision_embeds_s": t_vision,
+          "generate_s": t_gen, "launches": launches,
+          "launches_per_prefill": per_prefill,
+          "launches_per_decode_step": per_step,
+          "kernel_vs_plain": rows})
+
+    # (b) the paged engine: A and B share the image and its text prefix,
+    # C has A's ids and another image, D other text and a third image
+    ids = {"A": ids_a, "B": prompt(head, text(post)),
+           "C": ids_a, "D": prompt(text(pre), text(post))}
+    imgs = {"A": pix[0], "B": pix[0], "C": pix[1], "D": pix[2]}
+    emb = {r: model.input_embeds(ids[r], imgs[r]) for r in ids}
+    ps = PAGED_POOL["page_size"]
+    pool = dict(PAGED_POOL, pages_per_seq=-(-(s + new + 1) // ps))
+    eng = paged.PagedBatchingEngine(cfg, lm, **pool)
+    for r in ids:
+        eng.add_request(r, ids[r][0].cpu().numpy(), new,
+                        prompt_embeds=emb[r][0])
+    _build.reset_launches()
+    eng.step()  # every admission, and the first decode step
+    torch.cuda.synchronize()
+    engine_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    eng.step()
+    torch.cuda.synchronize()
+    paged_step = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    streams = eng.run()
+    torch.cuda.synchronize()
+    for part in (paged_step, _build.LAUNCHES):
+        for k, n in part.items():
+            engine_launches[k] = engine_launches.get(k, 0) + n
+    _check_launches("Q paged step", paged_step,
+                    {"paged_attn": L, "w4a16_gemv": 2 * L, "fused_mlp": L,
+                     "paged_attn_stock": 0, "fused_attn_step": 0})
+    shared = min((pre + n_img) // ps, (s - 1) // ps)
+    check((eng.prefix_hits, eng.prefix_pages_reused) == (1, shared),
+          f"traffic Q paged: prefix hits {eng.prefix_hits}, pages reused "
+          f"{eng.prefix_pages_reused}; expected 1 and {shared}")
+    recs = {}
+    for r in ids:
+        want = (out_a if r == "A" else model.generate(
+            ids[r], imgs[r], max_new_tokens=new))[0, s:].tolist()
+        got = [int(x) for x in streams[r]]
+        twins = None
+        if got != want:
+            twins = _embeds_twins(
+                cfg, lm, emb[r],
+                model.input_embeds(ids[r], imgs[r], dtype=torch.float32),
+                torch.tensor(got[:-1], device=dev))
+        recs[r] = _stream_near_tie(f"traffic Q paged {r}", s, got, want,
+                                   twins)
+    emit({"phase": "multimodal", "traffic": "Q paged", "pool": pool,
+          "prefix_hits": eng.prefix_hits,
+          "prefix_pages_reused": eng.prefix_pages_reused,
+          "launches": engine_launches, "launches_per_step": paged_step,
+          "vs_generate": recs})
+    del eng, model, lm, tower, proj
+    torch.cuda.empty_cache()
+    total = {k: launches.get(k, 0) + engine_launches.get(k, 0)
+             for k in set(launches) | set(engine_launches)}
+    return total, {"Q": per_step, "Q paged": paged_step}
+
+
+def _qwen_vl_prompt(gen, raw, vcfg, grid, dev):
+    """One Qwen2-VL prompt: text, <|vision_start|>, the image's
+    placeholders (t * h * w / merge^2), <|vision_end|>, text; and its
+    seeded patch rows [t * h * w, C * tps * ps * ps]."""
+    import torch
+
+    t, h, w = grid
+    n = t * h * w // vcfg["spatial_merge_size"] ** 2
+    pre, post = QWEN_VL_TEXT
+    special = (raw["image_token_id"], raw["video_token_id"],
+               raw["vision_start_token_id"], raw["vision_start_token_id"] + 1)
+    ids = torch.cat([
+        _text_ids(gen, pre, raw["vocab_size"], special),
+        torch.tensor([special[2]], device=dev),
+        torch.full((n,), raw["image_token_id"], device=dev),
+        torch.tensor([special[3]], device=dev),
+        _text_ids(gen, post, raw["vocab_size"], special)])
+    rows = 3 * vcfg["temporal_patch_size"] * vcfg["patch_size"] ** 2
+    patches = torch.randn(t * h * w, rows, device=dev, generator=gen)
+    return ids.cpu().numpy()[None], patches
+
+
+def _kl_mean(ref, test):
+    """Mean over rows of KL(softmax(ref) || softmax(test))."""
+    import torch
+
+    pr = torch.log_softmax(ref.float(), -1)
+    pt = torch.log_softmax(test.float(), -1)
+    return float((torch.exp(pr) * (pr - pt)).sum(-1).mean())
+
+
+def _qwen_vl_traffic(dev):
+    """Traffic Z (Qwen2-VL-7B-Instruct): (a) ``AwqQwen2VLModel.__call__``
+    on one image against the plain path, (b) image-conditioned AWQ of one
+    layer with its KL gate and a save / reload round trip. Returns the
+    launches of (a)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.api import AwqQwen2VLModel
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.models.qwen_vl import multimodal_calib_inputs
+    from autoawq_tpu_torch.models.vision import lm_forward
+    from autoawq_tpu_torch.ops import _build
+
+    raw = QWEN2_VL_7B
+    vcfg = dict(raw["vision_config"])
+    vcfg.setdefault("in_channels", vcfg.get("in_chans", 3))
+    cfg = ModelConfig.from_hf_dict(raw)
+    full = cfg.num_hidden_layers
+    cfg = dataclasses.replace(cfg, num_hidden_layers=QWEN_VL_DEPTH)
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    t = time.perf_counter()
+    lm = synth_zoo_on_card(cfg, 0, dev)
+    for lp in lm["layers"]:  # Qwen2's q / k / v bias
+        lp["self_attn"]["qkv_proj"]["bias"] = (torch.randn(
+            (nh + 2 * nkv) * hd, device=dev, generator=g) * 0.02).to(
+                torch.bfloat16)
+    tower = synth_vision_on_card("qwen2_vl", vcfg, cfg.hidden_size, 2, dev)
+    model = AwqQwen2VLModel(cfg, vcfg, raw, {"visual": tower,
+                                             "language_model": lm}, None,
+                            dev)
+    torch.cuda.synchronize()
+    emit({"phase": "multimodal", "traffic": "Z", "step": "synth",
+          "cut": f"language model depth {QWEN_VL_DEPTH} of {full} layers, "
+                 "published width; the vision tower at full depth",
+          "seconds": time.perf_counter() - t,
+          "allocated_bytes": torch.cuda.memory_allocated()})
+    grid = QWEN_VL_GRID
+    ids, patches = _qwen_vl_prompt(g, raw, vcfg, grid, dev)
+    s = ids.shape[1]
+
+    # (a) the forward: K2 takes every linear of the language model
+    model(ids, patches, [grid])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    got = model(ids, patches, [grid])
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    m_lin = "w4a16_gemm" if s >= 256 else "w4a16_gemv"
+    _check_launches("Z", launches, {m_lin: 4 * QWEN_VL_DEPTH,
+                                    "prefill_attention": 0})
+    plain = model(ids, patches, [grid], method="plain")
+    f32 = model(ids, patches, [grid], method="plain", dtype=torch.float32)
+    check(tuple(got.shape) == (1, s, cfg.vocab_size), "traffic Z shape")
+    scale = f32[0].abs().amax(-1).clamp_min(1e-30)
+    k_rel = ((got[0] - f32[0]).abs().amax(-1) / scale).tolist()
+    p_rel = ((plain[0] - f32[0]).abs().amax(-1) / scale).tolist()
+    rows = [{"position": i, "kernel_vs_f32": a, "plain_bf16_vs_f32": b}
+            for i, (a, b) in enumerate(zip(k_rel, p_rel))]
+    _check_teacher_forced("Z", rows)
+    emit({"phase": "multimodal", "traffic": "Z", "card": card(),
+          "grid_thw": list(grid), "rows": s, "forward_s": t_fwd,
+          "launches": launches,
+          "max_kernel_vs_f32": max(k_rel), "max_plain_bf16_vs_f32":
+          max(p_rel)})
+    del lm, got, plain, f32
+    model.params["language_model"] = None
+    torch.cuda.empty_cache()
+
+    # (b) image-conditioned AWQ of QWEN_VL_QUANT_LAYERS layers
+    cfg1 = dataclasses.replace(cfg, num_hidden_layers=QWEN_VL_QUANT_LAYERS)
+    fp = _outlier_fp(cfg1, dev)
+    for lp in fp["layers"]:
+        for n, heads in (("q", nh), ("k", nkv), ("v", nkv)):
+            lp["self_attn"][f"{n}_proj"]["bias"] = torch.randn(
+                heads * hd, device=dev, generator=g) * 0.02
+    n_cal = QWEN_VL_CALIB
+    cal = [_qwen_vl_prompt(g, raw, vcfg, grid, dev) for _ in range(n_cal)]
+    held = [_qwen_vl_prompt(g, raw, vcfg, grid, dev) for _ in range(2)]
+    qm = AwqQwen2VLModel(cfg1, vcfg, raw, {"visual": tower,
+                                           "language_model": fp}, None, dev)
+    qcfg = AwqConfig(w_bit=4, q_group_size=128, zero_point=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    qm.quantize(quant_config=qcfg,
+                calib_data=np.concatenate([c[0] for c in cal]),
+                calib_patches=torch.cat([c[1] for c in cal]),
+                calib_grid_thw=[grid] * n_cal, progress=False)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    awq = qm.params["language_model"]
+    check(all("qweight" in lp["self_attn"]["q_proj"] for lp in awq["layers"]),
+          "traffic Z: the language model is not packed")
+    hx, hc, hs = multimodal_calib_inputs(
+        cfg1, vcfg, {"visual": tower, "language_model": fp},
+        np.concatenate([h[0] for h in held]),
+        torch.cat([h[1] for h in held]), [grid] * 2,
+        image_token_id=raw["image_token_id"],
+        video_token_id=raw["video_token_id"])
+    ref = lm_forward(cfg1, fp, hx, "plain", hc, hs)
+    kl = {name: _kl_mean(ref, lm_forward(cfg1, tree, hx, "plain", hc, hs))
+          for name, tree in (("awq", awq), ("rtn", _rtn(cfg1, fp, qcfg)))}
+    check(kl["awq"] <= kl["rtn"], f"traffic Z: AWQ's mean KL "
+          f"{kl['awq']:.4g} on held-out image prompts is above RTN's "
+          f"{kl['rtn']:.4g}")
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        qm.save_quantized(d)
+        back = AwqQwen2VLModel.from_quantized(d, device=dev)
+        t_io = time.perf_counter() - t
+        keys = _saved_keys(d)
+    check(any(k.startswith("model.visual.") for k in keys)
+          and "model.language_model.layers.0.self_attn.q_proj.qweight"
+          in keys, "traffic Z: the saved checkpoint lacks its tower or "
+          "its packed language model")
+    qm.params = _f16_rounded(qm.params)
+    mem = qm(held[0][0], held[0][1], [grid])
+    rel = rel_err(back(held[0][0], held[0][1], [grid]), mem)[1]
+    check(rel <= 1e-5, f"traffic Z: reloaded logits {rel:.3g} from the "
+          "in-memory model's")
+    q = qm._quantizer
+    emit({"phase": "multimodal", "traffic": "Z awq", "card": card(),
+          "layers": f"{QWEN_VL_QUANT_LAYERS} of {full}, published width",
+          "calib": [n_cal, s], "quantize_s": t_quant,
+          "seconds_by_part": _quant_timings(q, t_quant),
+          "peak_memory_bytes": peak, "kl_held_out": kl,
+          "layer0_ratio_index": _ratio_indices(q), "save_load_s": t_io,
+          "reload_vs_memory_rel": rel})
+    del qm, back, fp, awq, tower, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _f16_rounded(tree):
+    """Float leaves rounded through f16 in their own dtype, as a save
+    writes them (the int4 scales are f16 in the files too)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _f16_rounded(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f16_rounded(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.half().to(tree.dtype)
+    return tree
+
+
+def _multimodal_kernel_rows(dev):
+    """K2 at LLaVA's (M = 600) and Qwen2-VL's (M = Z's rows) linears, K4
+    at LLaVA's prefill, K1 and K3 at Llama-2-7B's decode, each against its
+    twin and timed with its bound and library call."""
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(5)
+    rng = np.random.default_rng(5)
+    llama = ModelConfig.from_hf_dict(LLAVA_15_7B["text_config"])
+    qwen = ModelConfig.from_hf_dict(QWEN2_VL_7B)
+    vcfg = LLAVA_15_7B["vision_config"]
+    m_q = (sum(LLAVA_PROMPT)
+           + (vcfg["image_size"] // vcfg["patch_size"]) ** 2)
+    t, h, w = QWEN_VL_GRID
+    m_z = (sum(QWEN_VL_TEXT) + 2 + t * h * w
+           // QWEN2_VL_7B["vision_config"]["spatial_merge_size"] ** 2)
+    rows = []
+
+    def linears(c):
+        hd, nh, nkv = (c.head_dim_, c.num_attention_heads,
+                       c.num_key_value_heads)
+        hs, inter = c.hidden_size, c.intermediate_size
+        return {"qkv": (hs, (nh + 2 * nkv) * hd), "o": (nh * hd, hs),
+                "gate_up": (hs, 2 * inter), "down": (inter, hs)}
+
+    for name, c, m in (("LLaVA-1.5-7B", llama, m_q),
+                       ("Qwen2-VL-7B", qwen, m_z)):
+        for lin, (k, n) in linears(c).items():
+            rows.append(_gemm_case(rng, "w4a16_gemm", f"{name} {lin}", m, k,
+                                   n, 128, True, dev, gen=gen_t))
+    rows.append(_attn_case(1, m_q, llama.num_attention_heads,
+                           llama.num_key_value_heads, llama.head_dim_, dev,
+                           case="LLaVA-1.5-7B prefill"))
+    for lin in ("qkv", "o"):
+        k, n = linears(llama)[lin]
+        rows.append(_gemm_case(rng, "w4a16_gemv", f"LLaVA-1.5-7B {lin}", 1,
+                               k, n, 128, True, dev, gen=gen_t))
+    rows.append(_mlp_case(rng, 1, "silu", dev, h=llama.hidden_size,
+                          inter=llama.intermediate_size,
+                          case="LLaVA-1.5-7B", gen=gen_t))
+    return rows
+
+
+def phase_multimodal(dev):
+    """Vision-language models on the card: traffic Q (LLaVA-1.5-7B), then
+    traffic Z (Qwen2-VL-7B-Instruct), then the kernel rows at their
+    shapes. Returns (launches of the main path's runs, launches per decode
+    step, kernel rows)."""
+    import torch
+
+    t = time.perf_counter()
+    counts_q, per_step = _llava_traffic(dev)
+    t_q = time.perf_counter() - t
+    counts_z = _qwen_vl_traffic(dev)
+    t_z = time.perf_counter() - t - t_q
+    rows = _multimodal_kernel_rows(dev)
+    emit({"phase": "multimodal", "step": "seconds_by_part",
+          "Q": t_q, "Z": t_z,
+          "kernel_rows": time.perf_counter() - t - t_q - t_z})
+    torch.cuda.empty_cache()
+    total = {k: counts_q.get(k, 0) + counts_z.get(k, 0)
+             for k in set(counts_q) | set(counts_z)}
+    for name in ("w4a16_gemv", "w4a16_gemm", "fused_mlp",
+                 "prefill_attention", "paged_attn"):
+        check(total.get(name, 0) > 0, f"multimodal: {name} never launched")
+    return total, per_step, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7279,6 +7881,12 @@ def main(argv=None) -> int:
         timed("parallel", phase_parallel, dev)
     if "pipeline" in phases:
         timed("pipeline", phase_pipeline, dev)
+    if "multimodal" in phases:
+        counts, per_step, rows = timed("multimodal", phase_multimodal, dev)
+        extra_rows = extra_rows + rows
+        per_token.update(per_step)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:
@@ -7292,8 +7900,8 @@ def main(argv=None) -> int:
     if rep:
         kernels = []
         # the eleven kernels' representative rows, then the mla_moe phase's
-        # K6 and K8 rows and the train phase's K1 and K2 rows at their own
-        # shapes
+        # K6 and K8 rows, the train phase's K1 and K2 rows and the
+        # multimodal phase's K1-K4 rows at their own shapes
         for name, r in [(n, rep[n]) for n in KERNEL_META] + [
                 (r["kernel"], r) for r in extra_rows]:
             source, replaces = KERNEL_META[name]

@@ -178,7 +178,11 @@ def test_prompt_embeds_and_long_prompts_raise(model):
     _, _, cfg, pp = model
     e = pb.BatchingEngine(cfg, pp, max_batch=1, max_seq_len=16,
                           dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        e.add_request(0, [1, 2], prompt_embeds=np.zeros((2, 128)))
+    # prompt_embeds run now (tests/test_torch_multimodal_serve.py holds
+    # them against JAX); embeds of another length than the prompt raise
+    with pytest.raises(ValueError, match="prompt_embeds length"):
+        e.add_request(0, [1, 2], prompt_embeds=np.zeros((3, 128)))
+    e.add_request(1, [1, 2], prompt_embeds=np.zeros((1, 2, 128)))
+    assert tuple(e.queue[-1].prompt_embeds.shape) == (2, 128)
     with pytest.raises(ValueError, match="max_seq_len"):
         e.add_request(0, list(range(16)))

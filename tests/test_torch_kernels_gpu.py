@@ -1564,3 +1564,106 @@ def test_v2_lite_latent_decode_folds_the_kv_b_adapter(cuda):
         lora_free = decode(bare, True, "auto")
     assert rel(got, ref) <= 2e-2
     assert rel(lora_free, ref) > 0.2
+
+
+def _tiny_llava_on(dev):
+    """A LLaVA at a small width (CLIP 2 layers, hidden 128, 16 image tokens;
+    llama hidden 512, 8 / 8 heads x 64, 2 layers, W4 g128): its config,
+    its tree on ``dev`` (int4 via utils/synth, the tower float, seed 0)
+    and its image token."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+
+    cfg = ModelConfig(model_type="llama", vocab_size=512, hidden_size=512,
+                      intermediate_size=1024, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=8,
+                      head_dim=64, max_position_embeddings=1024)
+    vcfg = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                num_attention_heads=2, patch_size=14, image_size=56,
+                hidden_act="quick_gelu")
+    g = torch.Generator().manual_seed(0)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    def lin_f(k, m):
+        return {"kernel": n(k, m), "bias": n(m)}
+
+    def ln(h):
+        return {"weight": torch.ones(h), "bias": torch.zeros(h)}
+
+    h = vcfg["hidden_size"]
+    tower = {"class_embedding": n(h),
+             "patch_embedding": {"weight": n(h, 3, 14, 14)},
+             "position_embedding": {"weight": n(17, h)},
+             "pre_layernorm": ln(h), "post_layernorm": ln(h),
+             "layers": [{"layer_norm1": ln(h), "layer_norm2": ln(h),
+                         **{k: lin_f(h, h) for k in ("q_proj", "k_proj",
+                                                     "v_proj", "out_proj")},
+                         "fc1": lin_f(h, 256), "fc2": lin_f(256, h)}
+                        for _ in range(2)]}
+    lm = random_quantized_params(cfg, seed=0, fused=True, device="cpu")
+    params = {"language_model": lm, "vision_tower": tower,
+              "projector": {"linear_1": lin_f(h, 512),
+                            "linear_2": lin_f(512, 512)}}
+    from autoawq_tpu_torch.utils.tree import to_device
+
+    return cfg, vcfg, to_device(params, dev), 500
+
+
+def test_llava_prefill_from_embeds_matches_the_cpu_plain_path(cuda):
+    """A 300-row multimodal prompt (16 image rows) prefilled from its
+    spliced embeds on the card (K2 and K4 a layer, the CLIP tower in plain
+    ops) against the same prompt on the CPU's plain path: the last row's
+    logits within 2e-2 of their scale (bf16 arithmetic in both; the CPU
+    twin's own bf16 distance bounds the difference), and the launches."""
+    from autoawq_tpu_torch.models.vision import llava_input_embeds
+    from autoawq_tpu_torch.serve import generate as gen
+
+    cfg, vcfg, params, img = _tiny_llava_on(cuda)
+    cpu = _tiny_llava_on("cpu")[2]
+    ids = torch.randint(0, 400, (1, 300), generator=torch.Generator()
+                        .manual_seed(1))
+    ids[0, 5:21] = img
+    px = torch.randn(1, 3, 56, 56, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev, p, method in ((cuda, params, "auto"), ("cpu", cpu, "plain")):
+        e = llava_input_embeds(cfg, vcfg, p, ids.to(dev), px.to(dev),
+                               image_token_index=img, dtype=torch.bfloat16)
+        cache = gen.init_kv_cache(cfg, 1, 310, device=dev)
+        _build.reset_launches()
+        logits, _ = gen.prefill(cfg, p["language_model"], ids.to(dev),
+                                cache, method, embeds=e)
+        out[str(dev)] = (logits.float().cpu(), dict(_build.LAUNCHES))
+    got, launches = out[str(cuda)]
+    ref = out["cpu"][0]
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert {k: v for k, v in launches.items() if v} == {
+        "w4a16_gemm": 8, "prefill_attention": 2}
+
+
+def test_llava_paged_embeds_request_decodes_as_generate(cuda):
+    """One multimodal request through the paged engine on the card (K7 a
+    layer a step) against ``generate`` from the same embeds: the first 8
+    greedy tokens equal (one request, no near tie at this seed)."""
+    from autoawq_tpu_torch.models.vision import llava_input_embeds
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.serve.paged import PagedBatchingEngine
+
+    cfg, vcfg, params, img = _tiny_llava_on(cuda)
+    ids = torch.randint(0, 400, (1, 80), generator=torch.Generator()
+                        .manual_seed(3), ).to(cuda)
+    ids[0, 2:18] = img
+    px = torch.randn(1, 3, 56, 56, generator=torch.Generator()
+                     .manual_seed(4)).to(cuda)
+    e = llava_input_embeds(cfg, vcfg, params, ids, px,
+                           image_token_index=img, dtype=torch.bfloat16)
+    lm = params["language_model"]
+    want = gen.generate(cfg, lm, ids, 8, prompt_embeds=e)[0, 80:].tolist()
+    eng = PagedBatchingEngine(cfg, lm, max_batch=2, page_size=16,
+                              total_pages=32, pages_per_seq=8)
+    eng.add_request("r", ids[0].cpu().numpy(), 8, prompt_embeds=e[0])
+    _build.reset_launches()
+    got = eng.run()["r"]
+    assert got == want
+    assert _build.LAUNCHES["paged_attn"] == 2 * 7

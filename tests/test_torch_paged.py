@@ -232,8 +232,8 @@ def test_stock_route_and_refusals(model):
         e.run()
     with pytest.raises(ValueError, match="paged_attn"):
         paged.PagedBatchingEngine(cfg, pp, device="cpu", paged_attn="x")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        e.add_request(1, [1, 2], prompt_embeds=np.zeros((2, 128)))
+    with pytest.raises(ValueError, match="prompt_embeds length"):
+        e.add_request(1, [1, 2], prompt_embeds=np.zeros((3, 128)))
     mla = dataclasses.replace(cfg, model_type="deepseek_v2", q_lora_rank=32,
                               kv_lora_rank=16, qk_rope_head_dim=8,
                               qk_nope_head_dim=16, v_head_dim=16)

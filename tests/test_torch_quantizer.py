@@ -332,15 +332,38 @@ def test_quantizer_runs_on_the_card_by_default(monkeypatch):
         AwqQuantizer(cfg, AwqConfig(), {}, calib_ids(TINY))
 
 
-# resume_dir and quantize_lm_head were item 14's refusals, and mesh item
-# 15's; they run now (tests/test_torch_interop.py and
-# tests/test_torch_parallel_calib.py hold them against JAX)
-@pytest.mark.parametrize("kw,item", [
-    (dict(calib_inputs=np.zeros((1, 4, 128), np.float32)), "item 17"),
+# resume_dir and quantize_lm_head were item 14's refusals, mesh item 15's
+# and calib_inputs item 17's; they run now (tests/test_torch_interop.py,
+# tests/test_torch_parallel_calib.py and tests/test_torch_qwen_vl.py hold
+# them against JAX). What is left to refuse: no calibration at all.
+@pytest.mark.parametrize("kw,match", [
+    (dict(calib_inputs=None), "need calib_tokens or calib_inputs"),
 ])
-def test_options_outside_the_port_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port_quantizer(**kw)
+def test_options_outside_the_port_raise(kw, match):
+    with pytest.raises(ValueError, match=match):
+        AwqQuantizer(ModelConfig(**TINY), AwqConfig(q_group_size=GROUP),
+                     outlier_params(TINY)[1], None, device="cpu", **kw)
+
+
+def test_calib_inputs_of_the_token_embedding_calibrate_as_tokens():
+    """Precomputed input embeds equal to the tokens' embedding, with the
+    1-D rope tables as ``calib_rope``, make the token calibration's scale
+    choices and packed tree exactly."""
+    cfg = ModelConfig(**TINY)
+    params = outlier_params(TINY)[1]
+    calib = calib_ids(TINY, n=6)
+    ref_q = _port_quantizer(params, calib, apply_clip=False)
+    ref = ref_q.quantize()
+    emb = params["embed_tokens"]["weight"].float()[torch.as_tensor(calib)]
+    pos = torch.arange(calib.shape[1])[None, :]
+    q = AwqQuantizer(cfg, AwqConfig(q_group_size=GROUP), params, None,
+                     calib_inputs=emb,
+                     calib_rope=modules.rope_tables(cfg, pos),
+                     apply_clip=False, progress=False, device="cpu")
+    got = q.quantize()
+    assert [c["best"] for c in q.scale_choices[0]] == \
+        [c["best"] for c in ref_q.scale_choices[0]]
+    _assert_same_packed(got, ref)
 
 
 def test_mesh_of_one_rank_calibrates_as_without_one():
@@ -360,8 +383,12 @@ def test_mesh_of_one_rank_calibrates_as_without_one():
 
 def test_plugins_outside_the_port_raise():
     assert get_plugin("qwen3_moe") is get_plugin("mixtral")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        get_plugin("phi3_v")
+    # phi3_v and the Qwen2-VL types quantize now; Qwen2.5-Omni waits for
+    # item 17b
+    assert get_plugin("phi3_v") is get_plugin("phi3")
+    assert get_plugin("qwen2_vl") is get_plugin("llama")
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        get_plugin("qwen2_5_omni")
     with pytest.raises(KeyError):
         get_plugin("not_a_model")
     assert get_plugin("mistral") is get_plugin("llama")

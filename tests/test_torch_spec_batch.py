@@ -265,5 +265,7 @@ def test_served_through_engine_server(models):
 def test_prompt_embeds_raise(models):
     _, _, cfg, pp = models["target"]
     eng = sb.SpeculativeBatchingEngine(cfg, pp, cfg, pp, max_seq_len=64, **K)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        eng.add_request("e", [1, 2], 4, prompt_embeds=np.zeros((2, 64)))
+    # prompt_embeds run now (tests/test_torch_multimodal_serve.py); embeds
+    # of another length than the prompt raise
+    with pytest.raises(ValueError, match="prompt_embeds length"):
+        eng.add_request("e", [1, 2], 4, prompt_embeds=np.zeros((3, 64)))

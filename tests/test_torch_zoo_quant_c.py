@@ -25,8 +25,8 @@ from zoo_quant_util import (check_scale_choices, check_taps, check_with_clip,
                             check_without_clip)
 
 FAMILIES = ["stablelm", "baichuan", "internlm2", "exaone", "minicpm", "qwen"]
-LATER = {"item 17": ("phi3_v", "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
-                     "qwen2_5_omni_thinker", "qwen2_5_omni_text")}
+LATER = {"item 17b": ("qwen2_5_omni", "qwen2_5_omni_thinker",
+                      "qwen2_5_omni_text")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,8 +60,9 @@ def test_whole_quantizer_near_jax(name):
 
 def test_registry_covers_every_jax_type_the_port_runs():
     """Every type JAX registers has a port plugin of the same name (class
-    for class: the MLA and MoE types among them), but the multimodal types
-    of ROADMAP item 17, which raise naming their item."""
+    for class: the MLA and MoE types and the vision-language ones among
+    them), but Qwen2.5-Omni's types of ROADMAP item 17b, which raise naming
+    their item."""
     later = {mt: item for item, types in LATER.items() for mt in types}
     assert set(JAX_PLUGINS) == set(PLUGINS) | set(later)
     for mt, plugin in PLUGINS.items():
