@@ -8,7 +8,12 @@ Counterpart of ``autoawq_tpu/io/serialize.py`` (``copy_aux_files`` :41,
 only. Tensors that the layer map does not read (phi3_v's
 ``model.vision_embed_tokens.*``, stray buffers) are kept in
 ``params["_extra"]`` as CPU tensors and written back by
-``save_quantized``, f32 as f16, as JAX does. AutoAWQ's ``version`` gemm,
+``save_quantized``, f32 as f16, as JAX does. A full Qwen2.5-Omni
+checkpoint nests its language model under ``thinker.``: the load strips
+the prefix and the save puts it back (JAX's ``_normalize_omni_keys`` /
+``_reprefix_omni_keys``, :190-213), so ``thinker.audio_tower.*`` and
+``thinker.visual.*`` ride ``_extra`` as ``audio_tower.*`` / ``visual.*``
+and ``talker.*`` / ``token2wav.*`` keep their names. AutoAWQ's ``version`` gemm,
 gemv, gemv_fast or marlin (the last three through ``io/interop``'s
 pre-pass, as JAX's :121-126 and :241-243; marlin symmetric only); 4-bit
 only. Directory layout:
@@ -126,7 +131,7 @@ def save_quantized(path: str, cfg: ModelConfig, qcfg: AwqConfig,
     for k, v in params.get("_extra", {}).items():  # unmodeled tensors
         v = torch.as_tensor(v).cpu()
         sd[k] = v.half() if v.dtype == torch.float32 else v
-    write_safetensors(path, sd, shard_bytes)
+    write_safetensors(path, _reprefix_omni_keys(cfg, sd), shard_bytes)
 
 
 def write_safetensors(path: str, sd: Dict[str, torch.Tensor],
@@ -185,12 +190,37 @@ class _TrackingSD(dict):
         return super().get(k, default)
 
 
+_OMNI_KEEP = ("talker.", "token2wav.")
+
+
+def _normalize_omni_keys(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """A full Qwen2.5-Omni checkpoint's ``thinker.`` prefix stripped, so
+    the standard layer map applies (``talker.*`` / ``token2wav.*`` keep
+    their names: never quantized, they land in ``params["_extra"]``)."""
+    if cfg.model_type != "qwen2_5_omni":
+        return sd
+    return {(k[len("thinker."):] if k.startswith("thinker.") else k): v
+            for k, v in sd.items()}
+
+
+def _reprefix_omni_keys(cfg: ModelConfig, sd: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`_normalize_omni_keys` for a save: HF's
+    full-omni layout."""
+    if cfg.model_type != "qwen2_5_omni":
+        return sd
+    return {(k if k.startswith(_OMNI_KEEP) else "thinker." + k): v
+            for k, v in sd.items()}
+
+
 def _load_params_with_extras(cfg: ModelConfig, sd: Dict[str, torch.Tensor],
                              device) -> Dict[str, Any]:
     """``params_from_state_dict``, plus every tensor it did not read in
     ``params["_extra"]`` (CPU tensors), so ``save_quantized`` writes them
     back: the analogue of the reference keeping unknown submodules of the
     HF tree it edits in place."""
+    sd = _normalize_omni_keys(cfg, sd)
     tsd = _TrackingSD(sd)
     params = hf_io.params_from_state_dict(cfg, tsd, device)
     extra = {k: v for k, v in sd.items() if k not in tsd.consumed}

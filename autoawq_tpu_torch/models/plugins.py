@@ -14,8 +14,8 @@ linear, or the MLP's activation, whose scale is stored as
 module whose output each scale search holds against the float one (``ScaleGroup.inspect``: the attention, the MLP, the
 MoE block, the whole decoder block, or one linear). The inspect functions
 run the port's modules with ``method="plain"`` (JAX's ``"jnp"``); an MLA
-model's attention inspect is ``mla_attention``. The multimodal types raise,
-naming their ROADMAP item.
+model's attention inspect is ``mla_attention``. The vision-language and
+Qwen2.5-Omni types quantize as their language model.
 """
 
 from __future__ import annotations
@@ -84,11 +84,13 @@ def _qkv_group(inspect: str) -> ScaleGroup:
 
 
 class LlamaFamilyPlugin:
-    # the vision-language LMs quantize as their text base; the vision tower
-    # is never converted (it lives outside the LM tree)
+    # the vision-language LMs and Qwen2.5-Omni's thinker quantize as their
+    # text base; the towers, the talker and token2wav are never converted
+    # (they live outside the LM tree, in params["_extra"])
     model_types = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2",
                    "yi", "aquila", "stablelm", "exaone", "minicpm",
-                   "qwen2_vl", "qwen2_5_vl")
+                   "qwen2_vl", "qwen2_5_vl", "qwen2_5_omni",
+                   "qwen2_5_omni_thinker", "qwen2_5_omni_text")
 
     @staticmethod
     def scale_groups(cfg: ModelConfig, layer_params: Dict) -> List[ScaleGroup]:
@@ -424,17 +426,7 @@ PLUGINS: Dict[str, type] = {
                    DeepseekPlugin)
     for mt in plugin.model_types}
 
-# the JAX package's other plugin types, by the ROADMAP item that ports them
-_LATER = {mt: "Qwen2.5-Omni, ROADMAP queue 1 item 17b"
-          for mt in ("qwen2_5_omni", "qwen2_5_omni_thinker",
-                     "qwen2_5_omni_text")}
-
-
 def get_plugin(model_type: str):
-    if model_type in _LATER:
-        raise NotImplementedError(
-            f"quantizing {model_type} is not in the port yet "
-            f"({_LATER[model_type]})")
     if model_type not in PLUGINS:
         raise KeyError(
             f"no quantization plugin for model_type={model_type!r}; "

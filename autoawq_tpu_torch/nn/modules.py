@@ -75,6 +75,7 @@ from autoawq_tpu_torch.ops import tp_attn
 from autoawq_tpu_torch.ops.gemm import awq_matmul, dequantize
 from autoawq_tpu_torch.parallel import distributed as pd
 from autoawq_tpu_torch.parallel.mesh import Axis
+from autoawq_tpu_torch.utils import profiling
 
 # MoE model types with a loader in the JAX package (its ``ARCHITECTURES``);
 # phimoe has none there, so its config parses as a dense llama
@@ -1383,6 +1384,7 @@ def logits_fn(cfg: ModelConfig, params: Dict[str, Any], x: torch.Tensor,
         logits = logits * cfg.logit_scale
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    profiling.check_nans("logits", logits)
     return logits
 
 

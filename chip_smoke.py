@@ -109,8 +109,8 @@ Phases, each printing JSON lines:
               in memory from the same nibbles.
 6. quantize — AWQ on the card. TinyLlama at full width and depth (seed-0
               f32 float weights drawn on the card, hot embedding columns
-              0-5 x 8) quantized through the facade on
-              128 x 512 seeded calibration ids (g128, zero point, scale
+              0-5 x 8) quantized through the facade on ``QUANT_CALIB``
+              (64 x 512) seeded calibration ids (g128, zero point, scale
               and clip search, f32): wall seconds split into tapped
               forwards, scale search, clip search and packing, peak
               memory, layer 0's chosen ratio indices. Saved with
@@ -346,33 +346,75 @@ Phases, each printing JSON lines:
               seeded pixels). Traffic Q: LLaVA-1.5-7B
               (``llava-hf/llava-1.5-7b-hf``'s config: CLIP ViT-L/14-336 at
               full depth, the GELU projector, Llama-2-7B at
-              ``LLAVA_DEPTH`` (8) of 32 layers, fused). (a)
+              ``LLAVA_DEPTH`` (4) of 32 layers, fused). (a)
               ``AwqLlavaModel.generate`` on one 336 x 336 image: 4 text +
               576 image + 20 text tokens at bs1, 64 greedy new tokens;
-              launches held exactly (a prefill K2 32, K4 8; a decode step
-              K1 16, K3 8) and the teacher-forced rule over 8 steps from
+              launches held exactly (a prefill K2 4 and K4 1 a layer; a
+              decode step K1 2 and K3 1 a layer) and the teacher-forced
+              rule over 8 steps from
               the prompt's embeds (the f32 run's embeds from the tower in
               f32). (b) The paged engine (H's pool with 11 pages a slot)
               over four ``prompt_embeds`` requests, two sharing the image
               and its text prefix: prefix hits held (1, 9 pages), a step's
-              launches held (K7 8, K1 16, K3 8), each stream equal to
+              launches held (K7 1, K1 2, K3 1 a layer), each stream equal to
               ``generate``'s for its prompt or parting at a bf16 near tie
               of the f32 twin. Traffic Z: Qwen2-VL-7B-Instruct
               (``Qwen/Qwen2-VL-7B-Instruct``'s config, qkv bias, M-RoPE;
               the tower at full depth, the language model at
-              ``QWEN_VL_DEPTH`` (4) of 28 layers). (a)
+              ``QWEN_VL_DEPTH`` (2) of 28 layers). (a)
               ``AwqQwen2VLModel.__call__`` on one 448 x 448 image (grid 1 x
-              32 x 32: 256 image rows of 296), K2 16 held, logits by the
-              rule against the plain path; (b) image-conditioned AWQ of 1
+              32 x 32: 256 image rows of 296), K2 4 a layer held, logits by
+              the rule against the plain path; (b) image-conditioned AWQ of 1
               layer at full width on 8 such prompts (``calib_patches``):
               seconds by part, peak memory, AWQ's mean KL at or below
               RTN's on 2 held-out image prompts, then ``save_quantized`` /
               ``from_quantized`` with logits equal to the in-memory
               model's. Then K2 at both models' linears (M = 600 and 296),
               K4 at Q's prefill, K1 and K3 at Llama-2-7B's decode.
-14. a ``kernels`` line: every ported kernel with launches, error and times
-   (the mla_moe phase's K6 and K8 rows after the eleven, then the train
-   and multimodal phases' rows).
+14. omni    — traffic AU: Qwen2.5-Omni-7B's speech path
+              (``Qwen/Qwen2.5-Omni-7B``'s config; the thinker W4 g128 at
+              ``OMNI_DEPTH`` (4) of 28 layers, fused, with qkv bias; the
+              audio tower (f32), the talker (bf16), the DiT and BigVGAN
+              (f32) at full depth, drawn on the card by
+              ``synth_omni_on_card`` under their checkpoint names). (a) The
+              audio tower on 10 s of seeded mel (128 x 1,000: 5 chunks, 250
+              embeds) spliced between 16 + 16 text rows (282 rows, text
+              positions) through ``generate(prompt_embeds=...)``, 32 new
+              tokens: launches held exactly (a prefill K2 16, K4 0 while
+              the config's switched-off window is read as a window, else
+              4; a decode step K1 8, K3 4), the teacher-forced rule over 8
+              steps, a profile of 8 decode steps. (b) ``OmniTalker.
+              generate_codec`` on the prompt's embeds and the 32 reply
+              tokens' embeds, 64 codec tokens in bf16: K4 24 and nothing
+              else, the codec logits by the rule against the f32 plain path
+              over 40 teacher-forced steps (the reply's last row repeats
+              past 32). (c) ``token2wav`` on the 64 codes (mod the DiT's
+              8,193 entries), 10 RK4 steps, guidance 0.5, seeded reference
+              mel, speaker embedding and noise: 128 mel frames, 30,720
+              samples, finite and within [-1, 1]; the first RK4 evaluation's
+              DiT forward on 24 codes and the vocoder on 32 of the card's
+              mel frames held against an f64 run on the CPU: the card's f32
+              (TF32 off in token2wav's scope) within ``OMNI_F64_RULE`` (10)
+              times the CPU's f32 distance from it, +1e-6 of the scale; a
+              control of the vocoder with TF32 on, reported. Seconds by
+              part and peak memory.
+15. tools   — TinyLlama (traffic A's seeded weights) saved, then ``python
+              -m autoawq_tpu_torch benchmark --model DIR --contexts 64
+              --decode 32`` in a subprocess on the card, its tok/s line
+              printed; ``utils/profiling.trace`` over 8 of A's decode
+              steps, ``summarize_trace``'s K1 and K3 device kernels
+              (``DenseJob``; ``ActOut`` + ``DownJob``, two a K3 call)
+              against the launch counter; ``eval/tasks.eval_multiple_choice``
+              on 4 seeded 4-choice questions with a character-level stub
+              tokenizer, the log-prob rows behind each choice's
+              log-likelihood by the rule against the plain path (bf16 and
+              f32).
+16. a ``kernels`` line: every ported kernel with launches, error and times
+   (the mla_moe phase's K6 and K8 rows after the eleven, then the train,
+   multimodal and kernels phases' rows at their models' shapes). The
+   kernels phase also holds and times K1 at Qwen2.5-Omni's thinker qkv
+   3584→4608 and o 3584→3584 (M = 1), K3 at 3584→2·18944→3584 (M = 1)
+   and K4 at the talker's prompt (B = 1, S = 282, 12 / 4 heads x 128).
 
 Asked for by name only, each for an A/B of two checkouts in one call
 (``--root DIR`` imports the port, and builds its kernels, from another
@@ -412,7 +454,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
-          "mla_moe", "serve", "train", "parallel", "pipeline", "multimodal")
+          "mla_moe", "serve", "train", "parallel", "pipeline", "multimodal",
+          "omni", "tools")
 EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
                 "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -529,10 +572,11 @@ MIXTRAL_DEPTH = 2
 DECODE_BIG = 128
 E2E_MISTRAL_DEPTH = 8
 V2_LITE_DEPTH = 5
-# AWQ calibration of the quantize phase: AutoAWQ's default recipe, 128
-# seeded samples of 512 tokens, g128 with zero points; 8 x 512 held-out
+# AWQ calibration of the quantize phase: AutoAWQ's recipe (g128 with zero
+# points) on 64 seeded samples of 512 tokens, half its default 128 (cut for
+# the time limit when the omni and tools phases came); 8 x 512 held-out
 # tokens sampled from the float model for the quality gate
-QUANT_CALIB = (128, 512)
+QUANT_CALIB = (64, 512)
 QUANT_EVAL = (8, 512)
 QUANT_MISTRAL_LAYERS = 1  # Mistral-7B at full width, depth cut to 1 of 32
 # MPT-7B at full width, depth cut to 1 of 32 (at 2, with the serve phase,
@@ -690,8 +734,8 @@ QWEN2_VL_7B = dict(
                        in_chans=3, hidden_act="quick_gelu"))
 # the multimodal phase's cuts: the language models' depth (the towers run
 # at full depth), as Mistral's e2e traffics are cut
-LLAVA_DEPTH = 8
-QWEN_VL_DEPTH = 4
+LLAVA_DEPTH = 4  # 8 until the omni phase came (a cut for time)
+QWEN_VL_DEPTH = 2  # 4 until then
 QWEN_VL_QUANT_LAYERS = 1  # Z's image-conditioned AWQ, the quantize cuts'
 LLAVA_PROMPT = (4, 20)  # text tokens before and after Q's 576 image tokens
 LLAVA_NEW = 64
@@ -699,6 +743,72 @@ LLAVA_TF_STEPS = 8
 QWEN_VL_GRID = (1, 32, 32)  # one 448 x 448 image: 1,024 patches, 256 rows
 QWEN_VL_TEXT = (14, 24)  # text around <|vision_start|> image <|vision_end|>
 QWEN_VL_CALIB = 8  # Z's image-conditioned calibration samples
+# Qwen2.5-Omni-7B: Qwen/Qwen2.5-Omni-7B's config.json. The thinker's text
+# model has Qwen2.5-VL-7B's widths and carries the checkpoint's window of
+# 32768 with use_sliding_window false, which both packages read as a window
+# (ROADMAP §3), so its prompt skips K4; the audio tower, the DiT and
+# BigVGAN equal transformers 4.57.6's defaults; the talker is the
+# checkpoint's (896 wide, 24 layers, 12 / 4 heads x 128, embedding_size
+# 3584), not transformers' default talker (3584 wide, 28 layers)
+QWEN25_OMNI_7B = dict(
+    model_type="qwen2_5_omni",
+    thinker_config=dict(
+        audio_token_index=151646,
+        text_config=dict(
+            model_type="qwen2_5_omni_text", vocab_size=152064,
+            hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+            num_attention_heads=28, num_key_value_heads=4, hidden_act="silu",
+            max_position_embeddings=32768, rms_norm_eps=1e-6,
+            rope_theta=1e6, sliding_window=32768, use_sliding_window=False,
+            max_window_layers=28, tie_word_embeddings=False,
+            rope_scaling={"type": "default", "rope_type": "default",
+                          "mrope_section": [16, 24, 24]}),
+        audio_config=dict(d_model=1280, encoder_layers=32,
+                          encoder_attention_heads=20, encoder_ffn_dim=5120,
+                          num_mel_bins=128, n_window=100, output_dim=3584,
+                          max_source_positions=1500)),
+    talker_config=dict(
+        vocab_size=8448, hidden_size=896, intermediate_size=18944,
+        num_hidden_layers=24, num_attention_heads=12, num_key_value_heads=4,
+        head_dim=128, embedding_size=3584, hidden_act="silu",
+        max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6,
+        sliding_window=32768, use_sliding_window=False),
+    token2wav_config=dict(
+        dit_config=dict(
+            hidden_size=1024, num_hidden_layers=22, num_attention_heads=16,
+            head_dim=64, ff_mult=2, emb_dim=512, enc_emb_dim=192,
+            enc_dim=128, enc_channels=[256, 256, 256, 256, 768],
+            enc_kernel_sizes=[5, 3, 3, 3, 1], enc_dilations=[1, 2, 3, 4, 1],
+            enc_attention_channels=64, enc_res2net_scale=2,
+            enc_se_channels=64, mel_dim=80, num_embeds=8193, repeats=2,
+            block_size=24, look_ahead_layers=[10],
+            look_backward_layers=[0, 20], rope_theta=10000.0),
+        bigvgan_config=dict(
+            mel_dim=80, upsample_initial_channel=1536,
+            resblock_kernel_sizes=[3, 7, 11],
+            resblock_dilation_sizes=[[1, 3, 5]] * 3,
+            upsample_rates=[5, 3, 2, 2, 2, 2],
+            upsample_kernel_sizes=[11, 7, 4, 4, 4, 4])))
+OMNI_DEPTH = 4  # the thinker's layers (of 28), Z's cut; the rest full depth
+OMNI_MEL = 1000  # 10 s of mel frames: 5 chunks of 200, 250 audio embeds
+OMNI_TEXT = (16, 16)  # text rows before and after the audio embeds
+OMNI_NEW = 32  # the thinker's reply tokens
+OMNI_TF_STEPS = 8  # the thinker's teacher-forced decode steps
+OMNI_CODES = 64  # the talker's codec tokens
+OMNI_TALKER_TF = 40  # the talker's teacher-forced steps (past the 32 reply
+#                      rows, where the last one repeats)
+OMNI_T2W = dict(num_steps=10, guidance_scale=0.5, sway_coefficient=-1.0)
+OMNI_REF_FRAMES = 300  # the seeded reference mel's frames
+OMNI_VOCODER_CHECK = 32  # mel frames of the vocoder's check on the CPU
+OMNI_DIT_CHECK = 24  # codes (48 frames, two blocks) of the DiT's check
+# token2wav's card runs (f32, TF32 off) within this many times the CPU's f32
+# distance from an f64 run: cuDNN's f32 convolution algorithms sit 2-3.5x
+# the CPU's distance at the vocoder (PyTorch's own convolutions 0.7-1.2x;
+# ``scripts/torch_vocoder_f32.py``), the DiT's matmuls under 1x, and the
+# vocoder with TF32 on ~700x (the phase's control)
+OMNI_F64_RULE = 10
+TOOLS_MMLU = 4  # seeded 4-choice questions of the tools phase
+TOOLS_TIMEOUT = 300  # seconds the CLI's benchmark subprocess may take
 # f32 latent decode (the absorbed kv_b with its adapter folded) is held
 # against the f32 materialized forward at 1e-3 of the logit scale: the two
 # differ by f32 summation order alone (the CPU tests read ~1e-6), while a
@@ -1794,7 +1904,30 @@ def phase_kernels(dev):
     for kernel in ("paged_attn", "paged_attn_stock"):
         _paged_case(gen, kernel, "long table: 8 x 4096 rows", MISTRAL, dev,
                     **LONG_TABLE)
-    return rep
+    return rep, _omni_kernel_rows(rng, dev)
+
+
+def _omni_kernel_rows(rng, dev):
+    """K1 at Qwen2.5-Omni's thinker decode (fused qkv with its bias's
+    shape, o; M = 1), K3 at its MLP (M = 1) and K4 at the talker's prompt
+    (B = 1, S = traffic AU's rows, 12 / 4 heads x 128), each against its
+    twin and timed with its bound and library call."""
+    from autoawq_tpu_torch.models.config import ModelConfig
+
+    c = ModelConfig.from_hf_dict(QWEN25_OMNI_7B)
+    t = QWEN25_OMNI_7B["talker_config"]
+    hd, nh, nkv, h = (c.head_dim_, c.num_attention_heads,
+                      c.num_key_value_heads, c.hidden_size)
+    s = sum(OMNI_TEXT) + OMNI_MEL // 4
+    return [_gemm_case(rng, "w4a16_gemv", "Qwen2.5-Omni thinker qkv", 1, h,
+                       (nh + 2 * nkv) * hd, 128, True, dev),
+            _gemm_case(rng, "w4a16_gemv", "Qwen2.5-Omni thinker o", 1,
+                       nh * hd, h, 128, True, dev),
+            _mlp_case(rng, 1, "silu", dev, h=h, inter=c.intermediate_size,
+                      case="Qwen2.5-Omni thinker"),
+            _attn_case(1, s, t["num_attention_heads"],
+                       t["num_key_value_heads"], t["head_dim"], dev,
+                       case="Qwen2.5-Omni talker prompt")]
 
 
 def _paged_split_cases(gen, dev):
@@ -7798,6 +7931,614 @@ def phase_multimodal(dev):
     return total, per_step, rows
 
 
+def _omni_keys(part, c):
+    """HF names and shapes of a float part of Qwen2.5-Omni (``part``
+    "audio", "talker", "dit" or "bigvgan", ``c`` its config dict) ->
+    {name: (shape, init)}; init "n" std 0.02, "w" std 1 / sqrt(fan-in),
+    "e" std 1 (an embedding table), "1" ones, "0" zeros."""
+    k = {}
+    if part == "audio":
+        d, f = c["d_model"], c["encoder_ffn_dim"]
+        k.update({"conv1.weight": ((d, c["num_mel_bins"], 3), "n"),
+                  "conv1.bias": ((d,), "n"),
+                  "conv2.weight": ((d, d, 3), "n"), "conv2.bias": ((d,), "n"),
+                  "ln_post.weight": ((d,), "1"), "ln_post.bias": ((d,), "0"),
+                  "proj.weight": ((c["output_dim"], d), "n"),
+                  "proj.bias": ((c["output_dim"],), "n")})
+        for i in range(c["encoder_layers"]):
+            p = f"layers.{i}."
+            for n in ("q", "k", "v", "out"):
+                k[p + f"self_attn.{n}_proj.weight"] = ((d, d), "n")
+                if n != "k":  # Whisper: k has no bias
+                    k[p + f"self_attn.{n}_proj.bias"] = ((d,), "n")
+            for n in ("self_attn_layer_norm", "final_layer_norm"):
+                k[p + n + ".weight"], k[p + n + ".bias"] = ((d,), "1"), \
+                    ((d,), "0")
+            k.update({p + "fc1.weight": ((f, d), "n"), p + "fc1.bias": ((f,), "n"),
+                      p + "fc2.weight": ((d, f), "n"), p + "fc2.bias": ((d,), "n")})
+    elif part == "talker":
+        h, e, v = c["hidden_size"], c["embedding_size"], c["vocab_size"]
+        hd, nh, nkv = c["head_dim"], c["num_attention_heads"], \
+            c["num_key_value_heads"]
+        inter = c["intermediate_size"]
+        k.update({"model.embed_tokens.weight": ((v, e), "n"),
+                  "thinker_to_talker_proj.weight": ((h, e), "n"),
+                  "thinker_to_talker_proj.bias": ((h,), "n"),
+                  "model.norm.weight": ((h,), "1"),
+                  "codec_head.weight": ((v, h), "n")})
+        for i in range(c["num_hidden_layers"]):
+            p = f"model.layers.{i}."
+            for n, rows in (("q", nh * hd), ("k", nkv * hd), ("v", nkv * hd)):
+                k[p + f"self_attn.{n}_proj.weight"] = ((rows, h), "n")
+                k[p + f"self_attn.{n}_proj.bias"] = ((rows,), "n")
+            k[p + "self_attn.o_proj.weight"] = ((h, nh * hd), "n")
+            for n in ("gate", "up"):
+                k[p + f"mlp.{n}_proj.weight"] = ((inter, h), "n")
+            k[p + "mlp.down_proj.weight"] = ((h, inter), "n")
+            k[p + "input_layernorm.weight"] = ((h,), "1")
+            k[p + "post_attention_layernorm.weight"] = ((h,), "1")
+    elif part == "dit":
+        h, mel = c["hidden_size"], c["mel_dim"]
+        ch, ks = c["enc_channels"], c["enc_kernel_sizes"]
+        sc, att = c["enc_res2net_scale"], c["enc_attention_channels"]
+
+        def lin(name, o, i, init="w"):
+            k[name + ".weight"] = ((o, i), init)
+            k[name + ".bias"] = ((o,), "0")
+
+        def conv(name, o, i, kk):
+            k[name + ".weight"] = ((o, i, kk), "w")
+            k[name + ".bias"] = ((o,), "0")
+        lin("time_embed.time_mlp.0", h, 256)
+        lin("time_embed.time_mlp.2", h, h)
+        k["text_embed.codec_embed.weight"] = ((c["num_embeds"] + 1,
+                                               c["emb_dim"]), "e")
+        lin("input_embed.proj", h, mel + c["enc_dim"] + c["emb_dim"]
+            + c["enc_emb_dim"])
+        pre = "input_embed.spk_encoder."
+        conv(pre + "blocks.0.conv", ch[0], mel, ks[0])
+        for i in range(1, len(ch) - 1):
+            b = f"{pre}blocks.{i}."
+            conv(b + "tdnn1.conv", ch[i], ch[i - 1], 1)
+            for j in range(sc - 1):
+                conv(b + f"res2net_block.blocks.{j}.conv", ch[i] // sc,
+                     ch[i] // sc, ks[i])
+            conv(b + "tdnn2.conv", ch[i], ch[i], 1)
+            conv(b + "se_block.conv1", c["enc_se_channels"], ch[i], 1)
+            conv(b + "se_block.conv2", ch[i], c["enc_se_channels"], 1)
+        conv(pre + "mfa.conv", ch[-1], sum(ch[1:-1]), ks[-1])
+        conv(pre + "asp.tdnn.conv", att, 3 * ch[-1], 1)
+        conv(pre + "asp.conv", ch[-1], att, 1)
+        conv(pre + "fc", c["enc_dim"], 2 * ch[-1], 1)
+        for i in range(c["num_hidden_layers"]):
+            p = f"transformer_blocks.{i}."
+            lin(p + "attn_norm.linear", 6 * h, h)
+            for n in ("to_q", "to_k", "to_v", "to_out.0"):
+                lin(p + "attn." + n, h, h)
+            lin(p + "ff.ff.0", h * c["ff_mult"], h)
+            lin(p + "ff.ff.3", h, h * c["ff_mult"])
+        lin("norm_out.linear", 2 * h, h)
+        lin("proj_out", mel, h)
+    else:  # bigvgan
+        c0 = c["upsample_initial_channel"]
+        k["conv_pre.weight"] = ((c0, c["mel_dim"], 7), "w")
+        k["conv_pre.bias"] = ((c0,), "0")
+        n_res = len(c["resblock_kernel_sizes"])
+        for li, kk in enumerate(c["upsample_kernel_sizes"]):
+            ci = c0 // 2 ** li
+            k[f"ups.{li}.0.weight"] = ((ci, ci // 2, kk), "w")
+            k[f"ups.{li}.0.bias"] = ((ci // 2,), "0")
+            for bi, (rk, dil) in enumerate(zip(c["resblock_kernel_sizes"],
+                                               c["resblock_dilation_sizes"])):
+                p = f"resblocks.{li * n_res + bi}."
+                for j in range(len(dil)):
+                    for cv in ("convs1", "convs2"):
+                        k[p + f"{cv}.{j}.weight"] = ((ci // 2, ci // 2, rk),
+                                                     "w")
+                        k[p + f"{cv}.{j}.bias"] = ((ci // 2,), "0")
+                for a in range(2 * len(dil)):
+                    for n in ("alpha", "beta"):
+                        k[p + f"activations.{a}.act.{n}"] = ((ci // 2,), "0")
+        c_last = c0 // 2 ** len(c["upsample_rates"])
+        for n in ("alpha", "beta"):
+            k[f"activation_post.act.{n}"] = ((c_last,), "0")
+        k["conv_post.weight"] = ((1, c_last, 7), "w")
+    return k
+
+
+def synth_omni_on_card(raw, seed, dev):
+    """Seeded float weights of Qwen2.5-Omni's parts that ride ``_extra``,
+    under the names a full omni checkpoint's load gives them: the audio
+    tower (``audio_tower.*``, f32, the dtype JAX's tower computes in), the
+    talker (``talker.*``, bf16) and token2wav's DiT and BigVGAN
+    (``token2wav.code2wav_dit_model.*`` / ``...bigvgan_model.*``, f32),
+    drawn on the card by a torch.Generator (``_omni_keys``' inits)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t2w = raw["token2wav_config"]
+    parts = (("audio", raw["thinker_config"]["audio_config"], "audio_tower.",
+              torch.float32),
+             ("talker", raw["talker_config"], "talker.", torch.bfloat16),
+             ("dit", t2w["dit_config"], "token2wav.code2wav_dit_model.",
+              torch.float32),
+             ("bigvgan", t2w["bigvgan_config"],
+              "token2wav.code2wav_bigvgan_model.", torch.float32))
+    extra = {}
+    for part, c, prefix, dt in parts:
+        for name, (shape, init) in _omni_keys(part, c).items():
+            if init in "10":
+                t = (torch.ones if init == "1" else torch.zeros)(
+                    shape, dtype=dt, device=dev)
+            else:
+                std = {"n": 0.02, "e": 1.0}.get(
+                    init, 1.0 / math.sqrt(math.prod(shape[1:])))
+                t = (torch.randn(shape, device=dev, generator=gen)
+                     * std).to(dt)
+            extra[prefix + name] = t
+    return extra
+
+
+def _talker_teacher_forced(talker, talker32, embeds, reply, codes, steps):
+    """The talker's prefill and ``steps`` decode steps fed ``codes`` (the
+    kernel run's own stream) on the kernel path (bf16), the plain twins
+    (bf16) and the plain twins in f32 (the same weights cast): each row's
+    distance from f32, as ``_teacher_forced``."""
+    import torch
+
+    from autoawq_tpu_torch.serve import generate as gen
+
+    b, s, _ = embeds.shape
+    dev = embeds.device
+    runs = {"kernel": (talker, "auto", torch.bfloat16),
+            "plain": (talker, "plain", torch.bfloat16),
+            "plain_f32": (talker32, "plain", torch.float32)}
+    caches = {k: gen.init_kv_cache(t.cfg, b, s + steps + 1, dt, dev)
+              for k, (t, _, dt) in runs.items()}
+    zeros = torch.zeros((b, s), dtype=torch.long, device=dev)
+    lm_in = talker.project(embeds)
+    logits = {k: gen.prefill(t.cfg, t.params, zeros, caches[k], m, dt,
+                             embeds=lm_in.to(dt))[0]
+              for k, (t, m, dt) in runs.items()}
+    table, rep = talker.embed_tokens.float(), reply.float()
+    rows = []
+    for i in range(steps + 1):
+        ref = logits["plain_f32"]
+        rows.append({"position": s + i - 1,
+                     "kernel_vs_f32": rel_err(logits["kernel"], ref)[1],
+                     "plain_bf16_vs_f32": rel_err(logits["plain"], ref)[1],
+                     "argmax_agree_f32": float(
+                         (logits["kernel"].argmax(-1) == ref.argmax(-1))
+                         .float().mean())})
+        if i == steps:
+            break
+        tok = codes[:, i]
+        e = talker.project((table[tok] + rep[:, min(i, rep.shape[1] - 1)])
+                           [:, None])
+        logits = {k: gen.decode_step(t.cfg, t.params, tok[:, None],
+                                     caches[k], s + i, m, dt,
+                                     embeds=e.to(dt))[0]
+                  for k, (t, m, dt) in runs.items()}
+    return rows
+
+
+def _to_cpu(tree):
+    return {k: v.cpu() for k, v in tree.items()}
+
+
+def phase_omni(dev):
+    """Traffic AU, Qwen2.5-Omni-7B's speech path on the card: (a) the audio
+    tower on 10 s of mel, the thinker's audio prompt through ``generate``;
+    (b) the talker's codec tokens from the thinker's embeds; (c)
+    token2wav's mel and waveform. Returns (launches of the run, launches
+    per decode step)."""
+    import dataclasses
+
+    import torch
+
+    from autoawq_tpu_torch.models import token2wav as t2w
+    from autoawq_tpu_torch.models.audio import (audio_encoder,
+                                                extra_audio_weights)
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.models.talker import OmniTalker
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+
+    raw = QWEN25_OMNI_7B
+    acfg = raw["thinker_config"]["audio_config"]
+    tcfg = raw["talker_config"]
+    dcfg = raw["token2wav_config"]["dit_config"]
+    bcfg = raw["token2wav_config"]["bigvgan_config"]
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = ModelConfig.from_hf_dict(raw)
+    full = cfg.num_hidden_layers
+    cfg = dataclasses.replace(cfg, num_hidden_layers=OMNI_DEPTH)
+    L = OMNI_DEPTH
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    lm = synth_zoo_on_card(cfg, 0, dev)
+    for lp in lm["layers"]:  # Qwen2's q / k / v bias
+        lp["self_attn"]["qkv_proj"]["bias"] = (torch.randn(
+            (nh + 2 * nkv) * hd, device=dev, generator=g) * 0.02).to(bf)
+    extra = synth_omni_on_card(raw, 3, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "omni", "traffic": "AU", "step": "synth",
+          "cut": f"thinker depth {L} of {full} layers, published width; "
+                 "the audio tower, talker, DiT and BigVGAN at full depth",
+          "seconds": time.perf_counter() - t0,
+          "allocated_bytes": torch.cuda.memory_allocated()})
+
+    # (a) the audio prompt through the thinker: K2 in the prefill, K1 and
+    # K3 a decode step; K4 only where the config carries no window
+    t_a = time.perf_counter()
+    mel = torch.randn(acfg["num_mel_bins"], OMNI_MEL, device=dev,
+                      generator=g)
+    audio_encoder(acfg, extra_audio_weights({"_extra": extra}), mel[:, :200],
+                  200, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    audio = audio_encoder(acfg, extra_audio_weights({"_extra": extra}), mel,
+                          OMNI_MEL, device=dev)
+    torch.cuda.synchronize()
+    t_tower = time.perf_counter() - t
+    n2 = 2 * acfg["n_window"]
+    n_audio = (OMNI_MEL // n2) * (n2 // 2) // 2
+    check(tuple(audio.shape) == (n_audio, acfg["output_dim"])
+          and audio.dtype == f32 and bool(torch.isfinite(audio).all()),
+          f"traffic AU: audio embeds {tuple(audio.shape)} {audio.dtype}, "
+          f"expected ({n_audio}, {acfg['output_dim']}) f32, finite")
+    tok_a = raw["thinker_config"]["audio_token_index"]
+    pre, post = OMNI_TEXT
+    ids = torch.cat([_text_ids(g, pre, cfg.vocab_size, (tok_a,)),
+                     torch.full((n_audio,), tok_a, device=dev),
+                     _text_ids(g, post, cfg.vocab_size, (tok_a,))])[None]
+    s = ids.shape[1]
+
+    def embeds(dt):
+        e = modules.embed(cfg, lm, ids, dt)
+        e[:, pre:pre + n_audio] = audio.to(dt)
+        return e
+    e16, e32 = embeds(bf), embeds(f32)
+    gen.generate(cfg, lm, ids, 2, prompt_embeds=e16)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    out = gen.generate(cfg, lm, ids, OMNI_NEW, prompt_embeds=e16)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    check(tuple(out.shape) == (1, s + OMNI_NEW), "traffic AU output shape")
+    cache = gen.init_kv_cache(cfg, 1, s + 1, bf, dev)
+    _build.reset_launches()
+    logits, _ = gen.prefill(cfg, lm, ids, cache, embeds=e16)
+    torch.cuda.synchronize()
+    per_prefill = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    gen.decode_step(cfg, lm, logits.argmax(-1)[:, None], cache, s)
+    torch.cuda.synchronize()
+    per_step = dict(_build.LAUNCHES)
+    del cache
+    windowed = not modules.causal_prefill_ok(cfg)
+    _check_launches("AU prefill", per_prefill,
+                    {"w4a16_gemm": 4 * L,
+                     "prefill_attention": 0 if windowed else L,
+                     "w4a16_gemv": 0, "fused_mlp": 0})
+    _check_launches("AU decode step", per_step,
+                    {"w4a16_gemv": 2 * L, "fused_mlp": L,
+                     "fused_attn_step": 0, "w4a16_gemm": 0,
+                     "prefill_attention": 0})
+    _check_launches("AU generate", launches, {
+        k: per_prefill.get(k, 0) + (OMNI_NEW - 1) * per_step.get(k, 0)
+        for k in set(per_prefill) | set(per_step)})
+    rows = _teacher_forced(cfg, lm, ids, OMNI_TF_STEPS,
+                           embeds={bf: e16, f32: e32})
+    _check_teacher_forced("AU", rows)
+    cache = gen.init_kv_cache(cfg, 1, s + 9, bf, dev)
+    logits, _ = gen.prefill(cfg, lm, ids, cache, embeds=e16)
+    tok = [logits.argmax(-1)[:, None]]
+
+    def step(i):
+        lg, _ = gen.decode_step(cfg, lm, tok[0], cache, s + i)
+        tok[0] = lg.argmax(-1)[:, None]
+    prof = device_profile(step, 8, match=("DenseJob", "ActOut", "DownJob"))
+    del cache
+    t_a = time.perf_counter() - t_a
+    emit({"phase": "omni", "traffic": "AU (a) audio prompt", "card": card(),
+          "mel_frames": OMNI_MEL, "audio_embeds": n_audio,
+          "prompt": {"text_before": pre, "audio": n_audio,
+                     "text_after": post, "rows": s},
+          "k4_case": ("the config's window (sliding_window 32768, "
+                      "use_sliding_window false) is read as a window: the "
+                      "prompt attends in plain ops, K4 0") if windowed
+          else "no window: K4 a layer",
+          "tower_s": t_tower, "generate_s": t_gen, "new_tokens": OMNI_NEW,
+          "launches": launches, "launches_per_prefill": per_prefill,
+          "launches_per_decode_step": per_step, "kernel_vs_plain": rows,
+          "decode_profile": prof})
+
+    # (b) the talker: the thinker's prompt embeds and its reply's, 64 codec
+    # tokens in bf16; K4 in the prefill, one a layer, and nothing else
+    t_b = time.perf_counter()
+    talker = OmniTalker(tcfg, extra, device=dev)
+    reply = modules.embed(cfg, lm, out[:, s:], bf)
+    talker.generate_codec(e16, reply, 2, dtype=bf)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    codes = talker.generate_codec(e16, reply, OMNI_CODES, dtype=bf)
+    torch.cuda.synchronize()
+    t_talker = time.perf_counter() - t
+    talker_launches = dict(_build.LAUNCHES)
+    n_layers = tcfg["num_hidden_layers"]
+    _check_launches("AU talker", talker_launches,
+                    {"prefill_attention": n_layers, "w4a16_gemv": 0,
+                     "w4a16_gemm": 0, "fused_mlp": 0, "fused_attn_step": 0})
+    check(tuple(codes.shape) == (1, OMNI_CODES)
+          and bool(((codes >= 0) & (codes < tcfg["vocab_size"])).all()),
+          f"traffic AU: codec tokens {tuple(codes.shape)} outside "
+          f"[0, {tcfg['vocab_size']})")
+    talker32 = OmniTalker(tcfg, extra, device=dev, dtype=f32)
+    rows_t = _talker_teacher_forced(talker, talker32, e16, reply, codes,
+                                    OMNI_TALKER_TF)
+    _check_teacher_forced("AU talker", rows_t)
+    del talker32
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t_b
+    emit({"phase": "omni", "traffic": "AU (b) talker", "card": card(),
+          "prompt_rows": s, "reply_rows": OMNI_NEW, "codes": OMNI_CODES,
+          "generate_codec_s": t_talker, "launches": talker_launches,
+          "kernel_vs_plain": rows_t})
+
+    # (c) token2wav in f32: the talker's codes (those at or above the DiT's
+    # 8,193 entries, the talker's special tokens, taken by remainder), a
+    # seeded reference mel, speaker embedding and noise
+    t_c = time.perf_counter()
+    code = torch.remainder(codes, dcfg["num_embeds"])
+    cond = torch.randn(1, dcfg["enc_emb_dim"], device=dev, generator=g)
+    ref_mel = torch.randn(1, OMNI_REF_FRAMES, dcfg["mel_dim"], device=dev,
+                          generator=g)
+    frames = OMNI_CODES * dcfg["repeats"]
+    noise = torch.randn(1, frames, dcfg["mel_dim"], device=dev, generator=g)
+    t = time.perf_counter()
+    wav = t2w.token2wav(extra, dcfg, bcfg, code, cond, ref_mel, noise,
+                        device=dev, **OMNI_T2W)
+    torch.cuda.synchronize()
+    t_wav = time.perf_counter() - t
+    samples = frames * math.prod(bcfg["upsample_rates"])
+    check(tuple(wav.shape) == (1, samples) and bool(torch.isfinite(wav).all())
+          and float(wav.abs().max()) <= 1.0,
+          f"traffic AU: waveform {tuple(wav.shape)}, expected (1, "
+          f"{samples}) finite in [-1, 1]")
+    dit_w = t2w.token2wav_weights(extra, "code2wav_dit_model")
+    bv_w = t2w.token2wav_weights(extra, "code2wav_bigvgan_model")
+    t = time.perf_counter()
+    mel_out = t2w.dit_sample(dit_w, dcfg, cond, ref_mel, code, noise,
+                             device=dev, **OMNI_T2W)
+    torch.cuda.synchronize()
+    t_mel = time.perf_counter() - t
+    check(tuple(mel_out.shape) == (1, dcfg["mel_dim"], frames)
+          and bool(torch.isfinite(mel_out).all()),
+          f"traffic AU: mel {tuple(mel_out.shape)}")
+    # against the CPU: the first RK4 evaluation's DiT forward (CFG) on the
+    # first codes and the vocoder on the first frames of the card's mel,
+    # each against an f64 run on the CPU: the card's f32 within
+    # ``OMNI_F64_RULE`` times the CPU's f32 distance from it (+1e-6 of the
+    # scale). A control runs the vocoder on the card with TF32 on (the
+    # scope bypassed).
+    n = OMNI_DIT_CHECK
+    spk = cond[:, None].expand(-1, n * dcfg["repeats"], -1)
+    dit_args = (noise[:, :n * dcfg["repeats"]], ref_mel, spk, code[:, :n])
+    cut = mel_out[..., :OMNI_VOCODER_CHECK]
+    held = {}
+    for name, fn, w, c, args in (
+            ("dit_forward", t2w.dit_forward, dit_w, dcfg,
+             dit_args + (0.0,)),
+            ("vocoder", t2w.bigvgan_forward, bv_w, bcfg, (cut,))):
+        cpu_w = _to_cpu(w)
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        got = fn(w, c, *args, device=dev).cpu()
+        c32 = fn(cpu_w, c, *cpu_args, device="cpu")
+        c64 = fn(cpu_w, c, *cpu_args, device="cpu", dtype=torch.float64)
+        held[name] = {"card_vs_f64": rel_err(got, c64)[1],
+                      "cpu_f32_vs_f64": rel_err(c32, c64)[1],
+                      "card_vs_cpu_f32": rel_err(got, c32)[1]}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            ctl = t2w.bigvgan_forward.__wrapped__(bv_w, bcfg, cut,
+                                                  device=dev).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    held["vocoder"]["tf32_control_vs_f64"] = rel_err(
+        ctl, t2w.bigvgan_forward(_to_cpu(bv_w), bcfg, cut.cpu(),
+                                 device="cpu", dtype=torch.float64))[1]
+    for name, h in held.items():
+        check(h["card_vs_f64"] <= OMNI_F64_RULE * h["cpu_f32_vs_f64"]
+              + 1e-6,
+              f"traffic AU: token2wav's {name} on the card {h} from the "
+              "CPU's f64")
+    t_c = time.perf_counter() - t_c
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "omni", "traffic": "AU (c) token2wav", "card": card(),
+          "codes": OMNI_CODES, "mel_frames": frames, "samples": samples,
+          **OMNI_T2W, "token2wav_s": t_wav, "dit_sample_s": t_mel,
+          "tf32": "off inside token2wav (models/token2wav._no_tf32)",
+          "held_against_f64": held,
+          "dit_check_codes": OMNI_DIT_CHECK,
+          "vocoder_check_frames": OMNI_VOCODER_CHECK})
+    emit({"phase": "omni", "step": "seconds_by_part", "a": t_a, "b": t_b,
+          "c": t_c, "peak_memory_bytes": peak})
+    del lm, extra, talker
+    torch.cuda.empty_cache()
+    total = {k: launches.get(k, 0) + talker_launches.get(k, 0)
+             for k in set(launches) | set(talker_launches)}
+    return total, {"AU": per_step}
+
+
+def _trace_clock(path):
+    """Of a Chrome trace: the launches with no kernel record (dropped), and
+    the least gap from a launch to its kernel's start, in ms (negative: the
+    device's timestamps map before the host's)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e["args"].get("correlation"): e["ts"] for e in events
+               if e.get("cat") == "kernel"}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")]
+    gaps = [kernels[c] - e["ts"] for e in launches
+            if (c := e["args"].get("correlation")) in kernels]
+    return {"launches_without_kernel": len(launches) - len(gaps),
+            "least_launch_to_kernel_ms": min(gaps) / 1e3 if gaps else None}
+
+
+class _CharTok:
+    """A character-level stub tokenizer (no download)."""
+
+    def __call__(self, text, add_special_tokens=True):
+        return {"input_ids": [ord(c) % 97 for c in text]}
+
+
+def phase_tools(dev):
+    """The CLI's ``benchmark`` on a saved TinyLlama in a subprocess, a
+    ``utils/profiling.trace`` of 8 of traffic A's decode steps read back by
+    ``summarize_trace``, and ``eval/tasks``' multiple-choice scoring on
+    seeded questions held by the rule against the plain path. Returns the
+    launches of the traced steps."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import autoawq_tpu_torch
+    from autoawq_tpu_torch.api import cast_params
+    from autoawq_tpu_torch.config import AwqConfig
+    from autoawq_tpu_torch.eval import tasks
+    from autoawq_tpu_torch.io import serialize
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils import profiling
+
+    cfg = ModelConfig(**TINYLLAMA)
+    params = synth_zoo_on_card(cfg, 0, dev)
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(autoawq_tpu_torch.__file__)))
+    layers = [{k: dict(v) if isinstance(v, dict) else v
+               for k, v in lp.items()} for lp in params["layers"]]
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        serialize.save_quantized(d, cfg, AwqConfig(q_group_size=128),
+                                 _unfused(cfg, {**params, "layers": layers}))
+        t_save = time.perf_counter() - t
+        cmd = [sys.executable, "-m", "autoawq_tpu_torch", "benchmark",
+               "--model", d, "--contexts", "64", "--decode", "32"]
+        t = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                             timeout=TOOLS_TIMEOUT)
+        t_cli = time.perf_counter() - t
+    del layers
+    line = (res.stdout.strip().splitlines() or [""])[-1]
+    check(res.returncode == 0
+          and re.fullmatch(r"bs=1 ctx=64: decode [0-9.]+ tok/s", line),
+          f"tools: the CLI's benchmark exited {res.returncode}: "
+          f"{line!r} {res.stderr[-2000:]}")
+    emit({"phase": "tools", "step": "cli", "card": card(),
+          "command": "python -m autoawq_tpu_torch benchmark --model DIR "
+                     "--contexts 64 --decode 32", "stdout": line,
+          "save_s": t_save, "subprocess_s": t_cli})
+
+    # the profiler over 8 of A's decode steps: K1's and K3's device kernels
+    # by name against the launch counter (a K3 call is two kernels)
+    steps = 8
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 64))).to(dev)
+    caches = gen.init_kv_cache(cfg, 1, 64 + steps + 1, torch.bfloat16, dev)
+    logits, _ = gen.prefill(cfg, params, prompt, caches)
+    tok = logits.argmax(-1)[:, None]
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d, device=dev):
+            for i in range(steps):
+                lg, _ = gen.decode_step(cfg, params, tok, caches, 64 + i)
+                tok = lg.argmax(-1)[:, None]
+        launches = dict(_build.LAUNCHES)
+        rows = profiling.summarize_trace(d, top=None)
+        clock = _trace_clock(os.path.join(d, "trace.json"))
+    del caches
+    k1 = sum(n for name, _, n in rows if "DenseJob" in name)
+    k3 = sum(n for name, _, n in rows
+             if "ActOut" in name or "DownJob" in name)
+    nl = cfg.num_hidden_layers
+    _check_launches("tools trace", launches,
+                    {"w4a16_gemv": 2 * nl * steps, "fused_mlp": nl * steps})
+    check(k1 == launches.get("w4a16_gemv", 0) and
+          k3 == 2 * launches.get("fused_mlp", 0),
+          f"tools: summarize_trace counts K1 {k1} and K3 {k3} device "
+          f"kernels for {launches} launches")
+    emit({"phase": "tools", "step": "trace", "card": card(),
+          "decode_steps": steps, "launches": launches,
+          "k1_device_kernels": k1, "k3_device_kernels": k3, **clock,
+          "top": [{"name": n[:80], "us": us, "count": c}
+                  for n, us, c in rows[:8]]})
+
+    # multiple-choice scoring: the log-prob rows behind each choice's
+    # log-likelihood on the kernel path against the plain twins in bf16
+    # and f32, by the teacher-forced rule row by row
+    rng = np.random.default_rng(17)
+    words = ["river", "stone", "cloud", "ember", "maple", "harbor",
+             "violet", "copper"]
+    exs = [{"question": f"Which word is number {i}?",
+            "choices": list(rng.choice(words, 4, replace=False)),
+            "answer": int(rng.integers(0, 4))} for i in range(TOOLS_MMLU)]
+    tok = _CharTok()
+    t = time.perf_counter()
+    acc = tasks.eval_multiple_choice(cfg, params, tok, exs)
+    t_mc = time.perf_counter() - t
+    p32 = cast_params(params, torch.float32)
+    lls = []
+    for ex in exs:
+        ctx = tok(tasks.format_mmlu_prompt(ex["question"],
+                                           ex["choices"]))["input_ids"]
+        for letter in tasks.MMLU_CHOICES:
+            cont = tok(" " + letter)["input_ids"]
+            seq = torch.tensor([ctx + cont], device=dev)
+            lp = {name: torch.log_softmax(modules.forward(
+                cfg, tree, seq, method=m)[0, len(ctx) - 1:-1].float(), -1)
+                for name, tree, m in (("kernel", params, "auto"),
+                                      ("plain_bf16", params, "plain"),
+                                      ("plain_f32", p32, "plain"))}
+            at = torch.arange(len(cont), device=dev)
+            rec = {name: float(v[at, torch.tensor(cont, device=dev)].sum())
+                   for name, v in lp.items()}
+            rec["api"] = tasks.choice_loglikelihood(cfg, params, ctx, cont)
+            for i in range(len(cont)):
+                f = lp["plain_f32"][i]
+                k_rel = rel_err(lp["kernel"][i], f)[1]
+                p_rel = rel_err(lp["plain_bf16"][i], f)[1]
+                check(k_rel <= 2 * p_rel + 1e-3,
+                      f"tools: a choice's log-prob row on the kernel path "
+                      f"{k_rel:.3g} from f32, the bf16 twin {p_rel:.3g}")
+            lls.append(rec)
+    emit({"phase": "tools", "step": "multiple_choice", "card": card(),
+          "questions": TOOLS_MMLU, "accuracy": acc, "eval_s": t_mc,
+          "loglikelihoods": lls})
+    del params, p32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7834,7 +8575,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_device()
-    rep, total, per_token = {}, None, {}
+    rep, total, per_token, extra_rows = {}, None, {}, []
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -7846,7 +8587,7 @@ def main(argv=None) -> int:
     if "build" in phases:
         timed("build", phase_build)
     if "kernels" in phases:
-        rep = timed("kernels", phase_kernels, dev)
+        rep, omni_rows = timed("kernels", phase_kernels, dev)
     if "e2e" in phases:
         total, per_token = timed("e2e", phase_e2e, dev)
     if "load" in phases:
@@ -7860,7 +8601,6 @@ def main(argv=None) -> int:
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
-    extra_rows = []
     if "mla_moe" in phases:
         counts, per_step, extra_rows = timed("mla_moe", phase_mla_moe, dev)
         per_token.update(per_step)
@@ -7887,6 +8627,15 @@ def main(argv=None) -> int:
         per_token.update(per_step)
         if total is not None:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "omni" in phases:
+        counts, per_step = timed("omni", phase_omni, dev)
+        per_token.update(per_step)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
+    if "tools" in phases:
+        timed("tools", phase_tools, dev)
+    if rep:  # the kernels phase's rows at Qwen2.5-Omni's shapes
+        extra_rows = extra_rows + omni_rows
     if "prefill" in phases:
         timed("prefill", phase_prefill, dev)
     if "paged" in phases:
@@ -7900,8 +8649,9 @@ def main(argv=None) -> int:
     if rep:
         kernels = []
         # the eleven kernels' representative rows, then the mla_moe phase's
-        # K6 and K8 rows, the train phase's K1 and K2 rows and the
-        # multimodal phase's K1-K4 rows at their own shapes
+        # K6 and K8 rows, the train phase's K1 and K2 rows, the
+        # multimodal phase's K1-K4 rows and the kernels phase's K1, K3 and
+        # K4 rows at Qwen2.5-Omni's shapes
         for name, r in [(n, rep[n]) for n in KERNEL_META] + [
                 (r["kernel"], r) for r in extra_rows]:
             source, replaces = KERNEL_META[name]

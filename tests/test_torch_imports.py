@@ -20,7 +20,10 @@ def test_port_imports_nothing_forbidden():
         "import autoawq_tpu_torch, chip_smoke\n"
         "from autoawq_tpu_torch import api, convert\n"
         "from autoawq_tpu_torch.core import quant\n"
-        "from autoawq_tpu_torch.eval import perplexity\n"
+        "from autoawq_tpu_torch.eval import (humaneval, lm_eval_adapter, "
+        "perplexity, tasks)\n"
+        "from autoawq_tpu_torch.models import audio, talker, token2wav\n"
+        "import autoawq_tpu_torch.__main__\n"
         "from autoawq_tpu_torch.io import hf, safetensors, serialize\n"
         "from autoawq_tpu_torch.models import plugins\n"
         "from autoawq_tpu_torch.nn import fuse, modules\n"
@@ -32,7 +35,7 @@ def test_port_imports_nothing_forbidden():
         "from autoawq_tpu_torch.serve import (batching, beam, generate, "
         "paged, server, spec_batch, speculative)\n"
         "from autoawq_tpu_torch.quantize import calib, quantizer, scale\n"
-        "from autoawq_tpu_torch.utils import synth, tree\n"
+        "from autoawq_tpu_torch.utils import profiling, synth, tree\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "bad += list(_build._libs)  # no kernel is built at import\n"
         "print(bad)\n"

@@ -1667,3 +1667,195 @@ def test_llava_paged_embeds_request_decodes_as_generate(cuda):
     got = eng.run()["r"]
     assert got == want
     assert _build.LAUNCHES["paged_attn"] == 2 * 7
+
+
+def _tiny_omni():
+    """A Qwen2.5-Omni at small widths: the thinker (hidden 256, 2 layers,
+    4 / 2 heads x 64, no window: K4 takes its prompt), a 2-layer audio
+    tower (n_window 100), a 2-layer talker (4 / 2 heads x 128), a 2-layer
+    DiT and a 3-stage BigVGAN."""
+    return dict(
+        model_type="qwen2_5_omni",
+        thinker_config=dict(
+            audio_token_index=500,
+            text_config=dict(
+                vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=2048,
+                rope_theta=1e6, rope_scaling={"type": "default",
+                                              "mrope_section": [8, 12, 12]}),
+            audio_config=dict(d_model=64, encoder_layers=2,
+                              encoder_attention_heads=2, encoder_ffn_dim=128,
+                              num_mel_bins=16, n_window=100,
+                              output_dim=256)),
+        talker_config=dict(vocab_size=96, hidden_size=128,
+                           intermediate_size=256, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           head_dim=128, embedding_size=256),
+        token2wav_config=dict(
+            dit_config=dict(
+                hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                head_dim=32, ff_mult=2, emb_dim=16, enc_emb_dim=8,
+                enc_dim=12, enc_channels=[16, 16, 16, 16, 48],
+                enc_kernel_sizes=[5, 3, 3, 3, 1],
+                enc_dilations=[1, 2, 3, 4, 1], enc_attention_channels=8,
+                enc_res2net_scale=2, enc_se_channels=8, mel_dim=10,
+                num_embeds=64, repeats=2, block_size=24,
+                look_ahead_layers=[1], look_backward_layers=[0]),
+            bigvgan_config=dict(
+                mel_dim=10, upsample_initial_channel=64,
+                resblock_kernel_sizes=[3, 7],
+                resblock_dilation_sizes=[[1, 3, 5]] * 2,
+                upsample_rates=[5, 3, 2], upsample_kernel_sizes=[11, 7, 4])))
+
+
+def _omni_parts(dev):
+    import chip_smoke
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
+    from autoawq_tpu_torch.utils.tree import to_device
+
+    raw = _tiny_omni()
+    cfg = ModelConfig.from_hf_dict(raw)
+    lm = random_quantized_params(cfg, seed=0, fused=True, device="cpu")
+    extra = chip_smoke.synth_omni_on_card(raw, 1, "cpu")
+    return raw, cfg, to_device(lm, dev), {k: v.to(dev)
+                                          for k, v in extra.items()}
+
+
+def test_omni_audio_prompt_launches_and_matches_the_cpu(cuda):
+    """10 s of seeded mel through the audio tower (250 embeds) spliced into
+    a 282-row prompt, prefilled on the card (K2 4 and K4 1 a layer: no
+    window) and one decode step (K1 2 and K3 1 a layer), against the same
+    prompt on the CPU's plain path: the prefill's logits within 2e-2 of
+    their scale (bf16 in both; the llava case's bound)."""
+    from autoawq_tpu_torch.models.audio import (audio_encoder,
+                                                extra_audio_weights)
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.serve import generate as gen
+
+    out = {}
+    mel = torch.randn(16, 1000, generator=torch.Generator().manual_seed(2))
+    for dev, method in ((cuda, "auto"), (torch.device("cpu"), "plain")):
+        raw, cfg, lm, extra = _omni_parts(dev)
+        audio = audio_encoder(raw["thinker_config"]["audio_config"],
+                              extra_audio_weights({"_extra": extra}),
+                              mel.to(dev), 1000, device=dev)
+        assert audio.shape == (250, 256)
+        ids = torch.randint(0, 400, (1, 282), generator=torch.Generator()
+                            .manual_seed(3)).to(dev)
+        ids[0, 16:266] = 500
+        e = modules.embed(cfg, lm, ids, torch.bfloat16)
+        e[:, 16:266] = audio.to(torch.bfloat16)
+        cache = gen.init_kv_cache(cfg, 1, 290, device=dev)
+        _build.reset_launches()
+        logits, _ = gen.prefill(cfg, lm, ids, cache, method, embeds=e)
+        prefill = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        gen.decode_step(cfg, lm, logits.argmax(-1)[:, None], cache, 282,
+                        method)
+        out[dev.type] = (logits.float().cpu(), prefill,
+                         dict(_build.LAUNCHES))
+    got, prefill, step = out["cuda"]
+    ref = out["cpu"][0]
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert {k: v for k, v in prefill.items() if v} == {
+        "w4a16_gemm": 8, "prefill_attention": 2}
+    assert {k: v for k, v in step.items() if v} == {"w4a16_gemv": 4,
+                                                    "fused_mlp": 2}
+
+
+def test_omni_talker_prefill_takes_k4_a_layer(cuda):
+    """The talker (bf16, 4 / 2 heads x 128 over a 128-wide stream) on a
+    282-row prompt of thinker-width embeds: ``generate_codec`` launches K4
+    once a layer, in the prefill, and nothing else; the prefill's logits
+    within 2e-2 of their scale of the CPU's plain path in bf16."""
+    from autoawq_tpu_torch.models.talker import OmniTalker
+    from autoawq_tpu_torch.serve import generate as gen
+
+    g = torch.Generator().manual_seed(4)
+    e = torch.randn(1, 282, 256, generator=g) * 0.3
+    reply = torch.randn(1, 4, 256, generator=g) * 0.3
+    logits = {}
+    for dev, method in ((cuda, "auto"), (torch.device("cpu"), "plain")):
+        raw, _, _, extra = _omni_parts(dev)
+        talker = OmniTalker(raw["talker_config"], extra, device=dev)
+        cache = gen.init_kv_cache(talker.cfg, 1, 283, device=dev)
+        logits[dev.type] = gen.prefill(
+            talker.cfg, talker.params, torch.zeros((1, 282), dtype=torch.long,
+                                                   device=dev), cache,
+            method, embeds=talker.project(e.to(dev)).to(torch.bfloat16)
+        )[0].float().cpu()
+        if dev.type == "cuda":
+            _build.reset_launches()
+            codes = talker.generate_codec(e.to(dev), reply.to(dev), 8,
+                                          dtype=torch.bfloat16)
+            assert codes.shape == (1, 8)
+            assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+                "prefill_attention": 2}
+    ref = logits["cpu"]
+    assert (logits["cuda"] - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_token2wav_f32_on_the_card_matches_the_cpu(cuda):
+    """token2wav on the card with TF32 switched on globally: its entry
+    points turn TF32 off in their scope. The DiT forward (with CFG) and the
+    vocoder, each within twice the CPU's f32 distance from the CPU's f64 run
+    (+1e-6 of the scale; TF32 would sit ~1e-3 away); the whole path (4 RK4
+    steps with guidance, then BigVGAN) and its mel within 1e-4 of the CPU's
+    f32 (the order of f32 sums through the steps; 1.4e-5 in the first run
+    on the card), and the flags as they were afterwards."""
+    from autoawq_tpu_torch.models import token2wav as t2w
+
+    g = torch.Generator().manual_seed(5)
+    kw = dict(num_steps=4, guidance_scale=0.5, sway_coefficient=-1.0)
+    code = torch.randint(0, 64, (1, 12), generator=g)
+    cond = torch.randn(1, 8, generator=g)
+    ref_mel = torch.randn(1, 40, 10, generator=g)
+    noise = torch.randn(1, 24, 10, generator=g)
+    mel_in = torch.randn(1, 10, 16, generator=g)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        for dev in (cuda, torch.device("cpu")):
+            raw, _, _, extra = _omni_parts(dev)
+            t2 = raw["token2wav_config"]
+            dcfg, bcfg = t2["dit_config"], t2["bigvgan_config"]
+            dit = t2w.token2wav_weights(extra, "code2wav_dit_model")
+            voc = t2w.token2wav_weights(extra, "code2wav_bigvgan_model")
+            args = [a.to(dev) for a in (code, cond, ref_mel, noise)]
+            spk = args[1][:, None].expand(-1, 24, -1)
+            runs = [
+                lambda dt: t2w.dit_forward(dit, dcfg, args[3], args[2], spk,
+                                           args[0], 0.25, device=dev,
+                                           dtype=dt),
+                lambda dt: t2w.bigvgan_forward(voc, bcfg, mel_in.to(dev),
+                                               device=dev, dtype=dt)]
+            dts = [torch.float32] + ([torch.float64] if dev.type == "cpu"
+                                     else [])
+            out[dev.type] = {
+                "parts": [[r(dt).cpu() for dt in dts] for r in runs],
+                "mel": t2w.dit_sample(dit, dcfg, args[1], args[2], args[0],
+                                      args[3], device=dev, **kw).cpu(),
+                "wav": t2w.token2wav(extra, dcfg, bcfg, *args, device=dev,
+                                     **kw).cpu()}
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
+    for (card,), (c32, c64) in zip(out["cuda"]["parts"],
+                                   out["cpu"]["parts"]):
+        assert rel(card, c64) <= 2 * rel(c32, c64) + 1e-6
+    for key in ("mel", "wav"):
+        got, ref = out["cuda"][key], out["cpu"][key]
+        assert got.shape == ref.shape
+        assert rel(got, ref) <= 1e-4
+    assert out["cpu"]["wav"].shape == (1, 24 * 30)

@@ -382,13 +382,14 @@ def test_mesh_of_one_rank_calibrates_as_without_one():
 
 
 def test_plugins_outside_the_port_raise():
+    """Only a type JAX has no plugin for raises: phi3_v, the Qwen2-VL and
+    the Qwen2.5-Omni types quantize as their language model."""
     assert get_plugin("qwen3_moe") is get_plugin("mixtral")
-    # phi3_v and the Qwen2-VL types quantize now; Qwen2.5-Omni waits for
-    # item 17b
     assert get_plugin("phi3_v") is get_plugin("phi3")
     assert get_plugin("qwen2_vl") is get_plugin("llama")
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        get_plugin("qwen2_5_omni")
+    for mt in ("qwen2_5_omni", "qwen2_5_omni_thinker", "qwen2_5_omni_text"):
+        assert get_plugin(mt) is get_plugin("llama")
+        assert get_plugin(mt).__name__ == "LlamaFamilyPlugin"
     with pytest.raises(KeyError):
         get_plugin("not_a_model")
     assert get_plugin("mistral") is get_plugin("llama")

@@ -25,8 +25,7 @@ from zoo_quant_util import (check_scale_choices, check_taps, check_with_clip,
                             check_without_clip)
 
 FAMILIES = ["stablelm", "baichuan", "internlm2", "exaone", "minicpm", "qwen"]
-LATER = {"item 17b": ("qwen2_5_omni", "qwen2_5_omni_thinker",
-                      "qwen2_5_omni_text")}
+OMNI = ("qwen2_5_omni", "qwen2_5_omni_thinker", "qwen2_5_omni_text")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,14 +59,11 @@ def test_whole_quantizer_near_jax(name):
 
 def test_registry_covers_every_jax_type_the_port_runs():
     """Every type JAX registers has a port plugin of the same name (class
-    for class: the MLA and MoE types and the vision-language ones among
-    them), but Qwen2.5-Omni's types of ROADMAP item 17b, which raise naming
-    their item."""
-    later = {mt: item for item, types in LATER.items() for mt in types}
-    assert set(JAX_PLUGINS) == set(PLUGINS) | set(later)
+    for class: the MLA and MoE types, the vision-language ones and
+    Qwen2.5-Omni's among them), and nothing is left out."""
+    assert set(JAX_PLUGINS) == set(PLUGINS)
     for mt, plugin in PLUGINS.items():
         assert get_plugin(mt) is plugin
         assert plugin.__name__ == JAX_PLUGINS[mt].__name__, mt
-    for mt, item in later.items():
-        with pytest.raises(NotImplementedError, match=item):
-            get_plugin(mt)
+    for mt in OMNI:
+        assert PLUGINS[mt].__name__ == "LlamaFamilyPlugin"
