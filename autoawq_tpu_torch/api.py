@@ -60,6 +60,15 @@ def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     return walk(params)
 
 
+def _to_device(params: Dict[str, Any], device: torch.device,
+               dtype: torch.dtype) -> Dict[str, Any]:
+    """The facades' ``to_device``: ``params`` on ``device`` (``_extra``
+    left on the host), cast by :func:`cast_params`."""
+    from autoawq_tpu_torch.utils.tree import to_device
+
+    return cast_params(to_device(params, device), dtype)
+
+
 class AwqCausalLM:
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  qcfg: Optional[AwqConfig] = None, device=None):
@@ -210,6 +219,17 @@ class AwqCausalLM:
         self.mesh = mesh
         return self
 
+    def to_device(self, dtype: torch.dtype = torch.bfloat16
+                  ) -> "AwqCausalLM":
+        """JAX's ``to_device`` (``autoawq_tpu/api.py:216``), for its chain
+        ``from_quantized(path).to_device()``: the tree on the model's
+        device, float leaves cast to ``dtype`` as :func:`cast_params` casts
+        them. Unlike JAX's, scales and MLA's dense kv_b stay f32 (the
+        kernels' contract) and ``_extra`` stays as it is. Returns the
+        model."""
+        self.params = _to_device(self.params, self.device, dtype)
+        return self
+
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(input_ids, device=self.device)
         return ids[None] if ids.dim() == 1 else ids
@@ -338,8 +358,8 @@ class _VisionLanguageModel:
         """A quantized checkpoint (AutoAWQ GEMM), on the card unless
         ``device`` names another. ``fuse_layers`` fuses the language
         model's q/k/v and gate/up (the tower stays as it is); ``to_device``
-        casts the float leaves to ``dtype`` (scales stay f32), the JAX
-        facade's knob (its load leaves the tree on the host)."""
+        runs :meth:`to_device` with ``dtype``, the JAX facade's knob (its
+        load leaves the tree on the host)."""
         from autoawq_tpu_torch.nn import fuse
 
         m = cls._load(path, resolve_device(device), True)
@@ -347,7 +367,7 @@ class _VisionLanguageModel:
             m.params["language_model"] = fuse.fuse_model(
                 m.cfg, m.params["language_model"])
         if to_device and dtype is not None:
-            m.params = cast_params(m.params, dtype)
+            m.to_device(dtype)
         return m
 
     def quantize(self, tokenizer=None, quant_config=None, **kw) -> None:
@@ -372,6 +392,14 @@ class _VisionLanguageModel:
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(raw, f, indent=2)
         serialize.write_safetensors(path, self._state_dict())
+
+    def to_device(self, dtype: torch.dtype = torch.bfloat16):
+        """JAX's ``to_device`` (``autoawq_tpu/api.py:367``, ``:567``): the
+        tree, tower included, on the model's device, float leaves cast as
+        :func:`cast_params` casts them (scales f32, ``_extra`` as it is).
+        Returns the model."""
+        self.params = _to_device(self.params, self.device, dtype)
+        return self
 
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(input_ids, device=self.device)

@@ -318,6 +318,11 @@ def _dit(p, cfg: Dict[str, Any], x, ref_mel, spk, code, t,
 
     emb_tab = p["text_embed.codec_embed.weight"]
     reps = cfg["repeats"]
+    # jnp's gather wraps a negative index once and clamps the rest to the
+    # table: a code past the DiT's entries (the talker's wider vocabulary)
+    # reads the last row
+    n = emb_tab.shape[0]
+    code = torch.where(code < 0, code + n, code).clamp(0, n - 1)
     code_e = torch.repeat_interleave(emb_tab[code], reps, dim=1)
     if apply_cfg:
         code_e_un = torch.repeat_interleave(emb_tab[torch.zeros_like(code)],

@@ -98,7 +98,8 @@ def _check_rope_capacity(cfg: ModelConfig, capacity: int) -> None:
         warnings.warn(
             f"KV-cache capacity {capacity} > original_max_position_embeddings "
             f"{orig}: {cfg.rope_type} rope uses its long-context factors for "
-            "the whole generation. Size max_seq_len to the expected "
+            "the WHOLE generation (consistent across steps, but different "
+            "from HF for short sequences). Size max_seq_len to the expected "
             "prompt+generation length to keep short-context numerics.")
 
 
@@ -257,6 +258,7 @@ def generate(cfg: ModelConfig, params: Dict[str, Any], prompt: torch.Tensor,
         # at most 128 rows at a negative position (ROADMAP §3)
         raise ValueError(f"windowed eviction needs max_seq_len > "
                          f"{ROLL_STEP}, got {total}")
+    _check_rope_capacity(cfg, total)
     dev = prompt.device
     caches = init_kv_cache(cfg, b, total, dtype, dev, kv_quant=kv_quant)
     logits, caches = prefill(cfg, params, prompt, caches, method, dtype,

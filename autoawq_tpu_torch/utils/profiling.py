@@ -8,6 +8,11 @@ Counterpart of ``autoawq_tpu/utils/profiling.py`` (``trace`` :27,
   ``torch.profiler`` (host operators, and the device's kernels on a card,
   after a burst of ``spin_kernel`` launches of its own) and writes a Chrome
   trace, ``trace.json``, into ``log_dir``.
+* :func:`flush_device` — that burst alone (``SPIN_KERNEL`` names its rows).
+* :func:`device_kernels` — a callable under ``torch.profiler`` after that
+  burst: its wall time and the device's kernels by name (count and µs),
+  the burst's rows left out; what every reader of kernel counts or device
+  time builds on.
 * :func:`summarize_trace` — reads that trace back into a table of device
   kernels by name (total µs and count), so the port's own kernels (K1's
   ``DenseJob``, K3's ``PairJob`` and ``DownJob``, ...) show beside the
@@ -32,7 +37,7 @@ import os
 import re
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,6 +49,59 @@ NAN_CHECKS = False
 # first (they show in the summary under that name), then a short wait.
 FLUSH_KERNELS = 1024
 DEVICE_CLOCK_MARGIN_S = 0.05
+SPIN_KERNEL = "spin_kernel"
+
+
+def flush_device(device) -> None:
+    """Inside a running profiler on a card: ``FLUSH_KERNELS`` one-cycle
+    ``spin_kernel`` launches, a sync and a short wait, so that the records
+    the profiler loses first are these and not the block's. A no-op for a
+    CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    with torch.cuda.device(device):
+        for _ in range(FLUSH_KERNELS):
+            torch.cuda._sleep(1)
+    torch.cuda.synchronize(device)
+    time.sleep(DEVICE_CLOCK_MARGIN_S)
+
+
+def device_kernels(run: Callable[[], Any], device=None,
+                   host_ops: bool = False
+                   ) -> Tuple[Any, float, Dict[str, Tuple[int, float]]]:
+    """``run()`` under ``torch.profiler``, its window opened by
+    :func:`flush_device`'s burst: -> (run's result, its wall seconds up to
+    a sync, {device kernel name: (count, total µs)}), the burst's rows left
+    out. ``host_ops`` records the host's operators too; off, a call of tens
+    of thousands of host operators keeps the profiler's read-back short. On
+    a CPU device ``run()`` is timed alone and the table is empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from autoawq_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        t = time.perf_counter()
+        out = run()
+        return out, time.perf_counter() - t, {}
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    torch.cuda.synchronize(device)
+    with profile(activities=activities) as prof:
+        flush_device(device)
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and SPIN_KERNEL not in e.key:
+            n, us = kernels.get(e.key, (0, 0.0))
+            kernels[e.key] = (n + e.count, us + e.self_device_time_total)
+    return out, wall, kernels
 
 
 @contextlib.contextmanager
@@ -66,12 +124,7 @@ def trace(log_dir: Optional[str] = None, device=None):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
     with profile(activities=activities) as prof:
-        if cuda:
-            with torch.cuda.device(device):
-                for _ in range(FLUSH_KERNELS):
-                    torch.cuda._sleep(1)
-            torch.cuda.synchronize(device)
-            time.sleep(DEVICE_CLOCK_MARGIN_S)
+        flush_device(device)
         yield log_dir
         if cuda:
             torch.cuda.synchronize(device)

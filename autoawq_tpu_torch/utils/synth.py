@@ -15,6 +15,11 @@ the config has them, deepseek's ``shared_experts`` or qwen2-moe's gated
 feed-forward norms (ones, no draws), without which a post-norm model cannot
 run. Like JAX's, it emits no learned-position table and no bloom
 ``embed_ln``; a caller that needs them adds them.
+
+:func:`synth_zoo_params` (and :func:`synth_qlin`, one linear) draws a
+model of the zoo on the device itself with a seeded torch.Generator, in
+the port's fused layout: no JAX counterpart, for the benchmarks and smoke
+runs at published widths, where the numpy draw takes minutes on the host.
 """
 
 from __future__ import annotations
@@ -162,5 +167,123 @@ def random_quantized_params(cfg: ModelConfig, seed: int = 0,
             lp["mlp"] = {"gate_proj": qlin(h, "mlp.gate_proj"),
                          "up_proj": qlin(h, "mlp.up_proj"),
                          "down_proj": qlin(inter, "mlp.down_proj")}
+        params["layers"].append(lp)
+    return params
+
+
+def synth_qlin(gen: torch.Generator, k: int, n: int, gs: int = 128,
+               zp: bool = True, experts: Optional[int] = None
+               ) -> Dict[str, Any]:
+    """A random int4 LIN (stacked [E, ...] with ``experts``) in the port's
+    layout, drawn on ``gen``'s device by the torch.Generator ``gen``."""
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
+                             device=gen.device, generator=gen).to(
+                                 torch.int32)
+    lead = () if experts is None else (experts,)
+    g = k // gs
+    return {"qweight": words(*lead, k // 8, n),
+            "scales": (torch.rand(*lead, g, n, device=gen.device,
+                                  generator=gen) + 0.5) * 0.01,
+            "qzeros": words(*lead, -(-g // 8), n) if zp else None}
+
+
+def synth_zoo_params(cfg: ModelConfig, seed: int, dev, gs: int = 128
+                     ) -> Dict[str, Any]:
+    """Seeded random W4 weights at group size ``gs`` with zero points for
+    a model of the decoder zoo, drawn on ``dev`` by a torch.Generator in
+    the port's fused layout (qkv_proj; gate_up_proj or fc1 / fc2): bf16
+    embedding, head and biases (std 0.02, as the JAX synthesiser's), norms
+    of ones (LayerNorms with a zero bias, except MPT's, which have none),
+    q/k norms and gemma2's four norms where the config has them. MLA models
+    get MLA's projections and norms (q_proj, or q_a_proj / q_a_layernorm /
+    q_b_proj; kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj, o_proj). MoE
+    layers get a bf16 router (std 0.02; for ``noaux_tc`` an f32
+    ``e_score_correction_bias``, std 0.02), stacked experts and, where the
+    config has them, deepseek's shared experts, unfused; layers below
+    ``first_k_dense_replace`` are dense, as the published checkpoints
+    store them. Not the JAX synthesiser's numpy draw, which takes minutes
+    on the host at these widths (and makes every layer MoE)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+    h, v, inter = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
+                   cfg.num_key_value_heads)
+
+    def normal(*shape):
+        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(bf)
+
+    def norm(n=h):
+        p = {"weight": torch.ones(n, dtype=bf, device=dev)}
+        if cfg.norm_kind == "ln" and cfg.model_type != "mpt":
+            p["bias"] = torch.zeros(n, dtype=bf, device=dev)
+        return p
+
+    def qlin(k, n, bias=False, experts=None):
+        p = synth_qlin(gen, k, n, gs, experts=experts)
+        if bias:
+            p["bias"] = normal(n)
+        return p
+
+    def mla():
+        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        attn = {"kv_a_proj_with_mqa": qlin(
+                    h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "kv_a_layernorm": norm(cfg.kv_lora_rank),
+                "kv_b_proj": qlin(cfg.kv_lora_rank, nh * (
+                    cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "o_proj": qlin(nh * cfg.v_head_dim, h)}
+        if cfg.q_lora_rank:
+            attn["q_a_proj"] = qlin(h, cfg.q_lora_rank)
+            attn["q_a_layernorm"] = norm(cfg.q_lora_rank)
+            attn["q_b_proj"] = qlin(cfg.q_lora_rank, nh * dq)
+        else:
+            attn["q_proj"] = qlin(h, nh * dq)
+        return attn
+
+    def moe():
+        ie, ne = cfg.moe_intermediate_size or inter, cfg.num_experts
+        gate = {"kernel": normal(h, ne)}
+        if cfg.topk_method == "noaux_tc":
+            gate["e_score_correction_bias"] = normal(ne).float()
+        m = {"gate": gate, "experts_stacked": {
+            "gate_up_proj": qlin(h, 2 * ie, experts=ne),
+            "down_proj": qlin(ie, h, experts=ne)}}
+        if cfg.n_shared_experts:
+            si = ie * cfg.n_shared_experts
+            m["shared_experts"] = {"gate_proj": qlin(h, si),
+                                   "up_proj": qlin(h, si),
+                                   "down_proj": qlin(si, h)}
+        return m
+
+    head = None
+    if not cfg.tie_word_embeddings:
+        head = {"kernel": normal(h, v)}
+        if cfg.lm_head_bias:
+            head["bias"] = normal(v)
+    params = {"embed_tokens": {"weight": normal(v, h)}, "norm": norm(),
+              "lm_head": head, "layers": []}
+    for i in range(cfg.num_hidden_layers):
+        lp = {"input_layernorm": norm(), "self_attn": mla() if cfg.is_mla
+              else {"qkv_proj": qlin(h, (nh + 2 * nkv) * hd,
+                                     cfg.attention_bias),
+                    "o_proj": qlin(nh * hd, h)}}
+        if not (cfg.parallel_residual and cfg.shared_input_norm):
+            lp["post_attention_layernorm"] = norm()
+        if cfg.post_norms:
+            lp["pre_feedforward_layernorm"] = norm()
+            lp["post_feedforward_layernorm"] = norm()
+        if cfg.qk_norm:
+            lp["self_attn"]["q_norm"] = norm(hd)
+            lp["self_attn"]["k_norm"] = norm(hd)
+        if cfg.is_moe and i >= cfg.first_k_dense_replace:
+            lp["mlp"] = moe()
+        elif cfg.gated_mlp:
+            lp["mlp"] = {"gate_up_proj": qlin(h, 2 * inter, cfg.mlp_bias),
+                         "down_proj": qlin(inter, h, cfg.mlp_bias)}
+        else:
+            lp["mlp"] = {"fc1": qlin(h, inter, cfg.mlp_bias),
+                         "fc2": qlin(inter, h, cfg.mlp_bias)}
         params["layers"].append(lp)
     return params

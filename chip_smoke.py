@@ -388,8 +388,9 @@ Phases, each printing JSON lines:
               tokens' embeds, 64 codec tokens in bf16: K4 24 and nothing
               else, the codec logits by the rule against the f32 plain path
               over 40 teacher-forced steps (the reply's last row repeats
-              past 32). (c) ``token2wav`` on the 64 codes (mod the DiT's
-              8,193 entries), 10 RK4 steps, guidance 0.5, seeded reference
+              past 32). (c) ``token2wav`` on the 64 codes as they are
+              (a code past the DiT's table reads its last row), 10 RK4
+              steps, guidance 0.5, seeded reference
               mel, speaker embedding and noise: 128 mel frames, 30,720
               samples, finite and within [-1, 1]; the first RK4 evaluation's
               DiT forward on 24 codes and the vocoder on 32 of the card's
@@ -409,7 +410,40 @@ Phases, each printing JSON lines:
               tokenizer, the log-prob rows behind each choice's
               log-likelihood by the rule against the plain path (bf16 and
               f32).
-16. a ``kernels`` line: every ported kernel with launches, error and times
+16. examples — the port's examples and scripts (``examples/torch_*.py``,
+              ``scripts/torch_*.py``), each ``main`` called in-process at
+              TinyLlama-1.1B's full width and depth with a stand-in
+              tokenizer (one id a character): ``make_artifact`` (the
+              seeded float model of its ``RECIPE``, calibration sampled
+              from it, AWQ, the checkpoint the examples load; the float
+              model saved beside it, whole and cut to
+              ``EXAMPLES_QUANT_LAYERS`` (2) layers), ``generate`` (a
+              300-id prompt: K2 7 and K4 1 a layer; 15 decode steps on the
+              checkpoint's unfused layout: K1 4 and K8 1 a layer; 8 steps
+              teacher-forced by the rule), ``benchmark --synthetic
+              tinyllama`` (two bs1 rounds: K1, K3), then ``benchmark
+              --model`` on the artifact (fused at load) at ``--batch-size
+              8`` (K2 in the prompt, K5 and K3 a step), ``eval --task
+              kldiv`` against the float model on 2 x 256 seeded ids (K2,
+              K4), ``serve`` (8 requests on the slot pool of 8, 16 new
+              each: K1 4 and K8 1 a layer a step), ``server --paged`` (one
+              SSE request of 64 ids, 8 new: K1, K7, K8 a step), ``train``
+              (3 AdamW LoRA steps at 4 x 512 on seeded synthetic-language
+              ids: K2 7, K4, K10, K11 a layer a step), ``quantize`` on the
+              cut float model (16 x 256 seeded ids), ``quality`` in
+              artifact mode on the checkpoint ``make_artifact`` built (AWQ's
+              Δppl below RTN's), ``quality`` in trained mode (the gate: fp
+              ppl < 100, AWQ's Δppl within 10% of it and below RTN's) and
+              ``kbench`` at M = 1 and 256. Every
+              logged call's launches (prefill, decode step, pool step,
+              paged step, training step, forward) are held exactly
+              against what its arguments imply by the routing rules
+              (``_forward_launches``), their sum against the call's, and
+              the call's device kernels read by ``utils/profiling.
+              device_kernels`` against the launch counter;
+              seconds by example, the gate's figures and the training
+              losses printed with the card's name and power limit.
+17. a ``kernels`` line: every ported kernel with launches, error and times
    (the mla_moe phase's K6 and K8 rows after the eleven, then the train,
    multimodal and kernels phases' rows at their models' shapes). The
    kernels phase also holds and times K1 at Qwen2.5-Omni's thinker qkv
@@ -455,7 +489,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "e2e", "load", "quantize", "zoo",
           "mla_moe", "serve", "train", "parallel", "pipeline", "multimodal",
-          "omni", "tools")
+          "omni", "tools", "examples")
 EXTRA_PHASES = ("prefill", "paged", "linears", "decode_mlp_attn",
                 "attn_bwd")  # asked for by name only
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1004,10 +1038,11 @@ def _gemm_case(rng, kernel, case, m, k, n, gs, zp, dev, timing=True,
     import torch
 
     from autoawq_tpu_torch.ops import gemm
+    from autoawq_tpu_torch.utils.synth import synth_qlin
 
     fn = getattr(gemm, kernel)
     lin = (make_lin(rng, k, n, gs, zp, dev) if gen is None
-           else qlin_on_card(gen, k, n, gs, zp))
+           else synth_qlin(gen, k, n, gs, zp))
     x = (torch.randn(m, k, device=dev) * 0.5).to(torch.bfloat16)
     args = [x, lin["qweight"], lin["scales"], lin["qzeros"]]
     got = fn(*args)
@@ -1066,13 +1101,14 @@ def _mlp_case(rng, m, act, dev, timing=True, h=2048, inter=5632,
     import torch
 
     from autoawq_tpu_torch.ops import fused_mlp as fm
+    from autoawq_tpu_torch.utils.synth import synth_qlin
 
     if gen is None:
         gu = make_lin(rng, h, 2 * inter, gs, True, dev)
         dn = make_lin(rng, inter, h, gs, True, dev)
     else:
-        gu = qlin_on_card(gen, h, 2 * inter, gs)
-        dn = qlin_on_card(gen, inter, h, gs)
+        gu = synth_qlin(gen, h, 2 * inter, gs)
+        dn = synth_qlin(gen, inter, h, gs)
     x = (torch.randn(m, h, device=dev) * 0.5).to(torch.bfloat16)
     args = [x, gu["qweight"], gu["scales"], dn["qweight"], dn["scales"],
             gu["qzeros"], dn["qzeros"]]
@@ -1328,12 +1364,13 @@ def _head_dim_320_check(dev):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
     from autoawq_tpu_torch.serve.paged import paged_decode_step
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(model_type="llama", vocab_size=256, hidden_size=1280,
                       intermediate_size=512, num_hidden_layers=1,
                       num_attention_heads=4, num_key_value_heads=2,
                       head_dim=320)
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     prompt = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, (2, 128))).to(dev)
     ps, n = 64, 3  # three 64-row pages a slot: the prompt and the step
@@ -1468,24 +1505,6 @@ def _k5_case(rng, case, model, b, t, vl, dev, int8=False, window=None,
     return row
 
 
-def qlin_on_card(gen, k: int, n: int, gs: int = 128, zp: bool = True,
-                 experts=None):
-    """A random int4 LIN (stacked [E, ...] with ``experts``) in the port's
-    layout, drawn on the card by the torch.Generator ``gen``."""
-    import torch
-
-    def words(*shape):
-        return torch.randint(-2**31, 2**31, shape, dtype=torch.int64,
-                             device=gen.device, generator=gen).to(
-                                 torch.int32)
-    lead = () if experts is None else (experts,)
-    g = k // gs
-    return {"qweight": words(*lead, k // 8, n),
-            "scales": (torch.rand(*lead, g, n, device=gen.device,
-                                  generator=gen) + 0.5) * 0.01,
-            "qzeros": words(*lead, -(-g // 8), n) if zp else None}
-
-
 def _moe_case(gen, case, w, t, dev, timing=True, iters=50,
               yardsticks=True, time_plain=True, k=2):
     """K6 against its twin: ``t`` tokens routed to ``k`` of the stack's
@@ -1590,19 +1609,19 @@ def _moe_mlp_case(gen, gu, dn, t, dev):
 
 
 def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
-               zp=(True, True, True)):
-    """K8 against its twin; with ``timing``, the times of K8, the twin, the
-    unfused chain on K1 (``_unfused_chain``: gate, up, act * up, down) and
-    K3 on the same weights fused into one gate_up (no PyTorch call computes
-    the function), and the byte bound."""
+               zp=(True, True, True), gs=128):
+    """K8 against its twin at group size ``gs``; with ``timing``, the times
+    of K8, the twin, the unfused chain on K1 (``_unfused_chain``: gate, up,
+    act * up, down) and K3 on the same weights fused into one gate_up (no
+    PyTorch call computes the function), and the byte bound."""
     import torch
 
     from autoawq_tpu_torch.ops import fused_mlp as fm
     from autoawq_tpu_torch.ops import sharded_mlp as sm
 
-    g = make_lin(rng, h, inter, 128, zp[0], dev)
-    u = make_lin(rng, h, inter, 128, zp[1], dev)
-    d = make_lin(rng, inter, h, 128, zp[2], dev)
+    g = make_lin(rng, h, inter, gs, zp[0], dev)
+    u = make_lin(rng, h, inter, gs, zp[1], dev)
+    d = make_lin(rng, inter, h, gs, zp[2], dev)
     x = (torch.randn(m, h, device=dev) * 0.5).to(torch.bfloat16)
     args = [x] + [lin[key] for lin in (g, u, d)
                   for key in ("qweight", "scales")] + [
@@ -1619,7 +1638,8 @@ def _mlp3_case(rng, case, m, h, inter, act, dev, timing=True,
     err, rel = rel_err(got, ref)
     row = {"phase": "kernel", "kernel": "fused_mlp3", "case": case,
            "card": card(), "M": m, "H": h, "inter": inter, "act": act,
-           "zp": list(zp), "max_abs_err": err, "max_rel_err": rel,
+           "group_size": gs, "zp": list(zp), "max_abs_err": err,
+           "max_rel_err": rel,
            "tol": TOL["fused_mlp3"]}
     check(rel <= TOL["fused_mlp3"], f"fused_mlp3 {case}: rel err {rel:.3g}")
     if timing:
@@ -1775,6 +1795,8 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
+    from autoawq_tpu_torch.utils.synth import synth_qlin
+
     rng = np.random.default_rng(1)
     torch.manual_seed(1)  # the activations and caches drawn on the card
     rep = {}
@@ -1856,8 +1878,8 @@ def phase_kernels(dev):
     gen.manual_seed(1)
     h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
                     MIXTRAL["num_experts"])
-    gu = qlin_on_card(gen, h, 2 * inter, experts=ne)
-    dn = qlin_on_card(gen, inter, h, experts=ne)
+    gu = synth_qlin(gen, h, 2 * inter, experts=ne)
+    dn = synth_qlin(gen, inter, h, experts=ne)
     rep["moe_gemm"] = _moe_case(gen, "E decode, gate_up", gu, 1, dev)
     _moe_case(gen, "E decode, down", dn, 1, dev)
     _moe_case(gen, "E prefill, gate_up (bm 8)", gu, 64, dev)
@@ -1868,12 +1890,12 @@ def phase_kernels(dev):
     for t in (1, 8):
         _moe_mlp_case(gen, gu, dn, t, dev)
     del gu, dn
-    _moe_case(gen, "symmetric", qlin_on_card(gen, h, 2 * inter, zp=False,
-                                             experts=ne), 1, dev,
+    _moe_case(gen, "symmetric", synth_qlin(gen, h, 2 * inter, zp=False,
+                                           experts=ne), 1, dev,
               timing=False)
-    _moe_case(gen, "g64", qlin_on_card(gen, h, 2 * inter, gs=64,
-                                       experts=ne), 8, dev, timing=False)
-    small = qlin_on_card(gen, 1024, 640, experts=ne)
+    _moe_case(gen, "g64", synth_qlin(gen, h, 2 * inter, gs=64,
+                                     experts=ne), 8, dev, timing=False)
+    small = synth_qlin(gen, 1024, 640, experts=ne)
     _moe_case(gen, "dead blocks", small, 3, dev, timing=False)
     _moe_case(gen, "bm 32", small, 512, dev, timing=False)
     _moe_case(gen, "bm 96, masked 128-row tile", small, 1536, dev,
@@ -1994,32 +2016,26 @@ def _teacher_forced(cfg, params, prompt, steps, kv_quant=False,
 
 
 def device_profile(run, calls: int, match=(), host_ops=True):
-    """torch.profiler over ``calls`` calls of ``run(i)``: host wall ms per
-    call, device ms per call, the device's busy share, device activities
-    (kernels, copies) per call, and device time by kernel name (the twelve
-    largest, and every kernel whose name holds a string of ``match``).
-    Only the device's own events are summed: an operator's row repeats the
-    time of the kernels it launched. ``host_ops=False`` records the device
-    alone, for a call of tens of thousands of host operators, whose
-    records would take the profiler longer to process than the call."""
+    """``utils/profiling.device_kernels`` over ``calls`` calls of
+    ``run(i)``: host wall ms per call, device ms per call, the device's
+    busy share, device activities (kernels, copies) per call, and device
+    time by kernel name (the twelve largest, and every kernel whose name
+    holds a string of ``match``). Only the device's own events are summed:
+    an operator's row repeats the time of the kernels it launched.
+    ``host_ops=False`` records the device alone, for a call of tens of
+    thousands of host operators, whose records would take the profiler
+    longer to process than the call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        t = time.perf_counter()
+    from autoawq_tpu_torch.utils.profiling import device_kernels
+
+    def calls_():
         for i in range(calls):
             run(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    _, wall, kernels = device_kernels(calls_, torch.device("cuda"),
+                                      host_ops=host_ops)
+    rows = sorted(((us, n, k) for k, (n, us) in kernels.items()),
+                  reverse=True)
     dev_us = sum(r[0] for r in rows)
     check(dev_us > 0, "torch.profiler recorded no device time")
     def kernel_rows(sel):
@@ -2062,10 +2078,11 @@ def phase_e2e(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**TINYLLAMA)
     t0 = time.perf_counter()
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     torch.cuda.synchronize()
     emit({"phase": "e2e", "step": "synth", "layers": cfg.num_hidden_layers,
           "seconds": time.perf_counter() - t0})
@@ -2178,8 +2195,9 @@ def _traffic_g(cfg, prompt, dev):
     of 2)."""
     from autoawq_tpu_torch import AwqCausalLM
     from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
-    model = AwqCausalLM(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+    model = AwqCausalLM(cfg, _unfused(cfg, synth_zoo_params(cfg, 0, dev)),
                         device=dev)
     assert "gate_proj" in model.params["layers"][0]["mlp"]
 
@@ -2285,12 +2303,13 @@ def _mistral_traffics(dev):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**dict(MISTRAL, num_hidden_layers=E2E_MISTRAL_DEPTH))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # drawn on the card (the host's numpy draw took ~65 s of the script)
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     torch.cuda.synchronize()
     emit({"phase": "e2e", "model": "mistral-7b", "step": "synth",
           "layers": cfg.num_hidden_layers,
@@ -2672,6 +2691,8 @@ def synth_moe_on_card(cfg, seed, dev):
     at 47 B parameters."""
     import torch
 
+    from autoawq_tpu_torch.utils.synth import synth_qlin
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     bf = torch.bfloat16
@@ -2691,15 +2712,15 @@ def synth_moe_on_card(cfg, seed, dev):
     for _ in range(cfg.num_hidden_layers):
         params["layers"].append({
             "input_layernorm": norm(),
-            "self_attn": {"qkv_proj": qlin_on_card(gen, h, nqkv),
-                          "o_proj": qlin_on_card(gen, nq, h)},
+            "self_attn": {"qkv_proj": synth_qlin(gen, h, nqkv),
+                          "o_proj": synth_qlin(gen, nq, h)},
             "post_attention_layernorm": norm(),
             "mlp": {"gate": {"kernel": normal(h, ne)},
                     "experts_stacked": {
-                        "gate_up_proj": qlin_on_card(gen, h, 2 * inter,
-                                                     experts=ne),
-                        "down_proj": qlin_on_card(gen, inter, h,
-                                                  experts=ne)}}})
+                        "gate_up_proj": synth_qlin(gen, h, 2 * inter,
+                                                   experts=ne),
+                        "down_proj": synth_qlin(gen, inter, h,
+                                                experts=ne)}}})
     return params
 
 
@@ -3014,7 +3035,8 @@ def phase_prefill(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import fuse_model
     from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
+    from autoawq_tpu_torch.utils.synth import (random_quantized_params,
+                                               synth_qlin)
 
     rng = np.random.default_rng(5)
     torch.manual_seed(5)
@@ -3033,7 +3055,7 @@ def phase_prefill(dev):
                     MIXTRAL["num_experts"])
     for case, (k, n) in (("F prefill, gate_up (bm 128)", (h, 2 * inter)),
                          ("F prefill, down (bm 128)", (inter, h))):
-        _moe_case(draw, case, qlin_on_card(draw, k, n, experts=ne), 4096,
+        _moe_case(draw, case, synth_qlin(draw, k, n, experts=ne), 4096,
                   dev, iters=10, yardsticks=False)
     for name, model, b, s, cap, kv_quant in (
             ("B", TINYLLAMA, 2, 384, 384 + 32, False),
@@ -3075,9 +3097,8 @@ def phase_paged(dev):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import fuse_model
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
-
     from autoawq_tpu_torch.ops import paged_attn as pa
+    from autoawq_tpu_torch.utils.synth import random_quantized_params
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -3161,7 +3182,8 @@ def phase_linears(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import fuse_model
     from autoawq_tpu_torch.serve import generate as gen
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
+    from autoawq_tpu_torch.utils.synth import (random_quantized_params,
+                                               synth_qlin)
 
     rng = np.random.default_rng(9)
     torch.manual_seed(9)
@@ -3188,8 +3210,8 @@ def phase_linears(dev):
     draw.manual_seed(9)
     h, inter, ne = (MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"],
                     MIXTRAL["num_experts"])
-    gu = qlin_on_card(draw, h, 2 * inter, experts=ne)
-    dn = qlin_on_card(draw, inter, h, experts=ne)
+    gu = synth_qlin(draw, h, 2 * inter, experts=ne)
+    dn = synth_qlin(draw, inter, h, experts=ne)
     for case, w, t in (("E decode, gate_up", gu, 1), ("E decode, down", dn, 1),
                        ("F decode, gate_up", gu, 8), ("F decode, down", dn, 8),
                        ("E prefill, gate_up (bm 8)", gu, 64),
@@ -3273,7 +3295,8 @@ def phase_decode_mlp_attn(dev):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import fuse_model
-    from autoawq_tpu_torch.utils.synth import random_quantized_params
+    from autoawq_tpu_torch.utils.synth import (random_quantized_params,
+                                               synth_qlin)
 
     rng = np.random.default_rng(11)
     torch.manual_seed(11)
@@ -3306,9 +3329,9 @@ def phase_decode_mlp_attn(dev):
                True, dev, yardsticks=False)
     draw = torch.Generator(device=dev)
     draw.manual_seed(11)
-    gu = qlin_on_card(draw, MIXTRAL["hidden_size"],
-                      2 * MIXTRAL["intermediate_size"],
-                      experts=MIXTRAL["num_experts"])
+    gu = synth_qlin(draw, MIXTRAL["hidden_size"],
+                    2 * MIXTRAL["intermediate_size"],
+                    experts=MIXTRAL["num_experts"])
     for case, t in (("E decode, gate_up", 1), ("F decode, gate_up", 8)):
         _moe_case(draw, case, gu, t, dev, time_plain=False)
     del gu
@@ -3364,6 +3387,7 @@ def phase_attn_bwd(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.train import lora
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     _build.build_all(("prefill_attention", "prefill_attention_bwd",
                       "w4a16_gemm"))
@@ -3374,7 +3398,7 @@ def phase_attn_bwd(dev):
         _attn_bwd_case(case, *shape, dev, yardsticks=False)
     cfg = ModelConfig(**MISTRAL)
     torch.cuda.empty_cache()
-    params = _unfused(cfg, synth_zoo_on_card(cfg, 0, dev))
+    params = _unfused(cfg, synth_zoo_params(cfg, 0, dev))
     lora.add_lora(cfg, params, rank=TRAIN_RANK, seed=0)
     adapters, base = lora.split_lora(params)
     opt = lora.make_optimizer(adapters, "adamw", lr=TRAIN_LR)
@@ -4276,108 +4300,6 @@ def synth_float_on_card(cfg, seed, dev, scale=0.05):
     return params
 
 
-def synth_zoo_on_card(cfg, seed, dev, gs=128):
-    """Seeded random W4 weights at group size ``gs`` with zero points for
-    a model of the decoder zoo, drawn on the card by a torch.Generator in
-    the port's fused layout (qkv_proj; gate_up_proj or fc1 / fc2): bf16
-    embedding, head and biases (std 0.02, as the JAX synthesiser's), norms
-    of ones (LayerNorms with a zero bias, except MPT's, which have none),
-    q/k norms and gemma2's four norms where the config has them. MLA models
-    get MLA's projections and norms (q_proj, or q_a_proj / q_a_layernorm /
-    q_b_proj; kv_a_proj_with_mqa, kv_a_layernorm, kv_b_proj, o_proj). MoE
-    layers get a bf16 router (std 0.02; for ``noaux_tc`` an f32
-    ``e_score_correction_bias``, std 0.02), stacked experts and, where the
-    config has them, deepseek's shared experts, unfused; layers below
-    ``first_k_dense_replace`` are dense, as the published checkpoints
-    store them. Not the JAX synthesiser's numpy draw, which takes minutes
-    on the host at these widths (and makes every layer MoE)."""
-    import torch
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    bf = torch.bfloat16
-    h, v, inter = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
-    hd, nh, nkv = (cfg.head_dim_, cfg.num_attention_heads,
-                   cfg.num_key_value_heads)
-
-    def normal(*shape):
-        return (torch.randn(*shape, device=dev, generator=gen) * 0.02).to(bf)
-
-    def norm(n=h):
-        p = {"weight": torch.ones(n, dtype=bf, device=dev)}
-        if cfg.norm_kind == "ln" and cfg.model_type != "mpt":
-            p["bias"] = torch.zeros(n, dtype=bf, device=dev)
-        return p
-
-    def qlin(k, n, bias=False, experts=None):
-        p = qlin_on_card(gen, k, n, gs, experts=experts)
-        if bias:
-            p["bias"] = normal(n)
-        return p
-
-    def mla():
-        dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-        attn = {"kv_a_proj_with_mqa": qlin(
-                    h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
-                "kv_a_layernorm": norm(cfg.kv_lora_rank),
-                "kv_b_proj": qlin(cfg.kv_lora_rank, nh * (
-                    cfg.qk_nope_head_dim + cfg.v_head_dim)),
-                "o_proj": qlin(nh * cfg.v_head_dim, h)}
-        if cfg.q_lora_rank:
-            attn["q_a_proj"] = qlin(h, cfg.q_lora_rank)
-            attn["q_a_layernorm"] = norm(cfg.q_lora_rank)
-            attn["q_b_proj"] = qlin(cfg.q_lora_rank, nh * dq)
-        else:
-            attn["q_proj"] = qlin(h, nh * dq)
-        return attn
-
-    def moe():
-        ie, ne = cfg.moe_intermediate_size or inter, cfg.num_experts
-        gate = {"kernel": normal(h, ne)}
-        if cfg.topk_method == "noaux_tc":
-            gate["e_score_correction_bias"] = normal(ne).float()
-        m = {"gate": gate, "experts_stacked": {
-            "gate_up_proj": qlin(h, 2 * ie, experts=ne),
-            "down_proj": qlin(ie, h, experts=ne)}}
-        if cfg.n_shared_experts:
-            si = ie * cfg.n_shared_experts
-            m["shared_experts"] = {"gate_proj": qlin(h, si),
-                                   "up_proj": qlin(h, si),
-                                   "down_proj": qlin(si, h)}
-        return m
-
-    head = None
-    if not cfg.tie_word_embeddings:
-        head = {"kernel": normal(h, v)}
-        if cfg.lm_head_bias:
-            head["bias"] = normal(v)
-    params = {"embed_tokens": {"weight": normal(v, h)}, "norm": norm(),
-              "lm_head": head, "layers": []}
-    for i in range(cfg.num_hidden_layers):
-        lp = {"input_layernorm": norm(), "self_attn": mla() if cfg.is_mla
-              else {"qkv_proj": qlin(h, (nh + 2 * nkv) * hd,
-                                     cfg.attention_bias),
-                    "o_proj": qlin(nh * hd, h)}}
-        if not (cfg.parallel_residual and cfg.shared_input_norm):
-            lp["post_attention_layernorm"] = norm()
-        if cfg.post_norms:
-            lp["pre_feedforward_layernorm"] = norm()
-            lp["post_feedforward_layernorm"] = norm()
-        if cfg.qk_norm:
-            lp["self_attn"]["q_norm"] = norm(hd)
-            lp["self_attn"]["k_norm"] = norm(hd)
-        if cfg.is_moe and i >= cfg.first_k_dense_replace:
-            lp["mlp"] = moe()
-        elif cfg.gated_mlp:
-            lp["mlp"] = {"gate_up_proj": qlin(h, 2 * inter, cfg.mlp_bias),
-                         "down_proj": qlin(inter, h, cfg.mlp_bias)}
-        else:
-            lp["mlp"] = {"fc1": qlin(h, inter, cfg.mlp_bias),
-                         "fc2": qlin(inter, h, cfg.mlp_bias)}
-        params["layers"].append(lp)
-    return params
-
-
 def _zoo_model(hf_dict, dev, depth=None, phase="zoo", gs=128, **cut):
     """ModelConfig of a published config (depth cut to ``depth`` layers
     where given, and other fields replaced by ``cut``, printed) and its
@@ -4388,6 +4310,7 @@ def _zoo_model(hf_dict, dev, depth=None, phase="zoo", gs=128, **cut):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.nn.fuse import attach_kv_b_dense
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig.from_hf_dict(hf_dict)
     full = cfg.num_hidden_layers
@@ -4397,7 +4320,7 @@ def _zoo_model(hf_dict, dev, depth=None, phase="zoo", gs=128, **cut):
     cfg = dataclasses.replace(cfg, **cut)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = attach_kv_b_dense(cfg, synth_zoo_on_card(cfg, 0, dev, gs))
+    params = attach_kv_b_dense(cfg, synth_zoo_params(cfg, 0, dev, gs))
     torch.cuda.synchronize()
     emit({"phase": phase, "model": cfg.model_type, "step": "synth",
           "layers": cfg.num_hidden_layers, "published_layers": full,
@@ -4683,12 +4606,14 @@ def _mla_moe_kernel_rows(dev, rng, gen_t):
     the ``kernels`` line."""
     import torch
 
+    from autoawq_tpu_torch.utils.synth import synth_qlin
+
     v2 = DEEPSEEK_V2_LITE
     h, ie, ne, k = (v2["hidden_size"], v2["moe_intermediate_size"],
                     v2["n_routed_experts"], v2["num_experts_per_tok"])
     rows = []
-    gu = qlin_on_card(gen_t, h, 2 * ie, MLA_MOE_GS, experts=ne)
-    dn = qlin_on_card(gen_t, ie, h, MLA_MOE_GS, experts=ne)
+    gu = synth_qlin(gen_t, h, 2 * ie, MLA_MOE_GS, experts=ne)
+    dn = synth_qlin(gen_t, ie, h, MLA_MOE_GS, experts=ne)
     rows.append(_moe_case(gen_t, "V2-Lite O decode, gate_up (6 of 64)", gu,
                           1, dev, k=k))
     _moe_case(gen_t, "V2-Lite O decode, down (6 of 64)", dn, 1, dev, k=k,
@@ -4701,15 +4626,15 @@ def _mla_moe_kernel_rows(dev, rng, gen_t):
                           dev, iters=10, k=k))
     del gu, dn
     q = QWEN3_30B_A3B
-    gu = qlin_on_card(gen_t, q["hidden_size"], 2 * q["moe_intermediate_size"],
-                      experts=q["num_experts"])
+    gu = synth_qlin(gen_t, q["hidden_size"], 2 * q["moe_intermediate_size"],
+                    experts=q["num_experts"])
     for t in (1, 768):
         _moe_case(gen_t, f"Qwen3-30B-A3B gate_up T={t} (8 of 128)", gu, t,
                   dev, timing=False, k=8)
     del gu
     v3 = DEEPSEEK_V3
-    dn = qlin_on_card(gen_t, v3["moe_intermediate_size"], v3["hidden_size"],
-                      experts=v3["n_routed_experts"])
+    dn = synth_qlin(gen_t, v3["moe_intermediate_size"], v3["hidden_size"],
+                    experts=v3["n_routed_experts"])
     for t in (1, 768):
         _moe_case(gen_t, f"DeepSeek-V3 down T={t} (8 of 256)", dn, t, dev,
                   timing=False, k=8)
@@ -4717,9 +4642,9 @@ def _mla_moe_kernel_rows(dev, rng, gen_t):
     torch.cuda.empty_cache()
     si = ie * v2["n_shared_experts"]
     rows.append(_mlp3_case(rng, "V2-Lite shared experts M=1", 1, h, si,
-                           "silu", dev))
+                           "silu", dev, gs=MLA_MOE_GS))
     _mlp3_case(rng, "V2-Lite shared experts M=8", 8, h, si, "silu", dev,
-               timing=False)
+               timing=False, gs=MLA_MOE_GS)
     # V2-Lite's linears as its traffics call them, at g64: K1 at O's and
     # R's decode (M = 1, 8; kv_a's 576 is no multiple of 128), K2 at P's
     # prefill (M = 768; also kv_b, the shared experts and the dense layer
@@ -5579,9 +5504,10 @@ def _eviction_traffic_v(dev, rng):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**TINYLLAMA)
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     lt, cap, n = cfg.num_hidden_layers, 256, 384
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (1, 64))).to(dev)
@@ -5657,11 +5583,12 @@ def phase_serve(dev):
     import torch
 
     from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**MISTRAL)
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     torch.cuda.synchronize()
     emit({"phase": "serve", "model": "mistral-7b", "step": "synth",
           "layers": cfg.num_hidden_layers,
@@ -5699,7 +5626,7 @@ def phase_serve(dev):
 
 
 def _unfused(cfg, params):
-    """A fused tree of ``synth_zoo_on_card`` split back into q/k/v and
+    """A fused tree of ``synth_zoo_params`` split back into q/k/v and
     gate/up (column slices of the port's layout, made contiguous), the
     layout LoRA trains on (``nn/fuse`` refuses adapters)."""
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -6114,12 +6041,13 @@ def phase_train(dev):
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.train import lora
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**MISTRAL)
     layers = cfg.num_hidden_layers
     torch.cuda.empty_cache()
     t = t_w = time.perf_counter()
-    base_params = _unfused(cfg, synth_zoo_on_card(cfg, 0, dev))
+    base_params = _unfused(cfg, synth_zoo_params(cfg, 0, dev))
     torch.cuda.synchronize()
     emit({"phase": "train", "model": "mistral-7b", "step": "synth",
           "layers": layers, "seconds": time.perf_counter() - t})
@@ -6311,9 +6239,10 @@ def _rank_tp(rank, dev, rng):
     from autoawq_tpu_torch.serve import batching
     from autoawq_tpu_torch.serve import generate as gen
     from autoawq_tpu_torch.serve.batching import BatchingEngine
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**TINYLLAMA)
-    full = synth_zoo_on_card(cfg, 0, dev)
+    full = synth_zoo_params(cfg, 0, dev)
     v, bf, f32 = cfg.vocab_size, torch.bfloat16, torch.float32
     pre = torch.from_numpy(rng.integers(0, v, (2, 384))).to(dev)
     dec = torch.from_numpy(rng.integers(0, v, (8, 64))).to(dev)
@@ -6460,11 +6389,12 @@ def _rank_sp(rank, dev, rng):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.parallel import distributed as pd
     from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = dataclasses.replace(ModelConfig(**TINYLLAMA),
                               num_hidden_layers=PARALLEL_SP_LAYERS)
     L = cfg.num_hidden_layers
-    full = synth_zoo_on_card(cfg, 0, dev)
+    full = synth_zoo_params(cfg, 0, dev)
     bf, f32 = torch.bfloat16, torch.float32
     prompts = {s: torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                                 (2, s))).to(dev)
@@ -6770,9 +6700,10 @@ def _world_of_one(dev):
     from autoawq_tpu_torch.parallel import distributed as pd
     from autoawq_tpu_torch.parallel.mesh import build_mesh
     from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**TINYLLAMA)
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     pd.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
                   world_size=1, rank=0, device=dev)
     try:
@@ -6825,6 +6756,8 @@ def _parallel_kernel_rows(dev):
     import numpy as np
     import torch
 
+    from autoawq_tpu_torch.utils.synth import synth_qlin
+
     rng = np.random.default_rng(5)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -6848,8 +6781,8 @@ def _parallel_kernel_rows(dev):
         rows.append(_mlp3_case(rng, f"tensor 2: TinyLlama M={m}", m, h, i2,
                                "silu", dev))
     h, inter = MIXTRAL["hidden_size"], MIXTRAL["intermediate_size"]
-    gu = qlin_on_card(gen, h, 2 * inter, experts=4)
-    dn = qlin_on_card(gen, inter, h, experts=4)
+    gu = synth_qlin(gen, h, 2 * inter, experts=4)
+    dn = synth_qlin(gen, inter, h, experts=4)
     rows.append(_moe_case(gen, "expert 2: E decode, gate_up, 4 experts",
                           gu, 1, dev))
     rows.append(_moe_case(gen, "expert 2: F prefill, gate_up, 4 experts",
@@ -7105,11 +7038,12 @@ def _rank_pp_mistral(rank, dev, rng):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     b, s, m = PIPELINE_W
     cfg = dataclasses.replace(ModelConfig(**MISTRAL),
                               num_hidden_layers=PIPELINE_DEPTH)
-    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_params(cfg, 0, dev)),
                           ("q_proj", "k_proj", "v_proj", "o_proj"), dev)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
     refs = _pp_refs(cfg, params, tokens, dev, logits=rank == 0)
@@ -7130,10 +7064,11 @@ def _rank_pp_tp(rank, dev, rng):
 
     from autoawq_tpu_torch.models.config import ModelConfig
     from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     b, s, m = PIPELINE_TP
     cfg = ModelConfig(**TINYLLAMA)
-    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_on_card(cfg, 0, dev)),
+    params = _pp_adapters(cfg, _unfused(cfg, synth_zoo_params(cfg, 0, dev)),
                           ("q_proj", "v_proj", "o_proj", "down_proj"), dev)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
     refs = _pp_refs(cfg, params, tokens, dev, logits=rank == 0)
@@ -7176,6 +7111,7 @@ def _rank_pp_breadth(rank, dev, rng):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.parallel import pipeline as pp
     from autoawq_tpu_torch.parallel.mesh import build_mesh
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     bf, f32 = torch.bfloat16, torch.float32
     L = PIPELINE_BREADTH_DEPTH
@@ -7189,7 +7125,7 @@ def _rank_pp_breadth(rank, dev, rng):
         cfg = dataclasses.replace(cfg, num_hidden_layers=L,
                                   **({"first_k_dense_replace": 0}
                                      if cfg.is_mla else {}))
-        full = synth_zoo_on_card(cfg, 0, dev, gs)
+        full = synth_zoo_params(cfg, 0, dev, gs)
         v = cfg.vocab_size
         tokens = torch.from_numpy(rng.integers(0, v, (b, s))).to(dev)
         prompt = torch.from_numpy(rng.integers(0, v, (1, 64))).to(dev)
@@ -7285,12 +7221,13 @@ def _pipeline_world_of_one(dev):
     from autoawq_tpu_torch.parallel import pipeline as pp
     from autoawq_tpu_torch.parallel.mesh import build_mesh
     from autoawq_tpu_torch.train import lora
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     b, s, m = PIPELINE_ONE
     bf, f32 = torch.bfloat16, torch.float32
     cfg = ModelConfig(**TINYLLAMA)
     L = cfg.num_hidden_layers
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (b, s))).to(dev)
     pd.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
@@ -7528,6 +7465,7 @@ def _llava_traffic(dev):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
     from autoawq_tpu_torch.serve import paged
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     raw = LLAVA_15_7B
     vcfg = raw["vision_config"]
@@ -7535,7 +7473,7 @@ def _llava_traffic(dev):
     full = cfg.num_hidden_layers
     cfg = dataclasses.replace(cfg, num_hidden_layers=LLAVA_DEPTH)
     t = time.perf_counter()
-    lm = synth_zoo_on_card(cfg, 0, dev)
+    lm = synth_zoo_params(cfg, 0, dev)
     tower, proj = synth_vision_on_card("clip", vcfg, cfg.hidden_size, 1,
                                        dev)
     model = AwqLlavaModel(cfg, vcfg, raw, {"language_model": lm,
@@ -7718,6 +7656,7 @@ def _qwen_vl_traffic(dev):
     from autoawq_tpu_torch.models.qwen_vl import multimodal_calib_inputs
     from autoawq_tpu_torch.models.vision import lm_forward
     from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     raw = QWEN2_VL_7B
     vcfg = dict(raw["vision_config"])
@@ -7730,7 +7669,7 @@ def _qwen_vl_traffic(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(11)
     t = time.perf_counter()
-    lm = synth_zoo_on_card(cfg, 0, dev)
+    lm = synth_zoo_params(cfg, 0, dev)
     for lp in lm["layers"]:  # Qwen2's q / k / v bias
         lp["self_attn"]["qkv_proj"]["bias"] = (torch.randn(
             (nh + 2 * nkv) * hd, device=dev, generator=g) * 0.02).to(
@@ -8145,6 +8084,7 @@ def phase_omni(dev):
     from autoawq_tpu_torch.nn import modules
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     raw = QWEN25_OMNI_7B
     acfg = raw["thinker_config"]["audio_config"]
@@ -8162,7 +8102,7 @@ def phase_omni(dev):
     torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device=dev)
     g.manual_seed(13)
-    lm = synth_zoo_on_card(cfg, 0, dev)
+    lm = synth_zoo_params(cfg, 0, dev)
     for lp in lm["layers"]:  # Qwen2's q / k / v bias
         lp["self_attn"]["qkv_proj"]["bias"] = (torch.randn(
             (nh + 2 * nkv) * hd, device=dev, generator=g) * 0.02).to(bf)
@@ -8295,11 +8235,12 @@ def phase_omni(dev):
           "generate_codec_s": t_talker, "launches": talker_launches,
           "kernel_vs_plain": rows_t})
 
-    # (c) token2wav in f32: the talker's codes (those at or above the DiT's
-    # 8,193 entries, the talker's special tokens, taken by remainder), a
-    # seeded reference mel, speaker embedding and noise
+    # (c) token2wav in f32: the talker's codes as they are (those past the
+    # DiT's table, the talker's special tokens, read its last row, as JAX's
+    # gather clamps them), a seeded reference mel, speaker embedding and
+    # noise
     t_c = time.perf_counter()
-    code = torch.remainder(codes, dcfg["num_embeds"])
+    code = codes
     cond = torch.randn(1, dcfg["enc_emb_dim"], device=dev, generator=g)
     ref_mel = torch.randn(1, OMNI_REF_FRAMES, dcfg["mel_dim"], device=dev,
                           generator=g)
@@ -8430,9 +8371,10 @@ def phase_tools(dev):
     from autoawq_tpu_torch.ops import _build
     from autoawq_tpu_torch.serve import generate as gen
     from autoawq_tpu_torch.utils import profiling
+    from autoawq_tpu_torch.utils.synth import synth_zoo_params
 
     cfg = ModelConfig(**TINYLLAMA)
-    params = synth_zoo_on_card(cfg, 0, dev)
+    params = synth_zoo_params(cfg, 0, dev)
     root = os.path.dirname(os.path.dirname(
         os.path.abspath(autoawq_tpu_torch.__file__)))
     layers = [{k: dict(v) if isinstance(v, dict) else v
@@ -8477,16 +8419,15 @@ def phase_tools(dev):
         rows = profiling.summarize_trace(d, top=None)
         clock = _trace_clock(os.path.join(d, "trace.json"))
     del caches
-    k1 = sum(n for name, _, n in rows if "DenseJob" in name)
-    k3 = sum(n for name, _, n in rows
-             if "ActOut" in name or "DownJob" in name)
+    held = _profile_vs_launches({n: c for n, _, c in rows}, launches)
+    k1 = held.get("w4a16_gemv", (0, 0))[0]
+    k3 = held.get("fused_mlp+fused_mlp3", (0, 0))[0]
     nl = cfg.num_hidden_layers
     _check_launches("tools trace", launches,
                     {"w4a16_gemv": 2 * nl * steps, "fused_mlp": nl * steps})
-    check(k1 == launches.get("w4a16_gemv", 0) and
-          k3 == 2 * launches.get("fused_mlp", 0),
-          f"tools: summarize_trace counts K1 {k1} and K3 {k3} device "
-          f"kernels for {launches} launches")
+    check(all(seen == want for seen, want in held.values()),
+          f"tools: summarize_trace counts {held} device kernels (seen, "
+          f"implied) for {launches} launches")
     emit({"phase": "tools", "step": "trace", "card": card(),
           "decode_steps": steps, "launches": launches,
           "k1_device_kernels": k1, "k3_device_kernels": k3, **clock,
@@ -8537,6 +8478,490 @@ def phase_tools(dev):
     del params, p32
     torch.cuda.empty_cache()
     return launches
+
+
+# -------------------------------------------------- examples and scripts
+
+EXAMPLES_NEW = 16  # generate's new tokens (15 decode steps)
+EXAMPLES_PROMPT = 300  # generate's prompt, one id a character: K2 and K4
+EXAMPLES_TF_STEPS = 8  # generate's teacher-forced decode steps
+EXAMPLES_ROUNDS = 2  # benchmark's (ctx, gen) rounds at bs1 (32 / 64)
+EXAMPLES_KL = 2  # eval kldiv's seeded sequences of 256
+EXAMPLES_SERVE = (8, 16)  # serve: requests (the pool's slots), new tokens
+EXAMPLES_SSE = (64, 8)  # server --paged: prompt ids, new tokens
+EXAMPLES_TRAIN = (3, 4, 512)  # train: steps, batch, length
+EXAMPLES_QUANT_LAYERS = 2  # quantize: the float model's depth cut (of 22)
+EXAMPLES_QUANT_CALIB = (16, 256)  # quantize: seeded calibration ids
+EXAMPLES_KBENCH = ("1", "256")  # kbench's M: K1, then K2
+# a profile's device kernels by launch name: (launch names, substrings of
+# the kernels' names, names excluded, device kernels a launch). K3 and K8
+# run the same two passes (ActOut, DownJob); K5's and K7's launches are
+# counted by their combine kernels (K9's is ``stock_combine_kernel``)
+PROFILE_KERNELS = (
+    (("w4a16_gemv",), ("DenseJob",), (), 1),
+    (("w4a16_gemm",), ("w4a16_gemm_kernel",), (), 1),
+    (("fused_mlp", "fused_mlp3"), ("ActOut", "DownJob"), (), 2),
+    (("prefill_attention",), ("prefill_attn_kernel",), (), 1),
+    (("fused_attn_step",), ("attn_combine",), (), 1),
+    (("paged_attn",), ("combine_kernel",), ("stock",), 1),
+    (("prefill_attention_dkv",), ("dkv_kernel",), (), 1),
+    (("prefill_attention_dq",), ("dq_kernel",), (), 1),
+)
+
+
+def _script(rel):
+    """``examples/`` or ``scripts/`` of the checkout under test as a module
+    (neither is a package), loaded once."""
+    import importlib.util
+
+    import autoawq_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        autoawq_tpu_torch.__file__)))
+    name = "_cs_" + os.path.basename(rel)[:-3]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(root, rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    return sys.modules[name]
+
+
+class _ExampleTok:
+    """A stand-in tokenizer for the examples on a machine without
+    transformers: one id a character, ids decoded as ``<id>``, no EOS."""
+
+    eos_token_id = None
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def __call__(self, text, add_special_tokens=True):
+        return {"input_ids": self.encode(text)}
+
+    def encode(self, text):
+        return [ord(c) % self.vocab for c in text]
+
+    def decode(self, ids, skip_special_tokens=False):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def _forward_launches(cfg, params, rows, s, k5=False, paged=False,
+                      grad=False):
+    """The port's launches for one pass of ``rows`` = B x ``s`` rows through
+    a llama tree, by its routing rules: int4 linears on K1 below
+    ``WS_MIN_M`` rows, K2 from there; the MLP on K3 (fused gate_up) or K8
+    (gate and up apart) at M <= 32 without grad, else on the linears; K4
+    for a prompt of s >= 128 (K10 and K11 with it under grad); K5 in place
+    of the attention's linears (``k5``); K7 a layer on a paged step."""
+    import collections
+
+    from autoawq_tpu_torch.ops.gemm import WS_MIN_M
+
+    n = cfg.num_hidden_layers
+    attn = params["layers"][0]["self_attn"]
+    fused = "qkv_proj" in attn
+    quant = "qweight" in attn.get("qkv_proj", attn.get("q_proj"))
+    lin = "w4a16_gemv" if rows < WS_MIN_M else "w4a16_gemm"
+    out = collections.Counter()
+    if k5:
+        out["fused_attn_step"] += n
+    elif quant:
+        out[lin] += n * (2 if fused else 4)
+    if paged:
+        out["paged_attn"] += n
+    if s >= 128:
+        out["prefill_attention"] += n
+        if grad:
+            out["prefill_attention_dkv"] += n
+            out["prefill_attention_dq"] += n
+    if quant and rows <= 32 and not grad:
+        out["fused_mlp" if fused else "fused_mlp3"] += n
+    elif quant:
+        out[lin] += n * (2 if fused else 3)
+    return out
+
+
+def _expected_call(attr, a):
+    """``_forward_launches`` of one logged call of the functions the
+    examples reach (their positional arguments ``a``)."""
+    if attr in ("prefill", "forward"):
+        cfg, params, tokens = a[:3]
+        return _forward_launches(cfg, params, tokens.numel(),
+                                 tokens.shape[1])
+    if attr == "decode_step":
+        cfg, params, token, caches = a[:4]
+        b, t = token.shape[0], caches[0]["k"].shape[2]
+        fused = "qkv_proj" in params["layers"][0]["self_attn"]
+        return _forward_launches(cfg, params, b, 1, k5=fused and (
+            b >= 8 or b * t >= 2048))
+    if attr == "batched_decode_step":
+        return _forward_launches(a[0], a[1], a[2].shape[0], 1)
+    if attr == "paged_decode_step":
+        return _forward_launches(a[0], a[1], a[2].shape[0], 1, paged=True)
+    if attr == "lora_train_step_opt":
+        cfg, lora, base, _, tokens = a[:5]
+        return _forward_launches(cfg, base, tokens.numel(), tokens.shape[1],
+                                 grad=True)
+    raise ValueError(attr)
+
+
+@contextlib.contextmanager
+def _launch_calls(targets):
+    """Within the block each (module, attr) of ``targets`` is wrapped: a
+    call logs (attr, its launches, the launches its arguments imply by
+    ``_expected_call``) to the list the block receives."""
+    from autoawq_tpu_torch.ops import _build
+
+    log, saved = [], []
+    for module, attr in targets:
+        fn = getattr(module, attr)
+
+        def wrapper(*a, _fn=fn, _attr=attr, **kw):
+            before = dict(_build.LAUNCHES)
+            out = _fn(*a, **kw)
+            got = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                   if n != before[k]}
+            log.append((_attr, got, dict(_expected_call(_attr, a))))
+            return out
+        saved.append((module, attr, fn))
+        setattr(module, attr, wrapper)
+    try:
+        yield log
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def _profile_vs_launches(counts, launches):
+    """{kernel group: (device kernels in the profile, what the launch
+    counter implies)} over ``PROFILE_KERNELS``."""
+    out = {}
+    for names, subs, unless, per in PROFILE_KERNELS:
+        seen = sum(n for k, n in counts.items()
+                   if any(s in k for s in subs)
+                   and not any(u in k for u in unless))
+        want = per * sum(launches.get(n, 0) for n in names)
+        if seen or want:
+            out["+".join(names)] = (seen, want)
+    return out
+
+
+def _run_example(name, fn, targets=(), profiled=True):
+    """One example or script call: launches zeroed before it and read
+    after; each call of ``targets`` held exactly against what its
+    arguments imply, and their sum against the whole call's launches;
+    with ``profiled`` the profile's device kernels held against the launch
+    counter. Returns (the call's result, its launches, its seconds)."""
+    import collections
+
+    import torch
+
+    from autoawq_tpu_torch.ops import _build
+    from autoawq_tpu_torch.utils.profiling import device_kernels
+
+    _build.reset_launches()
+    timed = {}
+
+    def run():
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t
+        return out
+
+    with _launch_calls(targets) as log:
+        t = time.perf_counter()
+        if profiled:
+            out, _, kernels = device_kernels(run, torch.device("cuda"))
+            counts = {k: n for k, (n, _) in kernels.items()}
+        else:
+            out, counts = run(), None
+        # the example's own seconds; the profiler's set-up and read-back
+        # apart
+        seconds, profile_s = timed["s"], time.perf_counter() - t - timed["s"]
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    summed = {}
+    for attr, got, want in log:
+        want = {k: n for k, n in want.items() if n}
+        check(got == want, f"examples {name}: a {attr} call launched {got}, "
+              f"its arguments imply {want}")
+        for k, n in got.items():
+            summed[k] = summed.get(k, 0) + n
+    if targets:
+        check(summed == launches, f"examples {name}: {launches} launches "
+              f"in the call, {summed} in its logged calls")
+    held = None
+    if counts is not None:
+        held = _profile_vs_launches(counts, launches)
+        for group, (seen, want) in held.items():
+            check(seen == want, f"examples {name}: the profile holds {seen} "
+                  f"{group} device kernels, the launch counter implies "
+                  f"{want}")
+    emit({"phase": "examples", "step": name, "card": card(),
+          "seconds": seconds, "profile_s": profile_s, "launches": launches,
+          "calls": collections.Counter(a for a, _, _ in log),
+          "profile_vs_launches": held})
+    return out, launches, seconds
+
+
+def phase_examples(dev):
+    """The port's examples and scripts in-process at TinyLlama-1.1B's full
+    width and depth: ``make_artifact`` (the shared artifact, whose
+    checkpoint the examples load, and its float model saved beside it),
+    ``generate`` (a 300-id prompt: K2, K4; decode K1, K8 on the
+    checkpoint's unfused layout; its rows by the teacher-forced rule),
+    ``benchmark --synthetic tinyllama`` (two bs1 rounds: K1, K3), then on
+    the artifact at bs8 (K2, K5, K3), ``eval --task kldiv`` against the
+    float model, ``serve`` (8 requests on the slot pool: K1, K8),
+    ``server --paged`` (one SSE request: K1, K7, K8), ``train`` (3 LoRA
+    steps at 4 x 512: K2, K4, K10, K11), ``quantize`` (the float model cut
+    to 2 layers), ``quality`` in artifact mode on that checkpoint and in
+    trained mode (the gate), and ``kbench`` at M = 1 and 256. Each call's
+    launches are held exactly, call by call, and (but the bs1 rounds',
+    whose K1 and K3 the other calls read back) against the profile's
+    device kernels. Returns the phase's launches."""
+    import json as _json
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from autoawq_tpu_torch.api import AwqCausalLM
+    from autoawq_tpu_torch.models.config import ModelConfig
+    from autoawq_tpu_torch.nn import modules
+    from autoawq_tpu_torch.serve import batching, paged, server
+    from autoawq_tpu_torch.serve import generate as gen
+    from autoawq_tpu_torch.train import lora as lora_mod
+
+    ma = _script("scripts/torch_make_artifact.py")
+    total, secs = {}, {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    gen_calls = ((gen, "prefill"), (gen, "decode_step"))
+    with tempfile.TemporaryDirectory() as d:
+        q_dir, fp_dir, cut_dir = (os.path.join(d, k)
+                                  for k in ("awq", "fp", "fp_cut"))
+        # 1. the shared artifact, and its float model beside it
+        def make():
+            cfg, fp, model = ma.main(["--out", q_dir])
+            ma.save_fp_checkpoint(fp_dir, cfg, fp)
+            cut = ModelConfig(**{**ma.CFG_KW,
+                                 "num_hidden_layers": EXAMPLES_QUANT_LAYERS})
+            ma.save_fp_checkpoint(cut_dir, cut, {
+                **fp, "layers": fp["layers"][:EXAMPLES_QUANT_LAYERS]})
+            return cfg
+        cfg, launches, secs["make_artifact"] = _run_example(
+            "make_artifact", make, profiled=False)
+        check(not launches, f"examples make_artifact: launches {launches} "
+              "(calibration takes the plain path)")
+        check(os.path.isfile(os.path.join(q_dir, "ARTIFACT.json")),
+              "examples make_artifact: no ARTIFACT.json")
+        torch.cuda.empty_cache()
+        tok = _ExampleTok(cfg.vocab_size)
+
+        # 2. generate on the artifact: K2 and K4 in the prompt, K1 and K8
+        # in decode, its rows by the teacher-forced rule
+        prompt = "".join(chr(97 + i % 26) for i in range(EXAMPLES_PROMPT))
+        out, launches, secs["generate"] = _run_example(
+            "generate", lambda: _script("examples/torch_generate.py").main(
+                ["--model", q_dir, "--prompt", prompt, "--max-new-tokens",
+                 str(EXAMPLES_NEW)], tokenizer=tok), gen_calls)
+        add(launches)
+        check(tuple(out.shape) == (1, EXAMPLES_PROMPT + EXAMPLES_NEW),
+              f"examples generate: output {tuple(out.shape)}")
+        model = AwqCausalLM.from_quantized(q_dir)
+        ids = torch.tensor([tok.encode(prompt)], device=dev)
+        rows = _teacher_forced(cfg, model.params, ids, EXAMPLES_TF_STEPS)
+        _check_teacher_forced("examples generate", rows)
+        emit({"phase": "examples", "step": "generate rule", "card": card(),
+              "kernel_vs_plain": rows})
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. benchmark: two bs1 rounds, then one at bs8 (K5 takes the step)
+        bench = _script("examples/torch_benchmark.py")
+        rows1, launches, t1 = _run_example(
+            "benchmark bs1", lambda: bench.main(
+                ["--synthetic", "tinyllama", "--rounds",
+                 str(EXAMPLES_ROUNDS)]), gen_calls, profiled=False)
+        add(launches)
+        # bs8 on the artifact (fused at load): one synthetic draw the less
+        rows8, launches, t8 = _run_example(
+            "benchmark bs8", lambda: bench.main(
+                ["--model", q_dir, "--rounds", "1", "--batch-size", "8"]),
+            gen_calls)
+        add(launches)
+        check(launches.get("fused_attn_step", 0) > 0,
+              "examples benchmark bs8: K5 never took the step")
+        secs["benchmark"] = t1 + t8
+        emit({"phase": "examples", "step": "benchmark rows", "card": card(),
+              "rows": rows1 + rows8})
+        torch.cuda.empty_cache()
+
+        # 4. eval kldiv against the float model on seeded ids
+        rep, launches, secs["eval"] = _run_example(
+            "eval kldiv", lambda: _script("examples/torch_eval.py").main(
+                ["--model", q_dir, "--task", "kldiv", "--ref", fp_dir,
+                 "--n", str(EXAMPLES_KL)], tokenizer=tok),
+            ((modules, "forward"),))
+        add(launches)
+        check(math.isfinite(rep["kl_mean"]) and rep["kl_mean"] > 0,
+              f"examples eval kldiv: {rep}")
+        torch.cuda.empty_cache()
+
+        # 5. serve: the slot pool's 8 slots busy
+        n_req, n_new = EXAMPLES_SERVE
+        eng, launches, secs["serve"] = _run_example(
+            "serve", lambda: _script("examples/torch_serve.py").main(
+                ["--model", q_dir, "--max-batch", str(n_req),
+                 "--max-seq-len", "256", "--max-new-tokens", str(n_new),
+                 "--prompts"] + [f"request {i} " * (i + 1)
+                                 for i in range(n_req)], tokenizer=tok),
+            ((gen, "prefill"), (batching, "batched_decode_step")))
+        add(launches)
+        check(sorted(len(r.output) for r in eng.finished) == [n_new] * n_req,
+              "examples serve: not every request ran to its budget")
+        del eng
+        torch.cuda.empty_cache()
+
+        # 6. server --paged: one SSE request through K7
+        s_len, s_new = EXAMPLES_SSE
+        answer = {}
+
+        def one_sse(engine, tokenizer, host, port, model_name, burst):
+            es, httpd = server.start_server(engine, tokenizer, host, 0,
+                                            model_name, burst=burst)
+            try:
+                body = _json.dumps({"prompt": list(range(5, 5 + s_len)),
+                                    "max_tokens": s_new,
+                                    "stream": True}).encode()
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{httpd.server_address[1]}"
+                    "/v1/completions", data=body,
+                    headers={"Content-Type": "application/json"})
+                toks = []
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    for line in r:
+                        line = line.strip()
+                        if line.startswith(b"data:") and \
+                                line[5:].strip() != b"[DONE]":
+                            ch = _json.loads(line[5:])
+                            if ch.get("choices"):
+                                toks += ch["choices"][0].get("token_ids",
+                                                             [])
+                answer["tokens"] = toks
+            finally:
+                httpd.shutdown()
+                es.shutdown()
+
+        _, launches, secs["server"] = _run_example(
+            "server --paged", lambda: _script(
+                "examples/torch_server.py").main(
+                ["--model", q_dir, "--paged", "--max-seq-len", "512"],
+                tokenizer=tok, serve=one_sse),
+            ((gen, "prefill"), (paged, "paged_decode_step")))
+        add(launches)
+        check(len(answer.get("tokens", [])) == s_new,
+              f"examples server: {len(answer.get('tokens', []))} streamed "
+              f"tokens, expected {s_new}")
+        torch.cuda.empty_cache()
+
+        # 7. train: LoRA steps at 4 x 512 on seeded synthetic-language ids
+        steps, b, s = EXAMPLES_TRAIN
+        losses, launches, secs["train"] = _run_example(
+            "train", lambda: _script("examples/torch_train.py").main(
+                ["--model", q_dir, "--dataset", "synthetic", "--steps",
+                 str(steps), "--batch-size", str(b), "--seq-len", str(s),
+                 "--lr", "1e-3", "--out", os.path.join(d, "lora.npz")]),
+            ((lora_mod, "lora_train_step_opt"),))
+        add(launches)
+        check(all(math.isfinite(x) for x in losses),
+              f"examples train: losses {losses}")
+        emit({"phase": "examples", "step": "train loss", "card": card(),
+              "losses": losses})
+        torch.cuda.empty_cache()
+
+        # 8. quantize the float model, cut to EXAMPLES_QUANT_LAYERS layers
+        calib = np.random.default_rng(11).integers(
+            0, cfg.vocab_size, EXAMPLES_QUANT_CALIB)
+        _, launches, secs["quantize"] = _run_example(
+            "quantize", lambda: _script("examples/torch_quantize.py").main(
+                ["--model", cut_dir, "--out", os.path.join(d, "cut_awq")],
+                tokenizer=tok, calib_data=calib), profiled=False)
+        check(not launches, f"examples quantize: launches {launches}")
+        check(os.path.isfile(os.path.join(d, "cut_awq", "config.json")),
+              "examples quantize: no checkpoint written")
+        torch.cuda.empty_cache()
+
+        # 9. quality in artifact mode: the checkpoint make_artifact built
+        # against its float model, AWQ's Δppl below RTN's
+        rep, launches, secs["quality artifact"] = _run_example(
+            "quality artifact", lambda: _script(
+                "scripts/torch_quality.py").main(
+                ["--mode", "artifact", "--artifact", q_dir, "--out",
+                 os.path.join(d, "quality_artifact.json")]), profiled=False)
+        check(not launches, f"examples quality artifact: launches "
+              f"{launches}")
+        d_awq = rep["awq_w4g128"]["delta_ppl"]
+        d_rtn = rep["rtn_w4g128"]["delta_ppl"]
+        check(d_awq < d_rtn, f"examples quality artifact: AWQ dppl {d_awq}, "
+              f"RTN dppl {d_rtn}")
+        emit({"phase": "examples", "step": "quality artifact",
+              "card": card(), "fp_ppl": rep["fp32"]["ppl"],
+              "rtn_ppl": rep["rtn_w4g128"]["ppl"],
+              "awq_ppl": rep["awq_w4g128"]["ppl"], "rtn_delta_ppl": d_rtn,
+              "awq_delta_ppl": d_awq,
+              "awq_kl_mean": rep["awq_w4g128"]["kl_mean"],
+              "rtn_kl_mean": rep["rtn_w4g128"]["kl_mean"]})
+        torch.cuda.empty_cache()
+
+    # 10. quality in trained mode: the gate
+    rep, launches, secs["quality"] = _run_example(
+        "quality trained", lambda: _script("scripts/torch_quality.py").main(
+            ["--mode", "trained"]), profiled=False)
+    check(not launches, f"examples quality: launches {launches}")
+    fp_ppl = rep["fp32"]["ppl"]
+    d_awq = rep["awq_w4g128"]["delta_ppl"]
+    d_rtn = rep["rtn_w4g128"]["delta_ppl"]
+    check(fp_ppl < 100 and d_awq <= 0.1 * fp_ppl and d_awq < d_rtn,
+          f"examples quality: fp ppl {fp_ppl}, AWQ dppl {d_awq}, RTN dppl "
+          f"{d_rtn}")
+    emit({"phase": "examples", "step": "quality gate", "card": card(),
+          "fp_ppl": fp_ppl, "rtn_ppl": rep["rtn_w4g128"]["ppl"],
+          "awq_ppl": rep["awq_w4g128"]["ppl"], "rtn_delta_ppl": d_rtn,
+          "awq_delta_ppl": d_awq, "awq_kl_mean": rep["awq_w4g128"][
+              "kl_mean"], "rtn_kl_mean": rep["rtn_w4g128"]["kl_mean"],
+          "final_train_loss": rep["config"]["final_train_loss"]})
+    torch.cuda.empty_cache()
+
+    # 11. kbench: K1 at M = 1, K2 at M = 256 (one warm call and a captured
+    # graph of ITERS calls a shape)
+    kb = _script("scripts/torch_kbench.py")
+    rows, launches, secs["kbench"] = _run_example(
+        "kbench", lambda: kb.main(list(EXAMPLES_KBENCH) + [
+            "--out", os.path.join(tempfile.gettempdir(), "kbench.json")]),
+        profiled=False)
+    add(launches)
+    per = len(kb.SHAPES) * (1 + kb.ITERS)
+    _check_launches("examples kbench", launches,
+                    {"w4a16_gemv": per, "w4a16_gemm": per})
+    emit({"phase": "examples", "step": "kbench rows", "card": card(),
+          "rows": rows})
+
+    for name in ("w4a16_gemv", "w4a16_gemm", "fused_mlp", "fused_mlp3",
+                 "prefill_attention", "fused_attn_step", "paged_attn",
+                 "prefill_attention_dkv", "prefill_attention_dq"):
+        check(total.get(name, 0) > 0,
+              f"kernel {name} never launched on the examples phase's path")
+    emit({"phase": "examples", "step": "seconds", "card": card(),
+          "seconds_by_example": secs, "launches": total})
+    return total
 
 
 def main(argv=None) -> int:
@@ -8634,6 +9059,10 @@ def main(argv=None) -> int:
             total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if "tools" in phases:
         timed("tools", phase_tools, dev)
+    if "examples" in phases:
+        counts = timed("examples", phase_examples, dev)
+        if total is not None:
+            total = {k: n + counts.get(k, 0) for k, n in total.items()}
     if rep:  # the kernels phase's rows at Qwen2.5-Omni's shapes
         extra_rows = extra_rows + omni_rows
     if "prefill" in phases:

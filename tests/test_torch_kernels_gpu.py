@@ -1859,3 +1859,45 @@ def test_token2wav_f32_on_the_card_matches_the_cpu(cuda):
         assert got.shape == ref.shape
         assert rel(got, ref) <= 1e-4
     assert out["cpu"]["wav"].shape == (1, 24 * 30)
+
+
+def test_talker_codes_reach_token2wav_unchanged(cuda):
+    """The talker's codes as they are (its vocabulary, 96, is wider than
+    the DiT's table of 65 rows; one code forced past it) go into
+    ``token2wav`` on the card: no device-side assert, a finite waveform
+    within 1e-5 of its scale of the run on the codes clamped to the table
+    (what JAX's gather reads; two runs on the card part in the last bits,
+    as cuDNN's sums are not bit-reproducible), and within 1e-4 of the
+    CPU's on the same codes."""
+    from autoawq_tpu_torch.models import token2wav as t2w
+    from autoawq_tpu_torch.models.talker import OmniTalker
+
+    g = torch.Generator().manual_seed(6)
+    e = torch.randn(1, 40, 256, generator=g) * 0.3
+    reply = torch.randn(1, 4, 256, generator=g) * 0.3
+    cond = torch.randn(1, 8, generator=g)
+    ref_mel = torch.randn(1, 40, 10, generator=g)
+    noise = torch.randn(1, 24, 10, generator=g)
+    kw = dict(num_steps=2, guidance_scale=0.5, sway_coefficient=-1.0)
+    raw, _, _, extra = _omni_parts(cuda)
+    talker = OmniTalker(raw["talker_config"], extra, device=cuda)
+    codes = talker.generate_codec(e.to(cuda), reply.to(cuda), 12,
+                                  dtype=torch.bfloat16).clone()
+    codes[0, 3] = 95
+    t2 = raw["token2wav_config"]
+    dcfg, bcfg = t2["dit_config"], t2["bigvgan_config"]
+    rows = dcfg["num_embeds"] + 1
+    assert int(codes.max()) >= rows
+
+    def wav(c, dev, parts):
+        return t2w.token2wav(parts, dcfg, bcfg, c.to(dev), cond.to(dev),
+                             ref_mel.to(dev), noise.to(dev), device=dev,
+                             **kw).cpu()
+
+    got = wav(codes, cuda, extra)
+    assert torch.isfinite(got).all()
+    clamped = wav(codes.clamp(0, rows - 1), cuda, extra)
+    assert float((got - clamped).abs().max() / clamped.abs().max()) <= 1e-5
+    _, _, _, cpu_extra = _omni_parts(torch.device("cpu"))
+    ref = wav(codes.cpu(), torch.device("cpu"), cpu_extra)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
